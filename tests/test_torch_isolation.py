@@ -1,0 +1,100 @@
+"""The port stands alone: ``repro_torch`` imports neither JAX nor ``repro``,
+and its entry points run on CUDA unless the caller asks for the CPU."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.core as T
+from repro_torch.core.arima import ARIMA
+from repro_torch.core.delivery import make_prefetcher
+from repro_torch.core.kmeans import kmeans
+from repro_torch.core.placement import PlacementEngine
+from repro_torch.core.simulator import SimConfig, run_strategy
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+PKG = SRC / "repro_torch"
+
+
+def _module_names() -> list[str]:
+    names = []
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(SRC).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        names.append(".".join(parts))
+    return names
+
+
+def test_importing_every_module_loads_no_jax_or_repro():
+    names = _module_names()
+    assert "repro_torch.core.engine" in names and \
+        "repro_torch.kernels.arima_bank" in names
+    code = (
+        "import importlib, sys\n"
+        f"for m in {names!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m.startswith('jaxlib') or m == 'repro' "
+        "or m.startswith('repro.'))\n"
+        "print(','.join(bad))\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+
+
+def _imported_roots(tree: ast.AST) -> set[str]:
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and \
+                node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(PKG)))
+def test_source_has_no_jax_or_repro_import(path):
+    roots = _imported_roots(ast.parse(path.read_text()))
+    assert not roots & {"jax", "jaxlib", "repro", "flax", "optax"}, roots
+
+
+_GRID = T.OOI_PROFILE.grid
+_ENTRY_POINTS = {
+    "ARIMA": lambda **kw: ARIMA(**kw),
+    "ARIMA_scalar": lambda **kw: ARIMA(bank=False, **kw),
+    "kmeans": lambda **kw: kmeans(np.zeros((4, 3), np.float32), 2, **kw),
+    "PlacementEngine": lambda **kw: PlacementEngine(_GRID, **kw),
+    "make_prefetcher_hpm": lambda **kw: make_prefetcher("hpm", _GRID, **kw),
+    "make_prefetcher_md2": lambda **kw: make_prefetcher("md2", _GRID, **kw),
+    "run_strategy": lambda **kw: run_strategy(
+        "cache_only", T.make_trace("ooi", seed=0, scale=0.01)[:50], _GRID,
+        SimConfig(), **kw),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ENTRY_POINTS))
+def test_entry_points_default_to_cuda_and_raise_without_it(name, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _ENTRY_POINTS[name]()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _ENTRY_POINTS[name](device="cuda")
+    _ENTRY_POINTS[name](device="cpu")         # the CPU is asked for: runs
+
+
+def test_interval_engine_not_ported_yet():
+    trace = T.make_trace("ooi", seed=0, scale=0.01)[:50]
+    with pytest.raises(NotImplementedError, match="interval"):
+        run_strategy("cache_only", trace, _GRID, SimConfig(),
+                     engine="interval", device="cpu")
