@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``src/repro_torch``) on one CUDA card.
 
-Drives the paper's delivery replay through the port's entry points, builds
-every kernel on that path from the sources in this checkout and holds each
-against its plain PyTorch version on the card.  Phases, in order (any
-failure raises and the script exits non-zero):
+Drives the paper's delivery replay and the LM serving path through the
+port's entry points, builds every kernel on those paths from the sources in
+this checkout and holds each against its plain PyTorch version on the
+card.  Phases, in order (any failure raises and the script exits
+non-zero):
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 1. build the ARIMA bank kernel (K1) with ``nvcc``;
@@ -18,7 +19,22 @@ failure raises and the script exits non-zero):
 5. ``cache_only`` on the phase 3 trace;
 6. online == batched on the card: ``hpm`` on a small jittered trace gives
    identical counters through the vector engine (batched K1 launches) and
-   the reference engine (one padded K1 group per prediction).
+   the reference engine (one padded K1 group per prediction);
+7. report the builds of the flash attention (K2) and SSD scan (K3)
+   kernels (their ``nvcc`` runs start with K1's in phase 1);
+8. K2 against its plain version on the JAX package's ``ATTN_SWEEP`` shapes,
+   ragged lengths and the yi-6b prefill shape: errors, kernel, plain and
+   ``scaled_dot_product_attention`` times, bound;
+9. K3 against its plain version (the exact recurrence) on ``SSD_SWEEP``
+   and the mamba2-1.3b prefill shape;
+10. serve yi-6b at full width (random weights from a seed) with
+    ``ServeEngine``: three jittered recurring clients, 2000-token prompts;
+    every prefill's 32 attention layers go through K2, the scheduler's
+    ARIMA fit through K1; the full-width prefill through K2 agrees with
+    the same prefill through K2's plain version; then one cold request
+    (prefill and decode) under ``torch.profiler``: device busy share and
+    device time by kernel;
+11. serve mamba2-1.3b the same way; every prefill's 48 layers go through K3.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -38,10 +54,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and dense
-# float32 outside the tensor cores.
+# Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, dense
+# float32 outside the tensor cores and dense bf16 on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 RTOL = 1e-3     # kernel vs plain: the Adam trajectory amplifies ulps
 STEPS, LR = 200, 0.05
@@ -398,6 +415,357 @@ def drive(torch, np, T, T_arima, K, dev, ooi_scale: float = 1.0,
     }]
 
 
+def log_build(name: str, diag: str, seconds: float) -> None:
+    log(f"{name} build seconds={seconds:.2f}")
+    for line in diag.splitlines():
+        if "registers" in line or "spill" in line or "stack" in line:
+            log(f"{name} ptxas:", line.strip())
+
+
+# ---------------------------------------------------------------------------
+# phases 8-11: the LM serving path (K2, K3)
+# ---------------------------------------------------------------------------
+
+
+def roofline(nbytes: float, flops: float, dtype) -> tuple[float, str]:
+    """Least time (ms) for ``nbytes`` of HBM traffic and ``flops`` at the
+    published peak of the inputs' type, and which of the two bounds it."""
+    import torch
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def close(name: str, got, want, tol: float) -> tuple[float, float]:
+    """(max abs error, max of error / allowance); raise unless every element
+    is finite and within ``tol + tol * |want|`` (numpy's allclose with
+    atol = rtol = tol)."""
+    import torch
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    ratio = float((diff / (tol + tol * w.abs())).max())
+    if not ratio <= 1.0 or not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{name}: outside tol {tol} (max abs err "
+                             f"{float(diff.max()):.3g}, {ratio:.3g} of the "
+                             f"allowance)")
+    return float(diff.max()), ratio
+
+
+# b, s, hq, hkv, d, window, dtype name, tol: the JAX package's ATTN_SWEEP
+# (tests/test_kernels.py), S=1 and S=33, then yi-6b's prefill of a
+# 2000-token prompt (the main path's shape, last)
+ATTN_SHAPES = [
+    (1, 256, 2, 2, 128, None, "float32", 2e-5),
+    (2, 256, 4, 2, 128, None, "float32", 2e-5),
+    (1, 512, 4, 1, 128, None, "float32", 2e-5),
+    (1, 256, 2, 2, 128, 128, "float32", 2e-5),
+    (1, 512, 8, 2, 128, 256, "float32", 2e-5),
+    (1, 256, 2, 2, 128, None, "bfloat16", 2e-2),
+    (2, 384, 6, 2, 128, None, "float32", 2e-5),
+    (1, 1, 4, 1, 64, None, "float32", 2e-5),
+    (1, 33, 8, 2, 128, 16, "bfloat16", 2e-2),
+    (1, 2000, 32, 4, 128, None, "bfloat16", 2e-2),
+]
+
+# bt, s, h, p, g, n, dtype name, tol: SSD_SWEEP, then mamba2-1.3b's prefill
+# of a 2000-token prompt padded to its 256 chunk (the main path's shape)
+SSD_SHAPES = [
+    (1, 256, 2, 128, 1, 128, "float32", 1e-3),
+    (2, 256, 4, 128, 2, 128, "float32", 1e-3),
+    (1, 512, 2, 128, 1, 128, "float32", 1e-3),
+    (1, 256, 2, 128, 1, 128, "bfloat16", 5e-2),
+    (1, 2048, 64, 64, 1, 128, "bfloat16", 5e-2),
+]
+
+
+def live_pairs(s: int, window) -> int:
+    """(query, key) pairs the causal (and window) mask lets through."""
+    if window is None:
+        return s * (s + 1) // 2
+    return sum(min(i + 1, window) for i in range(s))
+
+
+def phase_k2(torch, K2, dev) -> dict:
+    log("== phase 8: K2 (flash attention) vs plain")
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev).manual_seed(8)
+    worst = 0.0
+    for b, s, hq, hkv, d, window, dname, tol in ATTN_SHAPES:
+        dtype = getattr(torch, dname)
+        q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev
+                               ).to(dtype) for h in (hq, hkv, hkv))
+        got = K2.flash_attention(q, k, v, window=window)
+        out = {}
+
+        def plain():
+            out["want"] = K2.flash_attention_plain(q, k, v, window=window)
+
+        plain_ms = cuda_ms(plain, reps=1, warmup=False)
+        err, ratio = close(f"K2 {(b, s, hq, hkv, d, window, dname)}", got,
+                           out["want"], tol)
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: K2.flash_attention(q, k, v, window=window),
+                     reps=10)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        if window is None:
+            def sdpa():
+                F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True)
+        else:
+            pos = torch.arange(s, device=dev)
+            mask = (pos[:, None] >= pos[None, :]) & \
+                (pos[:, None] - pos[None, :] < window)
+
+            def sdpa():
+                F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                               enable_gqa=True)
+        lib_ms = cuda_ms(sdpa, reps=10)
+        esize = q.element_size()
+        nbytes = (2 * b * s * hq * d + 2 * b * s * hkv * d) * esize
+        flops = 4 * d * live_pairs(s, window) * hq * b
+        bound, by = roofline(nbytes, flops, dtype)
+        f32_bound = flops / F32_FLOP_PER_S * 1e3
+        log(f"K2 b={b} s={s} hq={hq} hkv={hkv} d={d} window={window} "
+            f"{dname}: max_abs_err={err:.3g} err_over_allowance={ratio:.3g} "
+            f"(tol {tol}) kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
+            f"bound_ms={bound:.5f} ({by}) f32_fma_bound_ms={f32_bound:.5f} "
+            f"gflop={flops / 1e9:.3f} tflop_per_s={flops / ms / 1e9:.2f}")
+    # the last shape is the main path's: its numbers go into the record
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:132 "
+                        "(pallas_call of _flash_kernel in "
+                        "flash_attention_pallas)",
+            "launches": 0, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms, "f32_fma_bound_ms": f32_bound,
+            "shape": "B=1 S=2000 Hq=32 Hkv=4 D=128 bf16"}
+
+
+def phase_k3(torch, K3, dev) -> dict:
+    log("== phase 9: K3 (SSD scan) vs plain (exact recurrence)")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    worst = 0.0
+    for bt, s, h, p, g, n, dname, tol in SSD_SHAPES:
+        dtype = getattr(torch, dname)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+
+        x = randn(bt, s, h, p).to(dtype)
+        dt = torch.nn.functional.softplus(randn(bt, s, h))
+        A = -torch.exp(randn(h) * 0.5)
+        B, C = randn(bt, s, g, n).to(dtype), randn(bt, s, g, n).to(dtype)
+        y, state = K3.ssd_scan(x, dt, A, B, C)
+        out = {}
+
+        def plain():
+            out["want"] = K3.ssd_scan_plain(x, dt, A, B, C)
+
+        plain_ms = cuda_ms(plain, reps=1, warmup=False)
+        name = f"K3 {(bt, s, h, p, g, n, dname)}"
+        (e_y, r_y), (e_s, r_s) = (close(name + " y", y, out["want"][0], tol),
+                                  close(name + " state", state,
+                                        out["want"][1], tol))
+        err, ratio = max(e_y, e_s), max(r_y, r_s)
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: K3.ssd_scan(x, dt, A, B, C), reps=10)
+        esize = x.element_size()
+        nbytes = (2 * bt * s * h * p + 2 * bt * s * g * n) * esize + \
+            (bt * s * h + h + bt * h * n * p) * 4
+        # the recurrence's work: state * decay + B (dt x) and C . state
+        flops = 5 * n * p * s * h * bt
+        bound, by = roofline(nbytes, flops, dtype)
+        log(f"K3 bt={bt} s={s} h={h} p={p} g={g} n={n} {dname}: "
+            f"max_abs_err={err:.3g} err_over_allowance={ratio:.3g} "
+            f"(tol {tol}) kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms=null bound_ms={bound:.5f} "
+            f"({by}) blocks={bt * h}")
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:98 (pallas_call of "
+                        "_ssd_kernel in ssd_scan_pallas)",
+            "launches": 0, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "inner_chunk": K3.INNER_CHUNK,
+            "shape": "Bt=1 S=2048 H=64 P=64 G=1 N=128 bf16"}
+
+
+PROMPT_LEN, MAX_NEW, N_CLIENTS, ROUNDS = 2000, 16, 3, 5
+
+
+def arrivals() -> list[tuple[int, float]]:
+    """(client, time) of each request: three clients in turn, 20 s apart,
+    each client's own gaps 63 s and 57 s alternately (60 s +- 5%), so its
+    std/median gap (0.045-0.05) is past the scheduler's median fast path
+    (0.02) and inside its regular-client limit (0.25).  Five rounds: a
+    client's fourth arrival prewarms its fifth request, and only its fifth
+    gives the ARIMA fit four gaps (fewer fall back to the last gap)."""
+    return [(c, 20.0 * c + 60.0 * r + 3.0 * (r % 2))
+            for r in range(ROUNDS) for c in range(N_CLIENTS)]
+
+
+def serve_phase(torch, arch: str, kernel: str, counts: dict, dev,
+                phase: str) -> int:
+    """Serve ``arch`` at full width through ``ServeEngine``; check that each
+    prefill launched ``kernel`` once per layer and the scheduler launched
+    K1; return the kernel's launches."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params, prefill
+    from repro_torch.serve import engine as TE
+
+    log(f"== {phase}: serve {arch} at full width")
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"{arch}: params={n_params} dtype={cfg.dtype} init_seconds="
+        f"{time.perf_counter() - t0:.2f}")
+    engine = TE.ServeEngine(cfg, params, max_len=PROMPT_LEN + MAX_NEW + 8,
+                            device=dev)
+    prefills, finite = [0], []
+    inner_prefill, inner_decode = engine._prefill, TE.decode_step
+
+    def counted_prefill(prompt):
+        logits, caches, length = inner_prefill(prompt)
+        prefills[0] += 1
+        finite.append(torch.isfinite(logits).all())
+        return logits, caches, length
+
+    def checked_decode(*args):
+        logits, caches = inner_decode(*args)
+        finite.append(torch.isfinite(logits).all())
+        return logits, caches
+
+    engine._prefill = counted_prefill
+    TE.decode_step = checked_decode
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    for mod in counts.values():
+        mod.reset_counts()                   # counts of this run only
+    t_run = time.perf_counter()
+    try:
+        comps = []
+        for i, (client, now) in enumerate(arrivals()):
+            prompt = (np.arange(PROMPT_LEN) * (client + 3)) % cfg.vocab
+            comps.append(engine.serve(
+                TE.Request(i, client, now, prompt, MAX_NEW), now))
+        torch.cuda.synchronize()
+    finally:
+        TE.decode_step = inner_decode
+    seconds = time.perf_counter() - t_run
+    launches = {name: mod.LAUNCHES for name, mod in counts.items()}
+    n_layers = cfg.n_layers
+    for c in comps:
+        rate = MAX_NEW / (c.done_at - c.first_token_at)
+        log(f"{arch} req {c.request_id}: prefetched={c.prefetched} "
+            f"ttft_ms={c.ttft * 1e3:.2f} decode_tokens_per_s={rate:.2f} "
+            f"tokens={c.tokens[:4]}...")
+    log(f"{arch}: requests={len(comps)} seconds={seconds:.3f} prefills="
+        f"{prefills[0]} launches={launches} stats={engine.stats} "
+        f"peak_gib={torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    if launches[kernel] != n_layers * prefills[0]:
+        raise AssertionError(f"{arch}: {kernel} launched {launches[kernel]} "
+                             f"times for {prefills[0]} prefills of "
+                             f"{n_layers} layers")
+    if launches["K1"] == 0:
+        raise AssertionError(f"{arch}: the scheduler never launched K1")
+    if engine.stats["prefetched_prefills"] == 0:
+        raise AssertionError(f"{arch}: no prefill was prewarmed")
+    if not all(0 <= t < cfg.vocab for c in comps for t in c.tokens) or \
+            any(len(c.tokens) != MAX_NEW for c in comps):
+        raise AssertionError(f"{arch}: a token out of range or missing")
+    if not bool(torch.stack(finite).all()):
+        raise AssertionError(f"{arch}: non-finite logits")
+
+    # the full-width prefill through the kernel against the same prefill
+    # through its plain version (a short prompt keeps the plain one cheap)
+    mod = counts[kernel]
+    fn_name = "flash_attention" if kernel == "K2" else "ssd_scan"
+    tokens = torch.arange(256, device=dev)[None, :] * 7 % cfg.vocab
+    via_kernel = prefill(params, cfg, tokens)[0].float()
+    wrapper = getattr(mod, fn_name)
+    setattr(mod, fn_name, getattr(mod, fn_name + "_plain"))
+    try:
+        via_plain = prefill(params, cfg, tokens)[0].float()
+    finally:
+        setattr(mod, fn_name, wrapper)
+    rel = float((via_kernel - via_plain).norm() / via_plain.norm())
+    log(f"{arch}: prefill logits via {kernel} vs via its plain version, "
+        f"256 tokens: rel_l2={rel:.3g} max_abs="
+        f"{float((via_kernel - via_plain).abs().max()):.3g} "
+        f"same_argmax={bool(via_kernel.argmax() == via_plain.argmax())}")
+    if not rel < 5e-2:
+        raise AssertionError(f"{arch}: kernel and plain prefill disagree")
+    profile_request(torch, arch, cfg, params, dev)
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches[kernel]
+
+
+def profile_request(torch, arch: str, cfg, params, dev) -> None:
+    """One cold prefill of a PROMPT_LEN prompt and MAX_NEW decode steps
+    under ``torch.profiler``: wall time, device busy time and share, and
+    device time by kernel (the profiler's own host cost inflates wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.transformer import decode_step, prefill
+    tokens = (torch.arange(PROMPT_LEN, device=dev)[None, :] * 5) % cfg.vocab
+    state = {}
+
+    def run_prefill():
+        state["out"] = prefill(params, cfg, tokens,
+                               max_len=PROMPT_LEN + MAX_NEW + 8)
+
+    def run_decode():
+        logits, caches, n = state["out"]
+        tok = logits.argmax(-1)
+        for i in range(MAX_NEW):
+            logits, caches = decode_step(params, cfg, tok, caches, n + i)
+            tok = logits.argmax(-1)
+
+    for part, fn in (("prefill", run_prefill), ("decode", run_decode)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+        log(f"{arch} profiled {part}: wall_ms={wall_ms:.2f} "
+            f"device_busy_ms={busy_ms:.2f} busy_share="
+            f"{busy_ms / wall_ms:.3f} kernels="
+            f"{sum(e.count for e in kernels)}")
+        for e in top:
+            log(f"{arch} profiled {part} kernel: ms="
+                f"{e.self_device_time_total / 1e3:.3f} count={e.count} "
+                f"name={e.key[:90]}")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main() -> int:
     try:
         import torch
@@ -408,7 +776,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 2
-    if not (SRC / "repro_torch" / "csrc" / "arima_bank.cu").is_file():
+    if not all((SRC / "repro_torch" / "csrc" / f"{name}.cu").is_file()
+               for name in ("arima_bank", "flash_attention", "ssd_scan")):
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
@@ -418,6 +787,8 @@ def main() -> int:
     import repro_torch.core as T
     import repro_torch.core.arima as T_arima
     from repro_torch.kernels import arima_bank as K
+    from repro_torch.kernels import flash_attention as K2
+    from repro_torch.kernels import ssd_scan as K3
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -429,15 +800,31 @@ def main() -> int:
         f"device={torch.cuda.get_device_name(0)} "
         f"count={torch.cuda.device_count()}")
 
-    log("== phase 1: build K1")
-    t0 = time.perf_counter()
-    diag = K.build(verbose=True)
-    log(f"K1 build seconds={time.perf_counter() - t0:.2f}")
-    for line in diag.splitlines():
-        if "registers" in line or "spill" in line or "stack" in line:
-            log("ptxas:", line.strip())
+    log("== phase 1: build K1 (K2 and K3 build alongside, one nvcc each)")
+    t_build = time.perf_counter()
+    builds = {"K1": K.start_build(verbose=True),
+              "K2": K2.start_build(verbose=True),
+              "K3": K3.start_build(verbose=True)}
+    # collected in turn: each time is from the common start to the moment
+    # that build was collected, so at least its own nvcc time
+    built = {name: (b.wait(), time.perf_counter() - t_build)
+             for name, b in builds.items()}
+    log_build("K1", *built["K1"])
 
-    kernels = drive(torch, np, T, T_arima, K, torch.device("cuda"))
+    dev = torch.device("cuda")
+    kernels = drive(torch, np, T, T_arima, K, dev)
+
+    log("== phase 7: build K2 and K3")
+    for name in ("K2", "K3"):
+        log_build(name, *built[name])
+    k2 = phase_k2(torch, K2, dev)
+    k3 = phase_k3(torch, K3, dev)
+    counters_lm = {"K1": K, "K2": K2, "K3": K3}
+    k2["launches"] = serve_phase(torch, "yi-6b", "K2", counters_lm, dev,
+                                 "phase 10")
+    k3["launches"] = serve_phase(torch, "mamba2-1.3b", "K3", counters_lm,
+                                 dev, "phase 11")
+    kernels += [k2, k3]
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

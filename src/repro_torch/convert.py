@@ -3,19 +3,23 @@
 The delivery path has no trained parameters — ARIMA fits from zero on every
 call, FP-Growth rules are mined from the training requests and k-means seeds
 come from NumPy's generator — so what a comparison carries across is data:
-traces and planned prefetch streams, as NumPy arrays or tuples.  This
-module builds the port's objects from them; it never imports the JAX
-package.
+traces and planned prefetch streams, as NumPy arrays or tuples.  The LM
+substrate's random initialisation cannot be reproduced in torch, so model
+parameters cross as NumPy arrays too.  This module builds the port's
+objects from them; it never imports the JAX package.
 """
 from __future__ import annotations
 
 from typing import Iterable, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core.delivery import PlannedPrediction
 from repro_torch.core.hpm import PrefetchOp
 from repro_torch.core.trace import Request, RequestList
+from repro_torch.device import resolve_device
+from repro_torch.models.transformer import ModelConfig
 
 
 def requests_from_arrays(ts, user_id, obj, tr_start, tr_end, nbytes,
@@ -46,3 +50,44 @@ def prefetch_plan_from_tuples(ops: Iterable[Sequence[tuple]],
                 or empty for r in ops]
     subs = [[tuple(s) for s in r] or empty for r in subscriptions]
     return PlannedPrediction(ops=plan_ops, subscriptions=subs)
+
+
+# parameters the JAX package keeps in float32 whatever the model's dtype
+_FLOAT32_LEAVES = frozenset({"norm1", "norm2", "final_norm", "A_log",
+                             "dt_bias", "D", "norm_scale"})
+
+
+def params_from_numpy(tree, cfg: ModelConfig, device=None):
+    """The port's parameters from ``repro``'s ``init_params`` tree given as
+    nested dicts and lists of NumPy arrays.
+
+    ``repro`` stacks the unit parameters on a leading axis (one entry per
+    pattern layer, each of shape ``[n_units, ...]``); the port keeps a list
+    of units.  Float arrays become ``cfg.dtype`` (float32 for norm scales
+    and the SSM's ``A_log``/``dt_bias``/``D``, as ``repro`` keeps them).
+    JAX's bfloat16 arrays do not cross as NumPy, so pass float32 arrays:
+    casting those to bfloat16 is exact for bfloat16 values."""
+    device = resolve_device(device)
+
+    def leaf(name, a):
+        dtype = torch.float32 if name in _FLOAT32_LEAVES else cfg.dtype
+        return torch.from_numpy(np.array(a, np.float32)).to(device, dtype)
+
+    def convert(node, name=None):
+        if isinstance(node, dict):
+            return {k: convert(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [convert(v, name) for v in node]
+        return leaf(name, node)
+
+    def unit(node, u):
+        if isinstance(node, dict):
+            return {k: unit(v, u) for k, v in node.items()}
+        return np.asarray(node)[u]
+
+    params = {k: convert(v, k) for k, v in tree.items()
+              if k not in ("prelude", "units")}
+    params["prelude"] = convert(list(tree.get("prelude", [])))
+    params["units"] = [convert([unit(layer, u) for layer in tree["units"]])
+                       for u in range(cfg.n_units)]
+    return params

@@ -24,21 +24,19 @@ the masked residuals and integrate back through the tails.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
+
+from repro_torch.kernels import nvcc
 
 MAX_N = 64
 MAX_P = 4
 MAX_Q = 4
 MAX_D = 2
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "arima_bank.cu"
-LIBRARY = (Path(__file__).resolve().parents[3] / "build" / "kernels"
-           / "libarima_bank.so")
+# -fmad=false: no a*b+c contraction, so every operation rounds as the plain
+# version's separate tensor ops do (see the note in the source)
+NVCC_FLAGS = ("-fmad=false",)
 
 # Kernel launches and rows fitted by launches (never by the plain version).
 LAUNCHES = 0
@@ -210,33 +208,17 @@ def arima_fit_plain(y: torch.Tensor, order, steps: int, lr: float
 # ---------------------------------------------------------------------------
 
 
-def build(verbose: bool = False) -> str:
-    """Compile ``csrc/arima_bank.cu`` for sm_90a into :data:`LIBRARY`;
-    return the compiler's diagnostics (``-Xptxas -v`` when ``verbose``)."""
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    LIBRARY.parent.mkdir(parents=True, exist_ok=True)
-    tmp = LIBRARY.with_name(f"{LIBRARY.name}.{os.getpid()}.tmp")
-    # -fmad=false: no a*b+c contraction, so every operation rounds as the
-    # plain version's separate tensor ops do (see the note in the source)
-    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, LIBRARY)
-    return res.stderr
+def start_build(verbose: bool = False) -> nvcc.Build:
+    """Start compiling ``csrc/arima_bank.cu`` for sm_90a; ``wait()`` on the
+    result installs the library and returns the compiler's diagnostics
+    (``-Xptxas -v`` when ``verbose``)."""
+    return nvcc.start("arima_bank", NVCC_FLAGS, verbose)
 
 
 def _load():
     global _lib
     if _lib is None:
-        if (not LIBRARY.exists()
-                or LIBRARY.stat().st_mtime < SOURCE.stat().st_mtime):
-            build()
-        lib = ctypes.CDLL(str(LIBRARY))
+        lib = nvcc.load("arima_bank", NVCC_FLAGS)
         fn = lib.arima_bank_launch
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -284,8 +266,7 @@ def arima_bank(y: torch.Tensor, order, steps: int, lr: float
         stream = torch.cuda.current_stream(y.device).cuda_stream
         err = lib.arima_bank_launch(y.data_ptr(), out.data_ptr(), rows, n,
                                     p, d, q, steps, float(lr), stream)
-    if err != 0:
-        raise RuntimeError(f"arima_bank launch failed: CUDA error {err}")
+    nvcc.check_launch("arima_bank", err)
     LAUNCHES += 1
     ROWS += rows
     return out

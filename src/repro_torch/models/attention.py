@@ -1,0 +1,249 @@
+"""Attention: GQA (RoPE, optional sliding window), prefill and decode paths.
+
+Two plain compute paths:
+
+- ``dense_attention``  — plain masked softmax; used for short sequences.
+- ``chunked_attention`` — online-softmax attention over the (q-chunk,
+  kv-chunk) pairs the causal/window structure allows, so it does the
+  triangle's work, not the full S² square.
+
+``gqa_prefill`` goes through :func:`repro_torch.kernels.ops.flash_attention`:
+the hand-written kernel K2 on CUDA, ``attention_any`` on the CPU.
+
+MLA (DeepSeek-V3 style) is not ported yet: ``MLAConfig`` is kept so that
+configs can name it, and the ``mla_*`` functions raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import DEFAULT_DTYPE, apply_rope, dense_init
+
+NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 1536
+    rope_head_dim: int = 64
+    nope_head_dim: int = 128
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    rope_theta: float = 10000.0
+    window: int | None = None          # sliding-window size (local attention)
+    mla: MLAConfig | None = None
+    chunk_size: int = 512              # chunked-attention block
+    dense_threshold: int = 2048        # use dense path for S <= this
+
+
+def _mla_not_ported(*_args, **_kwargs):
+    raise NotImplementedError("MLA attention is not ported to repro_torch "
+                              "yet (MoE/MLA slice)")
+
+
+mla_forward = mla_prefill = mla_decode = _mla_not_ported
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+def make_attention_params(gen: torch.Generator, cfg: AttentionConfig,
+                          dtype=DEFAULT_DTYPE) -> dict:
+    if cfg.mla is not None:
+        _mla_not_ported()
+    return {
+        "w_q": dense_init(gen, cfg.d_model, cfg.n_heads * cfg.head_dim, dtype),
+        "w_k": dense_init(gen, cfg.d_model, cfg.n_kv_heads * cfg.head_dim,
+                          dtype),
+        "w_v": dense_init(gen, cfg.d_model, cfg.n_kv_heads * cfg.head_dim,
+                          dtype),
+        "w_o": dense_init(gen, cfg.n_heads * cfg.head_dim, cfg.d_model, dtype),
+    }
+
+
+# ---------------------------------------------------------------------------
+# core attention math
+# ---------------------------------------------------------------------------
+
+def _gqa_expand(q: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """[B,S,Hq,D] -> [B,S,Hkv,G,D]."""
+    b, s, hq, d = q.shape
+    return q.reshape(b, s, n_kv, hq // n_kv, d)
+
+
+def _mask(qpos, kpos, causal: bool, window: int | None) -> torch.Tensor:
+    mask = torch.ones((qpos.numel(), kpos.numel()), dtype=torch.bool,
+                      device=qpos.device)
+    if causal:
+        mask &= qpos[:, None] >= kpos[None, :]
+    if window is not None:
+        mask &= qpos[:, None] - kpos[None, :] < window
+    return mask
+
+
+def dense_attention(q, k, v, *, causal: bool = True,
+                    window: int | None = None, q_offset: int = 0,
+                    scale: float | None = None) -> torch.Tensor:
+    """Plain masked-softmax GQA attention.
+
+    q: [B,Sq,Hq,Dk]; k: [B,Skv,Hkv,Dk]; v: [B,Skv,Hkv,Dv]. Hq % Hkv == 0.
+    ``q_offset``: absolute position of q[0] relative to k[0] (decode).
+    """
+    b, sq, hq, dk = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(dk)
+    qg = _gqa_expand(q, hkv)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * scale
+    qpos = torch.arange(sq, device=q.device) + q_offset
+    kpos = torch.arange(skv, device=q.device)
+    mask = _mask(qpos, kpos, causal, window)
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(b, sq, hq, v.shape[-1])
+
+
+def _chunk_pairs(n_chunks: int, window_chunks: int | None):
+    """(i, j) q/kv chunk pairs that the causal/window mask allows, ordered by
+    q chunk then kv chunk (so the online-softmax carry is correct)."""
+    pairs = []
+    for i in range(n_chunks):
+        j_lo = 0 if window_chunks is None else max(0, i - window_chunks)
+        for j in range(j_lo, i + 1):
+            pairs.append((i, j))
+    return pairs
+
+
+def chunked_attention(q, k, v, *, causal: bool = True,
+                      window: int | None = None, chunk_size: int = 512,
+                      scale: float | None = None) -> torch.Tensor:
+    """Online-softmax attention over (q-chunk, kv-chunk) pairs.
+
+    Only causally-reachable chunk pairs are visited.  Works for self-
+    attention (Sq == Skv) with q and k aligned at position 0.
+    """
+    b, s, hq, dk = q.shape
+    hkv = k.shape[2]
+    dv = v.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(dk)
+    if s % chunk_size:
+        raise ValueError(f"S={s} is not a multiple of chunk {chunk_size}")
+    n = s // chunk_size
+    wc = None if window is None else max(0, math.ceil(window / chunk_size))
+    qg = _gqa_expand(q, hkv)                    # [B,S,K,G,D]
+    g = hq // hkv
+    c = chunk_size
+    dev = q.device
+    acc = torch.zeros((b, s, hkv, g, dv), dtype=torch.float32, device=dev)
+    m = torch.full((b, s, hkv, g), -math.inf, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, s, hkv, g), dtype=torch.float32, device=dev)
+    base = torch.arange(c, device=dev)
+    for i, j in _chunk_pairs(n, wc):
+        qs, ks = slice(i * c, (i + 1) * c), slice(j * c, (j + 1) * c)
+        logits = torch.einsum("bskgd,btkd->bkgst", qg[:, qs],
+                              k[:, ks]).float() * scale
+        mask = _mask(base + i * c, base + j * c, causal, window)
+        logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+        mi, li, acci = m[:, qs], l[:, qs], acc[:, qs]
+        m_blk = torch.amax(logits, dim=-1).movedim(-1, 1)       # [B,c,K,G]
+        m_new = torch.maximum(mi, m_blk)
+        p = torch.exp(logits - m_new.movedim(1, -1)[..., None])
+        l_blk = torch.sum(p, dim=-1).movedim(-1, 1)
+        alpha = torch.exp(mi - m_new)
+        pv = torch.einsum("bkgst,btkd->bskgd", p.to(v.dtype), v[:, ks])
+        acc[:, qs] = acci * alpha[..., None] + pv.float()
+        m[:, qs] = m_new
+        l[:, qs] = li * alpha + l_blk
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.to(q.dtype).reshape(b, s, hq, dv)
+
+
+def attention_any(q, k, v, *, causal: bool = True, window: int | None = None,
+                  chunk_size: int = 512, dense_threshold: int = 2048,
+                  scale: float | None = None) -> torch.Tensor:
+    """Choose dense vs chunked path by sequence length.  If the preferred
+    chunk does not divide S, fall back to smaller chunks before giving up on
+    the chunked path."""
+    s = q.shape[1]
+    if s > dense_threshold:
+        for c in (chunk_size, 256, 128, 64):
+            if s % c == 0:
+                return chunked_attention(q, k, v, causal=causal,
+                                         window=window, chunk_size=c,
+                                         scale=scale)
+    return dense_attention(q, k, v, causal=causal, window=window,
+                           scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# GQA block (projections + rope + attention), prefill and decode
+# ---------------------------------------------------------------------------
+
+def _qkv(params, cfg: AttentionConfig, x, positions):
+    b, s, _ = x.shape
+    q = (x @ params["w_q"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = (x @ params["w_k"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = (x @ params["w_v"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def gqa_prefill(params, cfg: AttentionConfig, x, positions):
+    """Prefill: returns (out, kv_cache) with cache [B,S,Hkv,D] each."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(params, cfg, x, positions)
+    out = ops.flash_attention(q, k, v, causal=True, window=cfg.window,
+                              chunk_size=cfg.chunk_size,
+                              dense_threshold=cfg.dense_threshold)
+    out = out.reshape(b, s, -1) @ params["w_o"]
+    return out, {"k": k, "v": v}
+
+
+def gqa_decode(params, cfg: AttentionConfig, x, cache, cache_len: int):
+    """One-token decode.  x: [B,1,D]; cache k/v: [B,Smax,Hkv,D];
+    cache_len: number of valid cache positions.  Returns (out [B,1,D],
+    cache).  The new key and value are written into ``cache`` in place (the
+    JAX package returns updated copies); the cache belongs to the caller's
+    sequence, so nothing else sees the write.
+
+    Sliding-window layers may use a RING cache of size <= window: the write
+    index wraps (``pos % Smax``) and positions the window can no longer see
+    are overwritten in place — softmax is permutation-invariant over the key
+    set, and rope was applied at each key's absolute position.
+    """
+    b = x.shape[0]
+    smax = cache["k"].shape[1]
+    pos = int(cache_len)
+    ring = cfg.window is not None and smax <= cfg.window
+    posv = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+    q, k, v = _qkv(params, cfg, x, posv)
+    write_at = pos % smax if ring else pos
+    k_cache, v_cache = cache["k"], cache["v"]
+    k_cache[:, write_at] = k[:, 0]
+    v_cache[:, write_at] = v[:, 0]
+    qg = _gqa_expand(q, cfg.n_kv_heads)                       # [B,1,K,G,D]
+    logits = torch.einsum("bskgd,btkd->bkgst", qg.float(), k_cache.float())
+    logits = logits / math.sqrt(cfg.head_dim)
+    kpos = torch.arange(smax, device=x.device)
+    valid = kpos <= pos        # warm-up; all-true once the ring is full
+    if cfg.window is not None and not ring:
+        valid &= kpos > pos - cfg.window
+    logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v_cache)
+    out = out.reshape(b, 1, -1) @ params["w_o"]
+    return out, {"k": k_cache, "v": v_cache}

@@ -1,0 +1,116 @@
+"""Basic neural layers: norms, RoPE, MLPs, and their initialisers.
+
+Parameters are plain nested dicts of tensors, laid out as in ``repro``
+(weights ``[d_in, d_out]``, applied as ``x @ w``), so the JAX package's
+arrays carry across unchanged (:func:`repro_torch.convert.params_from_numpy`).
+Initialisers draw from an explicit :class:`torch.Generator` on that
+generator's device; they cannot reproduce ``jax.random``'s numbers.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+DEFAULT_DTYPE = torch.bfloat16
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+def normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
+    """``N(0, 1) * scale`` drawn in float32 on ``gen``'s device, cast."""
+    x = torch.randn(shape, generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (x * scale).to(dtype)
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               dtype=DEFAULT_DTYPE,
+               scale: float | None = None) -> torch.Tensor:
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    return normal(gen, (d_in, d_out), scale, dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int,
+               dtype=DEFAULT_DTYPE) -> torch.Tensor:
+    return normal(gen, (vocab, d), 0.02, dtype)
+
+
+def norm_init(d: int, device, dtype=torch.float32) -> torch.Tensor:
+    # norm scales kept in fp32 (tiny, numerically sensitive)
+    return torch.ones(d, dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# ops
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps) * scale).to(dtype)
+
+
+def rope_freqs(head_dim: int, theta: float = 10000.0,
+               device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """Rotary position embedding.  x: [..., S, H, D]; positions: [..., S]."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)               # [D/2]
+    angles = positions[..., :, None].float() * freqs     # [..., S, D/2]
+    cos = torch.cos(angles)[..., None, :]                # [..., S, 1, D/2]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    g = x @ w_gate
+    u = x @ w_up
+    h = F.silu(g.float()).to(x.dtype) * u
+    return h @ w_down
+
+
+def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor,
+             w_down: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation
+    h = F.gelu((x @ w_up).float(), approximate="tanh")
+    return h.to(x.dtype) @ w_down
+
+
+# ---------------------------------------------------------------------------
+# parameter factories
+# ---------------------------------------------------------------------------
+
+def make_mlp_params(gen: torch.Generator, d_model: int, d_ff: int,
+                    gated: bool = True, dtype=DEFAULT_DTYPE) -> dict:
+    if gated:
+        return {
+            "w_gate": dense_init(gen, d_model, d_ff, dtype),
+            "w_up": dense_init(gen, d_model, d_ff, dtype),
+            "w_down": dense_init(gen, d_ff, d_model, dtype),
+        }
+    return {
+        "w_up": dense_init(gen, d_model, d_ff, dtype),
+        "w_down": dense_init(gen, d_ff, d_model, dtype),
+    }
+
+
+def mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
+    if "w_gate" in params:
+        return swiglu(x, params["w_gate"], params["w_up"], params["w_down"])
+    return gelu_mlp(x, params["w_up"], params["w_down"])

@@ -1,5 +1,6 @@
-"""Kernel tests that need the card: the ARIMA bank kernel against its plain
-PyTorch version on CUDA tensors, and the port's device paths on CUDA.
+"""Kernel tests that need the card: the ARIMA bank (K1), flash attention
+(K2) and SSD scan (K3) kernels against their plain PyTorch versions on CUDA
+tensors, and the port's device paths on CUDA.
 
 Marked ``cuda``; every test skips where ``torch.cuda.is_available()`` is
 false.  On the card:
@@ -16,6 +17,11 @@ import torch
 from repro_torch.core.arima import ARIMA
 from repro_torch.core.kmeans import kmeans
 from repro_torch.kernels import arima_bank as K
+from repro_torch.kernels import flash_attention as K2
+from repro_torch.kernels import ssd_scan as K3
+from repro_torch.models import transformer as TT
+from repro_torch.models.attention import AttentionConfig
+from repro_torch.models.mamba import MambaConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -88,3 +94,122 @@ def test_kmeans_cuda_matches_cpu(cuda):
     cc, ac, _ = kmeans(x, 4, device="cpu")
     assert np.array_equal(ag, ac)
     np.testing.assert_allclose(cg, cc, rtol=1e-5, atol=1e-5)
+
+
+# K2: the shapes of the JAX package's ATTN_SWEEP (tests/test_kernels.py),
+# then ragged lengths and head dim 64.  Tolerances as there: 2e-5 float32,
+# 2e-2 bfloat16.
+ATTN_SHAPES = [
+    # b, s, hq, hkv, d, window, dtype, tol
+    (1, 256, 2, 2, 128, None, torch.float32, 2e-5),
+    (2, 256, 4, 2, 128, None, torch.float32, 2e-5),
+    (1, 512, 4, 1, 128, None, torch.float32, 2e-5),
+    (1, 256, 2, 2, 128, 128, torch.float32, 2e-5),
+    (1, 512, 8, 2, 128, 256, torch.float32, 2e-5),
+    (1, 256, 2, 2, 128, None, torch.bfloat16, 2e-2),
+    (2, 384, 6, 2, 128, None, torch.float32, 2e-5),
+    (1, 1, 4, 1, 64, None, torch.float32, 2e-5),
+    (1, 33, 8, 2, 64, 16, torch.float32, 2e-5),
+    (2, 300, 8, 1, 64, 100, torch.bfloat16, 2e-2),
+]
+
+
+def _randn(gen, shape, dtype, device):
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,window,dtype,tol", ATTN_SHAPES)
+def test_flash_attention_kernel_matches_plain(cuda, b, s, hq, hkv, d, window,
+                                              dtype, tol):
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    q = _randn(gen, (b, s, hq, d), dtype, cuda)
+    k = _randn(gen, (b, s, hkv, d), dtype, cuda)
+    v = _randn(gen, (b, s, hkv, d), dtype, cuda)
+    K2.reset_counts()
+    got = K2.flash_attention(q, k, v, window=window)
+    want = K2.flash_attention_plain(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert K2.LAUNCHES == 1 and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_kernel_raises_on_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 16, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        K2.flash_attention(q, q, q)
+    q = torch.zeros((1, 16, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="causal"):
+        K2.flash_attention(q, q, q, causal=False)
+
+
+# K3: the shapes of the JAX package's SSD_SWEEP, then a ragged length and
+# state/head dims 64.  Tolerances as there: 1e-3 float32, 5e-2 bfloat16.
+SSD_SHAPES = [
+    # bt, s, h, p, g, n, dtype, tol
+    (1, 256, 2, 128, 1, 128, torch.float32, 1e-3),
+    (2, 256, 4, 128, 2, 128, torch.float32, 1e-3),
+    (1, 512, 2, 128, 1, 128, torch.float32, 1e-3),
+    (1, 256, 2, 128, 1, 128, torch.bfloat16, 5e-2),
+    (2, 100, 4, 64, 2, 64, torch.float32, 1e-3),
+]
+
+
+def _ssd_inputs(gen, bt, s, h, p, g, n, dtype, device):
+    x = _randn(gen, (bt, s, h, p), dtype, device)
+    dt = torch.nn.functional.softplus(
+        torch.randn((bt, s, h), generator=gen, device=device))
+    A = -torch.exp(torch.randn((h,), generator=gen, device=device) * 0.5)
+    B = _randn(gen, (bt, s, g, n), dtype, device)
+    C = _randn(gen, (bt, s, g, n), dtype, device)
+    return x, dt, A, B, C
+
+
+@pytest.mark.parametrize("bt,s,h,p,g,n,dtype,tol", SSD_SHAPES)
+def test_ssd_scan_kernel_matches_plain(cuda, bt, s, h, p, g, n, dtype, tol):
+    gen = torch.Generator(device=cuda).manual_seed(s + h)
+    inputs = _ssd_inputs(gen, bt, s, h, p, g, n, dtype, cuda)
+    K3.reset_counts()
+    y, state = K3.ssd_scan(*inputs)
+    wy, ws = K3.ssd_scan_plain(*inputs)
+    torch.cuda.synchronize()
+    assert K3.LAUNCHES == 1 and y.dtype == dtype
+    torch.testing.assert_close(y.float(), wy.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(state, ws, atol=tol, rtol=tol)
+
+
+def _small_models():
+    dense = TT.ModelConfig(
+        name="dense-d64", d_model=256, n_layers=2, vocab=512,
+        pattern=(("attn", "dense"),),
+        attn=AttentionConfig(d_model=256, n_heads=4, n_kv_heads=2,
+                             head_dim=64, window=48),
+        d_ff=512, dtype=torch.float32)
+    ssm = TT.ModelConfig(
+        name="ssm-n64", d_model=128, n_layers=2, vocab=512,
+        pattern=(("mamba", "none"),),
+        mamba=MambaConfig(d_model=128, d_state=64, head_dim=64,
+                          chunk_size=32), dtype=torch.float32)
+    return [dense, ssm]
+
+
+@pytest.mark.parametrize("cfg", _small_models(), ids=lambda c: c.name)
+def test_prefill_on_cuda_goes_through_the_kernels(cuda, cfg):
+    """A small model's prefill on the card (K2/K3) against the same
+    parameters' prefill on the CPU (the plain chunked paths)."""
+    params = TT.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    on_card = TT._to(params, cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 70),
+                           generator=torch.Generator().manual_seed(1))
+    K2.reset_counts()
+    K3.reset_counts()
+    want, _, _ = TT.prefill(params, cfg, tokens, max_len=80)
+    assert (K2.LAUNCHES, K3.LAUNCHES) == (0, 0)
+    got, caches, _ = TT.prefill(on_card, cfg, tokens.to(cuda), max_len=80)
+    torch.cuda.synchronize()
+    mixer = cfg.pattern[0][0]
+    assert (K2.LAUNCHES, K3.LAUNCHES) == \
+        ((cfg.n_layers, 0) if mixer == "attn" else (0, cfg.n_layers))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    logits, _ = TT.decode_step(on_card, cfg, got.argmax(-1), caches, 70)
+    assert torch.isfinite(logits).all()

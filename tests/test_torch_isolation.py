@@ -1,6 +1,7 @@
 """The port stands alone: ``repro_torch`` imports neither JAX nor ``repro``,
 and its entry points run on CUDA unless the caller asks for the CPU."""
 import ast
+import dataclasses
 import os
 import pathlib
 import subprocess
@@ -16,6 +17,10 @@ from repro_torch.core.delivery import make_prefetcher
 from repro_torch.core.kmeans import kmeans
 from repro_torch.core.placement import PlacementEngine
 from repro_torch.core.simulator import SimConfig, run_strategy
+from repro_torch.configs import get_reduced_config
+from repro_torch.convert import params_from_numpy
+from repro_torch.models.transformer import init_params
+from repro_torch.serve.engine import ServeEngine
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 PKG = SRC / "repro_torch"
@@ -34,8 +39,10 @@ def _module_names() -> list[str]:
 
 def test_importing_every_module_loads_no_jax_or_repro():
     names = _module_names()
-    assert "repro_torch.core.engine" in names and \
-        "repro_torch.kernels.arima_bank" in names
+    assert {"repro_torch.core.engine", "repro_torch.kernels.arima_bank",
+            "repro_torch.kernels.flash_attention",
+            "repro_torch.kernels.ssd_scan", "repro_torch.serve.engine",
+            "repro_torch.launch.serve"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for m in {names!r}:\n"
@@ -80,6 +87,13 @@ _ENTRY_POINTS = {
     "run_strategy": lambda **kw: run_strategy(
         "cache_only", T.make_trace("ooi", seed=0, scale=0.01)[:50], _GRID,
         SimConfig(), **kw),
+    "init_params": lambda **kw: init_params(
+        torch.Generator().manual_seed(0), get_reduced_config("yi-6b"), **kw),
+    "params_from_numpy": lambda **kw: params_from_numpy(
+        {"embed": np.zeros((4, 2)), "final_norm": np.ones(2), "units": []},
+        dataclasses.replace(get_reduced_config("yi-6b"), n_layers=0), **kw),
+    "ServeEngine": lambda **kw: ServeEngine(get_reduced_config("yi-6b"), {},
+                                            **kw),
 }
 
 

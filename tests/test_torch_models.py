@@ -1,0 +1,120 @@
+"""The port's decoder stack against the JAX package's, on the CPU.
+
+``repro``'s ``init_params`` is carried across with ``params_from_numpy``;
+prompts and decode tokens are drawn with NumPy from a seed and fed to both.
+Prefill logits and four decode steps are compared.
+
+Tolerances: float32 1e-5 (absolute and relative; logits are ~0.5 and the
+two frameworks differ by ~6e-7, summation order only).  bfloat16 3e-2
+absolute: one bf16 ulp at 0.5 is 2e-3 and the two frameworks round
+intermediates at different places (observed at most ~9e-3).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_reduced_config as repro_config
+from repro.models import transformer as JT
+from repro_torch.configs import get_reduced_config
+from repro_torch.convert import params_from_numpy
+from repro_torch.models import transformer as TT
+from repro_torch.models.attention import (AttentionConfig, gqa_decode,
+                                          gqa_prefill, make_attention_params)
+
+TOL = {"f32": dict(atol=1e-5, rtol=1e-5), "bf16": dict(atol=3e-2, rtol=0)}
+
+
+def _configs(arch: str, dtype: str):
+    jcfg, tcfg = repro_config(arch), get_reduced_config(arch)
+    if dtype == "f32":
+        jcfg = dataclasses.replace(jcfg, dtype=jnp.float32)
+        tcfg = dataclasses.replace(tcfg, dtype=torch.float32)
+    return jcfg, tcfg
+
+
+def _params(jcfg, tcfg):
+    jp = JT.init_params(jax.random.PRNGKey(0), jcfg)
+    tree = jax.tree_util.tree_map(
+        lambda a: np.asarray(a.astype(jnp.float32)), jp)
+    return jp, params_from_numpy(tree, tcfg, device="cpu")
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+# (arch, prompt length, max_len): gemma3's local layers see a window of 32,
+# so S=40 crosses it in prefill and masks it in decode; max_len 32 <= window
+# gives those layers a ring cache; starcoder2 has the ungated GELU MLP;
+# mamba2's prompt of 40 is padded to its chunk of 16
+CASES = [("yi-6b", 24, 32), ("gemma3-27b", 40, 48), ("gemma3-27b", 26, 32),
+         ("starcoder2-7b", 24, 32), ("mamba2-1.3b", 40, 48)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("arch,s,max_len", CASES)
+def test_prefill_and_decode_match_repro(arch, s, max_len, dtype):
+    jcfg, tcfg = _configs(arch, dtype)
+    jp, tp = _params(jcfg, tcfg)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, jcfg.vocab, size=(2, s))
+    jl, jc, jn = JT.prefill(jp, jcfg, jnp.asarray(toks, jnp.int32),
+                            max_len=max_len)
+    tl, tc, tn = TT.prefill(tp, tcfg, torch.from_numpy(toks),
+                            max_len=max_len)
+    assert jn == tn == s and tl.dtype == tcfg.dtype
+    np.testing.assert_allclose(_np(tl), _np(jl), **TOL[dtype])
+    for i in range(4):
+        tok = rng.integers(0, jcfg.vocab, size=(2,))
+        jl, jc = JT.decode_step(jp, jcfg, jnp.asarray(tok, jnp.int32), jc,
+                                jnp.int32(s + i))
+        tl, tc = TT.decode_step(tp, tcfg, torch.from_numpy(tok), tc, s + i)
+        np.testing.assert_allclose(_np(tl), _np(jl), **TOL[dtype])
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "gemma3-27b", "mamba2-1.3b"])
+def test_init_params_has_repros_structure(arch):
+    jcfg, tcfg = _configs(arch, "bf16")
+    _, carried = _params(jcfg, tcfg)
+    gen = torch.Generator().manual_seed(0)
+    own = TT.init_params(gen, tcfg, device="cpu")
+
+    def spec(tree):
+        if isinstance(tree, dict):
+            return {k: spec(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [spec(v) for v in tree]
+        return (tuple(tree.shape), tree.dtype)
+
+    assert spec(own) == spec(carried)
+    assert len(own["units"]) == tcfg.n_units
+
+
+def test_ring_cache_decode_matches_full_prefill():
+    """A window-sized ring cache, wrapped, gives the full prefill's output."""
+    cfg = AttentionConfig(d_model=32, n_heads=4, n_kv_heads=2, head_dim=8,
+                          window=8, dense_threshold=10**9)
+    gen = torch.Generator().manual_seed(0)
+    p = make_attention_params(gen, cfg, torch.float32)
+    b, s = 2, 24
+    x = torch.randn((b, s + 1, 32), generator=gen) * 0.5
+    ref, _ = gqa_prefill(p, cfg, x, torch.arange(s + 1))
+    _, cache = gqa_prefill(p, cfg, x[:, :s], torch.arange(s))
+    # ring of size window=8 holding the last 8 tokens; S % 8 == 0 aligns
+    ring = {k: v[:, s - 8:s].clone() for k, v in cache.items()}
+    out, _ = gqa_decode(p, cfg, x[:, s:s + 1], ring, s)
+    np.testing.assert_allclose(out[:, 0].numpy(), ref[:, -1].numpy(),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("spec", [("attn", "moe"), ("mla", "dense")])
+def test_moe_and_mla_layers_are_not_ported(spec):
+    cfg = dataclasses.replace(get_reduced_config("yi-6b"), pattern=(spec,))
+    with pytest.raises(NotImplementedError):
+        TT.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
