@@ -17,7 +17,9 @@ float32 scaled by ``scale`` (``1/sqrt(D)`` by default), masked to
 ``k_pos <= q_pos`` and ``q_pos - k_pos < window`` with ``-1e30``, softmax
 in float32 with the probabilities rounded to ``v``'s type before the
 product with ``v``, output in ``q``'s type.  Unlike the Pallas kernel the
-CUDA one takes any ``S >= 1``.
+CUDA one takes any ``S >= 1``.  It picks its route by the input type:
+bfloat16 runs on the tensor cores (``wgmma`` fed by TMA), float32 on
+float32 FMAs (TF32 cannot meet float32's tolerance).
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import torch
 from repro_torch.kernels import nvcc
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 160)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches (never the plain version's calls).
@@ -101,6 +103,8 @@ def _check(q, k, v, causal: bool) -> None:
                          f"got {d}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention needs contiguous q, k, v")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention needs 16-byte aligned q, k, v")
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

@@ -16,8 +16,12 @@ Two versions of one function live here:
 Both return ``(y [Bt,S,H,P]`` in ``x``'s type, ``final_state [Bt,H,N,P]``
 float32), as the JAX package's Pallas kernel
 (``kernels/ssd_scan.py::_ssd_kernel``) does.  The CUDA kernel works in
-chunks of 64 positions whatever the model's chunk (chunking is exact) and
-takes any ``S >= 1``.
+chunks of its own (:data:`INNER_CHUNK`, by input type) whatever the
+model's chunk (chunking is exact) and takes any ``S >= 1``.  One wrapper
+call runs :data:`KERNELS_PER_CALL` CUDA kernels (chunk states, the serial
+state walk, the output) over a scratch the wrapper allocates
+(:func:`scratch_bytes`); bfloat16 inputs take the tensor cores, float32
+inputs float32 FMAs.
 """
 from __future__ import annotations
 
@@ -30,7 +34,8 @@ from repro_torch.kernels.ref import ssd_ref
 
 STATE_DIMS = (64, 128)     # N
 HEAD_DIMS = (64, 128)      # P
-INNER_CHUNK = 64
+INNER_CHUNK = {torch.float32: 64, torch.bfloat16: 128}
+KERNELS_PER_CALL = 3
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches (never the plain version's calls).
@@ -42,6 +47,15 @@ _lib = None
 def reset_counts() -> None:
     global LAUNCHES
     LAUNCHES = 0
+
+
+def scratch_bytes(bt: int, s: int, h: int, n: int, p: int,
+                  dtype: torch.dtype) -> int:
+    """Bytes of the kernel's float32 scratch for one call on ``dtype``
+    inputs: the chunk states ``[Bt, chunks, H, N, P]`` and the chunk
+    decays ``[Bt, chunks, H]``."""
+    nc = -(-s // INNER_CHUNK[dtype])
+    return bt * nc * h * (n * p + 1) * 4
 
 
 def ssd_scan_plain(x, dt, A, B, C):
@@ -61,7 +75,7 @@ def _load():
     if _lib is None:
         lib = nvcc.load("ssd_scan")
         fn = lib.ssd_scan_launch
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
@@ -90,6 +104,8 @@ def _check(x, dt, A, B, C) -> None:
                          f"{HEAD_DIMS}, got N={n}, P={p}")
     if not all(t.is_contiguous() for t in (x, dt, A, B, C)):
         raise ValueError("ssd_scan needs contiguous inputs")
+    if any(t.data_ptr() % 16 for t in (x, B, C)):
+        raise ValueError("ssd_scan needs 16-byte aligned x, B, C")
 
 
 def ssd_scan(x, dt, A, B, C):
@@ -104,12 +120,17 @@ def ssd_scan(x, dt, A, B, C):
     g, n = B.shape[2], B.shape[3]
     y = torch.empty_like(x)
     state = torch.empty((bt, h, n, p), dtype=torch.float32, device=x.device)
+    nc = -(-s // INNER_CHUNK[x.dtype])
+    states = torch.empty((bt, nc, h, n, p), dtype=torch.float32,
+                         device=x.device)
+    decay = torch.empty((bt, nc, h), dtype=torch.float32, device=x.device)
     lib = _load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ssd_scan_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), y.data_ptr(), state.data_ptr(), bt, s, h, g, n, p,
+            C.data_ptr(), y.data_ptr(), state.data_ptr(), states.data_ptr(),
+            decay.data_ptr(), bt, s, h, g, n, p,
             _DTYPES[x.dtype], stream)
     nvcc.check_launch("ssd_scan", err)
     LAUNCHES += 1

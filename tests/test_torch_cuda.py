@@ -111,6 +111,15 @@ ATTN_SHAPES = [
     (1, 1, 4, 1, 64, None, torch.float32, 2e-5),
     (1, 33, 8, 2, 64, 16, torch.float32, 2e-5),
     (2, 300, 8, 1, 64, 100, torch.bfloat16, 2e-2),
+    # head dim 160 (stablelm-12b): S=1, a ragged S with a window, float32
+    (1, 1, 4, 1, 160, None, torch.bfloat16, 2e-2),
+    (2, 77, 8, 2, 160, 32, torch.bfloat16, 2e-2),
+    (1, 200, 4, 2, 160, None, torch.float32, 2e-5),
+    # a group of 9 query heads (starcoder2-7b) does not divide a 128-row tile
+    (1, 130, 9, 1, 128, None, torch.bfloat16, 2e-2),
+    # the serving prefills: stablelm-12b, gemma3-27b's local-window layers
+    (1, 2000, 32, 8, 160, None, torch.bfloat16, 2e-2),
+    (1, 2000, 32, 16, 128, 1024, torch.bfloat16, 2e-2),
 ]
 
 
@@ -151,6 +160,11 @@ SSD_SHAPES = [
     (1, 512, 2, 128, 1, 128, torch.float32, 1e-3),
     (1, 256, 2, 128, 1, 128, torch.bfloat16, 5e-2),
     (2, 100, 4, 64, 2, 64, torch.float32, 1e-3),
+    # two sequences, two groups, on the tensor cores; P = 128 with N = 64;
+    # N = P = 64
+    (2, 300, 4, 64, 2, 128, torch.bfloat16, 5e-2),
+    (2, 256, 4, 128, 2, 64, torch.bfloat16, 5e-2),
+    (1, 200, 4, 64, 1, 64, torch.bfloat16, 5e-2),
 ]
 
 
@@ -175,6 +189,52 @@ def test_ssd_scan_kernel_matches_plain(cuda, bt, s, h, p, g, n, dtype, tol):
     assert K3.LAUNCHES == 1 and y.dtype == dtype
     torch.testing.assert_close(y.float(), wy.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(state, ws, atol=tol, rtol=tol)
+
+
+def _pad(t, n, dim=1):
+    """``t`` with ``n`` zeros appended along ``dim``."""
+    shape = list(t.shape)
+    shape[dim] = n
+    return torch.cat([t, t.new_zeros(shape)], dim=dim)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("s", [1, 63, 65, 2000])
+def test_ssd_scan_kernel_ragged_and_dt0_padded(cuda, s, dtype, tol):
+    """Any S, and the model's padding to its 256 chunk (dt = 0, x = B = C
+    = 0 past S) leaves y[:S] and the final state as they were."""
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    x, dt, A, B, C = _ssd_inputs(gen, 1, s, 4, 64, 1, 128, dtype, cuda)
+    wy, ws = K3.ssd_scan_plain(x, dt, A, B, C)
+    y, state = K3.ssd_scan(x, dt, A, B, C)
+    pad = (-s) % 256
+    py, pstate = K3.ssd_scan(_pad(x, pad), _pad(dt, pad), A, _pad(B, pad),
+                             _pad(C, pad))
+    torch.cuda.synchronize()
+    for got_y, got_state in ((y, state), (py[:, :s], pstate)):
+        torch.testing.assert_close(got_y.float(), wy.float(), atol=tol,
+                                   rtol=tol)
+        torch.testing.assert_close(got_state, ws, atol=tol, rtol=tol)
+
+
+def test_ssd_scan_kernel_state_carries_across_a_split(cuda):
+    """The final state of the whole sequence is the first part's state
+    decayed through the second part plus the second part's own state (the
+    recurrence is linear); the split is not on a chunk boundary."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    x, dt, A, B, C = _ssd_inputs(gen, 2, 300, 4, 64, 2, 64, torch.float32,
+                                 cuda)
+    cut = 130
+    _, whole = K3.ssd_scan(x, dt, A, B, C)
+    _, first = K3.ssd_scan(*(t[:, :cut].contiguous() for t in (x, dt)), A,
+                           *(t[:, :cut].contiguous() for t in (B, C)))
+    _, second = K3.ssd_scan(*(t[:, cut:].contiguous() for t in (x, dt)), A,
+                            *(t[:, cut:].contiguous() for t in (B, C)))
+    carry = torch.exp(dt[:, cut:].sum(dim=1) * A)          # [Bt, H]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(whole, carry[..., None, None] * first + second,
+                               atol=1e-3, rtol=1e-3)
 
 
 def _small_models():

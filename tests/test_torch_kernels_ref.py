@@ -196,7 +196,8 @@ def test_ops_raise_on_other_devices():
 
 
 @pytest.mark.parametrize("case", ["causal", "dtype", "head_dim", "groups",
-                                  "contiguous"])
+                                  "contiguous", "head_dim_96",
+                                  "head_dim_256"])
 def test_k2_rejects_what_the_kernel_does_not_take(case):
     q, k, v = (torch.zeros((1, 8, 4, 64)), torch.zeros((1, 8, 2, 64)),
                torch.zeros((1, 8, 2, 64)))
@@ -211,8 +212,20 @@ def test_k2_rejects_what_the_kernel_does_not_take(case):
         q = torch.zeros((1, 8, 3, 64))
     elif case == "contiguous":
         q = torch.zeros((1, 4, 8, 64)).transpose(1, 2)
+    elif case.startswith("head_dim_"):
+        d = int(case.rsplit("_", 1)[1])
+        q, k, v = (torch.zeros(t.shape[:3] + (d,)) for t in (q, k, v))
     with pytest.raises((TypeError, ValueError)):
         K2._check(q, k, v, causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128, 160])
+def test_k2_takes_head_dims_64_128_160(d, dtype):
+    """stablelm-12b's head dim 160 goes to the kernel like 64 and 128."""
+    q = torch.zeros((1, 8, 4, d), dtype=dtype)
+    k = v = torch.zeros((1, 8, 2, d), dtype=dtype)
+    K2._check(q, k, v, True)
 
 
 @pytest.mark.parametrize("case", ["dtype", "dt_dtype", "state_dim", "groups",
