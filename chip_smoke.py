@@ -70,12 +70,6 @@ BF16_FLOP_PER_S = 989e12
 RTOL = 1e-3     # kernel vs plain: the Adam trajectory amplifies ulps
 STEPS, LR = 200, 0.05
 
-# Each kernel's time at its main-path shape before K2 and K3 were redesigned
-# for the tensor cores: the median of three runs of this script on an
-# NVIDIA H100 80GB HBM3 at a 700 W power limit.
-MS_BEFORE = {"arima_bank": 11.605, "flash_attention": 1.3866,
-             "ssd_scan": 1.1830}
-
 
 def log(*args) -> None:
     print(*args, flush=True)
@@ -421,7 +415,6 @@ def drive(torch, np, T, T_arima, K, dev, ooi_scale: float = 1.0,
         "bound_ms": k4["bound_ms"],
         "bound_by": k4["bound_by"],
         "library_ms": None,
-        "ms_before": MS_BEFORE["arima_bank"],
         "launches_ooi": launches3,
         "ms_ooi": k3["ms"],
         "plain_ms_ooi": k3["plain_ms"],
@@ -573,7 +566,7 @@ def phase_k2(torch, K2, dev) -> dict:
                         "flash_attention_pallas)",
             "launches": 0, "max_abs_err": worst, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": lib_ms, "ms_before": MS_BEFORE["flash_attention"],
+            "library_ms": lib_ms,
             "f32_fma_bound_ms": f32_bound,
             "shape": "B=1 S=2000 Hq=32 Hkv=4 D=128 bf16"}
 
@@ -612,14 +605,16 @@ def phase_k3(torch, K3, dev) -> dict:
         # the recurrence's work: state * decay + B (dt x) and C . state
         flops = 5 * n * p * s * h * bt
         bound, by = roofline(nbytes, flops, dtype)
-        chunks = -(-s // K3.INNER_CHUNK[dtype])
+        chunks = K3.n_chunks(s, dtype)
         scratch = K3.scratch_bytes(bt, s, h, n, p, dtype)
+        per_call = device_kernels(torch, lambda: K3.ssd_scan(x, dt, A, B, C),
+                                  "ssd_")
         log(f"K3 bt={bt} s={s} h={h} p={p} g={g} n={n} {dname}: "
             f"max_abs_err={err:.3g} err_over_allowance={ratio:.3g} "
             f"(tol {tol}) kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms=null bound_ms={bound:.5f} "
             f"({by}) share_of_bytes_bound={nbytes / HBM_BYTES_PER_S * 1e3 / ms:.4f} "
-            f"cuda_kernels_per_call={K3.KERNELS_PER_CALL} "
+            f"cuda_kernels_per_call={per_call} "
             f"chunk_blocks={bt * chunks * h} scratch_bytes={scratch}")
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_scan.cu",
@@ -627,9 +622,7 @@ def phase_k3(torch, K3, dev) -> dict:
                         "_ssd_kernel in ssd_scan_pallas)",
             "launches": 0, "max_abs_err": worst, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": None, "ms_before": MS_BEFORE["ssd_scan"],
-            "inner_chunk": K3.INNER_CHUNK[torch.bfloat16],
-            "cuda_kernels_per_call": K3.KERNELS_PER_CALL,
+            "library_ms": None, "cuda_kernels_per_call": per_call,
             "shape": "Bt=1 S=2048 H=64 P=64 G=1 N=128 bf16"}
 
 
@@ -810,6 +803,20 @@ def stablelm_phase(torch, K2, dev) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def device_kernels(torch, fn, key: str) -> int:
+    """CUDA kernels whose name holds ``key`` that one call of ``fn`` ran,
+    as ``torch.profiler`` traced them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and key in e.key)
 
 
 def profile_request(torch, arch: str, cfg, params, dev) -> None:

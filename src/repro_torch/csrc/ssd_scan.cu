@@ -27,7 +27,10 @@
 //      final state;
 //   3. output pass, grid (chunks, H, Bt): y from C, B, x dt and the
 //      incoming state.
-// The wrapper allocates the scratch; the kernels allocate nothing.
+// The wrapper allocates the scratch; the kernels allocate nothing.  The
+// inner chunk is decided here alone: the wrapper reads it from
+// ssd_scan_inner_chunk to size the scratch, and ssd_scan_launch refuses a
+// chunk count that does not match it.
 //
 // bfloat16: the four chunk products (C B^T, scores x, C state_prev and
 // B^T (x w)) run on the tensor cores, mma.sync m16n8k16 with bf16 operands
@@ -326,7 +329,7 @@ ssd_output_fma(const float* __restrict__ x, const float* __restrict__ dt,
 }  // namespace f32
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor-core chunk and output passes, 4 warps per block
+// bfloat16: tensor-core chunk and output passes, 8 warps per block
 // ---------------------------------------------------------------------------
 
 namespace tc {
@@ -730,11 +733,14 @@ int set_smem(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+template <typename T>
+constexpr int inner_chunk() { return sizeof(T) == 4 ? kL : tc::kL; }
+
 template <typename T, int N, int P>
 int launch(const void* x, const float* dt, const float* A, const void* Bm,
            const void* Cm, void* y, float* state, float* states, float* decay,
            int Bt, int S, int H, int G, cudaStream_t stream) {
-  constexpr int L = sizeof(T) == 4 ? kL : tc::kL;
+  constexpr int L = inner_chunk<T>();
   const int nc = (S + L - 1) / L;
   const dim3 chunk_grid(nc, H, Bt);
   const dim3 state_grid(N * P / (4 * kStateThreads), H, Bt);
@@ -796,17 +802,28 @@ int dispatch(const void* x, const float* dt, const float* A, const void* Bm,
 
 }  // namespace
 
+// The inner chunk L for inputs of `dtype` (0 float32, 1 bfloat16); -1 for
+// another type.
+extern "C" int ssd_scan_inner_chunk(int dtype) {
+  if (dtype == 0) return inner_chunk<float>();
+  if (dtype == 1) return inner_chunk<__nv_bfloat16>();
+  return -1;
+}
+
 // dtype (of x, B, C and y): 0 float32, 1 bfloat16.  The float32 scratch
-// `states` holds Bt x ceil(S / 64) x H x N x P elements, `decay`
-// Bt x ceil(S / 64) x H.  Returns a CUDA error code (0 on success);
-// -1 for a shape or type the kernel does not take, -3 for a bf16 pointer
-// that is not 16-byte aligned.
+// `states` holds Bt x nc x H x N x P elements and `decay` Bt x nc x H, with
+// nc = ceil(S / L) chunks of ssd_scan_inner_chunk(dtype) positions.  Returns
+// a CUDA error code (0 on success); -1 for a shape or type the kernel does
+// not take or a scratch sized for another chunk count, -3 for a bf16
+// pointer that is not 16-byte aligned.
 extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
                                const void* Bm, const void* Cm, void* y,
                                void* state, void* states, void* decay, int Bt,
                                int S, int H, int G, int N, int P, int dtype,
-                               cudaStream_t stream) {
+                               int nc, cudaStream_t stream) {
   if (Bt <= 0 || S <= 0 || G <= 0 || H % G != 0) return -1;
+  const int L = ssd_scan_inner_chunk(dtype);
+  if (L <= 0 || nc != (S + L - 1) / L) return -1;
   const float* dtf = static_cast<const float*>(dt);
   const float* Af = static_cast<const float*>(A);
   float* sf = static_cast<float*>(state);

@@ -16,12 +16,11 @@ Two versions of one function live here:
 Both return ``(y [Bt,S,H,P]`` in ``x``'s type, ``final_state [Bt,H,N,P]``
 float32), as the JAX package's Pallas kernel
 (``kernels/ssd_scan.py::_ssd_kernel``) does.  The CUDA kernel works in
-chunks of its own (:data:`INNER_CHUNK`, by input type) whatever the
+chunks of its own (:func:`inner_chunk`, by input type) whatever the
 model's chunk (chunking is exact) and takes any ``S >= 1``.  One wrapper
-call runs :data:`KERNELS_PER_CALL` CUDA kernels (chunk states, the serial
-state walk, the output) over a scratch the wrapper allocates
-(:func:`scratch_bytes`); bfloat16 inputs take the tensor cores, float32
-inputs float32 FMAs.
+call runs three CUDA kernels (chunk states, the serial state walk, the
+output) over a scratch the wrapper allocates (:func:`scratch_bytes`);
+bfloat16 inputs take the tensor cores, float32 inputs float32 FMAs.
 """
 from __future__ import annotations
 
@@ -34,8 +33,6 @@ from repro_torch.kernels.ref import ssd_ref
 
 STATE_DIMS = (64, 128)     # N
 HEAD_DIMS = (64, 128)      # P
-INNER_CHUNK = {torch.float32: 64, torch.bfloat16: 128}
-KERNELS_PER_CALL = 3
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches (never the plain version's calls).
@@ -49,13 +46,22 @@ def reset_counts() -> None:
     LAUNCHES = 0
 
 
+def inner_chunk(dtype: torch.dtype) -> int:
+    """Positions per chunk of the kernel on ``dtype`` inputs, as the built
+    library states it (the kernel alone decides it)."""
+    return _load().ssd_scan_inner_chunk(_DTYPES[dtype])
+
+
+def n_chunks(s: int, dtype: torch.dtype) -> int:
+    return -(-s // inner_chunk(dtype))
+
+
 def scratch_bytes(bt: int, s: int, h: int, n: int, p: int,
                   dtype: torch.dtype) -> int:
     """Bytes of the kernel's float32 scratch for one call on ``dtype``
     inputs: the chunk states ``[Bt, chunks, H, N, P]`` and the chunk
     decays ``[Bt, chunks, H]``."""
-    nc = -(-s // INNER_CHUNK[dtype])
-    return bt * nc * h * (n * p + 1) * 4
+    return bt * n_chunks(s, dtype) * h * (n * p + 1) * 4
 
 
 def ssd_scan_plain(x, dt, A, B, C):
@@ -75,9 +81,11 @@ def _load():
     if _lib is None:
         lib = nvcc.load("ssd_scan")
         fn = lib.ssd_scan_launch
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.ssd_scan_inner_chunk.argtypes = [ctypes.c_int]
+        lib.ssd_scan_inner_chunk.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -120,18 +128,18 @@ def ssd_scan(x, dt, A, B, C):
     g, n = B.shape[2], B.shape[3]
     y = torch.empty_like(x)
     state = torch.empty((bt, h, n, p), dtype=torch.float32, device=x.device)
-    nc = -(-s // INNER_CHUNK[x.dtype])
+    lib = _load()
+    nc = n_chunks(s, x.dtype)
     states = torch.empty((bt, nc, h, n, p), dtype=torch.float32,
                          device=x.device)
     decay = torch.empty((bt, nc, h), dtype=torch.float32, device=x.device)
-    lib = _load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ssd_scan_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), y.data_ptr(), state.data_ptr(), states.data_ptr(),
             decay.data_ptr(), bt, s, h, g, n, p,
-            _DTYPES[x.dtype], stream)
+            _DTYPES[x.dtype], nc, stream)
     nvcc.check_launch("ssd_scan", err)
     LAUNCHES += 1
     return y, state

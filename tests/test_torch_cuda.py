@@ -237,6 +237,31 @@ def test_ssd_scan_kernel_state_carries_across_a_split(cuda):
                                atol=1e-3, rtol=1e-3)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_launch_refuses_scratch_of_another_chunk_count(cuda, dtype):
+    """The library states its inner chunk, and its launcher refuses a
+    chunk count other than ceil(S / chunk) before it writes a byte."""
+    s, h, n, p = 300, 4, 64, 64
+    chunk = K3.inner_chunk(dtype)
+    assert chunk in (64, 128) and K3.n_chunks(s, dtype) == -(-s // chunk)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x, dt, A, B, C = _ssd_inputs(gen, 1, s, h, p, 1, n, dtype, cuda)
+    y = torch.zeros_like(x)
+    state = torch.zeros((1, h, n, p), device=cuda)
+    nc = K3.n_chunks(s, dtype) - 1                    # one chunk short
+    states = torch.zeros((1, nc, h, n, p), device=cuda)
+    decay = torch.zeros((1, nc, h), device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = K3._load().ssd_scan_launch(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+        y.data_ptr(), state.data_ptr(), states.data_ptr(), decay.data_ptr(),
+        1, s, h, 1, n, p, {torch.float32: 0, torch.bfloat16: 1}[dtype], nc,
+        stream)
+    torch.cuda.synchronize()
+    assert err == -1
+    assert not y.float().abs().any() and not states.abs().any()
+
+
 def _small_models():
     dense = TT.ModelConfig(
         name="dense-d64", d_model=256, n_layers=2, vocab=512,
