@@ -8,14 +8,22 @@ card.  Phases, in order (any failure raises and the script exits
 non-zero):
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-1. build the ARIMA bank kernel (K1) with ``nvcc``;
-2. K1 against its plain version on synthetic gap series: forecasts within
-   rtol 1e-3, NaN positions equal, rows bitwise independent of the launch;
+1. build the ARIMA bank kernel (K1) with ``nvcc`` and check that ptxas
+   spilled nothing in its register path;
+2. K1 against its plain version on synthetic gap series, n = 4 ... 60:
+   the path each shape takes, forecasts within rtol 1e-3 (bitwise equal on
+   the register path), NaN positions equal, rows bitwise independent of
+   the launch; 256-row and one-row kernel times (CUDA events) and one
+   online forecast end to end (``ARIMA(bank=False).forecast_next``);
 3. ``hpm`` on the OOI trace at scale 1.0 (main path);
 4. ``hpm`` on the ``ooi_arima`` profile at OOI's 400 users (main path):
    every deferred series of at least 4 gaps goes through K1; then, for the
-   flushes of phases 3 and 4, K1 and its plain version on exactly those
-   inputs, compared and timed with CUDA events;
+   flushes of phases 3 and 4, K1 on exactly those inputs as the main path
+   launches it (every bucket in one call), compared bucket by bucket with
+   its plain version and timed with CUDA events;
+4c. ``md2`` on the phase 4 trace (main path): online prediction, one
+   single-row K1 call per fitted request; K1 calls by bucket and the host
+   seconds inside ``ARIMA.forecast_next``;
 5. ``cache_only`` on the phase 3 trace;
 6. online == batched on the card: ``hpm`` on a small jittered trace gives
    identical counters through the vector engine (batched K1 launches) and
@@ -69,6 +77,8 @@ BF16_FLOP_PER_S = 989e12
 
 RTOL = 1e-3     # kernel vs plain: the Adam trajectory amplifies ulps
 STEPS, LR = 200, 0.05
+ARIMA_USERS = 400   # users of the ooi_arima trace (phases 4-4c)
+REFINED_PAIRS = 1 << 30   # operand pairs of phase 2's division check
 
 
 def log(*args) -> None:
@@ -180,28 +190,69 @@ def bound_ms(work: list[tuple[int, int]]) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 
 
-def phase_k1_synthetic(torch, K, np, dev, time_ms) -> None:
+def k1_shape_times(K, T_arima, y, dev, time_ms) -> tuple[float, ...]:
+    """K1 at order (2, 1, 1) on rows ``y [rows, n]``: the kernel's time
+    for all rows and for the first row alone (``time_ms``), and one online
+    ``forecast_next`` of the first row end to end (copy in, launch, copy
+    out and synchronise; host clock).  It calls only ``arima_bank`` and
+    ``ARIMA.forecast_next``, which every version of the port has, so
+    ``scripts/k1_compare.py`` times older trees with it too."""
+    order = (2, 1, 1)
+    k_ms = time_ms(lambda: K.arima_bank(y, order, STEPS, LR), reps=5)
+    y1 = y[:1].contiguous()
+    one_ms = time_ms(lambda: K.arima_bank(y1, order, STEPS, LR), reps=50)
+    model = T_arima.ARIMA(n=60, bank=False, device=dev)
+    series = y1[0].cpu().numpy()
+    model.forecast_next(series)
+    t0 = time.perf_counter()
+    for _ in range(50):
+        model.forecast_next(series)
+    return k_ms, one_ms, (time.perf_counter() - t0) / 50 * 1e3
+
+
+def phase_k1_synthetic(torch, K, T_arima, np, dev, time_ms) -> dict:
+    """Phase 2; returns the single-row n=60 times (kernel and end to
+    end)."""
     log("== phase 2: K1 vs plain on synthetic gap series")
+    if dev.type == "cuda":
+        div_bad, sqrt_bad = K.refined_mismatches(REFINED_PAIRS, 20261017,
+                                                 dev)
+        log(f"register path division and square root vs IEEE: "
+            f"pairs={REFINED_PAIRS} division_mismatches={div_bad} "
+            f"square_root_mismatches={sqrt_bad} (every float in range)")
+        if div_bad or sqrt_bad:
+            raise AssertionError("K1: the register path's division or "
+                                 "square root is not the IEEE operation")
     rng = np.random.default_rng(20261016)
+    order = (2, 1, 1)
+    single = {}
     for n in (4, 8, 16, 32, 60):
         y = torch.from_numpy(rng.normal(3600.0, 400.0, size=(256, n))
                              .astype(np.float32)).to(dev)
-        got = K.arima_bank(y, (2, 1, 1), STEPS, LR)
-        want = K.arima_fit_plain(y, (2, 1, 1), STEPS, LR)
+        path = K.route(order, n)
+        got = K.arima_bank(y, order, STEPS, LR)
+        want = K.arima_fit_plain(y, order, STEPS, LR)
         _sync(dev)()
         cmp = compare(got, want)
-        k_ms = time_ms(lambda: K.arima_bank(y, (2, 1, 1), STEPS, LR), reps=5)
-        p_ms = time_ms(lambda: K.arima_fit_plain(y, (2, 1, 1), STEPS, LR),
+        if path == "register" and cmp["bitwise_rows"] != cmp["rows"]:
+            raise AssertionError(f"K1 n={n}: the register path differs from "
+                                 f"the plain version in "
+                                 f"{cmp['rows'] - cmp['bitwise_rows']} rows")
+        p_ms = time_ms(lambda: K.arima_fit_plain(y, order, STEPS, LR),
                        reps=1, warmup=False)
+        k_ms, one_ms, call_ms = k1_shape_times(K, T_arima, y, dev, time_ms)
+        single[n] = (one_ms, call_ms)
         # rows are independent of the launch: alone, reversed, full batch
-        rev = K.arima_bank(y.flip(0).contiguous(), (2, 1, 1), STEPS, LR)
-        alone = torch.cat([K.arima_bank(y[i:i + 1].contiguous(), (2, 1, 1),
+        rev = K.arima_bank(y.flip(0).contiguous(), order, STEPS, LR)
+        alone = torch.cat([K.arima_bank(y[i:i + 1].contiguous(), order,
                                         STEPS, LR) for i in range(0, 256, 37)])
         bits = got.view(torch.int32)
         if not (torch.equal(bits, rev.flip(0).view(torch.int32))
                 and torch.equal(bits[::37], alone.view(torch.int32))):
             raise AssertionError(f"K1 n={n}: rows depend on the launch")
-        log(f"n={n:2d} rows=256 kernel_ms={k_ms:.3f} plain_ms={p_ms:.1f} "
+        log(f"n={n:2d} path={path} rows=256 kernel_ms={k_ms:.4f} "
+            f"one_row_kernel_ms={one_ms:.4f} one_row_forecast_next_ms="
+            f"{call_ms:.4f} plain_ms={p_ms:.1f} "
             f"library_ms=null max_abs_err={cmp['max_abs_err']:.6g} "
             f"max_rel_err={cmp['max_rel_err']:.3g} "
             f"bitwise_equal_rows={cmp['bitwise_rows']}/256 "
@@ -216,16 +267,20 @@ def phase_k1_synthetic(torch, K, np, dev, time_ms) -> None:
         float(np.diff(quad.astype(np.float64), n=2)[-1])
     if abs(float(got[0]) - expect) > 1e-2 * abs(expect):
         raise AssertionError(f"K1 d=2: {float(got[0])} vs {expect}")
-    log(f"d=2 quadratic: kernel={float(got[0]):.6f} "
+    log(f"d=2 quadratic: path={K.route((1, 2, 0), 32)} "
+        f"kernel={float(got[0]):.6f} "
         f"plain={float(want[0]):.6f} numpy_extrapolation={expect:.6f} "
         f"max_abs_err={cmp['max_abs_err']:.6g}")
+    return {"single_row_kernel_ms": single[60][0],
+            "single_row_forecast_next_ms": single[60][1]}
 
 
 def record_calls(cls, name: str):
     """Wrap method ``name`` of ``cls`` to keep ``(self, first argument,
     seconds)`` of every call; returns the list and a function that
     restores the method.  Used on ``ARIMA.batched_forecast`` (the series
-    the planner defers: the kernel's inputs) and ``HPMAdapter.plan``."""
+    the planner defers: the kernel's inputs), ``HPMAdapter.plan`` and
+    ``ARIMA.forecast_next`` (``md2``'s online fits)."""
     calls: list = []
     inner = getattr(cls, name)
 
@@ -274,11 +329,60 @@ def run_main_path(T, K, name, test, train, profile, dev, strategy="hpm"):
     return res, launches, rows, dt
 
 
+def ooi_arima_trace(T, users: int):
+    """The ``ooi_arima`` profile (``benchmarks/bench_engine.py:74-77``:
+    program periods jittered past the median fast path) at ``users``
+    users, and its seeded trace split 30/70: ``(profile, train, test)``."""
+    profile = dataclasses.replace(
+        T.OOI_PROFILE, name="ooi_arima", n_users=users,
+        human_user_frac=0.25,
+        type_volume_mix=(0.85, 0.05, 0.10), period_jitter_frac=0.06,
+        duration=7 * 24 * 3600.0)
+    t0 = time.perf_counter()
+    tr = T.TraceGenerator(profile, seed=0).generate()
+    cut = int(len(tr) * 0.3)
+    log(f"trace seconds={time.perf_counter() - t0:.2f} requests={len(tr)}")
+    return profile, tr[:cut], tr[cut:]
+
+
+def run_md2(T, T_arima, K, name, test, train, profile, dev) -> dict:
+    """``md2`` through the vector engine.  It predicts online: each request
+    of a user with at least 4 gaps that misses the median fast path makes
+    one single-row K1 call (``ARIMA(bank=False).forecast_next``).  Prints
+    K1 calls by history bucket and the host seconds spent inside
+    ``forecast_next`` (copies, launch and synchronisation included)."""
+    calls, restore = record_calls(T_arima.ARIMA, "forecast_next")
+    try:
+        _, launches, _, dt = run_main_path(T, K, name, test, train, profile,
+                                           dev, strategy="md2")
+    finally:
+        restore()
+    by_bucket: dict[int, int] = {}
+    for model, series, _ in calls:
+        if len(series) >= 4:
+            n = model._bucket(len(series))
+            by_bucket[n] = by_bucket.get(n, 0) + 1
+    fitted = sum(by_bucket.values())
+    host_s = sum(t for _, _, t in calls)
+    log(f"{name} md2: K1_calls={fitted} K1_calls_by_bucket="
+        f"{dict(sorted(by_bucket.items()))} forecast_next_calls={len(calls)} "
+        f"forecast_next_host_seconds={host_s:.3f} "
+        f"share_of_replay={host_s / dt:.3f} "
+        f"ms_per_K1_call={host_s / max(fitted, 1) * 1e3:.4f}")
+    if launches == 0 or launches != fitted:
+        raise AssertionError(f"{name} md2: {launches} K1 launches for "
+                             f"{fitted} fits")
+    return {"requests": len(test), "seconds": dt, "launches": launches,
+            "by_bucket": by_bucket, "forecast_next_seconds": host_s}
+
+
 def k1_on_flush(torch, np, K, T_arima, name, calls, rows_launched, dev,
                 time_ms) -> dict:
     """Check that every deferred series of >= 4 gaps of one replay went
-    through K1 (one row each, in groups of ``BANK_WIDTH``), then run K1 and
-    its plain version on exactly those inputs: compare and time both."""
+    through K1 (one row each, in groups of ``BANK_WIDTH``), then run K1 on
+    exactly those inputs as the main path launches them (every bucket in
+    one call, ``pack_bank``): compare each bucket with its plain version,
+    time the one call and, as information, each bucket's own launch."""
     series = [np.asarray(s, np.float32) for _, sl, _ in calls for s in sl]
     fitted = [s for s in series if s.size >= 4]
     model = calls[0][0]
@@ -286,52 +390,56 @@ def k1_on_flush(torch, np, K, T_arima, name, calls, rows_launched, dev,
     for s in fitted:
         n = model._bucket(s.size)
         buckets.setdefault(n, []).append(s[-n:])
-    padded = sum(-(-len(v) // T_arima.BANK_WIDTH) * T_arima.BANK_WIDTH
-                 for v in buckets.values())
+    flat, table = T_arima.pack_bank(buckets)
+    padded = sum(rows for _, rows, _ in table)
     if rows_launched != padded:
         raise AssertionError(f"{name}: K1 rows {rows_launched} != {padded}")
     log(f"{name}: deferred_series={len(series)} "
         f"with_4_or_more_gaps={len(fitted)} K1_rows_padded={rows_launched} "
-        f"buckets={ {n: len(v) for n, v in sorted(buckets.items())} }")
+        f"buckets={ {n: len(v) for n, v in sorted(buckets.items())} } "
+        f"segments={table}")
     o = model.order
-    order = (o.p, o.d, o.q)
-    rec = {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0,
+    order, steps, lr = (o.p, o.d, o.q), model.steps, model.lr
+    y = torch.from_numpy(flat).to(dev)
+    got = K.arima_bank_segments(y, table, order, steps, lr)
+    ms = time_ms(lambda: K.arima_bank_segments(y, table, order, steps, lr),
+                 reps=20)
+    rec = {"ms": ms, "plain_ms": 0.0, "max_abs_err": 0.0,
            "max_rel_err": 0.0, "bitwise_rows": 0, "rows": 0}
     work = []
-    for n, rows in sorted(buckets.items()):
-        y = torch.from_numpy(np.stack(rows)).to(dev)
-        got = K.arima_bank(y, order, model.steps, model.lr)
+    for row0, _, n in table:
+        yb = torch.from_numpy(np.stack(buckets[n])).to(dev)
         out = {}
 
         def plain():
-            out["want"] = K.arima_fit_plain(y, order, model.steps, model.lr)
+            out["want"] = K.arima_fit_plain(yb, order, steps, lr)
 
         plain_ms = time_ms(plain, reps=1, warmup=False)
-        cmp = compare(got, out["want"])
-        ms = time_ms(lambda: K.arima_bank(y, order, model.steps, model.lr),
-                     reps=3)
-        rec["ms"] += ms
+        cmp = compare(got[row0:row0 + len(yb)], out["want"])
+        own_ms = time_ms(lambda: K.arima_bank(yb, order, steps, lr), reps=3)
         rec["plain_ms"] += plain_ms
-        work.append(k1_work(len(rows), n, *order, steps=model.steps))
+        work.append(k1_work(len(yb), n, *order, steps=steps))
         for key in ("max_abs_err", "max_rel_err"):
             rec[key] = max(rec[key], cmp[key])
         rec["bitwise_rows"] += cmp["bitwise_rows"]
         rec["rows"] += cmp["rows"]
-        log(f"{name} bucket n={n}: rows={len(rows)} kernel_ms={ms:.3f} "
-            f"plain_ms={plain_ms:.1f} max_abs_err={cmp['max_abs_err']:.6g} "
+        log(f"{name} bucket n={n}: path={K.route(order, n)} rows={len(yb)} "
+            f"own_launch_kernel_ms={own_ms:.4f} plain_ms={plain_ms:.1f} "
+            f"max_abs_err={cmp['max_abs_err']:.6g} "
             f"max_rel_err={cmp['max_rel_err']:.3g} "
-            f"bitwise_equal_rows={cmp['bitwise_rows']}/{len(rows)}")
+            f"bitwise_equal_rows={cmp['bitwise_rows']}/{len(yb)}")
     rec["bound_ms"], rec["bound_by"] = bound_ms(work)
-    log(f"{name} K1 over the flush: kernel_ms={rec['ms']:.3f} "
+    log(f"{name} K1 over the flush, one launch: kernel_ms={ms:.4f} "
         f"plain_ms={rec['plain_ms']:.1f} bound_ms={rec['bound_ms']:.4f} "
-        f"({rec['bound_by']})")
+        f"({rec['bound_by']}) kernel_over_bound={ms / rec['bound_ms']:.2f} "
+        f"bitwise_equal_rows={rec['bitwise_rows']}/{rec['rows']}")
     return rec
 
 
 def drive(torch, np, T, T_arima, K, dev, ooi_scale: float = 1.0,
-          arima_users: int = 400, time_ms=cuda_ms) -> list:
+          arima_users: int = ARIMA_USERS, time_ms=cuda_ms) -> list:
     """Phases 2-6 on ``dev``; returns the ``kernels`` records."""
-    phase_k1_synthetic(torch, K, np, dev, time_ms)
+    single = phase_k1_synthetic(torch, K, T_arima, np, dev, time_ms)
     seen, restore_bank = record_calls(T_arima.ARIMA, "batched_forecast")
     plans, restore_plan = record_calls(T.HPMAdapter, "plan")
 
@@ -349,16 +457,7 @@ def drive(torch, np, T, T_arima, K, dev, ooi_scale: float = 1.0,
     flush3 = list(seen)
 
     log(f"== phase 4: hpm on ooi_arima, {arima_users} users")
-    profile = dataclasses.replace(
-        T.OOI_PROFILE, name="ooi_arima", n_users=arima_users,
-        human_user_frac=0.25,
-        type_volume_mix=(0.85, 0.05, 0.10), period_jitter_frac=0.06,
-        duration=7 * 24 * 3600.0)
-    t0 = time.perf_counter()
-    tr = T.TraceGenerator(profile, seed=0).generate()
-    cut = int(len(tr) * 0.3)
-    train, test = tr[:cut], tr[cut:]
-    log(f"trace seconds={time.perf_counter() - t0:.2f} requests={len(tr)}")
+    profile, train, test = ooi_arima_trace(T, arima_users)
     seen.clear()
     plans.clear()
     _, launches4, rows4, dt4 = run_main_path(T, K, "ooi_arima", test, train,
@@ -374,6 +473,9 @@ def drive(torch, np, T, T_arima, K, dev, ooi_scale: float = 1.0,
                      time_ms)
     k4 = k1_on_flush(torch, np, K, T_arima, "ooi_arima hpm", seen, rows4,
                      dev, time_ms)
+
+    log(f"== phase 4c: md2 on ooi_arima, {arima_users} users (online K1)")
+    md2 = run_md2(T, T_arima, K, "ooi_arima", test, train, profile, dev)
 
     log("== phase 5: cache_only on the OOI trace")
     run_main_path(T, K, "ooi", ooi_test, ooi_train, T.OOI_PROFILE, dev,
@@ -397,46 +499,57 @@ def drive(torch, np, T, T_arima, K, dev, ooi_scale: float = 1.0,
         raise AssertionError("hpm: vector and reference engines disagree")
 
     # the ooi_arima cell is the one whose flush fills the card; the OOI
-    # cell's numbers ride along under the *_ooi keys
+    # cell's numbers ride along under the *_ooi keys, md2's online calls
+    # under *_md2 and single_row_*
     return [{
         "name": "arima_bank",
         "route": "cuda",
         "source": "src/repro_torch/csrc/arima_bank.cu",
         "replaces": "src/repro/core/arima.py:181 (_compiled_bank, "
                     "jit(vmap(_build_fit)))",
+        "path": K.route((2, 1, 1), 60),
         "launches": launches4,
         "max_abs_err": max(k3["max_abs_err"], k4["max_abs_err"]),
         "max_rel_err": max(k3["max_rel_err"], k4["max_rel_err"]),
         "bitwise_rows": k4["bitwise_rows"],
         "rows": k4["rows"],
         "ms": k4["ms"],
-        "kernel_ms": k4["ms"],
         "plain_ms": k4["plain_ms"],
         "bound_ms": k4["bound_ms"],
         "bound_by": k4["bound_by"],
         "library_ms": None,
+        **single,
         "launches_ooi": launches3,
         "ms_ooi": k3["ms"],
         "plain_ms_ooi": k3["plain_ms"],
         "bound_ms_ooi": k3["bound_ms"],
+        "launches_md2": md2["launches"],
+        "seconds_md2": md2["seconds"],
     }]
 
 
-def log_build(name: str, diag: str, seconds: float) -> None:
-    """The build time and, per kernel instantiation, ptxas's registers and
-    spills (the entry's mangled name names the kernel and its template
-    arguments)."""
+def log_build(name: str, diag: str, seconds: float) -> dict[str, int]:
+    """The build time and, per kernel entry and per device function that
+    is not inlined (K1's paths), ptxas's registers and spills (the mangled
+    name names the function and its template arguments).  Returns the
+    spill-store bytes by function."""
     log(f"{name} build seconds={seconds:.2f}")
-    entry = ""
+    entry, spills = "", {}
     for line in diag.splitlines():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1] if "'" in line else line.strip()
-            # drop the anonymous namespace's mangled prefix, keep the name
-            # and its template arguments
-            entry = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "",
-                           entry)
+        if "Compiling entry function" in line or \
+                "Function properties for" in line:
+            entry = line.split("'")[1] if "'" in line else line.split()[-1]
+            # drop the anonymous namespace's mangled prefix (nvcc nests it
+            # in an _INTERNAL_ one for device functions), keep the name and
+            # its template arguments
+            entry = re.sub(r"^_ZN(\d+_INTERNAL_\w+?_cu_[0-9a-f]{8})?"
+                           r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "", entry)
         elif "registers" in line or "spill" in line:
             log(f"{name} ptxas: {entry[:60]}: {line.strip()}")
+            stores = re.search(r"(\d+) bytes spill stores", line)
+            if stores:
+                spills[entry] = int(stores.group(1))
+    return spills
 
 
 # ---------------------------------------------------------------------------
@@ -607,8 +720,9 @@ def phase_k3(torch, K3, dev) -> dict:
         bound, by = roofline(nbytes, flops, dtype)
         chunks = K3.n_chunks(s, dtype)
         scratch = K3.scratch_bytes(bt, s, h, n, p, dtype)
-        per_call = device_kernels(torch, lambda: K3.ssd_scan(x, dt, A, B, C),
-                                  "ssd_")
+        per_call, _ = device_kernels(torch,
+                                     lambda: K3.ssd_scan(x, dt, A, B, C),
+                                     "ssd_")
         log(f"K3 bt={bt} s={s} h={h} p={p} g={g} n={n} {dname}: "
             f"max_abs_err={err:.3g} err_over_allowance={ratio:.3g} "
             f"(tol {tol}) kernel_ms={ms:.4f} "
@@ -805,9 +919,9 @@ def stablelm_phase(torch, K2, dev) -> int:
     return launches
 
 
-def device_kernels(torch, fn, key: str) -> int:
+def device_kernels(torch, fn, key: str) -> tuple[int, float]:
     """CUDA kernels whose name holds ``key`` that one call of ``fn`` ran,
-    as ``torch.profiler`` traced them."""
+    and their device milliseconds, as ``torch.profiler`` traced them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -815,8 +929,10 @@ def device_kernels(torch, fn, key: str) -> int:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and key in e.key)
+    ours = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and key in e.key]
+    return (sum(e.count for e in ours),
+            sum(e.self_device_time_total for e in ours) / 1e3)
 
 
 def profile_request(torch, arch: str, cfg, params, dev) -> None:
@@ -922,7 +1038,11 @@ def main() -> int:
     # that build was collected, so at least its own nvcc time
     built = {name: (b.wait(), time.perf_counter() - t_build)
              for name, b in builds.items()}
-    log_build("K1", *built["K1"])
+    spills = log_build("K1", *built["K1"])
+    reg_spills = {f: b for f, b in spills.items() if "fit_211" in f}
+    if len(reg_spills) != 5 or any(reg_spills.values()):
+        raise AssertionError(f"K1 register path: spill stores {reg_spills} "
+                             f"(want 0 for each of the 5 instantiations)")
 
     dev = torch.device("cuda")
     kernels = drive(torch, np, T, T_arima, K, dev)

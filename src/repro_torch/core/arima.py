@@ -16,16 +16,17 @@ Batched execution (the ARIMA *bank*)
 
 Every forecast — scalar ``forecast_next`` and :meth:`ARIMA.batched_forecast`
 alike — runs through the ARIMA bank kernel
-(:func:`repro_torch.kernels.arima_bank.arima_bank`: hand-written CUDA on a
-CUDA device, its plain PyTorch version on the CPU).  Series are bucketed by
-history length and packed into fixed-width groups of :data:`BANK_WIDTH`
-rows, short groups padded by repeating their first row; each bucket is one
-launch over all of its groups.  The kernel computes every row on its own,
-so a row's forecast is bitwise identical whatever the batch holds, and the
-scalar and batched paths return *exactly* the same floats for the same
-series: the batched HPM planner's op stream equals the online ``observe``
-loop op for op.  Across frameworks the forecasts agree only to a tolerance:
-the 200-step Adam trajectory amplifies any ulp difference.
+(:mod:`repro_torch.kernels.arima_bank`: hand-written CUDA on a CUDA device,
+its plain PyTorch version on the CPU).  Series are bucketed by history
+length and packed into fixed-width groups of :data:`BANK_WIDTH` rows, short
+groups padded by repeating their first row; :func:`pack_bank` lays every
+bucket into one buffer, longest history first, and the whole batch is ONE
+launch (one copy in, one launch, one copy out).  The kernel computes every
+row on its own, so a row's forecast is bitwise identical whatever the batch
+holds, and the scalar and batched paths return *exactly* the same floats
+for the same series: the batched HPM planner's op stream equals the online
+``observe`` loop op for op.  Across frameworks the forecasts agree only to
+a tolerance: the 200-step Adam trajectory amplifies any ulp difference.
 """
 from __future__ import annotations
 
@@ -35,16 +36,41 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.arima_bank import arima_bank
+from repro_torch.kernels.arima_bank import (WARP, arima_bank,
+                                            arima_bank_segments,
+                                            segment_table)
 
 # Fixed group width of the bank.  Rows are independent in the kernel, so the
 # width changes no result; it is kept so that the padding semantics match
-# the JAX package's bank.
-BANK_WIDTH = 32
+# the JAX package's bank, and it is the kernel's warp of rows, so every
+# bucket's segment starts on a warp.
+BANK_WIDTH = WARP
 
 # History-length buckets: a series is truncated to the largest bucket that
 # fits.  ``ARIMA.n`` caps the last bucket.
 _BUCKETS = (4, 8, 16, 32)
+
+
+def pack_bank(buckets: dict[int, list[np.ndarray]]
+              ) -> tuple[np.ndarray, list[tuple[int, int, int]]]:
+    """One buffer for a whole bank batch: for each history length ``n``,
+    longest first, its rows (each ``n`` float32 values) in ``BANK_WIDTH``-row
+    groups, a short group padded by repeating its first row.  Returns the
+    flat float32 buffer and its segment table (``(row offset, rows, n)``,
+    :func:`repro_torch.kernels.arima_bank.segment_table`); bucket ``n``'s
+    ``j``-th row is row ``offset + j``."""
+    parts, sizes = [], {}
+    for n in sorted(buckets, reverse=True):
+        tasks = buckets[n]
+        n_groups = -(-len(tasks) // BANK_WIDTH)
+        rows = np.empty((n_groups * BANK_WIDTH, n), np.float32)
+        rows[:len(tasks)] = tasks
+        for lo in range(0, len(tasks), BANK_WIDTH):
+            hi = min(lo + BANK_WIDTH, len(tasks))
+            rows[hi:lo + BANK_WIDTH] = rows[lo]
+        parts.append(rows.reshape(-1))
+        sizes[n] = len(rows)
+    return np.concatenate(parts), segment_table(sizes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,7 +137,8 @@ class ARIMA:
         fallback for non-finite fits all apply row-wise — and the returned
         floats are bitwise equal to per-series calls.  Series are grouped by
         bucket into ``BANK_WIDTH``-row groups (short groups padded by
-        repeating their first row) and each bucket is ONE kernel launch."""
+        repeating their first row) and the whole batch is ONE kernel
+        launch (:func:`pack_bank`)."""
         if not self.bank:
             return np.array([self.forecast_next(s) for s in series_list],
                             dtype=np.float64)
@@ -125,17 +152,17 @@ class ARIMA:
                 continue
             n = self._bucket(series.size)
             by_bucket.setdefault(n, []).append((i, series[-n:]))
-        for n, tasks in by_bucket.items():
-            n_groups = -(-len(tasks) // BANK_WIDTH)
-            rows = np.empty((n_groups * BANK_WIDTH, n), np.float32)
-            for j, (_, y) in enumerate(tasks):
-                rows[j] = y
-            for lo in range(0, len(tasks), BANK_WIDTH):
-                hi = min(lo + BANK_WIDTH, len(tasks))
-                rows[hi:lo + BANK_WIDTH] = rows[lo]
-            fc = self._fit_rows(rows)
-            for j, (i, y) in enumerate(tasks):
-                v = fc[j]
+        if not by_bucket:
+            return out
+        flat, table = pack_bank({n: [y for _, y in tasks]
+                                 for n, tasks in by_bucket.items()})
+        o = self.order
+        rows = torch.from_numpy(flat).to(self.device)
+        fc = arima_bank_segments(rows, table, (o.p, o.d, o.q), self.steps,
+                                 self.lr).cpu().numpy().astype(np.float64)
+        for row0, _, n in table:
+            for j, (i, y) in enumerate(by_bucket[n]):
+                v = fc[row0 + j]
                 out[i] = v if np.isfinite(v) else float(np.median(y))
         return out
 

@@ -3,10 +3,16 @@ series plus a one-step forecast, for a ``[rows, n]`` float32 batch.
 
 Three versions of one function live here:
 
-- :func:`arima_bank` — the wrapper.  A CUDA tensor launches the hand-written
-  kernel in ``csrc/arima_bank.cu`` (built with ``nvcc`` at first use into
-  ``build/kernels/libarima_bank.so`` and bound with ``ctypes``); a CPU tensor
-  takes the plain version.  There is no fallback from one to the other.
+- :func:`arima_bank_segments` — the wrapper.  A CUDA tensor launches the
+  hand-written kernel in ``csrc/arima_bank.cu`` (built with ``nvcc`` at
+  first use into ``build/kernels/libarima_bank.so`` and bound with
+  ``ctypes``) once over a table of segments, one per history length (see
+  :func:`segment_table`); a CPU tensor takes the plain version.  There is
+  no fallback from one to the other.  :func:`arima_bank` is its
+  one-segment form for a ``[rows, n]`` batch (the online callers).  The
+  kernel runs each segment on the path :func:`route` picks from (order,
+  n) alone: registers for (2, 1, 1) at the bank's lengths, local memory
+  for the rest; both compute the same floats.
 - :func:`arima_fit_plain` — eager PyTorch, vectorised over rows, a Python
   loop over time and ``torch.autograd.grad`` for the gradient: the oracle
   the kernel is held against.
@@ -34,9 +40,20 @@ MAX_P = 4
 MAX_Q = 4
 MAX_D = 2
 
+# Rows per kernel block (one warp): segment offsets are multiples of it.
+WARP = 32
+MAX_SEGMENTS = 16
+# History lengths of the register path at order (2, 1, 1): the bank's
+# buckets and ARIMA's default history.  The one owner of the set: the build
+# passes it to the source as a mask (bit n - 1 per length), which
+# instantiates one fit_211<n> per length and lets the launcher refuse any
+# other n for the register path.
+REGISTER_N = (4, 8, 16, 32, 60)
+
 # -fmad=false: no a*b+c contraction, so every operation rounds as the plain
 # version's separate tensor ops do (see the note in the source)
-NVCC_FLAGS = ("-fmad=false",)
+NVCC_FLAGS = ("-fmad=false", "-DARIMA_REGISTER_N_MASK="
+              f"{sum(1 << (n - 1) for n in REGISTER_N):#x}ULL")
 
 # Kernel launches and rows fitted by launches (never by the plain version).
 LAUNCHES = 0
@@ -204,6 +221,54 @@ def arima_fit_plain(y: torch.Tensor, order, steps: int, lr: float
 
 
 # ---------------------------------------------------------------------------
+# segments and paths
+# ---------------------------------------------------------------------------
+
+
+def route(order, n: int) -> str:
+    """The kernel path for rows of history length ``n`` at ``order``:
+    ``"register"`` (the series, residuals and adjoint in registers, time
+    loops unrolled) for the order every caller uses, (2, 1, 1), at the
+    bank's history lengths :data:`REGISTER_N`; ``"generic"`` (local-memory
+    arrays, any order and length the wrapper takes) for everything else.
+    Both compute the same floats."""
+    p, d, q = (int(v) for v in order)
+    return "register" if (p, d, q) == (2, 1, 1) and n in REGISTER_N \
+        else "generic"
+
+
+def segment_table(sizes: dict[int, int]) -> list[tuple[int, int, int]]:
+    """``(row offset, rows, n)`` per history length ``n`` with
+    ``sizes[n]`` rows: segments back to back, longest ``n`` first, so the
+    longest chains start first.  Every segment but the last must hold whole
+    warps of :data:`WARP` rows (see :func:`check_segments`)."""
+    table, row = [], 0
+    for n in sorted(sizes, reverse=True):
+        table.append((row, int(sizes[n]), int(n)))
+        row += int(sizes[n])
+    check_segments(table)
+    return table
+
+
+def check_segments(table) -> None:
+    """Raise unless ``table`` covers rows ``0..total`` exactly once, in
+    order, with every segment starting on a :data:`WARP`-row boundary: the
+    kernel runs one warp per block, so a warp must never mix two ``n``."""
+    if not 1 <= len(table) <= MAX_SEGMENTS:
+        raise ValueError(f"{len(table)} segments outside 1..{MAX_SEGMENTS}")
+    row = 0
+    for row0, rows, n in table:
+        if row0 != row or rows < 1:
+            raise ValueError(f"segment ({row0}, {rows}, {n}) does not start "
+                             f"at row {row} or is empty")
+        if row0 % WARP:
+            raise ValueError(f"segment ({row0}, {rows}, {n}) starts inside a "
+                             f"warp of {WARP} rows: one warp would mix two "
+                             f"history lengths")
+        row += rows
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernel: build, load, launch
 # ---------------------------------------------------------------------------
 
@@ -220,20 +285,36 @@ def _load():
     if _lib is None:
         lib = nvcc.load("arima_bank", NVCC_FLAGS)
         fn = lib.arima_bank_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.POINTER(ctypes.c_int), ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+                       ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _check(y: torch.Tensor, p: int, d: int, q: int, steps: int) -> None:
-    if y.dtype != torch.float32:
-        raise TypeError(f"arima_bank needs float32 rows, got {y.dtype}")
-    if y.dim() != 2 or not y.is_contiguous():
-        raise ValueError("arima_bank needs a contiguous [rows, n] tensor")
-    n = y.shape[1]
+def refined_mismatches(pairs: int, seed: int, device) -> tuple[int, int]:
+    """Hold the register path's branch-free division and square root
+    against the IEEE operations on the card: ``pairs`` random operand pairs
+    inside the division's range and every float inside the square root's.
+    Returns the (division, square root) mismatches; both are 0 for the
+    register path to round as the plain version does."""
+    counts = torch.zeros(2, dtype=torch.int64, device=device)
+    lib = _load()
+    fn = lib.arima_bank_refined_mismatches
+    fn.argtypes = [ctypes.c_ulonglong, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(counts.device):
+        err = fn(seed, pairs, counts.data_ptr(),
+                 torch.cuda.current_stream(counts.device).cuda_stream)
+    nvcc.check_launch("arima_bank_refined_mismatches", err)
+    div_bad, sqrt_bad = counts.tolist()
+    return div_bad, sqrt_bad
+
+
+def _check_order(p: int, d: int, q: int, n: int, steps: int) -> None:
     if not (0 <= p <= MAX_P and 0 <= q <= MAX_Q and 0 <= d <= MAX_D):
         raise ValueError(f"order (p={p}, d={d}, q={q}) outside p,q <= "
                          f"{MAX_P}, d <= {MAX_D}")
@@ -244,29 +325,67 @@ def _check(y: torch.Tensor, p: int, d: int, q: int, steps: int) -> None:
         raise ValueError(f"steps={steps} < 0")
 
 
-def arima_bank(y: torch.Tensor, order, steps: int, lr: float
-               ) -> torch.Tensor:
-    """Fit and forecast every row of ``y [rows, n]`` (float32, contiguous).
+def arima_bank_segments(y: torch.Tensor, table, order, steps: int,
+                        lr: float) -> torch.Tensor:
+    """Fit and forecast every row of a segmented batch in one launch.
 
-    Rows are independent: a row's result does not depend on the launch
-    width or on the other rows."""
+    ``y`` is a contiguous 1-D float32 tensor holding the segments of
+    ``table`` (``(row offset, rows, n)`` entries, see
+    :func:`segment_table`) back to back, each ``rows x n`` row-major.
+    Returns the ``[total rows]`` forecasts.  A CUDA tensor launches the
+    kernel once, each segment on the path :func:`route` gives it; a CPU
+    tensor takes the plain version per segment."""
     global LAUNCHES, ROWS
     p, d, q = (int(v) for v in order)
-    _check(y, p, d, q, steps)
+    if y.dtype != torch.float32:
+        raise TypeError(f"arima_bank needs float32 rows, got {y.dtype}")
+    if y.dim() != 1 or not y.is_contiguous():
+        raise ValueError("arima_bank_segments needs a contiguous 1-D tensor")
+    check_segments(table)
+    for _, _, n in table:
+        _check_order(p, d, q, n, steps)
+    if y.numel() != sum(rows * n for _, rows, n in table):
+        raise ValueError(f"{y.numel()} floats for segments of "
+                         f"{sum(rows * n for _, rows, n in table)}")
     if y.device.type == "cpu":
-        return arima_fit_plain(y, (p, d, q), steps, lr)
+        parts, elem = [], 0
+        for _, rows, n in table:
+            parts.append(arima_fit_plain(y[elem:elem + rows * n].view(rows, n),
+                                         (p, d, q), steps, lr))
+            elem += rows * n
+        return torch.cat(parts)
     if y.device.type != "cuda":
         raise ValueError(f"arima_bank: unsupported device {y.device}")
-    rows, n = y.shape
-    out = torch.empty(rows, dtype=torch.float32, device=y.device)
-    if rows == 0:
-        return out
+    total = sum(rows for _, rows, _ in table)
+    out = torch.empty(total, dtype=torch.float32, device=y.device)
+    flat = [v for row0, rows, n in table
+            for v in (row0, rows, n, int(route((p, d, q), n) == "register"))]
+    cells = (ctypes.c_int * len(flat))(*flat)
     lib = _load()
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
-        err = lib.arima_bank_launch(y.data_ptr(), out.data_ptr(), rows, n,
-                                    p, d, q, steps, float(lr), stream)
+        err = lib.arima_bank_launch(y.data_ptr(), out.data_ptr(), cells,
+                                    len(table), p, d, q, steps, float(lr),
+                                    stream)
     nvcc.check_launch("arima_bank", err)
     LAUNCHES += 1
-    ROWS += rows
+    ROWS += total
     return out
+
+
+def arima_bank(y: torch.Tensor, order, steps: int, lr: float
+               ) -> torch.Tensor:
+    """Fit and forecast every row of ``y [rows, n]`` (float32, contiguous)
+    in one launch: one segment of :func:`arima_bank_segments`.
+
+    Rows are independent: a row's result does not depend on the launch
+    width or on the other rows."""
+    if y.dtype != torch.float32:
+        raise TypeError(f"arima_bank needs float32 rows, got {y.dtype}")
+    if y.dim() != 2 or not y.is_contiguous():
+        raise ValueError("arima_bank needs a contiguous [rows, n] tensor")
+    rows, n = y.shape
+    if rows == 0:
+        _check_order(*(int(v) for v in order), n, steps)
+        return torch.empty(0, dtype=torch.float32, device=y.device)
+    return arima_bank_segments(y.view(-1), [(0, rows, n)], order, steps, lr)

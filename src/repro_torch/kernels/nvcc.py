@@ -2,9 +2,10 @@
 
 Each kernel is one ``csrc/*.cu`` file with a plain C interface.  It is
 compiled for sm_90a with ``nvcc`` into ``build/kernels/lib<name>.so`` at
-first use and loaded with ``ctypes``; a library older than its source is
-rebuilt.  :func:`start` launches ``nvcc`` without waiting, so a caller can
-build several kernels at once and collect them with :meth:`Build.wait`.
+first use and loaded with ``ctypes``; a library older than its source, or
+built with other flags, is rebuilt.  :func:`start` launches ``nvcc``
+without waiting, so a caller can build several kernels at once and collect
+them with :meth:`Build.wait`.
 """
 from __future__ import annotations
 
@@ -25,6 +26,11 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
+def _flags_path(library: Path) -> Path:
+    """The flags a library was built with, beside it."""
+    return library.with_suffix(".flags")
+
+
 class Build:
     """One ``nvcc`` run in flight; :meth:`wait` raises if it failed."""
 
@@ -34,6 +40,7 @@ class Build:
         self.library.parent.mkdir(parents=True, exist_ok=True)
         self._tmp = self.library.with_name(
             f"{self.library.name}.{os.getpid()}.tmp")
+        self._flags = flags
         cmd = [nvcc, *_BASE_FLAGS, *flags]
         if verbose:
             cmd += ["-Xptxas", "-v"]
@@ -49,6 +56,7 @@ class Build:
             raise RuntimeError(
                 f"nvcc failed ({self._proc.returncode}):\n{err}")
         os.replace(self._tmp, self.library)
+        _flags_path(self.library).write_text(" ".join(self._flags))
         return err
 
 
@@ -60,11 +68,13 @@ def start(name: str, flags: tuple[str, ...] = (),
 
 
 def load(name: str, flags: tuple[str, ...] = ()) -> ctypes.CDLL:
-    """The kernel library, built first if missing or older than its
-    source."""
+    """The kernel library, built first if missing, older than its
+    source or built with other flags."""
     lib = library_path(name)
     src = CSRC / f"{name}.cu"
-    if not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime:
+    stamp = _flags_path(lib)
+    if not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime or \
+            not stamp.exists() or stamp.read_text() != " ".join(flags):
         start(name, flags).wait()
     return ctypes.CDLL(str(lib))
 

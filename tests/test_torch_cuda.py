@@ -1,6 +1,7 @@
-"""Kernel tests that need the card: the ARIMA bank (K1), flash attention
-(K2) and SSD scan (K3) kernels against their plain PyTorch versions on CUDA
-tensors, and the port's device paths on CUDA.
+"""Kernel tests that need the card: the ARIMA bank (K1: both paths, the
+segmented launch), flash attention (K2) and SSD scan (K3) kernels against
+their plain PyTorch versions on CUDA tensors, and the port's device paths
+on CUDA.
 
 Marked ``cuda``; every test skips where ``torch.cuda.is_available()`` is
 false.  On the card:
@@ -10,11 +11,13 @@ false.  On the card:
 This file imports neither JAX nor ``repro``: the machine with the card has
 only the port's dependencies.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.arima import ARIMA
+from repro_torch.core.arima import ARIMA, pack_bank
 from repro_torch.core.kmeans import kmeans
 from repro_torch.kernels import arima_bank as K
 from repro_torch.kernels import flash_attention as K2
@@ -66,6 +69,108 @@ def test_kernel_rows_independent_of_launch(cuda):
                                     0.05) for i in range(0, 200, 23)])
     assert torch.equal(full.view(torch.int32), rev.view(torch.int32))
     assert torch.equal(full[::23].view(torch.int32), alone.view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32, 60])
+def test_register_path_equals_plain_bitwise(cuda, n):
+    assert K.route((2, 1, 1), n) == "register"
+    y = _rows(100 + n, 300, n).to(cuda)
+    got = K.arima_bank(y, (2, 1, 1), 200, 0.05)
+    want = K.arima_fit_plain(y, (2, 1, 1), 200, 0.05)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _launch(y, out, table, order, steps=200):
+    """The library's launcher on a raw table of (row offset, rows, n,
+    path); returns its CUDA error code."""
+    flat = [v for entry in table for v in entry]
+    cells = (ctypes.c_int * len(flat))(*flat)
+    err = K._load().arima_bank_launch(
+        y.data_ptr(), out.data_ptr(), cells, len(table), *order, steps,
+        0.05, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    return err
+
+
+@pytest.mark.parametrize("n", [8, 60])
+def test_register_and_generic_paths_agree_bitwise(cuda, n):
+    y = _rows(7 + n, 96, n).to(cuda)
+    reg, gen = torch.empty(96, device=cuda), torch.empty(96, device=cuda)
+    assert _launch(y, reg, [(0, 96, n, 1)], (2, 1, 1)) == 0
+    assert _launch(y, gen, [(0, 96, n, 0)], (2, 1, 1)) == 0
+    assert torch.equal(reg.view(torch.int32), gen.view(torch.int32))
+
+
+@pytest.mark.parametrize("table,order", [
+    ([(0, 40, 8, 1), (40, 32, 4, 1)], (2, 1, 1)),   # a warp mixes two n
+    ([(0, 32, 8, 1), (64, 32, 4, 1)], (2, 1, 1)),   # a gap
+    ([(0, 32, 24, 1)], (2, 1, 1)),                  # no register path
+    ([(0, 32, 8, 1)], (1, 2, 0)),                   # no register path
+])
+def test_launcher_refuses_a_table_it_does_not_take(cuda, table, order):
+    y = torch.zeros(sum(r * n for _, r, n, _ in table), device=cuda)
+    out = torch.full((sum(r for _, r, _, _ in table),), 7.0, device=cuda)
+    assert _launch(y, out, table, order) != 0
+    assert bool((out == 7.0).all())
+
+
+def test_launcher_takes_the_register_path_at_exactly_register_n(cuda):
+    # the build passes REGISTER_N to the source: the launcher's register
+    # set is the wrapper's
+    taken = []
+    for n in range(3, K.MAX_N + 1):
+        y = _rows(n, 32, n).to(cuda)
+        out = torch.empty(32, device=cuda)
+        if _launch(y, out, [(0, 32, n, 1)], (2, 1, 1), steps=1) == 0:
+            taken.append(n)
+    assert tuple(taken) == K.REGISTER_N
+
+
+def test_register_path_division_and_square_root_are_ieee(cuda):
+    # 2^30 random operand pairs inside the division's range, every float
+    # inside the square root's
+    assert K.refined_mismatches(1 << 30, 1, cuda) == (0, 0)
+
+
+def test_segment_launch_equals_per_bucket_launches(cuda):
+    rng = np.random.default_rng(6)
+    buckets = {n: [rng.normal(3600.0, 400.0, size=n).astype(np.float32)
+                   for _ in range(k)]
+               for n, k in ((4, 40), (8, 7), (16, 64), (32, 33), (60, 90))}
+    flat, table = pack_bank(buckets)
+    K.reset_counts()
+    got = K.arima_bank_segments(torch.from_numpy(flat).to(cuda), table,
+                                (2, 1, 1), 200, 0.05)
+    assert (K.LAUNCHES, K.ROWS) == (1, sum(r for _, r, _ in table))
+    for row0, _, n in table:
+        y = torch.from_numpy(np.stack(buckets[n])).to(cuda)
+        own = K.arima_bank(y, (2, 1, 1), 200, 0.05)
+        torch.cuda.synchronize()
+        assert torch.equal(got[row0:row0 + len(y)].view(torch.int32),
+                           own.view(torch.int32))
+
+
+def test_batched_forecast_is_one_launch(cuda):
+    rng = np.random.default_rng(8)
+    series = [rng.normal(3600.0, 400.0, size=k).astype(np.float32)
+              for k in (3, 4, 6, 9, 17, 33, 60, 61, 120) * 20]
+    model = ARIMA(device=cuda)
+    K.reset_counts()
+    batched = model.batched_forecast(series)
+    assert K.LAUNCHES == 1
+    assert batched.tolist() == [model.forecast_next(s) for s in series]
+
+
+@pytest.mark.parametrize("n", [4, 60])
+def test_one_row_call_equals_its_row_in_a_300_row_launch(cuda, n):
+    y = _rows(200 + n, 300, n).to(cuda)
+    full = K.arima_bank(y, (2, 1, 1), 200, 0.05)
+    for i in (0, 31, 32, 150, 299):
+        one = K.arima_bank(y[i:i + 1].contiguous(), (2, 1, 1), 200, 0.05)
+        torch.cuda.synchronize()
+        assert torch.equal(one.view(torch.int32),
+                           full[i:i + 1].view(torch.int32))
 
 
 def test_kernel_counts_launches_and_rows(cuda):
