@@ -48,7 +48,18 @@ non-zero):
 11. serve mamba2-1.3b the same way; every prefill's 48 layers go through K3;
 12. one stablelm-12b prefill (head dim 160) of a 2000-token prompt at full
     width: 40 K2 launches, finite logits, and the 256-token prefill through
-    K2 against the same prefill through its plain version.
+    K2 against the same prefill through its plain version;
+13. the interval engine (``run_strategy(engine="interval")``, host NumPy)
+    against the vector engine on the same trace and config, counters
+    identical and the planner's route as expected: (a) OOI 1.0 (fused);
+    (b) 8 GB per DTN on OOI 1.0 and GAGE 1.0 (fused); (c) OOI 1.0 at 300 s
+    (fused) and OOI 0.5 at 60 s chunks (sweep); (d) ``hpm`` on the phase 4
+    trace, which delegates to the vector engine and launches K1, counters
+    equal to phase 4's; (e) a synthesized 1M-request OOI stream
+    (``benchmarks/bench_engine.py``'s full-trace settings) windowed through
+    each engine in a spawned process (requests/s, peak RSS), and its
+    200k-request prefix materialized == windowed.  Each line gives the
+    route the interval engine took and its eviction counters.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -60,6 +71,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -304,7 +316,8 @@ def log_split(name: str, total: float, plans: list, flushes: list) -> None:
         f"engine_and_rest_seconds={total - plan_s:.3f}")
 
 
-def run_main_path(T, K, name, test, train, profile, dev, strategy="hpm"):
+def run_main_path(T, K, name, test, train, profile, dev, strategy="hpm",
+                  engine="vector"):
     cfg = T.SimConfig(stream_rate_bytes_per_s=profile.bytes_per_second_stream,
                       cache_bytes=128 << 30, chunk_seconds=3600.0
                       ).calibrate_origin(test)
@@ -313,7 +326,7 @@ def run_main_path(T, K, name, test, train, profile, dev, strategy="hpm"):
     K.reset_counts()                      # counts of this run only
     t0 = time.perf_counter()
     res = T.run_strategy(strategy, test, profile.grid, cfg, train,
-                         device=dev)
+                         engine=engine, device=dev)
     sync()
     dt = time.perf_counter() - t0
     launches, rows = K.LAUNCHES, K.ROWS
@@ -437,8 +450,11 @@ def k1_on_flush(torch, np, K, T_arima, name, calls, rows_launched, dev,
 
 
 def drive(torch, np, T, T_arima, K, dev, ooi_scale: float = 1.0,
-          arima_users: int = ARIMA_USERS, time_ms=cuda_ms) -> list:
-    """Phases 2-6 on ``dev``; returns the ``kernels`` records."""
+          arima_users: int = ARIMA_USERS, time_ms=cuda_ms
+          ) -> tuple[list, dict]:
+    """Phases 2-6 on ``dev``; returns the ``kernels`` records and what
+    phase 13 reuses: the OOI and ``ooi_arima`` splits and phase 4's
+    counters."""
     single = phase_k1_synthetic(torch, K, T_arima, np, dev, time_ms)
     seen, restore_bank = record_calls(T_arima.ARIMA, "batched_forecast")
     plans, restore_plan = record_calls(T.HPMAdapter, "plan")
@@ -460,8 +476,8 @@ def drive(torch, np, T, T_arima, K, dev, ooi_scale: float = 1.0,
     profile, train, test = ooi_arima_trace(T, arima_users)
     seen.clear()
     plans.clear()
-    _, launches4, rows4, dt4 = run_main_path(T, K, "ooi_arima", test, train,
-                                             profile, dev)
+    res4, launches4, rows4, dt4 = run_main_path(T, K, "ooi_arima", test,
+                                                train, profile, dev)
     restore_bank()
     restore_plan()
     if launches4 == 0 or not seen:
@@ -498,6 +514,9 @@ def drive(torch, np, T, T_arima, K, dev, ooi_scale: float = 1.0,
     if counters(res["vector"]) != counters(res["reference"]):
         raise AssertionError("hpm: vector and reference engines disagree")
 
+    reuse = {"ooi": (ooi_train, ooi_test),
+             "ooi_arima": (profile, train, test),
+             "ooi_arima_hpm": (counters(res4), dt4)}
     # the ooi_arima cell is the one whose flush fills the card; the OOI
     # cell's numbers ride along under the *_ooi keys, md2's online calls
     # under *_md2 and single_row_*
@@ -525,7 +544,7 @@ def drive(torch, np, T, T_arima, K, dev, ooi_scale: float = 1.0,
         "bound_ms_ooi": k3["bound_ms"],
         "launches_md2": md2["launches"],
         "seconds_md2": md2["seconds"],
-    }]
+    }], reuse
 
 
 def log_build(name: str, diag: str, seconds: float) -> dict[str, int]:
@@ -995,6 +1014,253 @@ def _leaves(tree):
         yield tree
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the interval engine on the card's host
+# ---------------------------------------------------------------------------
+
+# the routes of IntervalVDCSimulator's static LRU serving path
+INTERVAL_ROUTES = ("_run_fused", "_run_sweep", "_run_stream_interval")
+# benchmarks/bench_engine.py's --full-trace settings, at 1M requests
+STREAM_SEED, STREAM_USERS, STREAM_WINDOW = 12, 20_000, 131_072
+STREAM_REQUESTS, STREAM_PREFIX = 1_000_000, 200_000
+
+
+def record_routes(E):
+    """Log, in call order, which of the interval engine's routes ran
+    (``vector`` for the inherited vector paths); returns the log and a
+    function that restores the methods."""
+    log_, restores = [], []
+
+    def wrap(cls, attr, label):
+        inner = cls.__dict__[attr]
+
+        def recording(self, *args, **kw):
+            log_.append(label)
+            return inner(self, *args, **kw)
+
+        setattr(cls, attr, recording)
+        restores.append(lambda: setattr(cls, attr, inner))
+
+    for attr in INTERVAL_ROUTES:
+        wrap(E.IntervalVDCSimulator, attr, attr.removeprefix("_run_"))
+    wrap(E.VectorVDCSimulator, "run", "vector")
+    return log_, lambda: [r() for r in restores]
+
+
+def evict_counters(res) -> dict:
+    return {"plan": res.evict_plan_calls, "trunc": res.block_truncations,
+            "degen": res.degenerate_serves, "phases": res.block_phases,
+            "invict": res.inblock_victims}
+
+
+def interval_case(T, K, routes, name, split, profile, dev, expect: str,
+                  strategy="cache_only", vector=None, **cfg_kw) -> dict:
+    """Replays through ``engine="interval"`` against the port's vector
+    engine on the same trace and config, in turns (vector, interval,
+    interval, vector) so host drift hits both alike: requests, host
+    seconds, requests/s, the interval engine's route and eviction
+    counters, K1 launches.  ``vector`` (counters, seconds) stands in for
+    the vector runs where an earlier phase made them; then the interval
+    engine runs once.  Raises unless the counters are identical and the
+    interval engine took route ``expect``."""
+    train, test = split
+    base = {"cache_bytes": 128 << 30, "chunk_seconds": 3600.0}
+    base.update(cfg_kw)
+    cfg = T.SimConfig(stream_rate_bytes_per_s=profile.bytes_per_second_stream,
+                      **base).calibrate_origin(test)
+    sync = _sync(dev)
+    times = {"vector": [], "interval": []}
+    want = None
+    if vector is not None:
+        want, vec_s = vector
+        times["vector"].append(vec_s)
+    order = ("interval",) if vector else ("vector", "interval", "interval",
+                                          "vector")
+    for engine in order:
+        sync()
+        routes.clear()
+        K.reset_counts()
+        t0 = time.perf_counter()
+        res = T.run_strategy(strategy, test, profile.grid, cfg, train,
+                             engine=engine, device=dev)
+        sync()
+        times[engine].append(time.perf_counter() - t0)
+        check_result(res, len(test))
+        if want is None:
+            want = counters(res)
+        elif counters(res) != want:
+            raise AssertionError(f"{name}: {engine} counters {counters(res)}"
+                                 f" != {want}")
+        if engine == "interval":
+            route, launches = "+".join(routes), K.LAUNCHES
+            evict = evict_counters(res)
+    its, vts = times["interval"], times["vector"]
+    ratio = sum(its) / len(its) / (sum(vts) / len(vts))
+    log(f"{name} {strategy} interval: requests={len(test)} seconds="
+        f"{'/'.join(f'{t:.3f}' for t in its)} requests_per_s="
+        f"{len(test) * len(its) / sum(its):.1f} route={route} "
+        f"vector_seconds={'/'.join(f'{t:.3f}' for t in vts)} "
+        f"interval_over_vector={ratio:.3f} K1_launches={launches} "
+        f"evict={evict}")
+    if route != expect:
+        raise AssertionError(f"{name}: interval route {route}, want {expect}")
+    return {"route": route, "launches": launches}
+
+
+def rss_mb() -> float:
+    """This process's resident set now (``/proc/self/statm``), in MiB."""
+    pages = int(Path("/proc/self/statm").read_text().split()[1])
+    return pages * os.sysconf("SC_PAGE_SIZE") / 2**20
+
+
+def sampled_peak_rss(fn):
+    """``fn()`` and the largest resident set a thread saw while it ran,
+    reading ``rss_mb`` every 10 ms: ``ru_maxrss`` would carry the parent's
+    high-water mark across ``exec``, and the card's sandbox has no
+    ``VmHWM``."""
+    import threading
+    peak = [rss_mb()]
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(0.01):
+            peak[0] = max(peak[0], rss_mb())
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    try:
+        out = fn()
+    finally:
+        done.set()
+        sampler.join()
+    return out, max(peak[0], rss_mb())
+
+
+def stream_worker(engine: str, cfg, n_requests: int, window: int,
+                  conn) -> None:
+    """Spawned child: the timed windowed replay of the 1M-request
+    synthesized OOI stream through one engine, so that the peak resident
+    set is this engine's alone.  ``cache_only`` uses no device, so the
+    child asks for the CPU and holds no CUDA context."""
+    import repro_torch.core as T
+    from repro_torch.core import engine as E
+    try:
+        routes, _ = record_routes(E)
+        synth = T.StreamingTraceSynthesizer(
+            T.OOI_PROFILE, seed=STREAM_SEED, n_requests=n_requests,
+            n_users=STREAM_USERS)
+        rss0 = rss_mb()
+        t0 = time.perf_counter()
+        res, peak = sampled_peak_rss(lambda: T.run_strategy(
+            "cache_only", synth.source(window=window), T.OOI_PROFILE.grid,
+            cfg, None, engine=engine, device="cpu"))
+        dt = time.perf_counter() - t0
+        conn.send({"engine": engine, "requests": res.total_requests,
+                   "seconds": dt, "rss_before_mb": rss0,
+                   "peak_rss_mb": peak, "route": "+".join(routes),
+                   "counters": counters(res),
+                   "evict": evict_counters(res)})
+    except Exception as e:
+        conn.send({"engine": engine, "error": repr(e)})
+        raise
+    finally:
+        conn.close()
+
+
+def stream_cases(T, dev) -> None:
+    """Phase 13e: the streamed replay, each engine in a spawned process,
+    then the 200k-request prefix replayed materialized and windowed."""
+    import multiprocessing
+
+    synth = T.StreamingTraceSynthesizer(
+        T.OOI_PROFILE, seed=STREAM_SEED, n_requests=STREAM_REQUESTS,
+        n_users=STREAM_USERS)
+    prefix = synth.materialize(STREAM_PREFIX)
+    cfg = T.SimConfig(
+        stream_rate_bytes_per_s=T.OOI_PROFILE.bytes_per_second_stream,
+        cache_bytes=128 << 30, chunk_seconds=3600.0).calibrate_origin(prefix)
+    ctx = multiprocessing.get_context("spawn")
+    rows = {}
+    for engine in ("interval", "vector"):
+        recv, send = ctx.Pipe(duplex=False)
+        p = ctx.Process(target=stream_worker,
+                        args=(engine, cfg, STREAM_REQUESTS, STREAM_WINDOW,
+                              send))
+        p.start()
+        send.close()
+        row = recv.recv()
+        p.join()
+        if "error" in row or p.exitcode != 0:
+            raise RuntimeError(f"streamed {engine}: {row.get('error')} "
+                               f"(exit {p.exitcode})")
+        rows[engine] = row
+        log(f"ooi stream {engine}: requests={row['requests']} "
+            f"seconds={row['seconds']:.3f} requests_per_s="
+            f"{row['requests'] / row['seconds']:.1f} route={row['route']} "
+            f"rss_before_mb={row['rss_before_mb']:.1f} "
+            f"peak_rss_mb_sampled={row['peak_rss_mb']:.1f} "
+            f"evict={row['evict']}")
+    if rows["interval"]["requests"] != STREAM_REQUESTS or \
+            rows["interval"]["counters"] != rows["vector"]["counters"]:
+        raise AssertionError("streamed replay: interval and vector disagree")
+    if not rows["interval"]["route"].startswith("stream_interval"):
+        raise AssertionError(f"streamed interval took {rows['interval']}")
+    out = {}
+    for how, reqs in (("materialized", prefix), ("windowed",
+                      T.StreamingRequestSource.from_requests(
+                          prefix, window=STREAM_WINDOW // 8))):
+        t0 = time.perf_counter()
+        res = T.run_strategy("cache_only", reqs, T.OOI_PROFILE.grid, cfg,
+                             None, engine="interval", device=dev)
+        out[how] = counters(res)
+        log(f"ooi stream prefix {how} interval: requests={STREAM_PREFIX} "
+            f"seconds={time.perf_counter() - t0:.3f}")
+    if out["materialized"] != out["windowed"]:
+        raise AssertionError("prefix: materialized != windowed")
+
+
+def interval_phase(T, K, dev, reuse: dict) -> int:
+    """Phase 13; returns K1's launches in the ``hpm`` interval replay."""
+    from repro_torch.core import engine as E
+
+    routes, restore = record_routes(E)
+    ooi, grid = reuse["ooi"], T.OOI_PROFILE
+    try:
+        log("== phase 13a: the interval engine on OOI, scale 1.0")
+        interval_case(T, K, routes, "ooi", ooi, grid, dev, "fused")
+
+        log("== phase 13b: thrash, 8 GB per DTN")
+        gage = T.make_trace("gage", seed=0, scale=1.0)
+        cut = int(len(gage) * 0.3)
+        interval_case(T, K, routes, "ooi", ooi, grid, dev, "fused",
+                      cache_bytes=8 << 30)
+        interval_case(T, K, routes, "gage", (gage[:cut], gage[cut:]),
+                      T.GAGE_PROFILE, dev, "fused", cache_bytes=8 << 30)
+
+        log("== phase 13c: fine chunking")
+        half = T.make_trace("ooi", seed=0, scale=0.5)
+        cut = int(len(half) * 0.3)
+        interval_case(T, K, routes, "ooi", ooi, grid, dev, "fused",
+                      chunk_seconds=300.0)
+        interval_case(T, K, routes, "ooi_0.5", (half[:cut], half[cut:]),
+                      grid, dev, "sweep", chunk_seconds=60.0)
+
+        log("== phase 13d: hpm on ooi_arima through the interval engine")
+        profile, train, test = reuse["ooi_arima"]
+        # phase 4 is the vector run of the same trace and config
+        hpm = interval_case(T, K, routes, "ooi_arima", (train, test),
+                            profile, dev, "vector", strategy="hpm",
+                            vector=reuse["ooi_arima_hpm"])
+        if hpm["launches"] == 0:
+            raise AssertionError(f"ooi_arima hpm interval: {hpm}")
+    finally:
+        restore()
+
+    log("== phase 13e: streamed OOI, 1M requests (bench_engine settings)")
+    stream_cases(T, dev)
+    return hpm["launches"]
+
+
 def main() -> int:
     try:
         import torch
@@ -1045,7 +1311,7 @@ def main() -> int:
                              f"(want 0 for each of the 5 instantiations)")
 
     dev = torch.device("cuda")
-    kernels = drive(torch, np, T, T_arima, K, dev)
+    kernels, reuse = drive(torch, np, T, T_arima, K, dev)
 
     log("== phase 7: build K2 and K3")
     for name in ("K2", "K3"):
@@ -1058,6 +1324,7 @@ def main() -> int:
     k3["launches"] = serve_phase(torch, "mamba2-1.3b", "K3", counters_lm,
                                  dev, "phase 11")
     k2["launches_stablelm_12b"] = stablelm_phase(torch, K2, dev)
+    kernels[0]["launches_interval_hpm"] = interval_phase(T, K, dev, reuse)
     kernels += [k2, k3]
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -1,17 +1,19 @@
 """Core: the paper's push-based data delivery framework, ported to PyTorch.
 
-Public API re-exports (the ported subset of ``repro.core``).
+Public API re-exports (the same names as ``repro.core``).
 """
 from repro_torch.core.arima import ARIMA, ARIMAOrder, predict_next_timestamp
-from repro_torch.core.cache import (IntLFUState, IntLRUState, LFUCache,
-                                    LRUCache, chunk_bounds_bulk,
-                                    chunks_for_range, make_cache,
-                                    make_int_cache_state)
-from repro_torch.core.engine import VectorVDCSimulator
+from repro_torch.core.cache import (IntervalLRUState, IntLFUState,
+                                    IntLRUState, LFUCache, LRUCache,
+                                    chunk_bounds_bulk, chunks_for_range,
+                                    make_cache, make_int_cache_state)
+from repro_torch.core.engine import IntervalVDCSimulator, VectorVDCSimulator
+from repro_torch.core.interval_store import FlatIntervalState
 from repro_torch.core.classify import (classify_request_type, classify_users,
                                        fresh_duplicate_bytes, summarize_trace)
 from repro_torch.core.delivery import (HPMAdapter, MD1Adapter, MD2Adapter,
-                                       NoPrefetch, make_prefetcher,
+                                       NoPrefetch, PeerFetchRange,
+                                       coalesce_peer_fetches, make_prefetcher,
                                        select_peer_sources)
 from repro_torch.core.fpgrowth import (RulePredictor, association_rules,
                                        frequent_itemsets)

@@ -12,6 +12,7 @@ emits :class:`repro_torch.core.hpm.PrefetchOp` plans.  Adapters:
 from __future__ import annotations
 
 import dataclasses
+import typing
 from typing import Protocol, Sequence
 
 import numpy as np
@@ -221,6 +222,91 @@ def select_peer_sources(bw_to_dtn: np.ndarray, holders: np.ndarray
     accepted = (scores[src, np.arange(n)] > 0.0) & \
         (bw_to_dtn[src] > bw_to_dtn[0])
     return src, accepted
+
+
+class PeerFetchRange(typing.NamedTuple):
+    """One planned peer transfer: chunks ``[key_lo, key_hi)`` shipped from
+    DTN ``src`` into DTN ``dtn`` for the request at trace position
+    ``req_pos`` (dense chunk keys as used by the replay engines)."""
+
+    req_pos: int
+    dtn: int
+    src: int
+    key_lo: int
+    key_hi: int
+
+
+def coalesce_peer_fetches(req_pos: np.ndarray, keys: np.ndarray,
+                          src: np.ndarray, dtn: int) -> list[PeerFetchRange]:
+    """Group accepted per-chunk peer decisions into contiguous
+    :class:`PeerFetchRange` transfers (same request, same source, adjacent
+    chunk keys).  Public as in ``repro.core``, whose sharded interval
+    replay builds its peer plan with it; the port's replays, which have no
+    sharded mode, coalesce their ranges as they resolve them."""
+    out: list[PeerFetchRange] = []
+    for r, k, s in zip(req_pos.tolist(), keys.tolist(), src.tolist()):
+        if out and out[-1].req_pos == r and out[-1].src == s \
+                and out[-1].key_hi == k:
+            out[-1] = out[-1]._replace(key_hi=k + 1)
+        else:
+            out.append(PeerFetchRange(r, dtn, s, k, k + 1))
+    return out
+
+
+def select_peer_sources_ranges(bw_col: np.ndarray, holders: np.ndarray
+                               ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Range-level variant of :func:`select_peer_sources` for the fused
+    block replay: resolve peer sources for a batch of missing key *runs*
+    that may belong to requests on different DTNs.
+
+    ``bw_col[s, c]`` is the link bandwidth from DTN ``s`` into run ``c``'s
+    requesting DTN (column ``bw[:, dtn_of_run]`` of the link matrix, so row
+    0 is each run's origin link); ``holders[s, c]`` says whether DTN ``s``
+    holds run ``c`` in full at the run's serve time — the engine derives it
+    from each cache's block-start presence snapshot (``coverage_arrays``;
+    on :class:`repro_torch.core.interval_store.FlatIntervalState` these are live
+    zero-copy views of the size-map columns) plus in-block first-toucher
+    attribution.  Under phased block replay the block-start snapshot doubles
+    as every phase's phase-start snapshot: mid-block evictions only consume
+    keys whose last in-block occurrence precedes the phase boundary (the
+    legal-victim invariant), so no key a later phase still serves can lose
+    its snapshot presence mid-block and the one resolution stays exact for
+    all phases.  The caller must already have cleared the origin row and
+    each run's own-DTN entry.
+
+    Returns ``(src, best_bw, accepted)`` under the reference's §IV-D rule:
+    iterate candidate DTNs ascending keeping strict bandwidth improvements
+    (max bandwidth, ties to the lowest DTN id), accept only where the
+    winner strictly beats the run's origin link."""
+    n = holders.shape[1]
+    src = np.zeros(n, np.int64)
+    best = np.zeros(n, np.float64)
+    for d2 in range(1, holders.shape[0]):
+        b2 = bw_col[d2]
+        upd = holders[d2] & (b2 > best)
+        if upd.any():
+            src[upd] = d2
+            best[upd] = b2[upd]
+    accepted = best > bw_col[0]
+    return src, best, accepted
+
+
+def coalesce_peer_ranges(req_pos: np.ndarray, dtn: np.ndarray,
+                         src: np.ndarray, key_lo: np.ndarray,
+                         key_hi: np.ndarray) -> list[PeerFetchRange]:
+    """Merge accepted per-run peer decisions into maximal
+    :class:`PeerFetchRange` transfers (same request, same source, abutting
+    key runs).  Runs must arrive grouped by request with keys ascending
+    within each request — the fused block replay's natural emission order."""
+    out: list[PeerFetchRange] = []
+    for r, d, s, a, b in zip(req_pos.tolist(), dtn.tolist(), src.tolist(),
+                             key_lo.tolist(), key_hi.tolist()):
+        if out and out[-1].req_pos == r and out[-1].src == s \
+                and out[-1].key_hi == a:
+            out[-1] = out[-1]._replace(key_hi=b)
+        else:
+            out.append(PeerFetchRange(r, d, s, a, b))
+    return out
 
 
 def make_prefetcher(kind: str, grid: ObjectGrid,

@@ -31,9 +31,6 @@ prefetchers that support batch planning (hpm) are pre-planned through the
 two-phase planner here (``SimConfig.batched_prediction``), whose op stream
 is bitwise identical to the online ``observe`` loop the reference replays
 (``tests/test_torch_hpm.py``).
-
-Only the vector engine is ported so far; the JAX package's interval engine
-(``IntervalVDCSimulator`` and its presence timeline) is queued in ROADMAP.
 """
 from __future__ import annotations
 
@@ -46,9 +43,13 @@ from typing import Sequence
 
 import numpy as np
 
-from repro_torch.core.cache import (CacheStats, chunk_bytes, chunk_bounds_bulk,
-                                    make_int_cache_state)
-from repro_torch.core.delivery import select_peer_sources
+from repro_torch.core.cache import (CacheStats, IntervalLRUState, chunk_bytes,
+                                    chunk_bounds_bulk, make_int_cache_state)
+from repro_torch.core.interval_store import FlatIntervalState
+from repro_torch.core.delivery import (PeerFetchRange,
+                                       coalesce_peer_ranges,
+                                       select_peer_sources,
+                                       select_peer_sources_ranges)
 from repro_torch.core.hpm import PrefetchOp
 from repro_torch.core.placement import PlacementEngine
 from repro_torch.core.simulator import (DEFAULT_BANDWIDTH_GBPS, GBPS,
@@ -1255,3 +1256,1090 @@ class VectorVDCSimulator:
                                        self._chunk_bytes)
                     self._mark_prefetched(hub, np.array([key], np.int64))
 
+
+# ---------------------------------------------------------------------------
+# Interval-algebra replay (third engine mode)
+# ---------------------------------------------------------------------------
+#
+# The vector engine above still spends O(total chunk positions) on the
+# serving path.  The interval engine replays static strategies (no dynamic
+# events) on interval cache states — presence, sizes and LRU recency as
+# sorted disjoint [start, end) chunk-id intervals
+# (:class:`repro_torch.core.cache.IntervalLRUState`,
+# :class:`repro_torch.core.interval_store.FlatIntervalState`) — in two
+# phases:
+#
+#   1. one trace-order pass over every DTN's cache, with peer fetches
+#      resolved inline against the other caches' current coverage (the
+#      paper's §IV-D resolution order, and the reference's peer-before-
+#      origin insert order, applied exactly): the fused block replay below
+#      in the coarse regime, the per-request sweep (:func:`_sweep_serve`)
+#      in the fine-chunking regime;
+#   2. origin-queue replay.  Requests with chunks left over after peer
+#      resolution walk the (inherently sequential, but tiny) origin task
+#      queue in trace order — identical float arithmetic to the reference.
+#
+# ``repro``'s interval engine also has an optimistic sharded mode
+# (``SimConfig.interval_shards``: forked per-DTN replays, presence
+# timelines and an exactness audit).  The port leaves it out: no workload
+# of the repo selects it, and on the one trace measured on the card's host
+# (OOI 1.0) it ran slower than the vector engine and its audit always fell
+# back to the sweep (``ROADMAP.md``).  Counter equivalence with the other
+# engines is unconditional (tests/test_torch_engine_interval.py).
+
+
+# --------------------------------------------------------------------------
+# fused block-over-intervals replay
+#
+# The coarse-regime hot path: classify a whole *block* of requests against
+# block-start IntervalLRUState snapshots instead of per-chunk arrays.  The
+# exactness argument is the vector engine's, lifted to intervals:
+#
+# - the block's key union is handed to the eviction planner as a *blocked*
+#   set, and the block is truncated so its committed inserts never need to
+#   evict a blocked key — therefore no in-block key (hit, dup or peer
+#   lookup target, on ANY DTN) can disappear mid-block, and the block-start
+#   snapshots stay valid for every in-block decision;
+# - chunk ranges are cut into *elementary cells* at every request endpoint
+#   and every snapshot segment boundary, so each cell is uniform w.r.t.
+#   every DTN's presence and every request's coverage; per (DTN, cell) a
+#   first-coverage / last-coverage attribution replaces the vector path's
+#   per-chunk radix sort: a cell is a hit for request r iff it was present
+#   at block start or first touched by an earlier in-block request, else it
+#   is r's insert (and r resolves its peer source against the other DTNs'
+#   snapshot-or-earlier-touch coverage — the reference's §IV-D rule);
+# - block evictions collapse to the existing `_evict_until(cum_bytes, r)`
+#   per triggering request: the reference's interleaved per-chunk
+#   evict-then-insert loop frees, by the end of request r, exactly the
+#   minimal LRU-order chunk prefix covering the cumulative insert bytes
+#   through r — which is what `_evict_until` computes when handed that
+#   cumulative as its `size` argument (inserts are committed after);
+# - commits land as run merges: one size-map record per inserting request's
+#   maximal miss run, one recency record per merged (last toucher, phase)
+#   run ordered by (request, hit/peer/origin phase, key) — the reference's
+#   final per-chunk stamp order, so FIFO order and hence future evictions
+#   are exact.  Intermediate stamps of multiply-touched chunks are never
+#   observable (nothing in-block is evicted), so only final stamps matter.
+# --------------------------------------------------------------------------
+
+
+def _merge_key_runs(lo: np.ndarray,
+                    hi: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Union of ``[lo, hi)`` key ranges as sorted disjoint runs
+    ``(starts, ends)``; abutting ranges merge."""
+    n = len(lo)
+    ev = np.concatenate((lo, hi))
+    typ = np.concatenate((np.ones(n, np.int64), np.full(n, -1, np.int64)))
+    # stable: at equal keys the starts (first half) sort ahead of the ends,
+    # so touching ranges stay one run
+    order = ev.argsort(kind="stable")
+    ev = ev[order]
+    depth = typ[order].cumsum()
+    prev = np.concatenate(([0], depth[:-1]))
+    return ev[(prev == 0) & (depth > 0)], ev[(depth == 0) & (prev > 0)]
+
+
+_FUSED_MAX_INCIDENCE = 1 << 21
+
+
+def _fused_block_replay(states: dict, bw, enable_peer: bool,
+                        pos_a: np.ndarray, dtn_a: np.ndarray,
+                        obj_a: np.ndarray, lo_a: np.ndarray,
+                        hi_a: np.ndarray, pc_a: np.ndarray,
+                        ctr: dict | None = None,
+                        blk_state: dict | None = None):
+    """Fused replay of one request sequence (trace order) over per-DTN
+    interval caches (all :class:`FlatIntervalState` or all
+    :class:`IntervalLRUState`): all DTNs interleaved, peer ranges resolved
+    inline against the block snapshots (exact, no audit).  Returns
+    per-request ``(nh, peer_chunks, peer_dt, still_chunks, peer_ranges)``.
+
+    Blocks under eviction pressure are replayed in PHASES: the fitting
+    prefix is committed, victims are evicted at the phase boundary, and
+    the same decomposition continues — so one block can span many
+    multiples of cache capacity (see the phase-loop section below for the
+    legal-victim invariant).  ``blk_state``, when given, carries the
+    adaptive block sizing across calls (the windowed replay passes a
+    persistent dict so window edges do not reset it).
+    """
+    n = len(pos_a)
+    if ctr is None:
+        ctr = {"plan": 0, "trunc": 0, "degen": 0, "phases": 0, "invict": 0}
+    n_dtn = max(states) + 1
+    cap = next(iter(states.values())).capacity
+    active = sorted(states)
+    # homogeneous state bank: flat states take the batched array APIs
+    # (plan_evict_clean on key-run arrays, commit_block_arrays)
+    flat = getattr(next(iter(states.values())), "flat", False)
+    nh_loc = np.zeros(n, np.int64)
+    acc_loc = np.zeros(n, np.int64)
+    pdt_loc = np.zeros(n, np.float64)
+    still_loc = np.zeros(n, np.int64)
+    peer_ranges: list = []
+    # peer candidates per DTN, best-first, for the scalar fallback
+    # (same pruning + greedy order as the sequential sweep)
+    cands: dict[int, list] = {}
+    for d in active:
+        ob = float(bw[0, d])
+        cl = [(float(bw[d2, d]), d2) for d2 in active
+              if d2 != d and float(bw[d2, d]) > ob]
+        cl.sort(key=lambda t: (-t[0], t[1]))
+        cands[d] = cl
+
+    def serve_scalar(r: int) -> None:
+        ctr["degen"] += 1
+        d = int(dtn_a[r]); o = int(obj_a[r])
+        lo = int(lo_a[r]); hi = int(hi_a[r])
+        pc = int(pc_a[r]); ridx = int(pos_a[r])
+        st = states[d]
+        nh, miss = st.lookup_touch(o, lo, hi, pc)
+        nh_loc[r] = nh
+        if not miss:
+            return
+        n_acc = 0
+        peer_dt = 0.0
+        if enable_peer:
+            unassigned = miss
+            acc_runs: list = []
+            for bwv, d2 in cands[d]:
+                if not unassigned:
+                    break
+                cov_of = states[d2].coverage_runs
+                rem: list = []
+                for a, b_ in unassigned:
+                    p2 = a
+                    for s, e in cov_of(o, a, b_):
+                        if s > p2:
+                            rem.append((p2, s))
+                        acc_runs.append((s, e))
+                        n_acc += e - s
+                        peer_dt += (e - s) * (pc / bwv)
+                        peer_ranges.append(PeerFetchRange(ridx, d, d2, s, e))
+                        p2 = e
+                    if p2 < b_:
+                        rem.append((p2, b_))
+                unassigned = rem
+            if acc_runs:
+                acc_runs.sort()
+                st.insert_runs(o, acc_runs, pc, ridx)
+            still = unassigned
+        else:
+            still = miss
+        if still:
+            still_loc[r] = sum(b_ - a for a, b_ in still)
+            st.insert_runs(o, still, pc, ridx)
+        acc_loc[r] = n_acc
+        pdt_loc[r] = peer_dt
+
+    i = 0
+    blk = 512 if blk_state is None else blk_state.get("blk", 512)
+    degen = 0 if blk_state is None else blk_state.get("degen", 0)
+    BIG = 1 << 62
+    while i < n:
+        if degen >= 4:
+            # eviction-bound stretch: blocks keep collapsing, so serve a
+            # run of requests scalarly before re-probing the block path
+            stop = min(n, i + 256)
+            for r in range(i, stop):
+                serve_scalar(r)
+            i = stop
+            degen = 0
+            blk = 512
+            continue
+        j = min(n, i + blk)
+        cap_nb = 0
+        while True:
+            # ---- elementary-cell decomposition of [i, j) ------------------
+            # computed ONCE per block and reused by every phase (cells,
+            # snapshots and first-touch attribution are all prefix-stable,
+            # and the suffix-blocking invariant below keeps them exact
+            # across mid-block evictions)
+            B = j - i
+            lo = lo_a[i:j]; hi = hi_a[i:j]
+            dt_b = dtn_a[i:j]; pc_b = pc_a[i:j]
+            us, ue = _merge_key_runs(lo, hi)
+            o_blk = np.unique(obj_a[i:j]).tolist()
+            covs = {d: states[d].coverage_arrays(o_blk) for d in active}
+            pts = [lo, hi]
+            for d in active:
+                cs, ce = covs[d]
+                if len(cs):
+                    # keep only segments overlapping the block's key union
+                    u_idx = ue.searchsorted(cs, side="right")
+                    ok = u_idx < len(us)
+                    ov = np.zeros(len(cs), bool)
+                    ov[ok] = us[u_idx[ok]] < ce[ok]
+                    if ov.any():
+                        pts.append(cs[ov])
+                        pts.append(ce[ov])
+            C = np.unique(np.concatenate(pts))
+            rs = C.searchsorted(lo)
+            re_ = C.searchsorted(hi)
+            cnt = re_ - rs
+            cum = cnt.cumsum()
+            if int(cum[-1]) > _FUSED_MAX_INCIDENCE and B > 1:
+                nb = max(1, int(cum.searchsorted(
+                    _FUSED_MAX_INCIDENCE, side="right")))
+                if nb < B:
+                    j = i + nb
+                    cap_nb = nb
+                    continue
+            break
+        I = int(cum[-1])
+        M = len(C) - 1
+        cell_len = C[1:] - C[:-1]
+        inc = np.arange(B).repeat(cnt)
+        cell = np.arange(I) - (cum - cnt - rs).repeat(cnt)
+        # ---- snapshot presence + first-touch attribution ------------------
+        clo = C[:-1]
+        snap = np.zeros((n_dtn, M), bool)
+        for d in active:
+            cs, ce = covs[d]
+            if len(cs):
+                ix = cs.searchsorted(clo, side="right") - 1
+                ok = ix >= 0
+                snap[d, ok] = ce[ix[ok]] > clo[ok]
+        first2 = np.full((n_dtn, M), BIG, np.int64)
+        d_inc = dt_b[inc]
+        # ``inc`` ascends, and duplicate fancy-index writes land last-wins,
+        # so a reversed scatter leaves each (DTN, cell)'s FIRST toucher —
+        # no per-DTN sort.  The reversed index arrays must be materialized:
+        # setitem walks index arrays in memory order, and a negative-stride
+        # view would silently restore the forward write order.  First
+        # touchers are prefix-stable: a cell touched by request r has
+        # first <= r, so every truncated prefix below reuses this scatter.
+        first2[np.ascontiguousarray(d_inc[::-1]),
+               np.ascontiguousarray(cell[::-1])] = (
+                   np.ascontiguousarray(inc[::-1]))
+        snap_inc = snap[d_inc, cell]
+        first_inc = first2[d_inc, cell]
+        hit = snap_inc | (first_inc < inc)
+        ins_idx = (~hit).nonzero()[0]     # first-touch absent cells
+        ins_inc = inc[ins_idx]            # non-decreasing (inc ascends)
+        ins_cell = cell[ins_idx]
+        ins_d = d_inc[ins_idx]
+        ins_len = cell_len[ins_cell]
+        ins_bytes = ins_len * pc_b[ins_inc]
+        # ---- phased eviction planning -------------------------------------
+        # Mid-block eviction phases replace the old truncation refinement:
+        # when the block's inserts exceed free room, the fitting prefix is
+        # committed as a PHASE, victims are evicted at the phase boundary,
+        # and the block continues on the same decomposition.  Legal-victim
+        # invariant: planning at boundary p0 blocks the GLOBAL key union of
+        # the remaining suffix [p0, B), so a key referenced at-or-after p0
+        # by any request is never evicted at any boundary <= p0.  Hence
+        # (a) the block-start snapshot + first-touch hit classification
+        # stays exact for the whole block, (b) the block-level peer holders
+        # stay exact (a queried cell belongs to the querying request's
+        # keys, hence is blocked at every earlier boundary for every DTN),
+        # and (c) each boundary eviction's FIFO prefix equals the
+        # reference's per-insert eviction sequence: plan_evict_clean stops
+        # at the first blocked record, and any record the reference had
+        # re-queued meanwhile (an in-phase re-touch) is blocked, so the
+        # consumed prefix is identical order-for-order.
+        cum_ins: dict[int, np.ndarray] = {}
+        for d in active:
+            m_ = ins_d == d
+            if m_.any():
+                cum_ins[d] = np.bincount(
+                    ins_inc[m_], weights=ins_bytes[m_],
+                    minlength=B).astype(np.int64).cumsum()
+        # the reference silently skips oversized inserts; the block ends at
+        # the first one and it is served scalarly so later touches of its
+        # keys stay misses
+        over_big = (pc_b > cap).nonzero()[0]
+        b_big = int(over_big[0]) if len(over_big) else B
+
+        def plan_boundary(p0: int) -> int:
+            """Furthest request the block can advance to from boundary
+            ``p0``: the longest prefix of the remaining suffix whose
+            per-DTN insert bytes fit free room plus clean (suffix-blocked)
+            evictable bytes, capped at the first oversized insert."""
+            b_new = b_big
+            if b_new == p0 or not cum_ins:
+                return b_new
+            if p0 == 0:
+                us_c, ue_c = us, ue
+            else:
+                us_c, ue_c = _merge_key_runs(lo[p0:], hi[p0:])
+            # the flat state takes the blocked key runs as arrays; the
+            # list state wants Python lists (bisect)
+            bs_l = ((us_c, ue_c) if flat
+                    else (us_c.tolist(), ue_c.tolist()))
+            for d in active:
+                cum_d = cum_ins.get(d)
+                if cum_d is None:
+                    continue
+                base = int(cum_d[p0 - 1]) if p0 else 0
+                total = int(cum_d[-1]) - base
+                if total <= 0:
+                    continue
+                st = states[d]
+                room = st.capacity - st.used
+                if total <= room:
+                    continue
+                # contract: the result is only compared against the byte
+                # shortfall (total - room) and clamped there —
+                # plan_evict_clean may cap its answer at max_need, and any
+                # overshoot past it must never change b_new
+                ctr["plan"] += 1
+                clean = st.plan_evict_clean(total - room, *bs_l)
+                if total > room + clean:
+                    b_new = min(b_new, p0 + int(cum_d[p0:].searchsorted(
+                        base + room + clean, side="right")))
+            return b_new
+
+        def evict_phase(p0: int, b1: int) -> None:
+            """Evict at boundary ``p0`` for the inserts of phase
+            ``[p0, b1)``, replaying the reference's cumulative per-request
+            arithmetic.  Chunks evicted at mid-block boundaries (p0 > 0)
+            are in-block victims: keys whose last remaining reference
+            preceded the boundary."""
+            inblock = p0 > 0
+            for d in active:
+                cum_d = cum_ins.get(d)
+                if cum_d is None:
+                    continue
+                base = int(cum_d[p0 - 1]) if p0 else 0
+                st = states[d]
+                ev0 = st.evictions
+                # one call with the phase's final cumulative need: LRU
+                # prefix consumption is monotone, so evicting for the
+                # per-request cumulative values in sequence lands on the
+                # same final prefix
+                cv = int(cum_d[b1 - 1]) - base
+                if cv > 0 and st.used + cv > st.capacity:
+                    st._evict_until(cv, int(pos_a[i + b1 - 1]))
+                if inblock:
+                    ctr["invict"] += st.evictions - ev0
+
+        b1 = plan_boundary(0)
+        if b1 == 0:
+            ctr["trunc"] += 1
+            serve_scalar(i)
+            i += 1
+            degen += 1
+            blk = max(256, blk >> 1)
+            continue
+        # ---- peer resolution for the block's insert cells -----------------
+        # block-level, BEFORE any commit or eviction: resolved per insert
+        # column from the block-start snapshot + first-touch attribution,
+        # which the suffix-blocking invariant keeps exact for every phase;
+        # the per-request accounting below filters to the committed extent
+        n_ins = len(ins_idx)
+        acc2 = None
+        acc = np.zeros(n_ins, bool)
+        if enable_peer and n_ins:
+            holders = np.zeros((n_dtn, n_ins), bool)
+            for d2 in active:
+                # a DTN holds a cell at serve time iff it was present at
+                # block start or an earlier in-block request of that DTN
+                # touched it (hit or insert — suffix blocking guarantees
+                # no boundary eviction ever removes a still-queried cell)
+                holders[d2] = (snap[d2, ins_cell]
+                               | (first2[d2, ins_cell] < ins_inc))
+            # own-DTN entries are False by construction (the first toucher
+            # defines the insert); the origin row was never set
+            src, best_bw, acc = select_peer_sources_ranges(
+                bw[:, ins_d], holders)
+            acc2 = np.zeros((n_dtn, M), bool)
+            acc2[ins_d[acc], ins_cell[acc]] = True
+
+        def commit_one(st, d, uc, fi, la, ins_flag):
+            """Commit one DTN's merged runs for one phase: ``uc`` the
+            touched cells (ascending), ``fi``/``la`` the phase's first and
+            last toucher per cell, ``ins_flag`` the cells whose insert this
+            phase performs."""
+            size_recs: list = []
+            z_parts = None
+            if ins_flag.any():
+                iuc = uc[ins_flag]
+                ifi = fi[ins_flag]
+                o2 = np.lexsort((iuc, ifi))   # trace order, ascending keys
+                iuc = iuc[o2]; ifi = ifi[o2]
+                brk = np.empty(len(iuc), bool)
+                brk[0] = True
+                # size records only feed the size map and byte accounting,
+                # both invariant under merging contiguous equal-size runs —
+                # and per-object chunk sizes rarely change, so this
+                # collapses a phase's inserts to ~one splice per object
+                ipc = pc_b[ifi]
+                iob = obj_a[i + ifi]
+                brk[1:] = ((ipc[1:] != ipc[:-1]) | (iob[1:] != iob[:-1])
+                           | (iuc[1:] != iuc[:-1] + 1))
+                gs = brk.nonzero()[0]
+                ge = np.append(gs[1:], len(iuc)) - 1
+                if flat:
+                    # hand the column arrays straight to the flat state
+                    z_parts = (obj_a[i + ifi[gs]], C[iuc[gs]],
+                               C[iuc[ge] + 1], pos_a[i + ifi[gs]],
+                               pc_b[ifi[gs]])
+                else:
+                    size_recs = list(zip(
+                        obj_a[i + ifi[gs]].tolist(), C[iuc[gs]].tolist(),
+                        C[iuc[ge] + 1].tolist(), pos_a[i + ifi[gs]].tolist(),
+                        pc_b[ifi[gs]].tolist()))
+            # final recency order: (last toucher, hit/peer/origin phase,
+            # ascending key) — single-touch inserts carry their phase, every
+            # re-touched cell ends as a plain hit touch of its last toucher
+            single = ins_flag & (fi == la)
+            if acc2 is not None:
+                ph = np.where(single, np.where(acc2[d, uc], 1, 2), 0)
+            else:
+                ph = np.where(single, 2, 0)
+            src_rec = np.where(single, pos_a[i + la], -1)
+            o3 = np.lexsort((uc, ph, la))
+            uc3 = uc[o3]; ph3 = ph[o3]
+            la3 = la[o3]; sr3 = src_rec[o3]
+            brk = np.empty(len(uc3), bool)
+            brk[0] = True
+            # the FIFO consumes records front-to-back and chunks ascending
+            # within a record, so records adjacent in commit order with
+            # contiguous ascending keys evict identically whether split or
+            # merged.  Merge maximally: only a key gap or an object change
+            # forces a new record.  Shorter FIFOs make every later eviction
+            # scan cheaper.
+            ob3 = obj_a[i + la3]
+            brk[1:] = (uc3[1:] != uc3[:-1] + 1) | (ob3[1:] != ob3[:-1])
+            # group fusion: consecutive records of one object with strictly
+            # ascending (gap-allowed) key runs share ONE rid and ONE FIFO
+            # record — ascending disjoint runs under a single rid consume
+            # front-to-back exactly like adjacent split records, and the
+            # gaps' keys belong to other rids (evictions filter by rid
+            # ownership).  A group boundary is a subset condition of a
+            # record boundary, so ``r_grp`` is piecewise-constant over the
+            # ``gs`` records.
+            grp_brk = np.empty(len(uc3), bool)
+            grp_brk[0] = True
+            grp_brk[1:] = ((uc3[1:] <= uc3[:-1]) | (ob3[1:] != ob3[:-1]))
+            gs = brk.nonzero()[0]
+            ge = np.append(gs[1:], len(uc3)) - 1
+            r_grp = np.cumsum(grp_brk[gs]) - 1
+            if flat:
+                if z_parts is None:
+                    e_ = np.empty(0, np.int64)
+                    z_parts = (e_, e_, e_, e_, e_)
+                st.commit_block_arrays(*z_parts, obj_a[i + la3[gs]],
+                                       C[uc3[gs]], C[uc3[ge] + 1], sr3[gs],
+                                       r_grp)
+            else:
+                rec_recs = list(zip(
+                    obj_a[i + la3[gs]].tolist(), C[uc3[gs]].tolist(),
+                    C[uc3[ge] + 1].tolist(), sr3[gs].tolist()))
+                st.commit_block(size_recs, rec_recs, r_grp)
+
+        def commit_phase(p0: int, b1: int) -> None:
+            """Commit phase ``[p0, b1)``: group its incidence slice by
+            (DTN, cell) — the stable lexsort keeps touchers ascending
+            inside each group — and commit every DTN's merged runs with
+            per-phase first/last attribution."""
+            e0 = int(cum[p0 - 1]) if p0 else 0
+            e1 = int(cum[b1 - 1])
+            if e1 == e0:
+                return
+            cell_p = cell[e0:e1]
+            d_p = d_inc[e0:e1]
+            o_s = np.lexsort((cell_p, d_p))
+            ds = d_p[o_s]
+            cs = cell_p[o_s]
+            iq = inc[e0:e1][o_s]
+            nrun = np.empty(len(ds), bool)
+            nrun[0] = True
+            nrun[1:] = (ds[1:] != ds[:-1]) | (cs[1:] != cs[:-1])
+            g0 = nrun.nonzero()[0]
+            g1 = np.append(g0[1:], len(ds)) - 1
+            ud = ds[g0]
+            for d in active:
+                s0, s1 = np.searchsorted(ud, (d, d + 1))
+                if s1 == s0:
+                    continue
+                gg0 = g0[s0:s1]
+                gg1 = g1[s0:s1]
+                uc = cs[gg0]
+                fi = iq[gg0]
+                la = iq[gg1]
+                # a cell is this phase's insert iff its block-level first
+                # touch lands in this phase and missed the block snapshot;
+                # cells inserted by an earlier phase and re-touched here
+                # commit as plain hit touches
+                ins_flag = (~snap[d, uc]) & (first2[d, uc] == fi)
+                commit_one(states[d], d, uc, fi, la, ins_flag)
+
+        # ---- phase loop ---------------------------------------------------
+        # Per-phase commits are mandatory: the next boundary's eviction
+        # walks the FIFO, so every cell touched in a committed phase must
+        # carry its phase-last recency stamp before that walk — an
+        # uncommitted touch would leave a pre-block record at the FIFO
+        # front that the reference had already re-queued to the back.
+        was_trunc = False
+        n_phase = 0
+        if b1 == B:
+            # single full-block phase (no pressure, or the clean evictable
+            # prefix covers the whole block): scatter-based last-touch
+            # attribution, one commit per DTN
+            evict_phase(0, B)
+            last2 = np.full((n_dtn, M), -1, np.int64)
+            # forward scatter, last-wins: each (DTN, cell)'s last toucher
+            last2[d_inc, cell] = inc
+            for d in active:
+                row = last2[d]
+                uc = (row >= 0).nonzero()[0]  # ascending touched cells
+                if len(uc):
+                    commit_one(states[d], d, uc, first2[d, uc], row[uc],
+                               ~snap[d, uc])
+            B_final = B
+            n_phase = 1
+        else:
+            p0 = 0
+            b_next = b1
+            while True:
+                evict_phase(p0, b_next)
+                commit_phase(p0, b_next)
+                n_phase += 1
+                if p0:
+                    ctr["phases"] += 1
+                p0 = b_next
+                if p0 == B or n_phase >= _FUSED_PHASE_MAX:
+                    # block done — or the per-boundary suffix work has been
+                    # paid enough times: end the block cleanly here and let
+                    # the next (adaptively resized) block pick up
+                    break
+                b_next = plan_boundary(p0)
+                if b_next == p0:
+                    # no progress possible: the boundary request is the
+                    # blocker (oversized insert or an empty clean prefix)
+                    was_trunc = True
+                    break
+            B_final = p0
+        # ---- per-request / per-DTN accounting (committed extent) ----------
+        j = i + B_final
+        if B_final < B:
+            e_i = int(cum[B_final - 1])
+            B = B_final
+            inc = inc[:e_i]; cell = cell[:e_i]
+            hit = hit[:e_i]
+            ni = int(ins_inc.searchsorted(B_final))
+            ins_inc = ins_inc[:ni]; ins_cell = ins_cell[:ni]
+            ins_d = ins_d[:ni]; ins_len = ins_len[:ni]
+            acc = acc[:ni]
+            if acc2 is not None:
+                src = src[:ni]; best_bw = best_bw[:ni]
+            dt_b = dt_b[:B_final]; pc_b = pc_b[:B_final]
+            n_ins = ni
+        hit_i = hit.nonzero()[0]
+        hlen = cell_len[cell[hit_i]]
+        nh_b = np.bincount(inc[hit_i], weights=hlen,
+                           minlength=B).astype(np.int64)
+        nm_b = np.bincount(ins_inc, weights=ins_len,
+                           minlength=B).astype(np.int64)
+        for d in active:
+            md = dt_b == d
+            if not md.any():
+                continue
+            st = states[d]
+            st.hits += int(nh_b[md].sum())
+            st.hit_bytes += int((nh_b[md] * pc_b[md]).sum())
+            st.misses += int(nm_b[md].sum())
+            st.miss_bytes += int((nm_b[md] * pc_b[md]).sum())
+        nh_loc[i:j] = nh_b
+        if n_ins:
+            na = np.bincount(ins_inc[acc], weights=ins_len[acc],
+                             minlength=B).astype(np.int64)
+            acc_loc[i:j] = na
+            still_loc[i:j] = nm_b - na
+            if acc.any():
+                pdt_loc[i:j] = np.bincount(
+                    ins_inc[acc],
+                    weights=ins_len[acc]
+                    * (pc_b[ins_inc[acc]] / best_bw[acc]),
+                    minlength=B)
+                peer_ranges.extend(coalesce_peer_ranges(
+                    pos_a[i + ins_inc[acc]], ins_d[acc], src[acc],
+                    C[ins_cell[acc]], C[ins_cell[acc] + 1]))
+        i = j
+        if was_trunc:
+            ctr["trunc"] += 1
+            # the blocker request is served scalarly right away (exact for
+            # oversize inserts and eviction pressure alike)
+            if i < n:
+                serve_scalar(i)
+                i += 1
+            degen += 1 if B_final < 8 else 0
+            blk = max(256, blk >> 1)
+        else:
+            degen = 0
+            if n_phase > 12:
+                # heavy phasing: each boundary pays an O(suffix) key merge
+                # and plan, so size the next block to land near ~8 phases
+                blk = max(256, min(65536, (B_final * 8) // n_phase))
+            elif cap_nb:
+                # the incidence cap cut this block down from ``blk``; size
+                # the next block near the achieved cut so its first
+                # decomposition pass is not paid at many times the kept size
+                blk = max(256, min(65536, cap_nb + (cap_nb >> 2)))
+            else:
+                blk = min(blk << 1, 65536)
+    if blk_state is not None:
+        blk_state["blk"] = blk
+        blk_state["degen"] = degen
+    return nh_loc, acc_loc, pdt_loc, still_loc, peer_ranges
+
+
+class IntervalVDCSimulator(VectorVDCSimulator):
+    """Third replay engine: interval-algebra presence tracking (see the
+    module-section comment above).
+
+    Drop-in for the other engines.  The static LRU serving path goes
+    through a small *replay planner*:
+
+    - in the **coarse regime** (mean chunk positions per live request below
+      ``SWEEP_MIN_CHUNKS_PER_REQ``) it runs the **fused block-over-
+      intervals replay** (:meth:`_run_fused` / :func:`_fused_block_replay`):
+      the vector engine's block discipline — block-start snapshot,
+      first/last-coverage classification, truncation so nothing in-block is
+      ever evicted — executed directly on :class:`FlatIntervalState`, with
+      run-level peer resolution, run-merge commits and run-split evictions
+      instead of per-chunk radix sorts and scatters;
+    - in the **fine-chunking regime** (sub-five-minute chunks on the
+      paper's traces) it runs the sequential global sweep
+      (:meth:`_run_sweep`) on :class:`IntervalLRUState`, whose per-request
+      cost is governed by *segment* counts, not chunk counts.
+
+    A :class:`StreamingRequestSource` with a ``tr_bounds`` hint takes the
+    same two routes window by window (:meth:`_run_stream_interval`).
+
+    Strategies with dynamic events (prefetch / streaming / placement), LFU
+    caches and ``use_cache=False`` runs always delegate to the inherited
+    vector paths.  All routes produce identical integer counters
+    (``tests/test_torch_engine_interval.py``).
+    """
+
+    #: auto-planner threshold: mean chunk positions per live request above
+    #: which the interval sweep beats block replay (measured crossover on
+    #: the 2-core reference container lies between 55 and 280)
+    SWEEP_MIN_CHUNKS_PER_REQ = 96.0
+
+    #: filled by the last static interval run: accepted peer transfers as
+    #: coalesced (req_pos, dtn, src, key_lo, key_hi) ranges
+    last_peer_fetches: list
+
+    def run(self, requests: Sequence[Request], name: str = "") -> SimResult:
+        self.last_peer_fetches = []
+        stream_engine = getattr(self.pf, "streaming", None)
+        static = (self.placement is None and stream_engine is None
+                  and getattr(self.pf, "static", False))
+        eligible = (static and self.use_cache
+                    and self.cfg.cache_policy.lower() == "lru")
+        if isinstance(requests, StreamingRequestSource):
+            # A source without a tr-bounds hint cannot pre-size the key
+            # space and falls back to the inherited (equally exact) vector
+            # streaming path.  ``last_peer_fetches`` stays empty in
+            # streaming mode — accumulating it would grow with the trace.
+            if eligible and requests.tr_bounds is not None:
+                return self._run_stream_interval(requests, name)
+            return super().run(requests, name)
+        if not eligible:
+            return super().run(requests, name)
+        return self._run_static_interval(requests, name)
+
+    # -- dispatcher ----------------------------------------------------------
+
+    def _run_static_interval(self, requests: Sequence[Request],
+                             name: str) -> SimResult:
+        cfg = self.cfg
+        arr = requests_to_arrays(requests)
+        n_req = len(arr)
+        scale = 1.0 / cfg.traffic_scale
+        now_arr = arr.ts * scale
+        first, n_chunks = chunk_bounds_bulk(
+            arr.tr_start, np.minimum(arr.tr_end, now_arr), cfg.chunk_seconds)
+        zero = (n_chunks == 0) | (arr.size_bytes == 0)
+        k_eff = np.where(zero, 0, n_chunks)
+        per_chunk = np.maximum(1, arr.size_bytes // np.maximum(1, n_chunks))
+        dtn_arr = arr.continent + 1
+        live = k_eff > 0
+        if live.any():
+            lo_min = int(first[live].min())
+            hi_max = int((first + k_eff)[live].max())
+        else:
+            lo_min, hi_max = 0, 1
+        off = max(0, -lo_min) + 8
+        span = hi_max + off + 8
+        n_live = int(live.sum())
+        mean_k = float(k_eff[live].sum()) / n_live if n_live else 0.0
+        P = dict(arr=arr, n_req=n_req, now=now_arr, zero=zero, k_eff=k_eff,
+                 pc=per_chunk, dtn=dtn_arr, obj=arr.obj,
+                 base=arr.obj * span + first + off, mean_k=mean_k)
+        if mean_k < self.SWEEP_MIN_CHUNKS_PER_REQ:
+            # coarse regime: the fused block-over-intervals replay (inline
+            # peers against block snapshots — always exact)
+            out = self._run_fused(P)
+        else:
+            # fine regime: the sequential sweep
+            out = self._run_sweep(P)
+        return self._finish(P, out, name)
+
+    # -- streaming entry (windowed static-LRU interval replay) ---------------
+
+    def _run_stream_interval(self, source: StreamingRequestSource,
+                             name: str) -> SimResult:
+        """Static-LRU interval replay over a windowed source.
+
+        The dense key space is fixed up front from the source's
+        ``tr_bounds`` hint instead of the trace's observed chunk extremes.
+        That is a pure renaming of chunk keys — per-object key ranges stay
+        separated by >= 8 keys, so run merges, commits and evictions are
+        position-identical to the materialized run — which lets every
+        window share one address space with no remapping.  Interval states,
+        the sweep's peer-candidate order, the fused/sweep route (picked
+        from the first window's mean chunk count) and phase C's origin
+        queue persist across windows; per-request state is recomputed per
+        window, so peak memory is bounded by the window size plus the
+        capacity-bounded interval sets."""
+        cfg = self.cfg
+        cs = cfg.chunk_seconds
+        tr_lo, tr_hi = source.tr_bounds
+        c_lo = int(math.floor(tr_lo / cs))
+        c_hi = int(math.ceil(tr_hi / cs)) + 1
+        off = max(0, -c_lo) + 8
+        span = c_hi + off + 8
+        scale = 1.0 / cfg.traffic_scale
+        cap = cfg.cache_bytes
+        states: dict | None = None
+        sweep_cands = None
+        free = [0.0] * cfg.n_service_procs
+        ov = cfg.origin_latency_s
+        bw0 = self._bw0
+        inf = float("inf")
+        submit = origin_submit
+        agg = OutcomeAggregate()
+        origin_requests = 0
+        n_total = 0
+        pos0 = 0
+        # adaptive block sizing persists across window edges, so a churn
+        # regime discovered in one window is not re-learned in the next
+        blk_state: dict = {}
+        for window in source.windows():
+            arr = requests_to_arrays(window)
+            n_req = len(arr)
+            now_arr = arr.ts * scale
+            first, n_chunks = chunk_bounds_bulk(
+                arr.tr_start, np.minimum(arr.tr_end, now_arr), cs)
+            zero = (n_chunks == 0) | (arr.size_bytes == 0)
+            k_eff = np.where(zero, 0, n_chunks)
+            per_chunk = np.maximum(1, arr.size_bytes // np.maximum(1, n_chunks))
+            dtn_arr = arr.continent + 1
+            live = np.nonzero(k_eff > 0)[0]
+            if len(live):
+                if (int(first[live].min()) < c_lo
+                        or int((first + k_eff)[live].max()) > c_hi):
+                    raise ValueError(
+                        "streaming source emitted a chunk range outside its "
+                        "tr_bounds hint")
+            if states is None:
+                n_live = len(live)
+                mean_k = (float(k_eff[live].sum()) / n_live) if n_live else 0.0
+                fused = mean_k < self.SWEEP_MIN_CHUNKS_PER_REQ
+                cls = FlatIntervalState if fused else IntervalLRUState
+                states = {d: cls(cap)
+                          for d in range(1, self.n_dtn)}
+                self.caches = states
+                if not fused:
+                    sweep_cands = _peer_cands(self.bw, self.n_dtn)
+            base = arr.obj * span + first + off
+            lo_a = base[live]
+            nh_full = np.zeros(n_req, np.int64)
+            o_peer = np.zeros(n_req, np.int64)
+            o_pt = np.zeros(n_req, np.float64)
+            n_still = np.zeros(n_req, np.int64)
+            if sweep_cands is None:
+                nh_l, acc_l, pdt_l, still_l, _ = _fused_block_replay(
+                    states, self.bw, cfg.enable_peer_cache,
+                    pos0 + live, dtn_arr[live], arr.obj[live], lo_a,
+                    lo_a + k_eff[live], per_chunk[live], ctr=self._ctr,
+                    blk_state=blk_state)
+                nh_full[live] = nh_l
+                o_peer[live] = acc_l * per_chunk[live]
+                o_pt[live] = pdt_l
+                tra = nh_full * (per_chunk / self._ulink)
+                tra[live] += pdt_l
+                n_still[live] = still_l
+            else:
+                peer_ranges: list = []   # window-local, dropped (bounded mem)
+                nh_l, miss_pos, miss_acc, miss_pdt, miss_still = _sweep_serve(
+                    states, sweep_cands, cfg.enable_peer_cache,
+                    dtn_arr[live].tolist(), arr.obj[live].tolist(),
+                    lo_a.tolist(), k_eff[live].tolist(),
+                    per_chunk[live].tolist(), (pos0 + live).tolist(),
+                    peer_ranges)
+                nh_full[live] = nh_l
+                tra = nh_full * (per_chunk / self._ulink)
+                if miss_pos:
+                    midx = live[miss_pos]
+                    o_peer[midx] = (np.asarray(miss_acc, np.int64)
+                                    * per_chunk[midx])
+                    o_pt[midx] = miss_pdt
+                    tra[midx] += miss_pdt
+                    n_still[midx] = miss_still
+            # phase C against the persistent origin queue: the submit
+            # sequence is the trace-order (now, duration) sequence, so
+            # per-window replay is arithmetic-identical to whole-trace
+            o_lat = np.zeros(n_req, np.float64)
+            o_org = np.zeros(n_req, np.int64)
+            nz = np.nonzero(n_still)[0]
+            if len(nz):
+                lat_l: list[float] = []
+                dtr_l: list[float] = []
+                ob_l = (per_chunk[nz] * n_still[nz]).tolist()
+                for now, d, ob in zip(now_arr[nz].tolist(),
+                                      dtn_arr[nz].tolist(), ob_l):
+                    b = bw0[d]
+                    start, end = submit(free, ov, now,
+                                        ob / b if b > 0.0 else inf)
+                    lat_l.append(start - now)
+                    dtr_l.append(end - start)
+                o_lat[nz] = lat_l
+                tra[nz] += dtr_l
+                o_org[nz] = per_chunk[nz] * n_still[nz]
+            o_loc = nh_full * per_chunk
+            o_bytes = np.where(zero, 0, arr.size_bytes)
+            agg.add_columns(o_bytes, o_lat, tra, o_loc,
+                            np.zeros(n_req, np.int64), o_peer, o_org, o_pt)
+            origin_requests += int((o_org > 0).sum())
+            n_total += n_req
+            pos0 += n_req
+        if states is None:
+            states = {d: IntervalLRUState(cap)
+                      for d in range(1, self.n_dtn)}
+            self.caches = states
+        stats = {d: st.to_cache_stats() for d, st in states.items()}
+        return SimResult(
+            name=name or self.pf.name,
+            outcomes=[],
+            origin_requests=origin_requests,
+            total_requests=n_total,
+            prefetch_issued_chunks=0,
+            prefetch_used_chunks=0,
+            cache_stats=stats,
+            stream_pushes=0,
+            aggregate=agg,
+            evict_plan_calls=self._ctr["plan"],
+            block_truncations=self._ctr["trunc"],
+            degenerate_serves=self._ctr["degen"],
+            block_phases=self._ctr["phases"],
+            inblock_victims=self._ctr["invict"],
+        )
+
+    # -- global fused block replay (coarse-regime default) -------------------
+
+    def _run_fused(self, P: dict) -> dict:
+        """Replay the whole trace through :func:`_fused_block_replay`: the
+        vector engine's block discipline (snapshot + truncation) executed
+        on interval state, with run-level peer resolution and commits."""
+        cfg = self.cfg
+        n_req = P["n_req"]
+        live = np.nonzero(~P["zero"])[0]
+        lo_a = P["base"][live]
+        cap = cfg.cache_bytes
+        states = {d: FlatIntervalState(cap)
+                  for d in range(1, self.n_dtn)}
+        nh_l, acc_l, pdt_l, still_l, peer_ranges = _fused_block_replay(
+            states, self.bw, cfg.enable_peer_cache,
+            live, P["dtn"][live], P["obj"][live], lo_a,
+            lo_a + P["k_eff"][live], P["pc"][live], ctr=self._ctr)
+        per_chunk = P["pc"]
+        nh_full = np.zeros(n_req, np.int64)
+        nh_full[live] = nh_l
+        o_peer = np.zeros(n_req, np.int64)
+        o_peer[live] = acc_l * P["pc"][live]
+        o_pt = np.zeros(n_req, np.float64)
+        o_pt[live] = pdt_l
+        tra = nh_full * (per_chunk / self._ulink)
+        tra[live] += pdt_l
+        n_still_arr = np.zeros(n_req, np.int64)
+        n_still_arr[live] = still_l
+        stats = {d: st.to_cache_stats() for d, st in states.items()}
+        self.caches = states
+        return dict(nh=nh_full, tra=tra, o_peer=o_peer, o_pt=o_pt,
+                    n_still=n_still_arr, stats=stats,
+                    peer_ranges=peer_ranges)
+
+    # -- sequential global sweep (inline peer resolution; always exact) ------
+
+    def _run_sweep(self, P: dict) -> dict:
+        """Replay the whole trace in order, one DTN cache state per DTN:
+        hit/miss split and LRU touch by interval intersection, peer fetch
+        ranges resolved *inline* against the other caches' current coverage
+        (so the reference's peer-before-origin insert order is applied
+        exactly, with no audit needed), origin-queue submits deferred to a
+        trace-order replay after the sweep."""
+        cfg = self.cfg
+        n_req = P["n_req"]
+        live = np.nonzero(~P["zero"])[0]
+        idx_l = live.tolist()
+        dtn_l = P["dtn"][live].tolist()
+        obj_l = P["obj"][live].tolist()
+        lo_l = P["base"][live].tolist()
+        k_l = P["k_eff"][live].tolist()
+        pc_l = P["pc"][live].tolist()
+        cap = cfg.cache_bytes
+        states = {d: IntervalLRUState(cap)
+                  for d in range(1, self.n_dtn)}
+        cands = _peer_cands(self.bw, self.n_dtn)
+        peer_ranges: list[tuple] = []
+        nh_l, miss_pos, miss_acc, miss_pdt, miss_still = _sweep_serve(
+            states, cands, cfg.enable_peer_cache, dtn_l, obj_l, lo_l, k_l,
+            pc_l, idx_l, peer_ranges)
+        per_chunk = P["pc"]
+        nh_full = np.zeros(n_req, np.int64)
+        nh_full[live] = nh_l
+        o_peer = np.zeros(n_req, np.int64)
+        o_pt = np.zeros(n_req, np.float64)
+        tra = nh_full * (per_chunk / self._ulink)
+        n_still_arr = np.zeros(n_req, np.int64)
+        if miss_pos:
+            midx = live[miss_pos]
+            o_peer[midx] = np.asarray(miss_acc, np.int64) * per_chunk[midx]
+            o_pt[midx] = miss_pdt
+            tra[midx] += miss_pdt
+            n_still_arr[midx] = miss_still
+        stats = {d: st.to_cache_stats() for d, st in states.items()}
+        self.caches = states
+        return dict(nh=nh_full, tra=tra, o_peer=o_peer, o_pt=o_pt,
+                    n_still=n_still_arr, stats=stats,
+                    peer_ranges=peer_ranges)
+
+    # -- phase C + result assembly -------------------------------------------
+
+    def _finish(self, P: dict, out: dict, name: str) -> SimResult:
+        """Sequential origin-queue replay in trace order (identical float
+        arithmetic to the reference) and :class:`SimResult` assembly."""
+        cfg = self.cfg
+        n_req = P["n_req"]
+        now_arr = P["now"]
+        per_chunk = P["pc"]
+        dtn_arr = P["dtn"]
+        n_still = out["n_still"]
+        tra = out["tra"]
+        o_lat = np.zeros(n_req, np.float64)
+        o_org = np.zeros(n_req, np.int64)
+        nz = np.nonzero(n_still)[0]
+        if len(nz):
+            free = [0.0] * cfg.n_service_procs
+            ov = cfg.origin_latency_s
+            bw0 = self._bw0
+            inf = float("inf")
+            submit = origin_submit
+            lat_l: list[float] = []
+            dtr_l: list[float] = []
+            ob_l = (per_chunk[nz] * n_still[nz]).tolist()
+            for now, d, ob in zip(now_arr[nz].tolist(),
+                                  dtn_arr[nz].tolist(), ob_l):
+                b = bw0[d]
+                start, end = submit(free, ov, now,
+                                    ob / b if b > 0.0 else inf)
+                lat_l.append(start - now)
+                dtr_l.append(end - start)
+            o_lat[nz] = lat_l
+            tra[nz] += dtr_l
+            o_org[nz] = per_chunk[nz] * n_still[nz]
+        self.last_peer_fetches = out["peer_ranges"]
+        o_loc = out["nh"] * per_chunk
+        arr = P["arr"]
+        o_bytes = np.where(P["zero"], 0, arr.size_bytes)
+        outcomes = _LazyOutcomes((
+            now_arr, arr.user_id, o_bytes, o_lat, tra, o_loc,
+            np.zeros(n_req, np.int64), out["o_peer"], o_org, out["o_pt"]))
+        return SimResult(
+            name=name or self.pf.name,
+            outcomes=outcomes,
+            origin_requests=int((o_org > 0).sum()),
+            total_requests=n_req,
+            prefetch_issued_chunks=0,
+            prefetch_used_chunks=0,
+            cache_stats=out["stats"],
+            stream_pushes=0,
+            evict_plan_calls=self._ctr["plan"],
+            block_truncations=self._ctr["trunc"],
+            degenerate_serves=self._ctr["degen"],
+            block_phases=self._ctr["phases"],
+            inblock_victims=self._ctr["invict"],
+        )
+
+
+def _peer_cands(bw: np.ndarray, n_dtn: int) -> dict[int, list]:
+    """Peer candidates per DTN, best-first: sorted by (-bw, id) a greedy
+    first-holder assignment equals the reference's max-bw/lowest-id rule;
+    peers that cannot beat the origin link are pruned outright."""
+    cands: dict[int, list] = {}
+    for d in range(1, n_dtn):
+        ob = float(bw[0, d])
+        cl = [(float(bw[d2, d]), d2) for d2 in range(1, n_dtn)
+              if d2 != d and float(bw[d2, d]) > ob
+              and float(bw[d2, d]) > 0.0]
+        cl.sort(key=lambda t: (-t[0], t[1]))
+        cands[d] = cl
+    return cands
+
+
+def _sweep_serve(states: dict, cands: dict, enable_peer: bool,
+                 dtn_l: list, obj_l: list, lo_l: list, k_l: list,
+                 pc_l: list, idx_l: list, peer_ranges: list):
+    """Serve one run of live requests through the interval sweep: hit/miss
+    split and LRU touch by interval intersection, peer fetch ranges
+    resolved inline against the other caches' current coverage (the
+    reference's peer-before-origin insert order, applied exactly).
+    Mutates ``states`` and appends accepted transfers to ``peer_ranges``;
+    returns per-request hit counts plus the miss-row columns."""
+    nh_l: list[int] = []
+    miss_pos: list[int] = []
+    miss_acc: list[int] = []
+    miss_pdt: list[float] = []
+    miss_still: list[int] = []
+    for pos, (d, o, lo, kk, pc) in enumerate(
+            zip(dtn_l, obj_l, lo_l, k_l, pc_l)):
+        st = states[d]
+        nh, miss = st.lookup_touch(o, lo, lo + kk, pc)
+        nh_l.append(nh)
+        if not miss:
+            continue
+        ridx = idx_l[pos]
+        n_acc = 0
+        peer_dt = 0.0
+        if enable_peer:
+            unassigned = miss
+            acc_runs: list[tuple[int, int]] = []
+            for bwv, d2 in cands[d]:
+                if not unassigned:
+                    break
+                cov_of = states[d2].coverage_runs
+                rem: list[tuple[int, int]] = []
+                for a, b in unassigned:
+                    p2 = a
+                    for s, e in cov_of(o, a, b):
+                        if s > p2:
+                            rem.append((p2, s))
+                        acc_runs.append((s, e))
+                        n_acc += e - s
+                        peer_dt += (e - s) * (pc / bwv)
+                        peer_ranges.append(
+                            PeerFetchRange(ridx, d, d2, s, e))
+                        p2 = e
+                    if p2 < b:
+                        rem.append((p2, b))
+                unassigned = rem
+            if acc_runs:
+                acc_runs.sort()
+                st.insert_runs(o, acc_runs, pc, ridx)
+            still = unassigned
+        else:
+            still = miss
+        n_still = 0
+        if still:
+            n_still = sum(b - a for a, b in still)
+            st.insert_runs(o, still, pc, ridx)
+        miss_pos.append(pos)
+        miss_acc.append(n_acc)
+        miss_pdt.append(peer_dt)
+        miss_still.append(n_still)
+    return nh_l, miss_pos, miss_acc, miss_pdt, miss_still

@@ -64,15 +64,15 @@ USER_LINK_GBPS = 100.0
 
 @dataclasses.dataclass
 class SimConfig:
-    """Configuration of one VDC replay (shared verbatim by the reference
-    and vector engines — which is what makes their counter-equivalence
-    contract meaningful; see ``docs/ARCHITECTURE.md``).
+    """Configuration of one VDC replay (shared verbatim by all three
+    engines — reference, vector, interval — which is what makes their
+    counter-equivalence contract meaningful; see
+    ``tests/test_torch_engine_interval.py`` and ``docs/ARCHITECTURE.md``).
 
     Fields are grouped as: cache layer (policy/budget/chunking), WAN and
     origin service model (paper §V-A1), and the engine execution knob
     ``batched_prediction``, which changes *how* a result is computed but
-    never *what* it is.  The interval engine's knobs arrive with that
-    engine.
+    never *what* it is.
     """
 
     cache_policy: str = "lru"
@@ -649,9 +649,10 @@ def run_strategy(
 ) -> SimResult:
     """Run one named strategy: no_cache | cache_only | md1 | md2 | hpm.
 
-    ``engine`` selects the replay implementation (both are pinned to
-    identical integer counters; see ``docs/ARCHITECTURE.md`` for the layer
-    map):
+    ``engine`` selects the replay implementation (all three are pinned to
+    identical integer counters by ``tests/test_torch_engine.py`` and
+    ``tests/test_torch_engine_interval.py``; see ``docs/ARCHITECTURE.md``
+    for the layer map):
 
     - ``"vector"`` (default): the array-backed batch-replay engine
       (:mod:`repro_torch.core.engine`) — same results, 1-2 orders of
@@ -659,11 +660,14 @@ def run_strategy(
       support it (hpm), prediction runs in batch mode: the whole-trace op
       stream is planned up front through the ARIMA bank kernel
       (``config.batched_prediction``, on by default).
+    - ``"interval"``: interval-algebra presence tracking for static LRU
+      serving (cache_only), through a fused block replay for coarse chunks
+      and a per-request sweep for fine ones; dynamic strategies and LFU
+      delegate to the vector machinery.  The only engine whose per-request
+      cost is independent of the chunk resolution.
     - ``"reference"``: the per-chunk dict/heap :class:`VDCSimulator` above —
-      the readable semantic baseline the vector engine is verified against,
-      always predicting online via per-request ``observe``.
-    - ``"interval"`` is not ported yet (ROADMAP, "Modules to port": the
-      interval engine) and raises :class:`NotImplementedError`.
+      the readable semantic baseline the other engines are verified
+      against, always predicting online via per-request ``observe``.
 
     ``device`` (CUDA by default) is where the ARIMA fits and the placement
     k-means run; asking for CUDA where there is none raises.
@@ -671,11 +675,7 @@ def run_strategy(
     from repro_torch.core.delivery import make_prefetcher
 
     device = resolve_device(device)
-    if engine == "interval":
-        raise NotImplementedError(
-            "the interval engine is not ported yet (ROADMAP, 'Modules to "
-            "port': interval states and engine); use engine='vector'")
-    if engine not in ("reference", "vector"):
+    if engine not in ("reference", "vector", "interval"):
         raise ValueError(f"unknown engine: {engine!r}")
     pf = make_prefetcher(strategy, grid, training_requests, device=device)
     use_cache = strategy != "no_cache"
@@ -686,9 +686,14 @@ def run_strategy(
     if engine == "reference":
         sim = VDCSimulator(grid, pf, config, use_cache=use_cache,
                            device=device)
-    else:
+    elif engine == "vector":
         from repro_torch.core.engine import VectorVDCSimulator
 
         sim = VectorVDCSimulator(grid, pf, config, use_cache=use_cache,
                                  device=device)
+    else:
+        from repro_torch.core.engine import IntervalVDCSimulator
+
+        sim = IntervalVDCSimulator(grid, pf, config, use_cache=use_cache,
+                                   device=device)
     return sim.run(requests, name=strategy)

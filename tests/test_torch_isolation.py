@@ -1,5 +1,6 @@
 """The port stands alone: ``repro_torch`` imports neither JAX nor ``repro``,
-and its entry points run on CUDA unless the caller asks for the CPU."""
+its entry points run on CUDA unless the caller asks for the CPU, and
+``repro_torch.core`` exports the names ``repro.core`` does."""
 import ast
 import dataclasses
 import os
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import repro.core as J
 import repro_torch.core as T
 from repro_torch.core.arima import ARIMA
 from repro_torch.core.delivery import make_prefetcher
@@ -39,7 +41,8 @@ def _module_names() -> list[str]:
 
 def test_importing_every_module_loads_no_jax_or_repro():
     names = _module_names()
-    assert {"repro_torch.core.engine", "repro_torch.kernels.arima_bank",
+    assert {"repro_torch.core.engine", "repro_torch.core.interval_store",
+            "repro_torch.kernels.arima_bank",
             "repro_torch.kernels.flash_attention",
             "repro_torch.kernels.ssd_scan", "repro_torch.serve.engine",
             "repro_torch.launch.serve"} <= set(names)
@@ -87,6 +90,9 @@ _ENTRY_POINTS = {
     "run_strategy": lambda **kw: run_strategy(
         "cache_only", T.make_trace("ooi", seed=0, scale=0.01)[:50], _GRID,
         SimConfig(), **kw),
+    "run_strategy_interval": lambda **kw: run_strategy(
+        "cache_only", T.make_trace("ooi", seed=0, scale=0.01)[:50], _GRID,
+        SimConfig(), engine="interval", **kw),
     "init_params": lambda **kw: init_params(
         torch.Generator().manual_seed(0), get_reduced_config("yi-6b"), **kw),
     "params_from_numpy": lambda **kw: params_from_numpy(
@@ -107,8 +113,5 @@ def test_entry_points_default_to_cuda_and_raise_without_it(name, monkeypatch):
     _ENTRY_POINTS[name](device="cpu")         # the CPU is asked for: runs
 
 
-def test_interval_engine_not_ported_yet():
-    trace = T.make_trace("ooi", seed=0, scale=0.01)[:50]
-    with pytest.raises(NotImplementedError, match="interval"):
-        run_strategy("cache_only", trace, _GRID, SimConfig(),
-                     engine="interval", device="cpu")
+def test_core_exports_the_same_names_as_repro():
+    assert set(T.__all__) == set(J.__all__)
