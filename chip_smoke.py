@@ -15,7 +15,9 @@ non-zero):
    the register path), NaN positions equal, rows bitwise independent of
    the launch; 256-row and one-row kernel times (CUDA events) and one
    online forecast end to end (``ARIMA(bank=False).forecast_next``);
-3. ``hpm`` on the OOI trace at scale 1.0 (main path);
+3. ``hpm`` on the OOI trace at scale 1.0 (main path); 3b. the k-means
+   Lloyd iterations of each of its ``PlacementEngine.recluster`` calls,
+   on exactly their inputs (CUDA events), and their bound;
 4. ``hpm`` on the ``ooi_arima`` profile at OOI's 400 users (main path):
    every deferred series of at least 4 gaps goes through K1; then, for the
    flushes of phases 3 and 4, K1 on exactly those inputs as the main path
@@ -29,7 +31,8 @@ non-zero):
    identical counters through the vector engine (batched K1 launches) and
    the reference engine (one padded K1 group per prediction);
 7. report the builds of the flash attention (K2) and SSD scan (K3)
-   kernels (their ``nvcc`` runs start with K1's in phase 1);
+   kernels (their ``nvcc`` runs, and the GRU fit's (K4), start with K1's
+   in phase 1);
 8. K2 against its plain version on the JAX package's ``ATTN_SWEEP`` shapes,
    ragged lengths, head dim 160 and the stablelm-12b, gemma3-27b (window)
    and yi-6b prefill shapes: errors, kernel, plain and
@@ -59,7 +62,23 @@ non-zero):
     (``benchmarks/bench_engine.py``'s full-trace settings) windowed through
     each engine in a spawned process (requests/s, peak RSS), and its
     200k-request prefix materialized == windowed.  Each line gives the
-    route the interval engine took and its eviction counters.
+    route the interval engine took and its eviction counters;
+14. K4 (the GRU fit) against its plain version, bitwise, at every bucket
+    (n = 4 ... 60) on the three regimes of
+    ``benchmarks/beyond_rnn_predictor.py`` (40 histories each, one
+    120-row call per bucket on each side); at n = 60 one row's kernel and
+    plain times, one ``GRUPredictor.forecast_next`` end to end, the bound;
+15. ``beyond_rnn_predictor.run`` through the port (main path of K4): 3
+    regimes x 40 forecasts through ``predict_next_timestamp_rnn`` (K4) and
+    ``predict_next_timestamp`` (K1): mean relative errors, microseconds per
+    forecast, launches;
+16. K2 and K3 on their generic routes (the reduced configs' head dims
+    8-20 and paligemma-3b's 256; N, P = 16, 16 and 16, 64) against their
+    plain versions: errors, times, SDPA, bounds;
+17. ``launch/serve.py --reduced --device cuda`` for yi-6b, starcoder2-7b,
+    stablelm-12b, gemma3-27b and mamba2-1.3b: every K2/K3 launch on the
+    generic route, and one prefill through the kernel against the same
+    prefill through its plain version.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -316,6 +335,60 @@ def log_split(name: str, total: float, plans: list, flushes: list) -> None:
         f"engine_and_rest_seconds={total - plan_s:.3f}")
 
 
+def record_kmeans(np):
+    """Wrap the k-means that ``PlacementEngine.recluster`` calls to keep
+    ``(features, k, seed)`` of every call; returns the list and a function
+    that restores it."""
+    from repro_torch.core import placement as P
+    calls: list = []
+    inner = P.kmeans
+
+    def recording(x, k, *args, **kw):
+        calls.append((np.asarray(x, np.float32).copy(), k, kw.get("seed", 0)))
+        return inner(x, k, *args, **kw)
+
+    P.kmeans = recording
+    return calls, lambda: setattr(P, "kmeans", inner)
+
+
+def kmeans_phase(torch, np, calls, dev) -> dict:
+    """Phase 3b: the Lloyd iterations (``core/kmeans.py::_lloyd``, eager
+    torch ops on the card) of every ``PlacementEngine.recluster`` of the
+    phase 3 replay, on exactly its inputs, timed with CUDA events; their
+    bound (bytes: features, centres in and out, assignments; operations:
+    ~5 n k dim + 2 n k per iteration)."""
+    import importlib
+    # the module, not the function repro_torch.core re-exports under its name
+    KM = importlib.import_module("repro_torch.core.kmeans")
+    iters = 25                      # kmeans()'s default, which recluster uses
+    total_ms, work, shapes = 0.0, [], {}
+    for x, k, seed in calls:
+        k = min(k, len(x))
+        c0 = KM._kmeanspp_init(x, k, np.random.default_rng(seed))
+        xt = torch.from_numpy(x).to(dev)
+        ct = torch.from_numpy(c0).to(dev)
+        total_ms += cuda_ms(lambda: KM._lloyd(xt, ct, k, iters), reps=3)
+        n, dim = x.shape
+        shapes[(n, k, dim)] = shapes.get((n, k, dim), 0) + 1
+        work.append((n * dim * 4 + 2 * k * dim * 4 + n * 8 + 4,
+                     (iters + 1) * (5 * n * k * dim + 2 * n * k)))
+    nbytes = sum(b for b, _ in work)
+    bound, by = bound_ms(work)
+    rec = {"calls": len(calls),
+           "ms_per_recluster": total_ms / max(len(calls), 1),
+           "ms_per_replay": total_ms, "bound_ms_per_replay": bound,
+           "bound_by": by,
+           "bytes_bound_ms_per_replay": nbytes / HBM_BYTES_PER_S * 1e3}
+    log(f"ooi hpm k-means: recluster_calls={rec['calls']} lloyd_ms_per_"
+        f"recluster={rec['ms_per_recluster']:.4f} lloyd_ms_per_replay="
+        f"{total_ms:.3f} bound_ms_per_replay={bound:.6f} ({by}) "
+        f"bytes_bound_ms_per_replay={rec['bytes_bound_ms_per_replay']:.6f} "
+        f"shapes_n_k_dim={dict(sorted(shapes.items())[:6])}")
+    if not calls:
+        raise AssertionError("ooi hpm: PlacementEngine never reclustered")
+    return rec
+
+
 def run_main_path(T, K, name, test, train, profile, dev, strategy="hpm",
                   engine="vector"):
     cfg = T.SimConfig(stream_rate_bytes_per_s=profile.bytes_per_second_stream,
@@ -465,12 +538,16 @@ def drive(torch, np, T, T_arima, K, dev, ooi_scale: float = 1.0,
     cut = int(len(ooi) * 0.3)
     ooi_train, ooi_test = ooi[:cut], ooi[cut:]
     log(f"trace seconds={time.perf_counter() - t0:.2f} requests={len(ooi)}")
+    km_calls, restore_km = record_kmeans(np)
     _, launches3, rows3, dt3 = run_main_path(T, K, "ooi", ooi_test,
                                              ooi_train, T.OOI_PROFILE, dev)
+    restore_km()
     if launches3 == 0 or not seen:
         raise AssertionError("ooi hpm: K1 never ran")
     log_split("ooi hpm", dt3, plans, seen)
     flush3 = list(seen)
+    log("== phase 3b: k-means per PlacementEngine.recluster (OOI hpm)")
+    kmeans_phase(torch, np, km_calls, dev)
 
     log(f"== phase 4: hpm on ooi_arima, {arima_users} users")
     profile, train, test = ooi_arima_trace(T, arima_users)
@@ -641,121 +718,148 @@ def live_pairs(s: int, window) -> int:
     return sum(min(i + 1, window) for i in range(s))
 
 
+def k2_case(torch, K2, dev, gen, shape) -> dict:
+    """One K2 shape: the kernel against its plain version, its time (CUDA
+    events), SDPA's and the bound; logs one line and returns the numbers."""
+    F = torch.nn.functional
+    b, s, hq, hkv, d, window, dname, tol = shape
+    dtype = getattr(torch, dname)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev
+                           ).to(dtype) for h in (hq, hkv, hkv))
+    got = K2.flash_attention(q, k, v, window=window)
+    out = {}
+
+    def plain():
+        out["want"] = K2.flash_attention_plain(q, k, v, window=window)
+
+    plain_ms = cuda_ms(plain, reps=1, warmup=False)
+    err, ratio = close(f"K2 {(b, s, hq, hkv, d, window, dname)}", got,
+                       out["want"], tol)
+    ms = cuda_ms(lambda: K2.flash_attention(q, k, v, window=window),
+                 reps=10)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    if window is None:
+        def sdpa():
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True)
+    else:
+        pos = torch.arange(s, device=dev)
+        mask = (pos[:, None] >= pos[None, :]) & \
+            (pos[:, None] - pos[None, :] < window)
+
+        def sdpa():
+            F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                           enable_gqa=True)
+    lib_ms = cuda_ms(sdpa, reps=10)
+    esize = q.element_size()
+    nbytes = (2 * b * s * hq * d + 2 * b * s * hkv * d) * esize
+    flops = 4 * d * live_pairs(s, window) * hq * b
+    bound, by = roofline(nbytes, flops, dtype)
+    f32_bound = flops / F32_FLOP_PER_S * 1e3
+    bf16_bound = flops / BF16_FLOP_PER_S * 1e3
+    path = K2.route(d, dtype)
+    log(f"K2 b={b} s={s} hq={hq} hkv={hkv} d={d} window={window} "
+        f"{dname} route={path}: max_abs_err={err:.3g} "
+        f"err_over_allowance={ratio:.3g} (tol {tol}) kernel_ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
+        f"bound_ms={bound:.5f} ({by}) f32_fma_bound_ms={f32_bound:.5f} "
+        f"gflop={flops / 1e9:.3f} tflop_per_s={flops / ms / 1e9:.2f} "
+        f"share_of_bf16_bound={bf16_bound / ms:.4f} "
+        f"kernel_over_sdpa={ms / lib_ms:.3f}")
+    return {"shape": f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} window={window} "
+                     f"{dname}", "route": path, "max_abs_err": err,
+            "err_over_allowance": ratio, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
+            "f32_fma_bound_ms": f32_bound}
+
+
 def phase_k2(torch, K2, dev) -> dict:
     log("== phase 8: K2 (flash attention) vs plain")
-    F = torch.nn.functional
     gen = torch.Generator(device=dev).manual_seed(8)
-    worst = 0.0
-    for b, s, hq, hkv, d, window, dname, tol in ATTN_SHAPES:
-        dtype = getattr(torch, dname)
-        q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev
-                               ).to(dtype) for h in (hq, hkv, hkv))
-        got = K2.flash_attention(q, k, v, window=window)
-        out = {}
-
-        def plain():
-            out["want"] = K2.flash_attention_plain(q, k, v, window=window)
-
-        plain_ms = cuda_ms(plain, reps=1, warmup=False)
-        err, ratio = close(f"K2 {(b, s, hq, hkv, d, window, dname)}", got,
-                           out["want"], tol)
-        worst = max(worst, err)
-        ms = cuda_ms(lambda: K2.flash_attention(q, k, v, window=window),
-                     reps=10)
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        if window is None:
-            def sdpa():
-                F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                               enable_gqa=True)
-        else:
-            pos = torch.arange(s, device=dev)
-            mask = (pos[:, None] >= pos[None, :]) & \
-                (pos[:, None] - pos[None, :] < window)
-
-            def sdpa():
-                F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                               enable_gqa=True)
-        lib_ms = cuda_ms(sdpa, reps=10)
-        esize = q.element_size()
-        nbytes = (2 * b * s * hq * d + 2 * b * s * hkv * d) * esize
-        flops = 4 * d * live_pairs(s, window) * hq * b
-        bound, by = roofline(nbytes, flops, dtype)
-        f32_bound = flops / F32_FLOP_PER_S * 1e3
-        bf16_bound = flops / BF16_FLOP_PER_S * 1e3
-        log(f"K2 b={b} s={s} hq={hq} hkv={hkv} d={d} window={window} "
-            f"{dname}: max_abs_err={err:.3g} err_over_allowance={ratio:.3g} "
-            f"(tol {tol}) kernel_ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
-            f"bound_ms={bound:.5f} ({by}) f32_fma_bound_ms={f32_bound:.5f} "
-            f"gflop={flops / 1e9:.3f} tflop_per_s={flops / ms / 1e9:.2f} "
-            f"share_of_bf16_bound={bf16_bound / ms:.4f} "
-            f"kernel_over_sdpa={ms / lib_ms:.3f}")
+    cases = [k2_case(torch, K2, dev, gen, shape) for shape in ATTN_SHAPES]
     # the last shape is the main path's: its numbers go into the record
+    main = cases[-1]
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:132 "
                         "(pallas_call of _flash_kernel in "
                         "flash_attention_pallas)",
-            "launches": 0, "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": lib_ms,
-            "f32_fma_bound_ms": f32_bound,
+            "launches": 0,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            **{key: main[key] for key in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms",
+                                          "f32_fma_bound_ms")},
             "shape": "B=1 S=2000 Hq=32 Hkv=4 D=128 bf16"}
+
+
+def k3_case(torch, K3, dev, gen, shape) -> dict:
+    """One K3 shape: the kernel against its plain version (the exact
+    recurrence), its time (CUDA events), the bound and its CUDA kernels
+    per call; logs one line and returns the numbers."""
+    bt, s, h, p, g, n, dname, tol = shape
+    dtype = getattr(torch, dname)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x = randn(bt, s, h, p).to(dtype)
+    dt = torch.nn.functional.softplus(randn(bt, s, h))
+    A = -torch.exp(randn(h) * 0.5)
+    B, C = randn(bt, s, g, n).to(dtype), randn(bt, s, g, n).to(dtype)
+    y, state = K3.ssd_scan(x, dt, A, B, C)
+    out = {}
+
+    def plain():
+        out["want"] = K3.ssd_scan_plain(x, dt, A, B, C)
+
+    plain_ms = cuda_ms(plain, reps=1, warmup=False)
+    name = f"K3 {(bt, s, h, p, g, n, dname)}"
+    (e_y, r_y), (e_s, r_s) = (close(name + " y", y, out["want"][0], tol),
+                              close(name + " state", state,
+                                    out["want"][1], tol))
+    err, ratio = max(e_y, e_s), max(r_y, r_s)
+    ms = cuda_ms(lambda: K3.ssd_scan(x, dt, A, B, C), reps=10)
+    esize = x.element_size()
+    nbytes = (2 * bt * s * h * p + 2 * bt * s * g * n) * esize + \
+        (bt * s * h + h + bt * h * n * p) * 4
+    # the recurrence's work: state * decay + B (dt x) and C . state
+    flops = 5 * n * p * s * h * bt
+    bound, by = roofline(nbytes, flops, dtype)
+    path = K3.route(n, p, dtype)
+    scratch = K3.scratch_bytes(bt, s, h, n, p, dtype)
+    per_call, _ = device_kernels(torch, lambda: K3.ssd_scan(x, dt, A, B, C),
+                                 "ssd_")
+    blocks = bt * K3.n_chunks(s, dtype) * h if path == "chunked" else bt * h
+    log(f"K3 bt={bt} s={s} h={h} p={p} g={g} n={n} {dname} route={path}: "
+        f"max_abs_err={err:.3g} err_over_allowance={ratio:.3g} "
+        f"(tol {tol}) kernel_ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} library_ms=null bound_ms={bound:.5f} "
+        f"({by}) share_of_bytes_bound="
+        f"{nbytes / HBM_BYTES_PER_S * 1e3 / ms:.4f} "
+        f"cuda_kernels_per_call="
+        f"{'not measured' if per_call is None else per_call} "
+        f"blocks={blocks} scratch_bytes={scratch}")
+    return {"shape": f"Bt={bt} S={s} H={h} P={p} G={g} N={n} {dname}",
+            "route": path, "max_abs_err": err, "err_over_allowance": ratio,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound, "bound_by": by,
+            "cuda_kernels_per_call": per_call}
 
 
 def phase_k3(torch, K3, dev) -> dict:
     log("== phase 9: K3 (SSD scan) vs plain (exact recurrence)")
     gen = torch.Generator(device=dev).manual_seed(9)
-    worst = 0.0
-    for bt, s, h, p, g, n, dname, tol in SSD_SHAPES:
-        dtype = getattr(torch, dname)
-
-        def randn(*shape):
-            return torch.randn(shape, generator=gen, device=dev)
-
-        x = randn(bt, s, h, p).to(dtype)
-        dt = torch.nn.functional.softplus(randn(bt, s, h))
-        A = -torch.exp(randn(h) * 0.5)
-        B, C = randn(bt, s, g, n).to(dtype), randn(bt, s, g, n).to(dtype)
-        y, state = K3.ssd_scan(x, dt, A, B, C)
-        out = {}
-
-        def plain():
-            out["want"] = K3.ssd_scan_plain(x, dt, A, B, C)
-
-        plain_ms = cuda_ms(plain, reps=1, warmup=False)
-        name = f"K3 {(bt, s, h, p, g, n, dname)}"
-        (e_y, r_y), (e_s, r_s) = (close(name + " y", y, out["want"][0], tol),
-                                  close(name + " state", state,
-                                        out["want"][1], tol))
-        err, ratio = max(e_y, e_s), max(r_y, r_s)
-        worst = max(worst, err)
-        ms = cuda_ms(lambda: K3.ssd_scan(x, dt, A, B, C), reps=10)
-        esize = x.element_size()
-        nbytes = (2 * bt * s * h * p + 2 * bt * s * g * n) * esize + \
-            (bt * s * h + h + bt * h * n * p) * 4
-        # the recurrence's work: state * decay + B (dt x) and C . state
-        flops = 5 * n * p * s * h * bt
-        bound, by = roofline(nbytes, flops, dtype)
-        chunks = K3.n_chunks(s, dtype)
-        scratch = K3.scratch_bytes(bt, s, h, n, p, dtype)
-        per_call, _ = device_kernels(torch,
-                                     lambda: K3.ssd_scan(x, dt, A, B, C),
-                                     "ssd_")
-        log(f"K3 bt={bt} s={s} h={h} p={p} g={g} n={n} {dname}: "
-            f"max_abs_err={err:.3g} err_over_allowance={ratio:.3g} "
-            f"(tol {tol}) kernel_ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} library_ms=null bound_ms={bound:.5f} "
-            f"({by}) share_of_bytes_bound={nbytes / HBM_BYTES_PER_S * 1e3 / ms:.4f} "
-            f"cuda_kernels_per_call={per_call} "
-            f"chunk_blocks={bt * chunks * h} scratch_bytes={scratch}")
+    cases = [k3_case(torch, K3, dev, gen, shape) for shape in SSD_SHAPES]
+    main = cases[-1]
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:98 (pallas_call of "
                         "_ssd_kernel in ssd_scan_pallas)",
-            "launches": 0, "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": None, "cuda_kernels_per_call": per_call,
+            "launches": 0,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            **{key: main[key] for key in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms",
+                                          "cuda_kernels_per_call")},
             "shape": "Bt=1 S=2048 H=64 P=64 G=1 N=128 bf16"}
 
 
@@ -938,20 +1042,26 @@ def stablelm_phase(torch, K2, dev) -> int:
     return launches
 
 
-def device_kernels(torch, fn, key: str) -> tuple[int, float]:
+def device_kernels(torch, fn, key: str) -> tuple[int | None, float]:
     """CUDA kernels whose name holds ``key`` that one call of ``fn`` ran,
-    and their device milliseconds, as ``torch.profiler`` traced them."""
+    and their device milliseconds, as ``torch.profiler`` traced them.  A
+    profiling run on the card now and then records no kernel at all (seen
+    for K3 calls that ran and were right): such a run is repeated, and
+    after three empty ones the count is ``None``, not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    ours = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and key in e.key]
-    return (sum(e.count for e in ours),
-            sum(e.self_device_time_total for e in ours) / 1e3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ours = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and key in e.key]
+        if ours:
+            return (sum(e.count for e in ours),
+                    sum(e.self_device_time_total for e in ours) / 1e3)
+    return None, 0.0
 
 
 def profile_request(torch, arch: str, cfg, params, dev) -> None:
@@ -1261,6 +1371,232 @@ def interval_phase(T, K, dev, reuse: dict) -> int:
     return hpm["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phases 14-17: the GRU predictor (K4), the K2/K3 generic routes and the
+# reduced configs served on the card
+# ---------------------------------------------------------------------------
+
+GRU_BUCKETS = (4, 8, 16, 32, 60)
+GRU_STEPS, GRU_LR = 150, 0.03
+GRU_HISTORIES = range(40, 80)     # beyond_rnn_predictor.run's 40 histories
+
+
+def gru_regimes(np) -> dict:
+    """``benchmarks/beyond_rnn_predictor.py:15-24``'s three regimes from
+    ``default_rng(0)``, 80 gaps each: near-periodic (cron script),
+    drifting (adaptive poller), bursty (human)."""
+    rng = np.random.default_rng(0)
+    n = 80
+    return {
+        "periodic": 3600 + rng.normal(0, 180, n),
+        "drifting": 600 + 8 * np.arange(n) + rng.normal(0, 40, n),
+        "bursty": rng.choice([60.0, 300.0, 3600.0], n,
+                             p=[0.5, 0.3, 0.2]) * rng.lognormal(0, 0.2, n),
+    }
+
+
+def gru_work(rows: int, n: int) -> tuple[int, int]:
+    """(bytes, float32 operations) one K4 launch needs for rows x n.
+
+    Bytes: each row and the 517 initial parameters read once, each forecast
+    written once.  Operations per row, each multiply, add, division, square
+    root, exp and tanh one (the kernel contracts nothing: -fmad=false):
+    normalise (~6n); per Adam step, per time step 1,104 forward (12 units x
+    92: three 12-term products and sums, two sigmoids, a tanh, the update),
+    26 for the prediction and its adjoint and 2,089 back (12 units x 174,
+    and gbo), then 14 per parameter of Adam; a last forward pass."""
+    per_step = n * (1104 + 26 + 2089) + 14 * 517
+    per_row = 6 * n + GRU_STEPS * per_step + n * 1104 + 24
+    return rows * n * 4 + 517 * 4 + rows * 4, rows * per_row
+
+
+def phase_k4(torch, np, K4, T_rnn, dev) -> dict:
+    """Phase 14: K4 against its plain version on the card, bitwise, at
+    every bucket: the three regimes' 40 histories each (the last n gaps of
+    a history; a history shorter than n gives the regime's first n gaps),
+    120 rows in one call on each side; times at n = 60."""
+    log("== phase 14: K4 (GRU fit) vs plain, 3 regimes x 40 histories "
+        "per bucket")
+    regimes = gru_regimes(np)
+    p0 = T_rnn.init_params(0).to(dev)
+    rec = {"max_abs_err": 0.0, "bitwise_rows": 0, "rows": 0}
+    for n in GRU_BUCKETS:
+        rows = np.stack([g[:max(i, n)][-n:] for g in regimes.values()
+                         for i in GRU_HISTORIES]).astype(np.float32)
+        y = torch.from_numpy(rows).to(dev)
+        got = K4.gru_fit(y, p0, GRU_STEPS, GRU_LR)
+        out = {}
+
+        def plain(y=y):
+            out["want"] = K4.gru_fit_plain(y, p0, GRU_STEPS, GRU_LR)
+
+        plain_ms = cuda_ms(plain, reps=1, warmup=False)
+        want = out["want"]
+        bits = int((got.view(torch.int32) == want.view(torch.int32)).sum())
+        err = float((got - want).abs().max())
+        batch_ms = cuda_ms(lambda: K4.gru_fit(y, p0, GRU_STEPS, GRU_LR),
+                           reps=3)
+        log(f"K4 n={n}: rows={len(rows)} bitwise_equal_rows={bits}/"
+            f"{len(rows)} max_abs_err={err:.6g} plain_ms={plain_ms:.1f} "
+            f"batch_kernel_ms={batch_ms:.4f} "
+            f"forecasts_finite={bool(torch.isfinite(got).all())}")
+        if bits != len(rows) or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"K4 n={n}: {len(rows) - bits} rows differ "
+                                 f"from the plain version (or not finite)")
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["bitwise_rows"] += bits
+        rec["rows"] += len(rows)
+        if n == 60:
+            rec["batch_ms"], rec["batch_plain_ms"] = batch_ms, plain_ms
+            y1 = y[-1:].contiguous()         # the longest history
+            rec["ms"] = cuda_ms(lambda: K4.gru_fit(y1, p0, GRU_STEPS,
+                                                   GRU_LR), reps=10)
+
+            def plain_one():
+                out["one"] = K4.gru_fit_plain(y1, p0, GRU_STEPS, GRU_LR)
+
+            rec["plain_ms"] = cuda_ms(plain_one, reps=1, warmup=False)
+            if not torch.equal(out["one"].view(torch.int32),
+                               got[-1:].view(torch.int32)):
+                raise AssertionError("K4 n=60: one row alone differs from "
+                                     "its row in the batch")
+            model = T_rnn.GRUPredictor(device=dev)
+            series = rows[-1]
+            model.forecast_next(series)
+            t0 = time.perf_counter()
+            for _ in range(10):
+                model.forecast_next(series)
+            rec["forecast_next_ms"] = (time.perf_counter() - t0) / 10 * 1e3
+    rec["bound_ms"], rec["bound_by"] = bound_ms([gru_work(1, 60)])
+    log(f"K4 at n=60, one row (the predictor's launch): kernel_ms="
+        f"{rec['ms']:.4f} plain_ms={rec['plain_ms']:.1f} "
+        f"forecast_next_ms={rec['forecast_next_ms']:.4f} bound_ms="
+        f"{rec['bound_ms']:.6f} ({rec['bound_by']}) kernel_over_bound="
+        f"{rec['ms'] / rec['bound_ms']:.0f} batch_of_120_kernel_ms="
+        f"{rec['batch_ms']:.4f} library_ms=null")
+    return rec
+
+
+def phase_gru_vs_arima(torch, np, K, K4, T_arima, T_rnn, dev) -> dict:
+    """Phase 15 (main path of K4): ``benchmarks/beyond_rnn_predictor.run``
+    through the port, 3 regimes x 40 next-request-time forecasts each
+    through ``predict_next_timestamp_rnn`` (K4) and
+    ``predict_next_timestamp`` (K1).  Errors and times are information;
+    the run fails only on a non-finite forecast or a kernel never
+    launched."""
+    log("== phase 15: GRU vs ARIMA next-request time through the port "
+        "(beyond_rnn_predictor.run)")
+    arima = T_arima.ARIMA(device=dev)
+    gru = T_rnn.GRUPredictor(device=dev)
+    torch.cuda.synchronize()
+    K.reset_counts()                          # counts of this run only
+    K4.reset_counts()
+    for name, gaps in gru_regimes(np).items():
+        ts = np.concatenate([[0.0], np.cumsum(gaps)])
+        errs = {"arima": [], "gru": []}
+        secs = {"arima": 0.0, "gru": 0.0}
+        for i in GRU_HISTORIES:
+            hist = ts[: i + 1]
+            true_next = ts[i + 1]
+            span = true_next - ts[i]
+            t0 = time.perf_counter()
+            pa = T_arima.predict_next_timestamp(hist, arima)
+            t1 = time.perf_counter()
+            pg = T_rnn.predict_next_timestamp_rnn(hist, gru)
+            t2 = time.perf_counter()
+            secs["arima"] += t1 - t0
+            secs["gru"] += t2 - t1
+            errs["arima"].append(abs(pa - true_next) / max(span, 1.0))
+            errs["gru"].append(abs(pg - true_next) / max(span, 1.0))
+        k = len(GRU_HISTORIES)
+        log(f"rnn_vs_arima_{name}: forecasts={k} "
+            f"arima_relerr={np.mean(errs['arima']):.4f} "
+            f"gru_relerr={np.mean(errs['gru']):.4f} "
+            f"arima_us_per_forecast={secs['arima'] / k * 1e6:.1f} "
+            f"gru_us_per_forecast={secs['gru'] / k * 1e6:.1f}")
+        if not np.isfinite(errs["arima"] + errs["gru"]).all():
+            raise AssertionError(f"{name}: a non-finite forecast")
+    launches = {"K1": K.LAUNCHES, "K4": K4.LAUNCHES}
+    log(f"GRU vs ARIMA launches: {launches}")
+    if not all(launches.values()):
+        raise AssertionError(f"GRU vs ARIMA: a kernel never ran {launches}")
+    return launches
+
+
+# b, s, hq, hkv, d, window, dtype name, tol: the reduced configs' attention
+# at S=2048 (yi-6b 4/2 heads of 16, starcoder2-7b 6/2 of 12, stablelm-12b
+# 4/2 of 20 in float32, gemma3-27b's local layers 4/2 of 16, window 32),
+# head dim 8, then paligemma-3b's full-width attention (8/1 heads of 256)
+GENERIC_ATTN_SHAPES = [
+    (1, 2048, 4, 2, 16, None, "bfloat16", 2e-2),
+    (1, 2048, 6, 2, 12, None, "bfloat16", 2e-2),
+    (1, 2048, 4, 2, 20, None, "float32", 2e-5),
+    (1, 2048, 4, 2, 16, 32, "bfloat16", 2e-2),
+    (1, 512, 4, 1, 8, None, "float32", 2e-5),
+    (1, 2048, 8, 1, 256, None, "float32", 2e-5),
+    (1, 2048, 8, 1, 256, None, "bfloat16", 2e-2),
+]
+
+# bt, s, h, p, g, n, dtype name, tol: mamba2-1.3b-reduced's scan (8 heads
+# of 16, N=16) at S=2048 in both types, and (N, P) = (16, 64)
+GENERIC_SSD_SHAPES = [
+    (1, 2048, 8, 16, 1, 16, "bfloat16", 5e-2),
+    (1, 2048, 8, 16, 1, 16, "float32", 1e-3),
+    (1, 2048, 8, 64, 1, 16, "bfloat16", 5e-2),
+]
+
+
+def phase_generic_routes(torch, K2, K3, dev) -> tuple[list, list]:
+    """Phase 16: K2 and K3 on their generic routes against the plain
+    versions, with times and bounds; raises unless each case takes the
+    generic route."""
+    log("== phase 16: K2 and K3 generic routes vs plain")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    k2 = [k2_case(torch, K2, dev, gen, shape) for shape in GENERIC_ATTN_SHAPES]
+    k3 = [k3_case(torch, K3, dev, gen, shape) for shape in GENERIC_SSD_SHAPES]
+    if any(c["route"] != "generic" for c in k2 + k3):
+        raise AssertionError("phase 16: a case left the generic route")
+    return k2, k3
+
+
+REDUCED_ARCHS = ("yi-6b", "starcoder2-7b", "stablelm-12b", "gemma3-27b",
+                 "mamba2-1.3b")
+
+
+def reduced_serve_phase(torch, counts: dict, dev) -> dict:
+    """Phase 17: ``launch/serve.py --reduced --device cuda`` for each
+    reduced config (12 requests, 32-token prompts, 8 new tokens): every
+    K2/K3 launch on the generic route; then one 256-token prefill through
+    the kernel against the same prefill through its plain version.
+    Returns the kernel's launches per config."""
+    from repro_torch.launch import serve as L
+
+    log("== phase 17: reduced configs served on the card "
+        "(launch/serve.py --reduced --device cuda)")
+    out = {}
+    for arch in REDUCED_ARCHS:
+        key = "K3" if arch.startswith("mamba") else "K2"
+        mod = counts[key]
+        for m in counts.values():
+            m.reset_counts()                 # counts of this run only
+        t0 = time.perf_counter()
+        engine = L.main(["--arch", arch, "--reduced", "--device", "cuda"])
+        torch.cuda.synchronize()
+        launches, generic = mod.LAUNCHES, mod.ROUTE_LAUNCHES["generic"]
+        log(f"{arch}-reduced: seconds={time.perf_counter() - t0:.2f} "
+            f"requests={engine.stats['total']} prewarmed="
+            f"{engine.stats['prefetched_prefills']} {key}_launches={launches}"
+            f" generic_route_launches={generic} K1_launches="
+            f"{counts['K1'].LAUNCHES}")
+        if launches == 0 or generic != launches:
+            raise AssertionError(f"{arch}-reduced: {key} launched {launches} "
+                                 f"times, {generic} on the generic route")
+        check_prefill_pair(f"{arch}-reduced", *prefill_pair(
+            torch, engine.cfg, engine.params, mod, dev))
+        out[arch] = launches
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1272,7 +1608,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     if not all((SRC / "repro_torch" / "csrc" / f"{name}.cu").is_file()
-               for name in ("arima_bank", "flash_attention", "ssd_scan")):
+               for name in ("arima_bank", "flash_attention", "ssd_scan",
+                            "gru_fit")):
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
@@ -1281,8 +1618,10 @@ def main() -> int:
 
     import repro_torch.core as T
     import repro_torch.core.arima as T_arima
+    import repro_torch.core.rnn_predictor as T_rnn
     from repro_torch.kernels import arima_bank as K
     from repro_torch.kernels import flash_attention as K2
+    from repro_torch.kernels import gru_fit as K4
     from repro_torch.kernels import ssd_scan as K3
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1295,11 +1634,13 @@ def main() -> int:
         f"device={torch.cuda.get_device_name(0)} "
         f"count={torch.cuda.device_count()}")
 
-    log("== phase 1: build K1 (K2 and K3 build alongside, one nvcc each)")
+    log("== phase 1: build K1 (K2, K3 and K4 build alongside, one nvcc "
+        "each)")
     t_build = time.perf_counter()
     builds = {"K1": K.start_build(verbose=True),
               "K2": K2.start_build(verbose=True),
-              "K3": K3.start_build(verbose=True)}
+              "K3": K3.start_build(verbose=True),
+              "K4": K4.start_build(verbose=True)}
     # collected in turn: each time is from the common start to the moment
     # that build was collected, so at least its own nvcc time
     built = {name: (b.wait(), time.perf_counter() - t_build)
@@ -1325,7 +1666,36 @@ def main() -> int:
                                  dev, "phase 11")
     k2["launches_stablelm_12b"] = stablelm_phase(torch, K2, dev)
     kernels[0]["launches_interval_hpm"] = interval_phase(T, K, dev, reuse)
-    kernels += [k2, k3]
+
+    log_build("K4", *built["K4"])
+    k4 = phase_k4(torch, np, K4, T_rnn, dev)
+    launches = phase_gru_vs_arima(torch, np, K, K4, T_arima, T_rnn, dev)
+    kernels[0]["launches_gru_vs_arima"] = launches["K1"]
+    k2["generic"], k3["generic"] = phase_generic_routes(torch, K2, K3, dev)
+    served = reduced_serve_phase(torch, {"K1": K, "K2": K2, "K3": K3}, dev)
+    k2["launches_reduced_serve"] = {a: n for a, n in served.items()
+                                    if not a.startswith("mamba")}
+    k3["launches_reduced_serve"] = {a: n for a, n in served.items()
+                                    if a.startswith("mamba")}
+    kernels += [k2, k3, {
+        "name": "gru_fit",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/gru_fit.cu",
+        "replaces": "src/repro/core/rnn_predictor.py:57 (_compiled_fit, "
+                    "jax.jit of fit at :93)",
+        "launches": launches["K4"],
+        "max_abs_err": k4["max_abs_err"],
+        "ms": k4["ms"],
+        "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["bound_ms"],
+        "bound_by": k4["bound_by"],
+        "library_ms": None,
+        "bitwise_rows": k4["bitwise_rows"],
+        "rows": k4["rows"],
+        "forecast_next_ms": k4["forecast_next_ms"],
+        "batch_ms": k4["batch_ms"],
+        "batch_plain_ms": k4["batch_plain_ms"],
+        "shape": "rows=1 n=60 steps=150 (batch: rows=120)"}]
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -4,8 +4,8 @@ The delivery path has no trained parameters — ARIMA fits from zero on every
 call, FP-Growth rules are mined from the training requests and k-means seeds
 come from NumPy's generator — so what a comparison carries across is data:
 traces and planned prefetch streams, as NumPy arrays or tuples.  The LM
-substrate's random initialisation cannot be reproduced in torch, so model
-parameters cross as NumPy arrays too.  This module builds the port's
+substrate's and the GRU predictor's random initialisations cannot be
+reproduced in torch, so their parameters cross as NumPy arrays too.  This module builds the port's
 objects from them; it never imports the JAX package.
 """
 from __future__ import annotations
@@ -19,6 +19,7 @@ from repro_torch.core.delivery import PlannedPrediction
 from repro_torch.core.hpm import PrefetchOp
 from repro_torch.core.trace import Request, RequestList
 from repro_torch.device import resolve_device
+from repro_torch.kernels.gru_fit import LAYOUT
 from repro_torch.models.transformer import ModelConfig
 
 
@@ -91,3 +92,13 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None):
     params["units"] = [convert([unit(layer, u) for layer in tree["units"]])
                        for u in range(cfg.n_units)]
     return params
+
+
+def gru_params_from_numpy(tree, device=None) -> torch.Tensor:
+    """The GRU predictor's flat float32 parameters (``[N_PARAMS]`` in the
+    order of :data:`repro_torch.kernels.gru_fit.LAYOUT`) from ``repro``'s
+    ``core/rnn_predictor.py::_init_params`` dict given as NumPy arrays."""
+    device = resolve_device(device)
+    flat = np.concatenate([np.asarray(tree[name], np.float32).reshape(-1)
+                           for name, _ in LAYOUT])
+    return torch.from_numpy(flat).to(device)

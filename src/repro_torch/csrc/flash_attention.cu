@@ -14,8 +14,10 @@
 // head h is q[b, pos, h * G + g, :], so one K/V tile serves all G heads.
 // Tiles wholly above the diagonal or left of the window are never loaded;
 // only diagonal and window-edge tiles are masked; any S >= 1 works (tail
-// keys and rows are masked).  D is 64, 128 or 160.  The kernel is chosen by
-// the input type, never on a failure:
+// keys and rows are masked).  Three routes; kernels/flash_attention.py::route
+// names one from (D, type) and the launcher takes exactly that one, never
+// another on a failure.  The fast routes take the head dims the build's
+// FLASH_FAST_D32_MASK lists (the wrapper's HEAD_DIMS: 64, 128, 160), by type:
 //
 // bfloat16: tensor cores (flash_attention_wgmma).  One block per 128 folded
 // rows of one kv head: two consumer warpgroups own 64 rows each and one
@@ -34,6 +36,14 @@
 // float32: float32 FMAs (flash_attention_fma), one block of 256 threads per
 // 64 folded rows; K is staged transposed and V in the same buffer.  TF32
 // tensor cores keep ~3 digits and cannot meet float32's 2e-5 tolerance.
+//
+// generic (flash_attention_generic): any other 1 <= D <= 256, float32 or
+// bfloat16 (the reduced configs' 8-20, paligemma-3b's 256).  The float32
+// kernel's tiling with the head dim padded to DP (16, 32, 64, 128 or 256)
+// in shared memory and registers: loads are plain and masked (no TMA: a
+// bf16 row of D = 12 is 24 bytes, not a multiple of 16), padded columns
+// are zeros and never stored, everything runs in float32 FMAs with inputs
+// widened from their type, and p is rounded to the input type before P . V.
 //
 // What bounds it.  About 4 * D operations per live (q, k) pair and head:
 // at long S the bf16 kernel is bound by the tensor cores and the softmax's
@@ -231,6 +241,210 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 }
 
 }  // namespace f32
+
+// ---------------------------------------------------------------------------
+// generic: any head dim up to 256, float32 or bfloat16, on float32 FMAs
+// ---------------------------------------------------------------------------
+
+namespace gen {
+
+constexpr int kRows = 64;      // folded q rows per block
+constexpr int kKeys = 64;      // keys per kv tile
+constexpr int kThreads = 256;  // 16 x 16 threads
+constexpr int kStride = 64 + 4;
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+template <int DP>
+constexpr size_t smem_bytes() {
+  // Q^T [DP][kStride] + (K^T [DP][kStride] | V [kKeys][DP]) + P^T [kKeys][kStride]
+  return sizeof(float) * (2 * DP * kStride + kKeys * kStride);
+}
+
+// Thread (ty, tx) scores rows 4 ty .. 4 ty + 3 against keys 4 tx .. 4 tx + 3
+// and accumulates the output columns tx + 16 j, j < DP / 16.
+template <int DP, typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_generic(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, T* __restrict__ o, int S,
+                        int Hq, int Hkv, int D, int window, float scale) {
+  constexpr int kCols = DP / 16;
+  extern __shared__ float4 smem4[];
+  float* qt = reinterpret_cast<float*>(smem4);  // [DP][kStride]
+  float* kv = qt + DP * kStride;                // K^T [DP][kStride] or V [kKeys][DP]
+  float* pt = kv + DP * kStride;                // [kKeys][kStride]
+
+  const int G = Hq / Hkv;
+  const int tile = gridDim.x - 1 - blockIdx.x;  // longest tiles first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4, tx = tid & 15;
+  const long long n_rows = (long long)S * G;
+  const long long r0 = (long long)tile * kRows;
+  const int pos_lo = (int)(r0 / G);
+  const int pos_hi = (int)((min(r0 + kRows, n_rows) - 1) / G);
+
+  // Q tile, transposed: qt[d][r] = q row r0 + r (zero past the end)
+  for (int idx = tid; idx < kRows * D; idx += kThreads) {
+    const int r = idx / D, d = idx % D;
+    const long long R = r0 + r;
+    float val = 0.f;
+    if (R < n_rows) {
+      const long long pos = R / G, g = R % G;
+      val = widen(q[((b * (long long)S + pos) * Hq + h * G + g) * D + d]);
+    }
+    qt[d * kStride + r] = val;
+  }
+
+  int row_pos[4];
+  for (int i = 0; i < 4; ++i) row_pos[i] = (int)((r0 + 4 * ty + i) / G);
+  float m[4], l[4], acc[4][kCols];
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
+  }
+
+  const int j_hi = pos_hi / kKeys;
+  int j_lo = 0;
+  if (window > 0) j_lo = max(0, pos_lo - (window - 1)) / kKeys;
+
+  for (int jt = j_lo; jt <= j_hi; ++jt) {
+    const int k0 = jt * kKeys;
+    __syncthreads();  // previous tile's V and P fully read
+    for (int idx = tid; idx < kKeys * D; idx += kThreads) {
+      const int c = idx / D, d = idx % D;
+      const int key = k0 + c;
+      kv[d * kStride + c] =
+          key < S ? widen(k[((b * (long long)S + key) * Hkv + h) * D + d]) : 0.f;
+    }
+    __syncthreads();
+
+    // scores s[i][c] = scale * q_row . k_key over the D real columns
+    float s[4][4];
+    for (int i = 0; i < 4; ++i)
+      for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float4 qa = *reinterpret_cast<const float4*>(qt + d * kStride + 4 * ty);
+      const float4 ka = *reinterpret_cast<const float4*>(kv + d * kStride + 4 * tx);
+      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
+      const float kvv[4] = {ka.x, ka.y, ka.z, ka.w};
+      for (int i = 0; i < 4; ++i)
+        for (int c = 0; c < 4; ++c) s[i][c] = fmaf(qv[i], kvv[c], s[i][c]);
+    }
+
+    // mask, online softmax across the 16 threads that share a row
+    for (int i = 0; i < 4; ++i) {
+      float mx = -INFINITY;
+      for (int c = 0; c < 4; ++c) {
+        const int key = k0 + 4 * tx + c;
+        bool ok = key < S && key <= row_pos[i];
+        if (window > 0) ok = ok && row_pos[i] - key < window;
+        s[i][c] = ok ? s[i][c] * scale : kNegInf;
+        mx = fmaxf(mx, s[i][c]);
+      }
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = expf(m[i] - m_new);
+      float sum = 0.f;
+      for (int c = 0; c < 4; ++c) {
+        const float p = expf(s[i][c] - m_new);
+        sum += p;
+        // P . V takes p rounded to the input type; l sums it unrounded
+        pt[(4 * tx + c) * kStride + 4 * ty + i] = widen(narrow<T>(p));
+      }
+      for (int off = 8; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      l[i] = l[i] * alpha + sum;
+      m[i] = m_new;
+      for (int j = 0; j < kCols; ++j) acc[i][j] *= alpha;
+    }
+    __syncthreads();  // K^T fully read, P written
+
+    // V [kKeys][DP], columns past D zero
+    for (int idx = tid; idx < kKeys * DP; idx += kThreads) {
+      const int c = idx / DP, d = idx % DP;
+      const int key = k0 + c;
+      kv[idx] = key < S && d < D
+                    ? widen(v[((b * (long long)S + key) * Hkv + h) * D + d])
+                    : 0.f;
+    }
+    __syncthreads();
+
+    for (int c = 0; c < kKeys; ++c) {
+      const float4 pa = *reinterpret_cast<const float4*>(pt + c * kStride + 4 * ty);
+      const float pv[4] = {pa.x, pa.y, pa.z, pa.w};
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const float vv = kv[c * DP + tx + 16 * j];
+        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
+      }
+    }
+  }
+
+  for (int i = 0; i < 4; ++i) {
+    const long long R = r0 + 4 * ty + i;
+    if (R >= n_rows) continue;
+    const long long pos = R / G, g = R % G;
+    T* out = o + ((b * (long long)S + pos) * Hq + h * G + g) * D;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int col = tx + 16 * j;
+      if (col < D) out[col] = narrow<T>(acc[i][j] * inv);
+    }
+  }
+}
+
+template <int DP, typename T>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
+           int Hq, int Hkv, int D, int window, float scale,
+           cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<DP>();
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_generic<DP, T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const long long n_rows = (long long)S * (Hq / Hkv);
+  dim3 grid((unsigned)((n_rows + kRows - 1) / kRows), Hkv, B);
+  flash_attention_generic<DP, T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), S, Hq, Hkv, D, window,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+// the smallest padded width that holds D
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, void* o, int B,
+             int S, int Hq, int Hkv, int D, int window, float scale,
+             cudaStream_t stream) {
+  if (D < 1 || D > 256) return -1;
+  if (D <= 16) return launch<16, T>(q, k, v, o, B, S, Hq, Hkv, D, window, scale, stream);
+  if (D <= 32) return launch<32, T>(q, k, v, o, B, S, Hq, Hkv, D, window, scale, stream);
+  if (D <= 64) return launch<64, T>(q, k, v, o, B, S, Hq, Hkv, D, window, scale, stream);
+  if (D <= 128) return launch<128, T>(q, k, v, o, B, S, Hq, Hkv, D, window, scale, stream);
+  return launch<256, T>(q, k, v, o, B, S, Hq, Hkv, D, window, scale, stream);
+}
+
+}  // namespace gen
 
 // ---------------------------------------------------------------------------
 // bfloat16: TMA + wgmma kernel
@@ -694,27 +908,64 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 
 }  // namespace wg
 
+// The fast routes' head dims: bit D / 32 - 1 set for each.
+// kernels/flash_attention.py owns the set (HEAD_DIMS) and passes it to nvcc
+// as -DFLASH_FAST_D32_MASK; each listed D instantiates the FMA and wgmma
+// kernels, and the launcher takes those routes at exactly these D.
+#ifndef FLASH_FAST_D32_MASK
+#error "build with -DFLASH_FAST_D32_MASK=<bit D / 32 - 1 per fast head dim>"
+#endif
+constexpr unsigned kFastD32 = FLASH_FAST_D32_MASK;
+
+constexpr bool fast_d(int d) {
+  return d >= 32 && d <= 256 && d % 32 == 0 && ((kFastD32 >> (d / 32 - 1)) & 1u);
+}
+
+// route 0 (fma, float32) or 1 (wgmma, bfloat16) at a fast head dim D
+template <int D>
+int launch_fast(int route, const void* q, const void* k, const void* v,
+                void* o, int B, int S, int Hq, int Hkv, float scale,
+                int window, cudaStream_t stream) {
+  if constexpr (fast_d(D)) {
+    if (route == 0)
+      return f32::launch<D>(q, k, v, o, B, S, Hq, Hkv, window, scale, stream);
+    return wg::launch<D>(q, k, v, o, B, S, Hq, Hkv, window, scale, stream);
+  }
+  return -1;
+}
+
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  window <= 0: no window.  Returns a CUDA
-// error code (0 on success); -1 for a shape or type the kernel does not
-// take, -2 if the driver cannot encode a TMA descriptor, -3 for a pointer
-// that is not 16-byte aligned (bfloat16).
+// route: 0 fma (float32), 1 wgmma (bfloat16), both at the fast head dims;
+// 2 generic (float32 or bfloat16, 1 <= D <= 256), as kernels/
+// flash_attention.py::route names it.  dtype: 0 float32, 1 bfloat16.
+// window <= 0: no window.  Returns a CUDA error code (0 on success); -1 for
+// a route, shape or type the kernel does not take, -2 if the CUDA driver
+// cannot encode a TMA descriptor, -3 for a pointer that is not 16-byte
+// aligned (wgmma).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int S,
                                       int Hq, int Hkv, int D, int window,
-                                      float scale, int dtype,
+                                      float scale, int dtype, int route,
                                       cudaStream_t stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0) return -1;
-  if (dtype == 0) {
-    if (D == 64) return f32::launch<64>(q, k, v, o, B, S, Hq, Hkv, window, scale, stream);
-    if (D == 128) return f32::launch<128>(q, k, v, o, B, S, Hq, Hkv, window, scale, stream);
-    if (D == 160) return f32::launch<160>(q, k, v, o, B, S, Hq, Hkv, window, scale, stream);
+  if (route == 2) {
+    if (dtype == 0)
+      return gen::dispatch<float>(q, k, v, o, B, S, Hq, Hkv, D, window, scale, stream);
+    if (dtype == 1)
+      return gen::dispatch<__nv_bfloat16>(q, k, v, o, B, S, Hq, Hkv, D, window, scale, stream);
+    return -1;
   }
-  if (dtype == 1) {
-    if (D == 64) return wg::launch<64>(q, k, v, o, B, S, Hq, Hkv, window, scale, stream);
-    if (D == 128) return wg::launch<128>(q, k, v, o, B, S, Hq, Hkv, window, scale, stream);
-    if (D == 160) return wg::launch<160>(q, k, v, o, B, S, Hq, Hkv, window, scale, stream);
+  if (route != dtype || (route != 0 && route != 1) || !fast_d(D)) return -1;
+  switch (D) {
+    case 32: return launch_fast<32>(route, q, k, v, o, B, S, Hq, Hkv, scale, window, stream);
+    case 64: return launch_fast<64>(route, q, k, v, o, B, S, Hq, Hkv, scale, window, stream);
+    case 96: return launch_fast<96>(route, q, k, v, o, B, S, Hq, Hkv, scale, window, stream);
+    case 128: return launch_fast<128>(route, q, k, v, o, B, S, Hq, Hkv, scale, window, stream);
+    case 160: return launch_fast<160>(route, q, k, v, o, B, S, Hq, Hkv, scale, window, stream);
+    case 192: return launch_fast<192>(route, q, k, v, o, B, S, Hq, Hkv, scale, window, stream);
+    case 224: return launch_fast<224>(route, q, k, v, o, B, S, Hq, Hkv, scale, window, stream);
+    case 256: return launch_fast<256>(route, q, k, v, o, B, S, Hq, Hkv, scale, window, stream);
+    default: return -1;
   }
-  return -1;
 }

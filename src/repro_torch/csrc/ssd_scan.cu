@@ -43,6 +43,17 @@
 // exact recurrence (max abs error 0.11).  The scratch is float32.
 // float32: the same grid with float32 FMA products (1e-3 holds only there).
 //
+// Routes.  kernels/ssd_scan.py::route names one from (N, P, type) and the
+// launcher takes exactly that one.  The chunked route above takes the N and
+// P the build's SSD_FAST_N_MASK and SSD_FAST_P_MASK list (the wrapper's
+// STATE_DIMS and HEAD_DIMS: 64, 128).  The generic route (ssd_scan_generic)
+// takes any other N, P whose float32 state fits in shared memory (the
+// reduced mamba2's N = P = 16): one block per (batch, head) runs the exact
+// per-token recurrence of kernels/ref.py::ssd_ref, one thread per column p
+// of the state [N, P] (in shared memory), so y_t[p] = C_t . state[:, p] is
+// that thread's own sum; B_t, C_t and x_t are staged in shared memory per
+// token.  No scratch.  Bound by the S dependent tokens.
+//
 // What bounds it.  The inputs' bytes (read once) and the scratch traffic:
 // the float32 chunk states are written once, read and rewritten by the
 // state pass, and read by the output pass (16 x Bt x chunks x H x N x P
@@ -727,6 +738,92 @@ ssd_output_mma(const bf16* __restrict__ x, const float* __restrict__ dt,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// generic route: the exact per-token recurrence, any N and P
+// ---------------------------------------------------------------------------
+
+namespace gen {
+
+constexpr int kThreads = 128;
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// floats of shared memory: state [N][P], B_t and C_t [N], x_t [P]
+inline size_t smem_bytes(int N, int P) {
+  return sizeof(float) * ((size_t)N * P + 2 * N + P);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ssd_scan_generic(const T* __restrict__ x, const float* __restrict__ dt,
+                 const float* __restrict__ A, const T* __restrict__ Bm,
+                 const T* __restrict__ Cm, T* __restrict__ y,
+                 float* __restrict__ state_out, int S, int H, int G, int N,
+                 int P) {
+  extern __shared__ float sm[];
+  float* st = sm;             // [N][P]
+  float* bs = st + N * P;     // [N]
+  float* cs = bs + N;         // [N]
+  float* xs = cs + N;         // [P]
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int grp = h / (H / G);
+  const int tid = threadIdx.x;
+  for (int e = tid; e < N * P; e += kThreads) st[e] = 0.f;
+  const float a = A[h];
+  for (int t = 0; t < S; ++t) {
+    __syncthreads();  // the previous token's B, C and x fully read
+    const long long row = (long long)b * S + t;
+    const long long bc = (row * G + grp) * N;
+    const long long xo = (row * H + h) * P;
+    for (int i = tid; i < N; i += kThreads) {
+      bs[i] = widen(Bm[bc + i]);
+      cs[i] = widen(Cm[bc + i]);
+    }
+    for (int i = tid; i < P; i += kThreads) xs[i] = widen(x[xo + i]);
+    __syncthreads();
+    const float d = dt[row * H + h];
+    const float dA = expf(d * a);
+    for (int p = tid; p < P; p += kThreads) {
+      const float dx = d * xs[p];
+      float acc = 0.f;
+      for (int n = 0; n < N; ++n) {
+        const float s = st[n * P + p] * dA + bs[n] * dx;
+        st[n * P + p] = s;
+        acc += cs[n] * s;
+      }
+      store(y + xo + p, acc);
+    }
+  }
+  __syncthreads();
+  float* out = state_out + ((long long)b * H + h) * N * P;
+  for (int e = tid; e < N * P; e += kThreads) out[e] = st[e];
+}
+
+template <typename T>
+int launch(const void* x, const float* dt, const float* A, const void* Bm,
+           const void* Cm, void* y, float* state, int Bt, int S, int H, int G,
+           int N, int P, cudaStream_t stream) {
+  const size_t smem = smem_bytes(N, P);
+  if (cudaError_t e = cudaFuncSetAttribute(
+          ssd_scan_generic<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem))
+    return (int)e;
+  ssd_scan_generic<T><<<dim3(H, Bt), kThreads, smem, stream>>>(
+      static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm),
+      static_cast<const T*>(Cm), static_cast<T*>(y), state, S, H, G, N, P);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace gen
+
 template <typename K>
 int set_smem(K kernel, size_t bytes) {
   return (int)cudaFuncSetAttribute(
@@ -785,18 +882,51 @@ int launch(const void* x, const float* dt, const float* A, const void* Bm,
   return (int)cudaGetLastError();
 }
 
+// The chunked route's N and P: bit d / 64 - 1 set for each.
+// kernels/ssd_scan.py owns the sets (STATE_DIMS, HEAD_DIMS) and passes them
+// to nvcc as -DSSD_FAST_N_MASK and -DSSD_FAST_P_MASK; each listed (N, P)
+// instantiates the chunked kernels, and the launcher takes the chunked
+// route at exactly these.  The chunked kernels are written for 64 and 128.
+#if !defined(SSD_FAST_N_MASK) || !defined(SSD_FAST_P_MASK)
+#error "build with -DSSD_FAST_N_MASK and -DSSD_FAST_P_MASK (bit d / 64 - 1 per dim)"
+#endif
+
+constexpr bool listed(unsigned mask, int d) {
+  return (d == 64 || d == 128) && ((mask >> (d / 64 - 1)) & 1u);
+}
+
+template <typename T, int N, int P>
+int launch_chunked(const void* x, const float* dt, const float* A,
+                   const void* Bm, const void* Cm, void* y, float* state,
+                   float* states, float* decay, int Bt, int S, int H, int G,
+                   cudaStream_t stream) {
+  if constexpr (listed(SSD_FAST_N_MASK, N) && listed(SSD_FAST_P_MASK, P))
+    return launch<T, N, P>(x, dt, A, Bm, Cm, y, state, states, decay, Bt, S,
+                           H, G, stream);
+  return -1;
+}
+
+template <typename T, int N>
+int dispatch_p(const void* x, const float* dt, const float* A, const void* Bm,
+               const void* Cm, void* y, float* state, float* states,
+               float* decay, int Bt, int S, int H, int G, int P,
+               cudaStream_t stream) {
+  if (P == 64)
+    return launch_chunked<T, N, 64>(x, dt, A, Bm, Cm, y, state, states, decay, Bt, S, H, G, stream);
+  if (P == 128)
+    return launch_chunked<T, N, 128>(x, dt, A, Bm, Cm, y, state, states, decay, Bt, S, H, G, stream);
+  return -1;
+}
+
 template <typename T>
 int dispatch(const void* x, const float* dt, const float* A, const void* Bm,
              const void* Cm, void* y, float* state, float* states, float* decay,
              int Bt, int S, int H, int G, int N, int P, cudaStream_t stream) {
-  if (N == 64 && P == 64)
-    return launch<T, 64, 64>(x, dt, A, Bm, Cm, y, state, states, decay, Bt, S, H, G, stream);
-  if (N == 64 && P == 128)
-    return launch<T, 64, 128>(x, dt, A, Bm, Cm, y, state, states, decay, Bt, S, H, G, stream);
-  if (N == 128 && P == 64)
-    return launch<T, 128, 64>(x, dt, A, Bm, Cm, y, state, states, decay, Bt, S, H, G, stream);
-  if (N == 128 && P == 128)
-    return launch<T, 128, 128>(x, dt, A, Bm, Cm, y, state, states, decay, Bt, S, H, G, stream);
+  if (!listed(SSD_FAST_N_MASK, N) || !listed(SSD_FAST_P_MASK, P)) return -1;
+  if (N == 64)
+    return dispatch_p<T, 64>(x, dt, A, Bm, Cm, y, state, states, decay, Bt, S, H, G, P, stream);
+  if (N == 128)
+    return dispatch_p<T, 128>(x, dt, A, Bm, Cm, y, state, states, decay, Bt, S, H, G, P, stream);
   return -1;
 }
 
@@ -810,23 +940,38 @@ extern "C" int ssd_scan_inner_chunk(int dtype) {
   return -1;
 }
 
-// dtype (of x, B, C and y): 0 float32, 1 bfloat16.  The float32 scratch
-// `states` holds Bt x nc x H x N x P elements and `decay` Bt x nc x H, with
-// nc = ceil(S / L) chunks of ssd_scan_inner_chunk(dtype) positions.  Returns
-// a CUDA error code (0 on success); -1 for a shape or type the kernel does
-// not take or a scratch sized for another chunk count, -3 for a bf16
-// pointer that is not 16-byte aligned.
+// route: 0 chunked (N and P as listed), 1 generic (any N, P whose state
+// fits in shared memory), as kernels/ssd_scan.py::route names it.  dtype
+// (of x, B, C and y): 0 float32, 1 bfloat16.  On the chunked route the
+// float32 scratch `states` holds Bt x nc x H x N x P elements and `decay`
+// Bt x nc x H, with nc = ceil(S / L) chunks of ssd_scan_inner_chunk(dtype)
+// positions; the generic route takes no scratch (nc 0, null pointers).
+// Returns a CUDA error code (0 on success); -1 for a route, shape or type
+// the kernel does not take or a scratch sized for another chunk count, -3
+// for a bf16 pointer that is not 16-byte aligned (chunked).
 extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A,
                                const void* Bm, const void* Cm, void* y,
                                void* state, void* states, void* decay, int Bt,
                                int S, int H, int G, int N, int P, int dtype,
-                               int nc, cudaStream_t stream) {
-  if (Bt <= 0 || S <= 0 || G <= 0 || H % G != 0) return -1;
-  const int L = ssd_scan_inner_chunk(dtype);
-  if (L <= 0 || nc != (S + L - 1) / L) return -1;
+                               int nc, int route, cudaStream_t stream) {
+  if (Bt <= 0 || S <= 0 || G <= 0 || H % G != 0 || N <= 0 || P <= 0)
+    return -1;
   const float* dtf = static_cast<const float*>(dt);
   const float* Af = static_cast<const float*>(A);
   float* sf = static_cast<float*>(state);
+  if (route == 1) {
+    if (nc != 0) return -1;
+    if (dtype == 0)
+      return gen::launch<float>(x, dtf, Af, Bm, Cm, y, sf, Bt, S, H, G, N, P,
+                                stream);
+    if (dtype == 1)
+      return gen::launch<__nv_bfloat16>(x, dtf, Af, Bm, Cm, y, sf, Bt, S, H,
+                                        G, N, P, stream);
+    return -1;
+  }
+  if (route != 0) return -1;
+  const int L = ssd_scan_inner_chunk(dtype);
+  if (L <= 0 || nc != (S + L - 1) / L) return -1;
   float* df = static_cast<float*>(decay);
   float* cf = static_cast<float*>(states);
   if (dtype == 0)

@@ -17,9 +17,13 @@ float32 scaled by ``scale`` (``1/sqrt(D)`` by default), masked to
 ``k_pos <= q_pos`` and ``q_pos - k_pos < window`` with ``-1e30``, softmax
 in float32 with the probabilities rounded to ``v``'s type before the
 product with ``v``, output in ``q``'s type.  Unlike the Pallas kernel the
-CUDA one takes any ``S >= 1``.  It picks its route by the input type:
-bfloat16 runs on the tensor cores (``wgmma`` fed by TMA), float32 on
-float32 FMAs (TF32 cannot meet float32's tolerance).
+CUDA one takes any ``S >= 1``.  :func:`route` names its route from the head
+dim and the input type, and the launcher takes exactly that one: at the
+fast head dims :data:`HEAD_DIMS`, bfloat16 runs on the tensor cores
+(``wgmma`` fed by TMA) and float32 on float32 FMAs (TF32 cannot meet
+float32's tolerance); any other head dim up to :data:`MAX_HEAD_DIM` (the
+reduced configs' 8-20, paligemma-3b's 256) takes the generic route,
+float32 FMAs over the head dim padded in the kernel.
 """
 from __future__ import annotations
 
@@ -31,11 +35,20 @@ import torch
 from repro_torch.kernels import nvcc
 
 NEG_INF = -1e30
+# Head dims of the fast routes (fma for float32, wgmma for bfloat16).  The
+# one owner of the set: the build passes it to the source as a mask (bit
+# D / 32 - 1 per head dim), which instantiates the fast kernels at these D
+# and lets the launcher refuse the fast routes at any other.
 HEAD_DIMS = (64, 128, 160)
+MAX_HEAD_DIM = 256          # the generic route's widest head dim
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("fma", "wgmma", "generic")     # index = the launcher's route code
+NVCC_FLAGS = ("-DFLASH_FAST_D32_MASK="
+              f"{sum(1 << (d // 32 - 1) for d in HEAD_DIMS):#x}u",)
 
-# Kernel launches (never the plain version's calls).
+# Kernel launches (never the plain version's calls), in all and by route.
 LAUNCHES = 0
+ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
 
 _lib = None
 
@@ -43,6 +56,23 @@ _lib = None
 def reset_counts() -> None:
     global LAUNCHES
     LAUNCHES = 0
+    ROUTE_LAUNCHES.update(dict.fromkeys(ROUTES, 0))
+
+
+def route(d: int, dtype: torch.dtype) -> str:
+    """The kernel's route for head dim ``d`` and input type ``dtype``:
+    ``"wgmma"`` (bfloat16) or ``"fma"`` (float32) at :data:`HEAD_DIMS`,
+    ``"generic"`` for any other ``1 <= d <= MAX_HEAD_DIM``.  Raises for a
+    shape or type outside every route."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"flash_attention kernel takes float32 or bfloat16, "
+                        f"got {dtype}")
+    if d in HEAD_DIMS:
+        return "wgmma" if dtype == torch.bfloat16 else "fma"
+    if 1 <= d <= MAX_HEAD_DIM:
+        return "generic"
+    raise ValueError(f"flash_attention kernel takes head dim 1..{MAX_HEAD_DIM}"
+                     f", got {d}")
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
@@ -69,22 +99,23 @@ def start_build(verbose: bool = False) -> nvcc.Build:
     """Start compiling ``csrc/flash_attention.cu`` for sm_90a; ``wait()``
     on the result installs the library and returns the compiler's
     diagnostics (``-Xptxas -v`` when ``verbose``)."""
-    return nvcc.start("flash_attention", verbose=verbose)
+    return nvcc.start("flash_attention", NVCC_FLAGS, verbose)
 
 
 def _load():
     global _lib
     if _lib is None:
-        lib = nvcc.load("flash_attention")
+        lib = nvcc.load("flash_attention", NVCC_FLAGS)
         fn = lib.flash_attention_launch
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _check(q, k, v, causal: bool) -> None:
+def _check(q, k, v, causal: bool) -> str:
+    """Raise on what the kernel does not take; return the route."""
     if not causal:
         raise ValueError("flash_attention kernel is causal only")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -98,13 +129,12 @@ def _check(q, k, v, causal: bool) -> None:
                          f"in batch, length or head dim")
     if hq % k.shape[2]:
         raise ValueError(f"Hq={hq} is not a multiple of Hkv={k.shape[2]}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head dim {HEAD_DIMS}, "
-                         f"got {d}")
+    path = route(d, q.dtype)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention needs contiguous q, k, v")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
+    if path == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention needs 16-byte aligned q, k, v")
+    return path
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -118,7 +148,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
                                      scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    _check(q, k, v, causal)
+    path = _check(q, k, v, causal)
     b, s, hq, d = q.shape
     if window is not None and window < 1:
         raise ValueError(f"window={window} < 1")
@@ -130,7 +160,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
             hq, k.shape[2], d, 0 if window is None else int(window),
-            float(scale), _DTYPES[q.dtype], stream)
+            float(scale), _DTYPES[q.dtype], ROUTES.index(path), stream)
     nvcc.check_launch("flash_attention", err)
     LAUNCHES += 1
+    ROUTE_LAUNCHES[path] += 1
     return out

@@ -2,8 +2,11 @@
 
 On a CUDA tensor these launch the hand-written kernels (K2
 :mod:`repro_torch.kernels.flash_attention`, K3
-:mod:`repro_torch.kernels.ssd_scan`); a CUDA input a kernel does not take
-raises, it never drops to another path.  On a CPU tensor they run the
+:mod:`repro_torch.kernels.ssd_scan`) on the route each kernel's ``route``
+names from the shape and type: every head dim up to 256 for K2 and every
+N, P whose state fits a block's shared memory for K3, so the reduced
+configs run on the card too.  A CUDA input outside every route raises; it
+never drops to another path.  On a CPU tensor they run the
 models' own chunked PyTorch paths, exactly what the JAX package runs off
 the TPU (``attention_any``, ``ssd_chunked``).  Same function, so the
 models' results do not depend on the dispatch beyond rounding.

@@ -1,7 +1,8 @@
 """Kernel tests that need the card: the ARIMA bank (K1: both paths, the
-segmented launch), flash attention (K2) and SSD scan (K3) kernels against
-their plain PyTorch versions on CUDA tensors, and the port's device paths
-on CUDA.
+segmented launch), flash attention (K2: fast and generic routes), SSD scan
+(K3: chunked and generic routes) and GRU fit (K4) kernels against their
+plain PyTorch versions on CUDA tensors, and the port's device paths on
+CUDA.
 
 Marked ``cuda``; every test skips where ``torch.cuda.is_available()`` is
 false.  On the card:
@@ -12,15 +13,19 @@ This file imports neither JAX nor ``repro``: the machine with the card has
 only the port's dependencies.
 """
 import ctypes
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_reduced_config
 from repro_torch.core.arima import ARIMA, pack_bank
 from repro_torch.core.kmeans import kmeans
+from repro_torch.core.rnn_predictor import GRUPredictor, init_params
 from repro_torch.kernels import arima_bank as K
 from repro_torch.kernels import flash_attention as K2
+from repro_torch.kernels import gru_fit as K4
 from repro_torch.kernels import ssd_scan as K3
 from repro_torch.models import transformer as TT
 from repro_torch.models.attention import AttentionConfig
@@ -248,9 +253,11 @@ def test_flash_attention_kernel_matches_plain(cuda, b, s, hq, hkv, d, window,
 
 
 def test_flash_attention_kernel_raises_on_what_it_does_not_take(cuda):
-    q = torch.zeros((1, 16, 2, 32), device=cuda)
+    q = torch.zeros((1, 16, 2, 257), device=cuda)
+    K2.reset_counts()
     with pytest.raises(ValueError, match="head dim"):
         K2.flash_attention(q, q, q)
+    assert K2.LAUNCHES == 0
     q = torch.zeros((1, 16, 2, 64), device=cuda)
     with pytest.raises(ValueError, match="causal"):
         K2.flash_attention(q, q, q, causal=False)
@@ -361,7 +368,7 @@ def test_ssd_scan_launch_refuses_scratch_of_another_chunk_count(cuda, dtype):
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
         y.data_ptr(), state.data_ptr(), states.data_ptr(), decay.data_ptr(),
         1, s, h, 1, n, p, {torch.float32: 0, torch.bfloat16: 1}[dtype], nc,
-        stream)
+        K3.ROUTES.index("chunked"), stream)
     torch.cuda.synchronize()
     assert err == -1
     assert not y.float().abs().any() and not states.abs().any()
@@ -403,3 +410,176 @@ def test_prefill_on_cuda_goes_through_the_kernels(cuda, cfg):
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
     logits, _ = TT.decode_step(on_card, cfg, got.argmax(-1), caches, 70)
     assert torch.isfinite(logits).all()
+
+
+# K2's generic route: head dims outside HEAD_DIMS (the reduced configs'
+# 8-20, paligemma-3b's 256), both types, windows, GQA and ragged lengths.
+# Tolerances as for the fast routes.
+GENERIC_ATTN_SHAPES = [
+    # b, s, hq, hkv, d, window, dtype, tol
+    (1, 200, 4, 2, 8, None, torch.float32, 2e-5),
+    (2, 77, 6, 2, 12, 32, torch.bfloat16, 2e-2),
+    (1, 130, 4, 2, 16, None, torch.bfloat16, 2e-2),
+    (1, 256, 4, 4, 20, 64, torch.float32, 2e-5),
+    (2, 100, 9, 3, 20, None, torch.bfloat16, 2e-2),
+    (1, 1, 2, 1, 12, None, torch.float32, 2e-5),
+    (1, 300, 8, 2, 256, None, torch.bfloat16, 2e-2),
+    (1, 65, 4, 1, 256, 16, torch.float32, 2e-5),
+    (1, 96, 2, 2, 1, None, torch.float32, 2e-5),
+    # chip_smoke.py phase 16: the reduced configs' attention at S=2048 and
+    # paligemma-3b's full width (8/1 heads of 256)
+    (1, 2048, 4, 2, 16, None, torch.bfloat16, 2e-2),
+    (1, 2048, 6, 2, 12, None, torch.bfloat16, 2e-2),
+    (1, 2048, 4, 2, 20, None, torch.float32, 2e-5),
+    (1, 2048, 4, 2, 16, 32, torch.bfloat16, 2e-2),
+    (1, 512, 4, 1, 8, None, torch.float32, 2e-5),
+    (1, 2048, 8, 1, 256, None, torch.float32, 2e-5),
+    (1, 2048, 8, 1, 256, None, torch.bfloat16, 2e-2),
+]
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,window,dtype,tol", GENERIC_ATTN_SHAPES)
+def test_flash_attention_generic_route_matches_plain(cuda, b, s, hq, hkv, d,
+                                                     window, dtype, tol):
+    assert K2.route(d, dtype) == "generic"
+    gen = torch.Generator(device=cuda).manual_seed(s + d)
+    q = _randn(gen, (b, s, hq, d), dtype, cuda)
+    k = _randn(gen, (b, s, hkv, d), dtype, cuda)
+    v = _randn(gen, (b, s, hkv, d), dtype, cuda)
+    K2.reset_counts()
+    got = K2.flash_attention(q, k, v, window=window)
+    want = K2.flash_attention_plain(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert K2.ROUTE_LAUNCHES["generic"] == K2.LAUNCHES == 1
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+# K3's generic route: N, P outside the chunked route's (the reduced
+# mamba2's N = P = 16, and mixed (N, P)), both types, ragged lengths.
+GENERIC_SSD_SHAPES = [
+    # bt, s, h, p, g, n, dtype, tol
+    (1, 256, 4, 16, 1, 16, torch.float32, 1e-3),
+    (2, 300, 8, 16, 2, 16, torch.bfloat16, 5e-2),
+    (1, 200, 4, 64, 1, 16, torch.float32, 1e-3),
+    (1, 100, 2, 16, 1, 64, torch.bfloat16, 5e-2),
+    (1, 1, 2, 16, 1, 16, torch.float32, 1e-3),
+    (1, 64, 2, 32, 1, 256, torch.float32, 1e-3),
+    # chip_smoke.py phase 16: mamba2-1.3b-reduced's scan at S=2048, and
+    # (N, P) = (16, 64)
+    (1, 2048, 8, 16, 1, 16, torch.bfloat16, 5e-2),
+    (1, 2048, 8, 16, 1, 16, torch.float32, 1e-3),
+    (1, 2048, 8, 64, 1, 16, torch.bfloat16, 5e-2),
+]
+
+
+@pytest.mark.parametrize("bt,s,h,p,g,n,dtype,tol", GENERIC_SSD_SHAPES)
+def test_ssd_scan_generic_route_matches_plain(cuda, bt, s, h, p, g, n, dtype,
+                                              tol):
+    assert K3.route(n, p, dtype) == "generic"
+    gen = torch.Generator(device=cuda).manual_seed(s + n + p)
+    inputs = _ssd_inputs(gen, bt, s, h, p, g, n, dtype, cuda)
+    K3.reset_counts()
+    y, state = K3.ssd_scan(*inputs)
+    wy, ws = K3.ssd_scan_plain(*inputs)
+    torch.cuda.synchronize()
+    assert K3.ROUTE_LAUNCHES["generic"] == K3.LAUNCHES == 1
+    assert y.dtype == dtype
+    torch.testing.assert_close(y.float(), wy.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(state, ws, atol=tol, rtol=tol)
+
+
+def test_ssd_scan_raises_beyond_every_route(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    inputs = _ssd_inputs(gen, 1, 8, 2, 256, 1, 256, torch.float32, cuda)
+    K3.reset_counts()
+    with pytest.raises(ValueError, match="N, P"):
+        K3.ssd_scan(*inputs)
+    assert K3.LAUNCHES == 0
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "gemma3-27b", "mamba2-1.3b"])
+def test_reduced_prefill_on_cuda_takes_the_generic_route(cuda, arch):
+    """A reduced config's prefill on the card goes through K2/K3's generic
+    route and matches the same float32 parameters' prefill on the CPU (the
+    plain chunked paths) at 1e-4."""
+    cfg = dataclasses.replace(get_reduced_config(arch), dtype=torch.float32)
+    params = TT.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 70),
+                           generator=torch.Generator().manual_seed(1))
+    want, _, _ = TT.prefill(params, cfg, tokens, max_len=80)
+    K2.reset_counts()
+    K3.reset_counts()
+    got, _, _ = TT.prefill(TT._to(params, cuda), cfg, tokens.to(cuda),
+                           max_len=80)
+    torch.cuda.synchronize()
+    kernel = K3 if arch.startswith("mamba") else K2
+    assert kernel.LAUNCHES == kernel.ROUTE_LAUNCHES["generic"] > 0
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+# K4: the GRU fit.  Inputs: the three regimes of
+# benchmarks/beyond_rnn_predictor.py (periodic, drifting, bursty).
+
+GRU_BUCKETS = (4, 8, 16, 32, 60)
+
+
+def _gru_rows(seed, per_regime, n):
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(per_regime):
+        rows.append(3600 + rng.normal(0, 180, n))
+        rows.append(600 + 8 * np.arange(n) + rng.normal(0, 40, n))
+        rows.append(rng.choice([60.0, 300.0, 3600.0], n, p=[0.5, 0.3, 0.2])
+                    * rng.lognormal(0, 0.2, n))
+    return torch.from_numpy(np.asarray(rows, np.float32))
+
+
+@pytest.mark.parametrize("n", GRU_BUCKETS)
+def test_gru_fit_kernel_equals_plain_bitwise(cuda, n):
+    """The kernel rounds every operation as the plain version's tensor ops
+    do (``-fmad=false``, sums left to right, PyTorch's sigmoid and tanh
+    formulas), so on one card the forecasts are equal bit for bit."""
+    y = _gru_rows(n, 8, n).to(cuda)
+    p0 = init_params(0).to(cuda)
+    K4.reset_counts()
+    got = K4.gru_fit(y, p0, 150, 0.03)
+    want = K4.gru_fit_plain(y, p0, 150, 0.03)
+    torch.cuda.synchronize()
+    assert K4.LAUNCHES == 1
+    assert torch.isfinite(want).all()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_gru_fit_kernel_rows_independent_of_launch(cuda):
+    y = _gru_rows(5, 10, 16).to(cuda)
+    p0 = init_params(3).to(cuda)
+    full = K4.gru_fit(y, p0, 150, 0.03)
+    rev = K4.gru_fit(y.flip(0).contiguous(), p0, 150, 0.03).flip(0)
+    alone = torch.cat([K4.gru_fit(y[i:i + 1].contiguous(), p0, 150, 0.03)
+                       for i in range(0, len(y), 7)])
+    assert torch.equal(full.view(torch.int32), rev.view(torch.int32))
+    assert torch.equal(full[::7].view(torch.int32), alone.view(torch.int32))
+
+
+def test_gru_predictor_is_one_launch_per_forecast(cuda):
+    series = _gru_rows(11, 1, 64)[2].numpy()       # bursty: no shortcut
+    model = GRUPredictor(device=cuda)
+    K4.reset_counts()
+    got = model.forecast_next(series)
+    assert K4.LAUNCHES == 1
+    want = K4.gru_fit_plain(torch.from_numpy(series[-60:].copy()[None, :])
+                            .to(cuda), model.params, 150, 0.03)
+    assert got == float(want[0])
+
+
+def test_gru_fit_launch_refuses_what_it_does_not_take(cuda):
+    y = torch.zeros((2, 8), device=cuda)
+    out = torch.zeros(2, device=cuda)
+    p0 = torch.zeros(K4.N_PARAMS, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    for rows, n, steps in ((2, 65, 1), (2, 1, 1), (0, 8, 1), (2, 8, -1)):
+        assert K4._load().gru_fit_launch(y.data_ptr(), p0.data_ptr(),
+                                         out.data_ptr(), rows, n, steps,
+                                         0.03, stream) != 0

@@ -20,7 +20,8 @@ from repro_torch.core.kmeans import kmeans
 from repro_torch.core.placement import PlacementEngine
 from repro_torch.core.simulator import SimConfig, run_strategy
 from repro_torch.configs import get_reduced_config
-from repro_torch.convert import params_from_numpy
+from repro_torch.convert import gru_params_from_numpy, params_from_numpy
+from repro_torch.core.rnn_predictor import GRUPredictor
 from repro_torch.models.transformer import init_params
 from repro_torch.serve.engine import ServeEngine
 
@@ -45,7 +46,8 @@ def test_importing_every_module_loads_no_jax_or_repro():
             "repro_torch.kernels.arima_bank",
             "repro_torch.kernels.flash_attention",
             "repro_torch.kernels.ssd_scan", "repro_torch.serve.engine",
-            "repro_torch.launch.serve"} <= set(names)
+            "repro_torch.launch.serve", "repro_torch.core.rnn_predictor",
+            "repro_torch.kernels.gru_fit"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for m in {names!r}:\n"
@@ -100,6 +102,12 @@ _ENTRY_POINTS = {
         dataclasses.replace(get_reduced_config("yi-6b"), n_layers=0), **kw),
     "ServeEngine": lambda **kw: ServeEngine(get_reduced_config("yi-6b"), {},
                                             **kw),
+    "GRUPredictor": lambda **kw: GRUPredictor(**kw),
+    "gru_params_from_numpy": lambda **kw: gru_params_from_numpy(
+        {"wz": np.zeros((12, 12)), "wr": np.zeros((12, 12)),
+         "wc": np.zeros((12, 12)), "uz": np.zeros(12), "ur": np.zeros(12),
+         "uc": np.zeros(12), "bz": np.zeros(12), "br": np.zeros(12),
+         "bc": np.zeros(12), "wo": np.zeros(12), "bo": np.zeros(())}, **kw),
 }
 
 

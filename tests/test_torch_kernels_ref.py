@@ -207,16 +207,29 @@ def test_k2_rejects_what_the_kernel_does_not_take(case):
     elif case == "dtype":
         q, k, v = (t.half() for t in (q, k, v))
     elif case == "head_dim":
-        q, k, v = (t[..., :32].contiguous() for t in (q, k, v))
+        # one past the generic route's widest head dim
+        q, k, v = (torch.zeros(t.shape[:3] + (K2.MAX_HEAD_DIM + 1,))
+                   for t in (q, k, v))
     elif case == "groups":
         q = torch.zeros((1, 8, 3, 64))
     elif case == "contiguous":
         q = torch.zeros((1, 4, 8, 64)).transpose(1, 2)
     elif case.startswith("head_dim_"):
-        d = int(case.rsplit("_", 1)[1])
+        # 96 and 256 past the generic route's widest head dim (96 and 256
+        # themselves take it: test_k2_takes_every_head_dim_up_to_256)
+        d = K2.MAX_HEAD_DIM + int(case.rsplit("_", 1)[1])
         q, k, v = (torch.zeros(t.shape[:3] + (d,)) for t in (q, k, v))
     with pytest.raises((TypeError, ValueError)):
         K2._check(q, k, v, causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 12, 32, 96, 256])
+def test_k2_takes_every_head_dim_up_to_256(d, dtype):
+    """Head dims outside HEAD_DIMS take the generic route."""
+    q = torch.zeros((1, 8, 4, d), dtype=dtype)
+    k = v = torch.zeros((1, 8, 2, d), dtype=dtype)
+    assert K2._check(q, k, v, True) == "generic"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -225,7 +238,7 @@ def test_k2_takes_head_dims_64_128_160(d, dtype):
     """stablelm-12b's head dim 160 goes to the kernel like 64 and 128."""
     q = torch.zeros((1, 8, 4, d), dtype=dtype)
     k = v = torch.zeros((1, 8, 2, d), dtype=dtype)
-    K2._check(q, k, v, True)
+    assert K2._check(q, k, v, True) == K2.route(d, dtype)
 
 
 @pytest.mark.parametrize("case", ["dtype", "dt_dtype", "state_dim", "groups",
@@ -240,10 +253,20 @@ def test_k3_rejects_what_the_kernel_does_not_take(case):
     elif case == "dt_dtype":
         dt = dt.double()
     elif case == "state_dim":
-        B = C = torch.zeros((1, 8, 2, 32))
+        # a state [N, P] past a block's shared memory (N = 32 takes the
+        # generic route: test_k3_takes_other_state_dims_generically)
+        B = C = torch.zeros((1, 8, 2, 1024))
     elif case == "groups":
         B = C = torch.zeros((1, 8, 3, 64))
     elif case == "shape":
         dt = torch.zeros((1, 9, 4))
     with pytest.raises((TypeError, ValueError)):
         K3._check(x, dt, A, B, C)
+
+
+@pytest.mark.parametrize("n,p", [(32, 64), (16, 16), (16, 64)])
+def test_k3_takes_other_state_dims_generically(n, p):
+    x = torch.zeros((1, 8, 4, p))
+    dt = torch.zeros((1, 8, 4))
+    B = C = torch.zeros((1, 8, 2, n))
+    assert K3._check(x, dt, torch.zeros(4), B, C) == "generic"
