@@ -78,7 +78,22 @@ non-zero):
 17. ``launch/serve.py --reduced --device cuda`` for yi-6b, starcoder2-7b,
     stablelm-12b, gemma3-27b and mamba2-1.3b: every K2/K3 launch on the
     generic route, and one prefill through the kernel against the same
-    prefill through its plain version.
+    prefill through its plain version;
+18. training on the card, through the plain attention and SSD paths with
+    autograd (K2 and K3 have no backward; their launches must stay at
+    zero): (a) one float32 ``make_train_step`` step of reduced yi-6b and
+    mamba2-1.3b on the card against the CPU (loss within rtol 1e-4, the
+    first moment within 1e-3 relative L2); (b) ``train_loop`` on
+    mamba2-1.3b at full width and depth, bf16, ``SyntheticLM`` through
+    ``PrefetchingLoader``, 4 x 2048 tokens a step, 6 steps: losses and grad
+    norms finite and no step skipped; step time, tokens/s, 6·N·T per step
+    time as a share of 989 TFLOP/s, peak memory, the loader's stats and the
+    device busy share of one more step profiled tracing the card only
+    (beside an unprofiled step's wall time); (c) the
+    same for yi-6b at full width with its 32 layers cut to 4; (d) a
+    checkpoint at step 2 resumed to step 4 on a reduced config, bitwise
+    equal to restoring by hand, then ``python -m repro_torch.launch.train
+    --arch yi-6b --reduced --steps 3`` on the card by default.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -1597,6 +1612,276 @@ def reduced_serve_phase(torch, counts: dict, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: training on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 6
+
+
+def rel_l2(torch, got, want) -> float:
+    """Relative L2 distance of two trees of tensors, in float64 on the
+    host."""
+    import torch.utils._pytree as pytree
+    g, w = (torch.cat([t.double().cpu().flatten()
+                       for t in pytree.tree_leaves(tree)])
+            for tree in (got, want))
+    return float((g - w).norm() / w.norm())
+
+
+def train_card_vs_cpu(torch, dev) -> None:
+    """18a: one float32 ``make_train_step`` step of reduced yi-6b and
+    mamba2-1.3b on the card and on the CPU, same parameters and batch:
+    loss within rtol 1e-4, the first moment within 1e-3 relative L2."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.transformer import _to, init_params
+    from repro_torch.train.loop import (TrainConfig, batch_to_device,
+                                        make_train_step)
+    from repro_torch.train.optimizer import adamw_init
+
+    log("== phase 18a: one train step on the card against the CPU "
+        "(reduced, float32)")
+    for arch in ("yi-6b", "mamba2-1.3b"):
+        cfg = dataclasses.replace(get_reduced_config(arch),
+                                  dtype=torch.float32)
+        params = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+        src = SyntheticLM(vocab=cfg.vocab, seq_len=128, batch=4)
+        batch = src.batch_from_shard(src.load_shard(0))
+        tcfg = TrainConfig()
+        step = make_train_step(cfg, tcfg)
+        _, cpu_opt, cpu_m = step(params, adamw_init(params, tcfg.optimizer),
+                                 batch_to_device(batch, "cpu"))
+        on_card = _to(params, dev)
+        _, dev_opt, dev_m = step(on_card, adamw_init(on_card, tcfg.optimizer),
+                                 batch_to_device(batch, dev))
+        loss_rel = abs(float(dev_m["loss"]) / float(cpu_m["loss"]) - 1)
+        m_rel = rel_l2(torch, dev_opt["m"], cpu_opt["m"])
+        log(f"{arch}-reduced f32: loss card={float(dev_m['loss']):.7f} "
+            f"cpu={float(cpu_m['loss']):.7f} rel={loss_rel:.3g} "
+            f"grad_norm card={float(dev_m['grad_norm']):.7f} "
+            f"cpu={float(cpu_m['grad_norm']):.7f} m_rel_l2={m_rel:.3g}")
+        if not (loss_rel <= 1e-4 and m_rel <= 1e-3):
+            raise AssertionError(f"{arch}: the card's train step disagrees "
+                                 f"with the CPU's")
+
+
+def profiled(torch, fn, host: bool) -> tuple[float, float, int, list]:
+    """(wall ms, device busy ms, kernels, kernel table) of one call of
+    ``fn`` under ``torch.profiler``, tracing the card only or the host's
+    operators too (whose own host cost inflates wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    return wall_ms, busy_ms, sum(e.count for e in kernels), kernels
+
+
+def busy_share(torch, fn, label: str) -> float | None:
+    """The device busy share of one call of ``fn``: device busy ms over the
+    wall ms of the same call, profiled tracing the card only (CUPTI adds
+    little host cost, unlike the host operator trace).  Logs an unprofiled
+    call's wall time beside it, and one call tracing the host too with its
+    largest kernels.  None where the card-only trace shows no device
+    time."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    wall, busy, n, _ = profiled(torch, fn, host=False)
+    share = busy / wall if busy > 0 else None
+    log(f"{label}: unprofiled step wall_ms={plain_ms:.2f}; card-only "
+        f"profiled step wall_ms={wall:.2f} device_busy_ms={busy:.2f} "
+        f"busy_share={'not measured' if share is None else f'{share:.3f}'}"
+        f" kernels={n}")
+    wall, busy, n, kernels = profiled(torch, fn, host=True)
+    log(f"{label}: host-and-card profiled step wall_ms={wall:.2f} "
+        f"device_busy_ms={busy:.2f} busy_share={busy / wall:.3f} "
+        f"kernels={n}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  profiled step kernel: ms={e.self_device_time_total / 1e3:.3f}"
+            f" count={e.count} name={e.key[:90]}")
+    return share
+
+
+def train_cell(torch, cfg, dev, counts: dict, label: str) -> dict:
+    """18b/18c: ``train_loop`` (bf16, default ``TrainConfig``, remat per
+    unit) on ``SyntheticLM`` through ``PrefetchingLoader``, TRAIN_BATCH x
+    TRAIN_SEQ tokens a step for TRAIN_STEPS steps, then three more steps
+    for the busy share (``busy_share``).  Gates: every loss and grad norm finite, no step
+    skipped, no K2/K3 launch."""
+    import gc
+    import statistics
+
+    from repro_torch.data.pipeline import PrefetchingLoader, SyntheticLM
+    from repro_torch.models.transformer import param_count
+    from repro_torch.train.loop import (TrainConfig, batch_to_device,
+                                        make_train_step, train_loop)
+
+    tcfg = TrainConfig(log_every=1)
+    loader = PrefetchingLoader(
+        SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH,
+                    n_shards=512), n_steps=TRAIN_STEPS + 2)
+    history = []
+    for mod in counts.values():
+        mod.reset_counts()                   # counts of this run only
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        params, opt, _ = train_loop(
+            cfg, tcfg, iter(loader), TRAIN_STEPS, device=dev,
+            log_fn=lambda s, m: history.append(m))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        stats = loader.stats
+        batch = batch_to_device(next(loader), dev)
+    finally:
+        loader.close()
+    launches = {name: sum(mod.ROUTE_LAUNCHES.values())
+                for name, mod in counts.items()}
+    n = param_count(params)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    times = [m["step_time"] for m in history]
+    med = statistics.median(times[1:])
+    share = 6 * n * tokens / med / BF16_FLOP_PER_S
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"{label}: params={n} dtype={cfg.dtype} remat={cfg.remat} "
+        f"tokens_per_step={tokens} steps={len(history)} "
+        f"seconds_with_init={seconds:.2f}")
+    log(f"{label}: loss={[round(m['loss'], 5) for m in history]}")
+    log(f"{label}: grad_norm={[round(m['grad_norm'], 5) for m in history]}")
+    log(f"{label}: step_s={[round(t, 4) for t in times]} "
+        f"median_step_s_2_to_{TRAIN_STEPS}={med:.4f} tokens_per_s="
+        f"{tokens / med:.1f} six_n_t_share_of_989_tflops={share:.4f}")
+    log(f"{label}: peak_gib={peak / 2**30:.2f} card_gib={total / 2**30:.2f} "
+        f"peak_share={peak / total:.3f} pipeline_stats={stats} "
+        f"opt_step={int(opt['step'])} K2_K3_launches={launches}")
+    bad = [m for m in history if not (math.isfinite(m["loss"])
+                                      and math.isfinite(m["grad_norm"]))]
+    if bad or len(history) != TRAIN_STEPS:
+        raise AssertionError(f"{label}: non-finite loss or grad norm")
+    if int(opt["step"]) != TRAIN_STEPS:
+        raise AssertionError(f"{label}: {TRAIN_STEPS - int(opt['step'])} "
+                             f"steps skipped")
+    if any(launches.values()):
+        raise AssertionError(f"{label}: K2/K3 launched in training "
+                             f"({launches})")
+
+    step = make_train_step(cfg, tcfg)
+    state = {}
+
+    def one_step():
+        state.pop("out", None)
+        state["out"] = step(params, opt, batch)
+
+    out = {"params": n, "median_step_s": med, "tokens_per_s": tokens / med,
+           "share_of_989": share, "peak_gib": peak / 2**30,
+           "busy_share": busy_share(torch, one_step, label),
+           "loss": [m["loss"] for m in history],
+           "pipeline": stats}
+    del params, opt, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_resume(torch, dev) -> None:
+    """18d: reduced yi-6b on the card, ``train_loop`` to step 2 with a
+    checkpoint, then resumed to step 4; equal bit for bit to restoring step
+    2 by hand and stepping the same (restarted) batches.  Then
+    ``python -m repro_torch.launch.train --arch yi-6b --reduced --steps 3``
+    with no ``--device``: it runs on the card by default."""
+    import shutil
+
+    import torch.utils._pytree as pytree
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.loop import (TrainConfig, batch_to_device,
+                                        make_train_step, train_loop)
+    from repro_torch.train.optimizer import adamw_init
+
+    log("== phase 18d: checkpoint and restart on the card (reduced yi-6b)")
+    cfg = get_reduced_config("yi-6b")
+    src = SyntheticLM(vocab=cfg.vocab, seq_len=64, batch=4, n_shards=8)
+    batches = [src.batch_from_shard(src.load_shard(i)) for i in range(3)]
+    tcfg = TrainConfig(checkpoint_every=2)
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        train_loop(cfg, tcfg, iter(batches), 2, checkpoint_dir=str(ckpt),
+                   device=dev)
+        params, opt, _ = train_loop(cfg, tcfg, iter(batches), 4,
+                                    checkpoint_dir=str(ckpt), device=dev)
+        mgr = CheckpointManager(str(ckpt))
+        template = init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg, dev)
+        p, o = mgr.restore((template, adamw_init(template, tcfg.optimizer)),
+                           2)
+        step = make_train_step(cfg, tcfg)
+        for b in batches[:2]:
+            p, o, _ = step(p, o, batch_to_device(b, dev))
+        steps = mgr.steps()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    leaves = list(zip(pytree.tree_leaves((params, opt)),
+                      pytree.tree_leaves((p, o))))
+    same = sum(bool(torch.equal(a.view(torch.uint8) if a.dim() else a,
+                                b.view(torch.uint8) if b.dim() else b))
+               for a, b in leaves)
+    log(f"resume: checkpoints={steps} step={int(opt['step'])} "
+        f"bitwise_equal_tensors={same}/{len(leaves)}")
+    if steps != [2, 4] or int(opt["step"]) != 4 or same != len(leaves):
+        raise AssertionError("resume differs from restoring by hand")
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "yi-6b",
+         "--reduced", "--steps", "3"], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300)
+    lines = out.stdout.strip().splitlines()
+    for line in lines:
+        log(f"  launch.train: {line[:160]}")
+    log(f"launch.train: rc={out.returncode} "
+        f"seconds={time.perf_counter() - t0:.2f}")
+    if out.returncode != 0 or not lines or \
+            lines[0] != f"device: {torch.cuda.get_device_name(0)}" or \
+            not lines[-1].startswith("done; pipeline stats:"):
+        raise AssertionError(f"launch.train failed: {out.stderr[-2000:]}")
+
+
+def train_phase(torch, counts: dict, dev) -> dict:
+    """Phase 18: training on the card.  ``counts``: the K2 and K3 modules,
+    whose launches must stay at zero."""
+    from repro_torch.configs import get_config
+
+    train_card_vs_cpu(torch, dev)
+    log("== phase 18b: train mamba2-1.3b at full width and depth")
+    out = {"mamba2-1.3b": train_cell(torch, get_config("mamba2-1.3b"), dev,
+                                     counts, "mamba2-1.3b")}
+    yi = get_config("yi-6b")
+    cut = dataclasses.replace(yi, n_layers=4)
+    log(f"== phase 18c: train yi-6b at full width, n_layers cut from "
+        f"{yi.n_layers} to {cut.n_layers}")
+    out["yi-6b-4l"] = train_cell(torch, cut, dev, counts, "yi-6b-4l")
+    train_resume(torch, dev)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1677,6 +1962,8 @@ def main() -> int:
                                     if not a.startswith("mamba")}
     k3["launches_reduced_serve"] = {a: n for a, n in served.items()
                                     if a.startswith("mamba")}
+    trained = train_phase(torch, {"K2": K2, "K3": K3}, dev)
+    log("phase 18 summary: " + json.dumps(trained))
     kernels += [k2, k3, {
         "name": "gru_fit",
         "route": "cuda",

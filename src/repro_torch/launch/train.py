@@ -1,0 +1,61 @@
+"""Training launcher, on the card unless ``--device cpu``.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b \
+        [--reduced] [--steps 50] [--batch 4] [--seq 128] [--ckpt-dir DIR] \
+        [--microbatches 1] [--device cuda|cpu]
+
+Random initial parameters (seed 0), ``SyntheticLM`` data through the
+push-prefetching loader, checkpoint/restart (``--ckpt-dir``), NaN-step
+skipping.  One device; the JAX package's mesh and shardings wait for the
+distributed slice.
+"""
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from repro_torch.configs import get_config, get_reduced_config
+from repro_torch.data.pipeline import PrefetchingLoader, SyntheticLM
+from repro_torch.device import resolve_device
+from repro_torch.train.loop import TrainConfig, train_loop
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true",
+                    help="use the reduced smoke config (CPU-friendly)")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = (get_reduced_config(args.arch) if args.reduced
+           else get_config(args.arch))
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    print(f"device: {name}")
+
+    source = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq, batch=args.batch,
+                         n_shards=512)
+    loader = PrefetchingLoader(source, n_steps=args.steps + 1)
+    tcfg = TrainConfig(microbatches=args.microbatches)
+    try:
+        params, opt_state, history = train_loop(
+            cfg, tcfg, iter(loader), args.steps,
+            checkpoint_dir=args.ckpt_dir,
+            log_fn=lambda s, m: print(f"step {s}: {m}", flush=True),
+            device=device)
+        print(f"done; pipeline stats: {loader.stats}")
+    finally:
+        loader.close()
+    return params, opt_state, history
+
+
+if __name__ == "__main__":
+    main()

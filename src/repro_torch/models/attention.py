@@ -8,7 +8,10 @@ Two plain compute paths:
   triangle's work, not the full S² square.
 
 ``gqa_prefill`` goes through :func:`repro_torch.kernels.ops.flash_attention`:
-the hand-written kernel K2 on CUDA, ``attention_any`` on the CPU.
+the hand-written kernel K2 on CUDA, ``attention_any`` on the CPU.  The
+training forward, ``gqa_forward``, calls ``attention_any`` on every device,
+as the JAX package does, so that autograd differentiates it (K2 has no
+backward).
 
 MLA (DeepSeek-V3 style) is not ported yet: ``MLAConfig`` is kept so that
 configs can name it, and the ``mla_*`` functions raise.
@@ -116,17 +119,6 @@ def dense_attention(q, k, v, *, causal: bool = True,
     return out.reshape(b, sq, hq, v.shape[-1])
 
 
-def _chunk_pairs(n_chunks: int, window_chunks: int | None):
-    """(i, j) q/kv chunk pairs that the causal/window mask allows, ordered by
-    q chunk then kv chunk (so the online-softmax carry is correct)."""
-    pairs = []
-    for i in range(n_chunks):
-        j_lo = 0 if window_chunks is None else max(0, i - window_chunks)
-        for j in range(j_lo, i + 1):
-            pairs.append((i, j))
-    return pairs
-
-
 def chunked_attention(q, k, v, *, causal: bool = True,
                       window: int | None = None, chunk_size: int = 512,
                       scale: float | None = None) -> torch.Tensor:
@@ -147,27 +139,35 @@ def chunked_attention(q, k, v, *, causal: bool = True,
     g = hq // hkv
     c = chunk_size
     dev = q.device
-    acc = torch.zeros((b, s, hkv, g, dv), dtype=torch.float32, device=dev)
-    m = torch.full((b, s, hkv, g), -math.inf, dtype=torch.float32, device=dev)
-    l = torch.zeros((b, s, hkv, g), dtype=torch.float32, device=dev)
     base = torch.arange(c, device=dev)
-    for i, j in _chunk_pairs(n, wc):
-        qs, ks = slice(i * c, (i + 1) * c), slice(j * c, (j + 1) * c)
-        logits = torch.einsum("bskgd,btkd->bkgst", qg[:, qs],
-                              k[:, ks]).float() * scale
-        mask = _mask(base + i * c, base + j * c, causal, window)
-        logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
-        mi, li, acci = m[:, qs], l[:, qs], acc[:, qs]
-        m_blk = torch.amax(logits, dim=-1).movedim(-1, 1)       # [B,c,K,G]
-        m_new = torch.maximum(mi, m_blk)
-        p = torch.exp(logits - m_new.movedim(1, -1)[..., None])
-        l_blk = torch.sum(p, dim=-1).movedim(-1, 1)
-        alpha = torch.exp(mi - m_new)
-        pv = torch.einsum("bkgst,btkd->bskgd", p.to(v.dtype), v[:, ks])
-        acc[:, qs] = acci * alpha[..., None] + pv.float()
-        m[:, qs] = m_new
-        l[:, qs] = li * alpha + l_blk
-    out = acc / torch.clamp(l[..., None], min=1e-30)
+    # one online-softmax carry per q chunk, over the kv chunks the
+    # causal/window mask allows in order; the carry is replaced rather than
+    # written in place, so that autograd can differentiate through it
+    outs = []
+    for i in range(n):
+        qs = slice(i * c, (i + 1) * c)
+        acc = torch.zeros((b, c, hkv, g, dv), dtype=torch.float32, device=dev)
+        m = torch.full((b, c, hkv, g), -math.inf, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, c, hkv, g), dtype=torch.float32, device=dev)
+        for j in range(0 if wc is None else max(0, i - wc), i + 1):
+            ks = slice(j * c, (j + 1) * c)
+            logits = torch.einsum("bskgd,btkd->bkgst", qg[:, qs],
+                                  k[:, ks]).float() * scale
+            mask = _mask(base + i * c, base + j * c, causal, window)
+            logits = torch.where(mask, logits,
+                                 torch.full_like(logits, NEG_INF))
+            m_blk = torch.amax(logits, dim=-1).movedim(-1, 1)   # [B,c,K,G]
+            m_new = torch.maximum(m, m_blk)
+            p = torch.exp(logits - m_new.movedim(1, -1)[..., None])
+            l_blk = torch.sum(p, dim=-1).movedim(-1, 1)
+            alpha = torch.exp(m - m_new)
+            pv = torch.einsum("bkgst,btkd->bskgd", p.to(v.dtype), v[:, ks])
+            acc = acc * alpha[..., None] + pv.float()
+            m = m_new
+            l = l * alpha + l_blk
+        outs.append(acc / torch.clamp(l[..., None], min=1e-30))
+    out = torch.cat(outs, dim=1)
     return out.to(q.dtype).reshape(b, s, hq, dv)
 
 
@@ -200,6 +200,17 @@ def _qkv(params, cfg: AttentionConfig, x, positions):
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def gqa_forward(params, cfg: AttentionConfig, x: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+    """Training self-attention.  x: [B,S,D]; positions: [S]."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(params, cfg, x, positions)
+    out = attention_any(q, k, v, causal=True, window=cfg.window,
+                        chunk_size=cfg.chunk_size,
+                        dense_threshold=cfg.dense_threshold)
+    return out.reshape(b, s, -1) @ params["w_o"]
 
 
 def gqa_prefill(params, cfg: AttentionConfig, x, positions):

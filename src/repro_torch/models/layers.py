@@ -1,4 +1,4 @@
-"""Basic neural layers: norms, RoPE, MLPs, and their initialisers.
+"""Basic neural layers: norms, RoPE, MLPs, their initialisers and the loss.
 
 Parameters are plain nested dicts of tensors, laid out as in ``repro``
 (weights ``[d_in, d_out]``, applied as ``x @ w``), so the JAX package's
@@ -114,3 +114,27 @@ def mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
     if "w_gate" in params:
         return swiglu(x, params["w_gate"], params["w_up"], params["w_down"])
     return gelu_mlp(x, params["w_up"], params["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token cross-entropy; logits [..., V] in any float dtype.
+
+    The logsumexp is taken in float32 with its max held out of the
+    gradient, as in the JAX package.  The gold logit is gathered: for finite
+    logits that equals the JAX package's one-hot contraction exactly, and
+    it needs no [..., V] float32 one-hot.
+    """
+    logits = logits.float()
+    m = torch.amax(logits, dim=-1, keepdim=True).detach()
+    logz = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        nll = nll * mask
+        return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

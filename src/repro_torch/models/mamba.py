@@ -4,7 +4,9 @@ The SSD chunked algorithm (Dao & Gu, 2024): split the sequence into chunks,
 compute the intra-chunk part as a masked attention-like product and carry
 inter-chunk states with a sequential scan over chunks.  The prefill's scan
 goes through :func:`repro_torch.kernels.ops.ssd_scan`: the hand-written
-kernel K3 on CUDA, :func:`ssd_chunked` on the CPU.
+kernel K3 on CUDA, :func:`ssd_chunked` on the CPU.  The training forward,
+``mamba_forward``, calls :func:`ssd_chunked` on every device, as the JAX
+package does, so that autograd differentiates it (K3 has no backward).
 
 Projections are kept separate (w_z, w_x, w_B, w_C, w_dt), as in the JAX
 package, so its parameters carry across unchanged.
@@ -170,8 +172,9 @@ def _gated_norm(y, z, scale, eps=1e-6):
 
 
 def _ssd_full(params, cfg: MambaConfig, x, conv_state=None,
-              want_state=False):
-    """Shared forward core.  Returns (out, state_dict_or_None)."""
+              want_state=False, scan=ops.ssd_scan):
+    """Shared forward core.  ``scan`` computes the SSD: ``ops.ssd_scan``
+    (K3 on CUDA) or :func:`ssd_chunked`.  Returns (out, state_dict_or_None)."""
     b, s, _ = x.shape
     di, g, n, h, p = (cfg.d_inner, cfg.n_groups, cfg.d_state, cfg.n_heads,
                       cfg.head_dim)
@@ -192,13 +195,13 @@ def _ssd_full(params, cfg: MambaConfig, x, conv_state=None,
     l = cfg.chunk_size
     pad = (-s) % l
     if pad:
-        y, final_state = ops.ssd_scan(
+        y, final_state = scan(
             F.pad(xs, (0, 0, 0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad)), A,
             F.pad(Bm, (0, 0, 0, 0, 0, pad)), F.pad(Cm, (0, 0, 0, 0, 0, pad)),
             chunk_size=l)
         y = y[:, :s]
     else:
-        y, final_state = ops.ssd_scan(xs, dt, A, Bm, Cm, chunk_size=l)
+        y, final_state = scan(xs, dt, A, Bm, Cm, chunk_size=l)
     y = y + xs * params["D"][None, None, :, None].to(x.dtype)
     y = _gated_norm(y.reshape(b, s, di), z, params["norm_scale"])
     out = y @ params["out_proj"]
@@ -206,6 +209,11 @@ def _ssd_full(params, cfg: MambaConfig, x, conv_state=None,
         return out, None
     return out, {"ssm": final_state,
                  "conv": {"x": conv_x, "B": conv_B, "C": conv_C}}
+
+
+def mamba_forward(params, cfg: MambaConfig, x: torch.Tensor) -> torch.Tensor:
+    """Training forward (no state I/O).  x: [B,S,D]."""
+    return _ssd_full(params, cfg, x, scan=ssd_chunked)[0]
 
 
 def mamba_prefill(params, cfg: MambaConfig, x: torch.Tensor):

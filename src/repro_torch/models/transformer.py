@@ -1,5 +1,5 @@
-"""Decoder stack for serving: embedding, prelude + repeated unit of layers,
-final norm and head; prefill and one-token decode.
+"""Decoder stack: embedding, prelude + repeated unit of layers, final norm
+and head; the training forward and loss, prefill and one-token decode.
 
 A model is a *prelude* (irregular leading layers) followed by ``n_units``
 repetitions of a *pattern* (a tuple of ``LayerSpec``):
@@ -9,26 +9,35 @@ repetitions of a *pattern* (a tuple of ``LayerSpec``):
 
 Unit parameters are a list over units of lists over the pattern (the JAX
 package stacks them on a leading axis for ``lax.scan``; here the units are
-a Python loop).  MoE layers and MLA attention are not ported yet and raise;
-the training forward and loss, and the multimodal stubs (prefix
-embeddings, MusicGen's codebooks), belong to later slices.
+a Python loop, so there is no ``scan_units``).  Each unit of the training
+forward is rematerialised in the backward as ``ModelConfig.remat`` says,
+through ``torch.utils.checkpoint``.  MoE layers and MLA attention are not
+ported yet and raise; so the aux loss is always zero, and DeepSeek's MTP
+head and the multimodal stubs (prefix embeddings, MusicGen's codebooks)
+belong to the MoE/multimodal slice.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+import torch.utils._pytree as pytree
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (AttentionConfig, gqa_decode,
-                                          gqa_prefill, make_attention_params)
-from repro_torch.models.layers import (DEFAULT_DTYPE, embed_init,
-                                       make_mlp_params, mlp_apply, norm_init,
-                                       rmsnorm)
+                                          gqa_forward, gqa_prefill,
+                                          make_attention_params)
+from repro_torch.models.layers import (DEFAULT_DTYPE, cross_entropy_loss,
+                                       embed_init, make_mlp_params, mlp_apply,
+                                       norm_init, rmsnorm)
 from repro_torch.models.mamba import (MambaConfig, make_mamba_params,
-                                      mamba_decode, mamba_prefill)
+                                      mamba_decode, mamba_forward,
+                                      mamba_prefill)
 
 LayerSpec = tuple[str, str]          # (mixer, ffn)
 
@@ -47,7 +56,9 @@ class ModelConfig:
     d_ff: int = 0
     gated_mlp: bool = True
     tie_embeddings: bool = True
+    aux_loss_weight: float = 0.01
     dtype: torch.dtype = DEFAULT_DTYPE
+    remat: str = "nothing_saveable"   # "none" | "nothing_saveable" | "dots"
 
     @property
     def n_units(self) -> int:
@@ -130,6 +141,80 @@ def embed_tokens(params, tokens):
 def logits_fn(params, cfg: ModelConfig, x):
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return x @ head.T
+
+
+# ---------------------------------------------------------------------------
+# forward (training)
+# ---------------------------------------------------------------------------
+
+def _layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x, positions):
+    _check_ported(spec)
+    mixer, ffn = spec
+    h = rmsnorm(x, p["norm1"])
+    if mixer == "mamba":
+        h = mamba_forward(p["mixer"], cfg.mamba, h)
+    else:
+        h = gqa_forward(p["mixer"], cfg.mixer_cfg(mixer), h, positions)
+    x = x + h
+    if ffn != "none":
+        x = x + mlp_apply(p["mlp"], rmsnorm(x, p["norm2"]))
+    return x
+
+
+def _unit_forward(unit_params, cfg: ModelConfig, x, positions):
+    for p, spec in zip(unit_params, cfg.pattern):
+        x = _layer_forward(p, cfg, spec, x, positions)
+    return x
+
+
+# the products whose outputs the "dots" policy keeps for the backward
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(fn, cfg: ModelConfig):
+    """``fn`` recomputed in the backward: nothing saved
+    (``"nothing_saveable"``) or the matmul outputs saved (``"dots"``)."""
+    if cfg.remat == "none":
+        return fn
+    kwargs = {"use_reentrant": False}
+    if cfg.remat == "dots":
+        kwargs["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(checkpoint, fn, **kwargs)
+
+
+def forward(params, cfg: ModelConfig, tokens):
+    """Full forward -> (logits [B,S,V], aux loss, final hidden [B,S,D]).
+    The aux (load-balancing) loss comes from MoE layers, not ported yet:
+    it is zero."""
+    x = embed_tokens(params, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for p, spec in zip(params["prelude"], cfg.prelude):
+        x = _layer_forward(p, cfg, spec, x, positions)
+    unit_fn = _remat_wrap(
+        lambda up, xx: _unit_forward(up, cfg, xx, positions), cfg)
+    for up in params["units"]:
+        x = unit_fn(up, x)
+    x = rmsnorm(x, params["final_norm"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits_fn(params, cfg, x), aux, x
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """batch: {"tokens": [B,S], "labels": [B,S]} -> (total, metrics)."""
+    logits, aux, _ = forward(params, cfg, batch["tokens"])
+    loss = cross_entropy_loss(logits, batch["labels"])
+    total = loss + cfg.aux_loss_weight * aux
+    return total, {"loss": loss, "aux": aux}
+
+
+def param_count(params) -> int:
+    return sum(t.numel() for t in pytree.tree_leaves(params))
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,136 @@
+"""Training step factory and loop with fault tolerance, on one device.
+
+``make_train_step`` builds the (params, opt_state, batch) -> (params,
+opt_state, metrics) function: the loss and its gradients by autograd
+(through the plain attention and SSD paths, as the JAX package
+differentiates them), optional microbatch gradient accumulation, gradient
+clipping inside AdamW, and NaN-step skipping that needs no host sync.
+
+``train_loop`` adds checkpoint/restart (resume from the latest valid
+step), periodic async checkpointing and logging.  Its data iterator yields
+NumPy (or tensor) batches, which the loop moves to the device.  A resumed
+run restores the parameters and optimizer state, not the data position:
+the iterator starts from its beginning, as in the JAX package.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable
+
+import torch
+import torch.utils._pytree as pytree
+
+from repro_torch.device import resolve_device
+from repro_torch.models.transformer import ModelConfig, init_params, loss_fn
+from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    optimizer: AdamWConfig = dataclasses.field(default_factory=AdamWConfig)
+    microbatches: int = 1            # gradient accumulation steps
+    checkpoint_every: int = 100
+    log_every: int = 10
+
+
+def _value_and_grad(leaves, spec, cfg: ModelConfig, batch):
+    """loss_fn's (total, metrics) at the parameters ``leaves`` (a flattened
+    tree) and its gradients, one per leaf in the leaf's dtype."""
+    live = [p.detach().requires_grad_() for p in leaves]
+    total, metrics = loss_fn(pytree.tree_unflatten(live, spec), cfg, batch)
+    grads = torch.autograd.grad(total, live)
+    return (total.detach(), {k: v.detach() for k, v in metrics.items()},
+            list(grads))
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
+    """The train step (no mesh: one device, no shardings)."""
+    ocfg = tcfg.optimizer
+
+    def step_fn(params, opt_state, batch):
+        leaves, spec = pytree.tree_flatten(params)
+        n = tcfg.microbatches
+        if n > 1:
+            # split the batch on its leading axis; float32 gradient sums
+            g_acc = [torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device) for p in leaves]
+            loss_sum = 0.0
+            for i in range(n):
+                mb = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
+                      for k, v in batch.items()}
+                total, _, grads = _value_and_grad(leaves, spec, cfg, mb)
+                for a, g in zip(g_acc, grads):
+                    a += g.float()
+                loss_sum = loss_sum + total
+            grads = [a / n for a in g_acc]
+            loss = loss_sum / n
+            metrics = {"loss": loss,
+                       "aux": torch.zeros((), dtype=torch.float32,
+                                          device=loss.device)}
+        else:
+            loss, metrics, grads = _value_and_grad(leaves, spec, cfg, batch)
+
+        new_params, new_opt, gnorm = adamw_update(
+            pytree.tree_unflatten(grads, spec), opt_state, params, ocfg)
+        # keep the old values where the step is not finite, on the device
+        # (no host sync), in place in the new tensors
+        ok = torch.isfinite(loss) & torch.isfinite(gnorm)
+
+        def keep(new, old):
+            return torch.where(ok, new, old, out=new)
+        new_params = pytree.tree_map(keep, new_params, params)
+        new_opt = pytree.tree_map(keep, new_opt, opt_state)
+        metrics = dict(metrics)
+        metrics["grad_norm"] = gnorm
+        return new_params, new_opt, metrics
+
+    return step_fn
+
+
+def batch_to_device(batch: dict, device) -> dict:
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def train_loop(cfg: ModelConfig, tcfg: TrainConfig, data_iter, n_steps: int,
+               checkpoint_dir: str | None = None,
+               log_fn: Callable[[int, dict], None] | None = None,
+               device=None):
+    """Init (parameters from seed 0) or resume, step, checkpoint, log, on
+    ``device`` (CUDA by default)."""
+    from repro_torch.distributed.checkpoint import CheckpointManager
+
+    device = resolve_device(device)
+    step_fn = make_train_step(cfg, tcfg)
+    first = batch_to_device(next(data_iter), device)
+    params = init_params(torch.Generator(device=device).manual_seed(0), cfg,
+                         device)
+    opt_state = adamw_init(params, tcfg.optimizer)
+    start_step = 0
+    ckpt = None
+    if checkpoint_dir:
+        ckpt = CheckpointManager(checkpoint_dir)
+        restored = ckpt.restore_latest((params, opt_state))
+        if restored is not None:
+            (params, opt_state), start_step = restored
+
+    batch = first
+    history = []
+    for step in range(start_step, n_steps):
+        t0 = time.time()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        try:
+            batch = batch_to_device(next(data_iter), device)
+        except StopIteration:
+            batch = first
+        if log_fn and step % tcfg.log_every == 0:
+            m = {k: float(v) for k, v in metrics.items()}
+            m["step_time"] = time.time() - t0
+            log_fn(step, m)
+            history.append((step, m))
+        if ckpt and (step + 1) % tcfg.checkpoint_every == 0:
+            ckpt.save((params, opt_state), step + 1)
+    if ckpt:
+        ckpt.save((params, opt_state), n_steps)
+        ckpt.wait()
+    return params, opt_state, history

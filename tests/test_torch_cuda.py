@@ -1,8 +1,9 @@
 """Kernel tests that need the card: the ARIMA bank (K1: both paths, the
 segmented launch), flash attention (K2: fast and generic routes), SSD scan
 (K3: chunked and generic routes) and GRU fit (K4) kernels against their
-plain PyTorch versions on CUDA tensors, and the port's device paths on
-CUDA.
+plain PyTorch versions on CUDA tensors, the port's device paths on
+CUDA, and K2/K3's entry refusing an input that requires grad (the train
+step on the card against the CPU's is phase 18a of ``chip_smoke.py``).
 
 Marked ``cuda``; every test skips where ``torch.cuda.is_available()`` is
 false.  On the card:
@@ -26,6 +27,7 @@ from repro_torch.core.rnn_predictor import GRUPredictor, init_params
 from repro_torch.kernels import arima_bank as K
 from repro_torch.kernels import flash_attention as K2
 from repro_torch.kernels import gru_fit as K4
+from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as K3
 from repro_torch.models import transformer as TT
 from repro_torch.models.attention import AttentionConfig
@@ -583,3 +585,40 @@ def test_gru_fit_launch_refuses_what_it_does_not_take(cuda):
         assert K4._load().gru_fit_launch(y.data_ptr(), p0.data_ptr(),
                                          out.data_ptr(), rows, n, steps,
                                          0.03, stream) != 0
+
+
+# ---------------------------------------------------------------------------
+# training on the card: K2/K3 have no backward, so their entry refuses an
+# input that requires grad
+# ---------------------------------------------------------------------------
+
+def _kernel_args(cuda, kernel: str):
+    gen = torch.Generator().manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen).to(cuda)
+
+    if kernel == "K2":
+        return ops.flash_attention, K2, [
+            rand(1, 64, 4, 64), rand(1, 64, 2, 64), rand(1, 64, 2, 64)]
+    return ops.ssd_scan, K3, [
+        rand(1, 64, 2, 64), torch.nn.functional.softplus(rand(1, 64, 2)),
+        -torch.rand(2).to(cuda), rand(1, 64, 1, 64), rand(1, 64, 1, 64)]
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+@pytest.mark.parametrize("which", [0, -1])
+def test_kernel_entry_refuses_an_input_that_requires_grad(cuda, kernel,
+                                                          which):
+    fn, mod, args = _kernel_args(cuda, kernel)
+    args[which].requires_grad_()
+    mod.reset_counts()
+    with pytest.raises(RuntimeError, match="no backward"):
+        fn(*args)
+    assert mod.LAUNCHES == 0
+    with torch.no_grad():                   # nothing to differentiate
+        fn(*args)
+    fn(*(a.detach() for a in args))
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES == 2
+

@@ -22,8 +22,10 @@ from repro_torch.core.simulator import SimConfig, run_strategy
 from repro_torch.configs import get_reduced_config
 from repro_torch.convert import gru_params_from_numpy, params_from_numpy
 from repro_torch.core.rnn_predictor import GRUPredictor
+from repro_torch.launch import train as launch_train
 from repro_torch.models.transformer import init_params
 from repro_torch.serve.engine import ServeEngine
+from repro_torch.train.loop import TrainConfig, train_loop
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 PKG = SRC / "repro_torch"
@@ -47,7 +49,12 @@ def test_importing_every_module_loads_no_jax_or_repro():
             "repro_torch.kernels.flash_attention",
             "repro_torch.kernels.ssd_scan", "repro_torch.serve.engine",
             "repro_torch.launch.serve", "repro_torch.core.rnn_predictor",
-            "repro_torch.kernels.gru_fit"} <= set(names)
+            "repro_torch.kernels.gru_fit", "repro_torch.data",
+            "repro_torch.data.staging", "repro_torch.data.pipeline",
+            "repro_torch.train", "repro_torch.train.optimizer",
+            "repro_torch.train.loop", "repro_torch.distributed",
+            "repro_torch.distributed.checkpoint",
+            "repro_torch.launch.train"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for m in {names!r}:\n"
@@ -103,6 +110,13 @@ _ENTRY_POINTS = {
     "ServeEngine": lambda **kw: ServeEngine(get_reduced_config("yi-6b"), {},
                                             **kw),
     "GRUPredictor": lambda **kw: GRUPredictor(**kw),
+    "train_loop": lambda **kw: train_loop(
+        get_reduced_config("yi-6b"), TrainConfig(),
+        iter([{"tokens": np.zeros((1, 8), np.int32),
+               "labels": np.zeros((1, 8), np.int32)}]), 1, **kw),
+    "launch_train": lambda **kw: launch_train.main(
+        ["--arch", "yi-6b", "--reduced", "--steps", "1", "--batch", "1",
+         "--seq", "8"] + [f"--{k}={v}" for k, v in kw.items()]),
     "gru_params_from_numpy": lambda **kw: gru_params_from_numpy(
         {"wz": np.zeros((12, 12)), "wr": np.zeros((12, 12)),
          "wc": np.zeros((12, 12)), "uz": np.zeros(12), "ur": np.zeros(12),
