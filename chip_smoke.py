@@ -32,12 +32,16 @@ non-zero):
    the reference engine (one padded K1 group per prediction);
 7. report the builds of the flash attention (K2) and SSD scan (K3)
    kernels (their ``nvcc`` runs, and the GRU fit's (K4), start with K1's
-   in phase 1);
+   in phase 1) and check that ptxas spilled nothing in
+   ``flash_attention_wgmma<256>``;
 8. K2 against its plain version on the JAX package's ``ATTN_SWEEP`` shapes,
-   ragged lengths, head dim 160 and the stablelm-12b, gemma3-27b (window)
-   and yi-6b prefill shapes: errors, kernel, plain and
-   ``scaled_dot_product_attention`` times, bound, TFLOP/s, the share of
-   the bf16 bound and the ratio to SDPA;
+   ragged lengths, head dim 160, the stablelm-12b and gemma3-27b (window)
+   prefill shapes, paligemma-3b's full-width attention (head dim 256, both
+   types; also the generic route's time on the same inputs) and yi-6b's
+   prefill: the route each launch took (it must be the one ``route()``
+   names), errors, kernel, plain and ``scaled_dot_product_attention``
+   times, bound, TFLOP/s, the share of the bf16 bound and the ratio to
+   SDPA;
 9. K3 against its plain version (the exact recurrence) on ``SSD_SWEEP``
    and the mamba2-1.3b prefill shape: the share of the bytes bound, CUDA
    kernels per call and scratch bytes;
@@ -67,14 +71,16 @@ non-zero):
     (n = 4 ... 60) on the three regimes of
     ``benchmarks/beyond_rnn_predictor.py`` (40 histories each, one
     120-row call per bucket on each side); at n = 60 one row's kernel and
-    plain times, one ``GRUPredictor.forecast_next`` end to end, the bound;
+    plain times, one ``GRUPredictor.forecast_next`` end to end, the
+    operations bound and the chain-latency bound (the latencies of the
+    step's critical path probed on the card, at its maximum SM clock);
 15. ``beyond_rnn_predictor.run`` through the port (main path of K4): 3
     regimes x 40 forecasts through ``predict_next_timestamp_rnn`` (K4) and
     ``predict_next_timestamp`` (K1): mean relative errors, microseconds per
     forecast, launches;
 16. K2 and K3 on their generic routes (the reduced configs' head dims
-    8-20 and paligemma-3b's 256; N, P = 16, 16 and 16, 64) against their
-    plain versions: errors, times, SDPA, bounds;
+    8-20; N, P = 16, 16 and 16, 64) against their plain versions: the
+    route taken, errors, times, SDPA, bounds;
 17. ``launch/serve.py --reduced --device cuda`` for yi-6b, starcoder2-7b,
     stablelm-12b, gemma3-27b and mamba2-1.3b: every K2/K3 launch on the
     generic route, and one prefill through the kernel against the same
@@ -696,8 +702,9 @@ def close(name: str, got, want, tol: float) -> tuple[float, float]:
 # b, s, hq, hkv, d, window, dtype name, tol: the JAX package's ATTN_SWEEP
 # (tests/test_kernels.py), S=1 and S=33, head dim 160 in float32, the
 # prefills of a 2000-token prompt of stablelm-12b (head dim 160) and of
-# gemma3-27b's local layers (window 1024), then yi-6b's (the main path's
-# shape, last)
+# gemma3-27b's local layers (window 1024), paligemma-3b's full-width
+# attention (8/1 heads of 256, `src/repro/configs/multimodal.py`) in both
+# types, then yi-6b's (the main path's shape, last)
 ATTN_SHAPES = [
     (1, 256, 2, 2, 128, None, "float32", 2e-5),
     (2, 256, 4, 2, 128, None, "float32", 2e-5),
@@ -711,6 +718,8 @@ ATTN_SHAPES = [
     (1, 256, 4, 2, 160, None, "float32", 2e-5),
     (1, 2000, 32, 8, 160, None, "bfloat16", 2e-2),
     (1, 2000, 32, 16, 128, 1024, "bfloat16", 2e-2),
+    (1, 2048, 8, 1, 256, None, "bfloat16", 2e-2),
+    (1, 2048, 8, 1, 256, None, "float32", 2e-5),
     (1, 2000, 32, 4, 128, None, "bfloat16", 2e-2),
 ]
 
@@ -733,15 +742,52 @@ def live_pairs(s: int, window) -> int:
     return sum(min(i + 1, window) for i in range(s))
 
 
+def launched_route(mod, fn, named: str):
+    """Run ``fn``, one launch of kernel module ``mod``; return its result
+    and raise unless the route whose launch count moved is ``named`` (what
+    ``mod.route`` names for the shape)."""
+    before = dict(mod.ROUTE_LAUNCHES)
+    result = fn()
+    moved = [r for r, c in mod.ROUTE_LAUNCHES.items() if c != before[r]]
+    if moved != [named]:
+        raise AssertionError(f"{mod.__name__}: launched {moved}, route() "
+                             f"names {named}")
+    return result
+
+
+def generic_route_ms(torch, K2, q, k, v, window) -> float:
+    """The generic route's time on inputs a fast route takes (CUDA events,
+    the library's launcher called directly, so no launch is counted): the
+    route head dim 256 took before it moved onto the fast routes."""
+    out = torch.empty_like(q)
+    lib = K2._load()
+    b, s, hq, d = q.shape
+
+    def run():
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
+            hq, k.shape[2], d, window or 0, 1.0 / math.sqrt(d),
+            K2._DTYPES[q.dtype], K2.ROUTES.index("generic"),
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"generic route launch failed: {err}")
+
+    return cuda_ms(run, reps=10)
+
+
 def k2_case(torch, K2, dev, gen, shape) -> dict:
     """One K2 shape: the kernel against its plain version, its time (CUDA
-    events), SDPA's and the bound; logs one line and returns the numbers."""
+    events), SDPA's and the bound (at head dim 256 also the generic
+    route's time); raises unless the launch took the route ``K2.route``
+    names; logs one line and returns the numbers."""
     F = torch.nn.functional
     b, s, hq, hkv, d, window, dname, tol = shape
     dtype = getattr(torch, dname)
     q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev
                            ).to(dtype) for h in (hq, hkv, hkv))
-    got = K2.flash_attention(q, k, v, window=window)
+    path = K2.route(d, dtype)
+    got = launched_route(
+        K2, lambda: K2.flash_attention(q, k, v, window=window), path)
     out = {}
 
     def plain():
@@ -772,7 +818,16 @@ def k2_case(torch, K2, dev, gen, shape) -> dict:
     bound, by = roofline(nbytes, flops, dtype)
     f32_bound = flops / F32_FLOP_PER_S * 1e3
     bf16_bound = flops / BF16_FLOP_PER_S * 1e3
-    path = K2.route(d, dtype)
+    rec = {"shape": f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} window={window} "
+                    f"{dname}", "route": path, "max_abs_err": err,
+           "err_over_allowance": ratio, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
+           "f32_fma_bound_ms": f32_bound}
+    generic = ""
+    if d == 256 and path != "generic":
+        rec["generic_ms"] = generic_route_ms(torch, K2, q, k, v, window)
+        generic = (f" generic_route_ms={rec['generic_ms']:.4f} "
+                   f"kernel_over_generic={ms / rec['generic_ms']:.4f}")
     log(f"K2 b={b} s={s} hq={hq} hkv={hkv} d={d} window={window} "
         f"{dname} route={path}: max_abs_err={err:.3g} "
         f"err_over_allowance={ratio:.3g} (tol {tol}) kernel_ms={ms:.4f} "
@@ -780,12 +835,8 @@ def k2_case(torch, K2, dev, gen, shape) -> dict:
         f"bound_ms={bound:.5f} ({by}) f32_fma_bound_ms={f32_bound:.5f} "
         f"gflop={flops / 1e9:.3f} tflop_per_s={flops / ms / 1e9:.2f} "
         f"share_of_bf16_bound={bf16_bound / ms:.4f} "
-        f"kernel_over_sdpa={ms / lib_ms:.3f}")
-    return {"shape": f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} window={window} "
-                     f"{dname}", "route": path, "max_abs_err": err,
-            "err_over_allowance": ratio, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
-            "f32_fma_bound_ms": f32_bound}
+        f"kernel_over_sdpa={ms / lib_ms:.3f}{generic}")
+    return rec
 
 
 def phase_k2(torch, K2, dev) -> dict:
@@ -794,6 +845,8 @@ def phase_k2(torch, K2, dev) -> dict:
     cases = [k2_case(torch, K2, dev, gen, shape) for shape in ATTN_SHAPES]
     # the last shape is the main path's: its numbers go into the record
     main = cases[-1]
+    pali = next(c for c in cases if c["shape"].endswith("D=256 window=None "
+                                                          "bfloat16"))
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:132 "
@@ -804,7 +857,10 @@ def phase_k2(torch, K2, dev) -> dict:
             **{key: main[key] for key in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms",
                                           "f32_fma_bound_ms")},
-            "shape": "B=1 S=2000 Hq=32 Hkv=4 D=128 bf16"}
+            "shape": "B=1 S=2000 Hq=32 Hkv=4 D=128 bf16",
+            "paligemma_3b": {key: pali[key] for key in (
+                "shape", "route", "ms", "library_ms", "bound_ms",
+                "generic_ms")}}
 
 
 def k3_case(torch, K3, dev, gen, shape) -> dict:
@@ -821,7 +877,8 @@ def k3_case(torch, K3, dev, gen, shape) -> dict:
     dt = torch.nn.functional.softplus(randn(bt, s, h))
     A = -torch.exp(randn(h) * 0.5)
     B, C = randn(bt, s, g, n).to(dtype), randn(bt, s, g, n).to(dtype)
-    y, state = K3.ssd_scan(x, dt, A, B, C)
+    path = K3.route(n, p, dtype)
+    y, state = launched_route(K3, lambda: K3.ssd_scan(x, dt, A, B, C), path)
     out = {}
 
     def plain():
@@ -840,7 +897,6 @@ def k3_case(torch, K3, dev, gen, shape) -> dict:
     # the recurrence's work: state * decay + B (dt x) and C . state
     flops = 5 * n * p * s * h * bt
     bound, by = roofline(nbytes, flops, dtype)
-    path = K3.route(n, p, dtype)
     scratch = K3.scratch_bytes(bt, s, h, n, p, dtype)
     per_call, _ = device_kernels(torch, lambda: K3.ssd_scan(x, dt, A, B, C),
                                  "ssd_")
@@ -1425,6 +1481,38 @@ def gru_work(rows: int, n: int) -> tuple[int, int]:
     return rows * n * 4 + 517 * 4 + rows * 4, rows * per_row
 
 
+def sm_clock_max_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def gru_chain_cycles(lat: dict) -> tuple[float, float]:
+    """Fewest SM cycles one forward and one reverse GRU step's critical
+    path can take (``csrc/gru_fit.cu``'s header), from the latencies
+    ``K4.latency_probe`` measured: a broadcast of 12 values (the faster of
+    one shuffle and one shared-memory round trip), a 12-term sum (a
+    multiply, then the tree's four dependent adds), the sigmoid and tanhf
+    (the faster of its two ranges) as the fit computes them.
+
+    Forward: broadcast h, Wr . h, + ur x, + br, sigmoid, r * h, broadcast,
+    Wc . (r h), + uc x, + bc, tanhf, z * c, + (1 - z) h.  Reverse: gh +=
+    gp wo, dc = gh z, dac, broadcast, Wc^T . dac, dr = drh h, dar,
+    broadcast, Wr^T . dar, dh +=."""
+    add, mul = lat["add"], lat["mul"]
+    bcast = min(lat["shfl"], lat["smem_broadcast"])
+    dot = mul + 4 * add
+    tanh = min(lat["tanhf_mul_large"], lat["tanhf_mul_small"]) - mul
+    fwd = (bcast + dot + 2 * add + lat["sigmoid"] + mul
+           + bcast + dot + 2 * add + tanh + mul + add)
+    rev = add + 2 * mul + bcast + dot + 2 * mul + bcast + dot + add
+    return fwd, rev
+
+
 def phase_k4(torch, np, K4, T_rnn, dev) -> dict:
     """Phase 14: K4 against its plain version on the card, bitwise, at
     every bucket: the three regimes' 40 histories each (the last n gaps of
@@ -1483,11 +1571,25 @@ def phase_k4(torch, np, K4, T_rnn, dev) -> dict:
                 model.forecast_next(series)
             rec["forecast_next_ms"] = (time.perf_counter() - t0) / 10 * 1e3
     rec["bound_ms"], rec["bound_by"] = bound_ms([gru_work(1, 60)])
+    # the chain-latency bound: steps x (forward + reverse) steps' paths and
+    # the last forward pass, at the card's maximum SM clock
+    lat = K4.latency_probe(dev)
+    fwd, rev = gru_chain_cycles(lat)
+    mhz = sm_clock_max_mhz()
+    cycles = GRU_STEPS * 60 * (fwd + rev) + 60 * fwd
+    rec["chain_bound_ms"] = cycles / (mhz * 1e3)
+    rec["sm_clock_max_mhz"] = mhz
+    log("K4 latency probe (SM cycles per dependent operation): " +
+        " ".join(f"{k}={v:.2f}" for k, v in lat.items()))
     log(f"K4 at n=60, one row (the predictor's launch): kernel_ms="
         f"{rec['ms']:.4f} plain_ms={rec['plain_ms']:.1f} "
         f"forecast_next_ms={rec['forecast_next_ms']:.4f} bound_ms="
         f"{rec['bound_ms']:.6f} ({rec['bound_by']}) kernel_over_bound="
-        f"{rec['ms'] / rec['bound_ms']:.0f} batch_of_120_kernel_ms="
+        f"{rec['ms'] / rec['bound_ms']:.0f} chain_forward_step_cycles="
+        f"{fwd:.1f} chain_reverse_step_cycles={rev:.1f} "
+        f"sm_clock_max_mhz={mhz:.0f} chain_bound_ms="
+        f"{rec['chain_bound_ms']:.4f} kernel_over_chain_bound="
+        f"{rec['ms'] / rec['chain_bound_ms']:.3f} batch_of_120_kernel_ms="
         f"{rec['batch_ms']:.4f} library_ms=null")
     return rec
 
@@ -1541,15 +1643,13 @@ def phase_gru_vs_arima(torch, np, K, K4, T_arima, T_rnn, dev) -> dict:
 # b, s, hq, hkv, d, window, dtype name, tol: the reduced configs' attention
 # at S=2048 (yi-6b 4/2 heads of 16, starcoder2-7b 6/2 of 12, stablelm-12b
 # 4/2 of 20 in float32, gemma3-27b's local layers 4/2 of 16, window 32),
-# head dim 8, then paligemma-3b's full-width attention (8/1 heads of 256)
+# head dim 8 (paligemma-3b's 256 runs on the fast routes, phase 8)
 GENERIC_ATTN_SHAPES = [
     (1, 2048, 4, 2, 16, None, "bfloat16", 2e-2),
     (1, 2048, 6, 2, 12, None, "bfloat16", 2e-2),
     (1, 2048, 4, 2, 20, None, "float32", 2e-5),
     (1, 2048, 4, 2, 16, 32, "bfloat16", 2e-2),
     (1, 512, 4, 1, 8, None, "float32", 2e-5),
-    (1, 2048, 8, 1, 256, None, "float32", 2e-5),
-    (1, 2048, 8, 1, 256, None, "bfloat16", 2e-2),
 ]
 
 # bt, s, h, p, g, n, dtype name, tol: mamba2-1.3b-reduced's scan (8 heads
@@ -1563,14 +1663,16 @@ GENERIC_SSD_SHAPES = [
 
 def phase_generic_routes(torch, K2, K3, dev) -> tuple[list, list]:
     """Phase 16: K2 and K3 on their generic routes against the plain
-    versions, with times and bounds; raises unless each case takes the
-    generic route."""
+    versions, with times and bounds; each case raises unless its launch
+    took the route ``route()`` names, and that is the generic route for
+    every shape here."""
     log("== phase 16: K2 and K3 generic routes vs plain")
     gen = torch.Generator(device=dev).manual_seed(16)
     k2 = [k2_case(torch, K2, dev, gen, shape) for shape in GENERIC_ATTN_SHAPES]
     k3 = [k3_case(torch, K3, dev, gen, shape) for shape in GENERIC_SSD_SHAPES]
     if any(c["route"] != "generic" for c in k2 + k3):
-        raise AssertionError("phase 16: a case left the generic route")
+        raise AssertionError("phase 16: route() names a fast route for a "
+                             "generic case")
     return k2, k3
 
 
@@ -1940,8 +2042,14 @@ def main() -> int:
     kernels, reuse = drive(torch, np, T, T_arima, K, dev)
 
     log("== phase 7: build K2 and K3")
-    for name in ("K2", "K3"):
-        log_build(name, *built[name])
+    wg256 = {f: b for f, b in log_build("K2", *built["K2"]).items()
+             if "flash_attention_wgmmaILi256E" in f}
+    log(f"K2 flash_attention_wgmma<256> spill store bytes: "
+        f"{list(wg256.values())}")
+    if len(wg256) != 1 or any(wg256.values()):
+        raise AssertionError(f"K2 flash_attention_wgmma<256>: spill stores "
+                             f"{wg256} (want one instantiation, 0 bytes)")
+    log_build("K3", *built["K3"])
     k2 = phase_k2(torch, K2, dev)
     k3 = phase_k3(torch, K3, dev)
     counters_lm = {"K1": K, "K2": K2, "K3": K3}
@@ -1977,6 +2085,8 @@ def main() -> int:
         "bound_ms": k4["bound_ms"],
         "bound_by": k4["bound_by"],
         "library_ms": None,
+        "chain_bound_ms": k4["chain_bound_ms"],
+        "sm_clock_max_mhz": k4["sm_clock_max_mhz"],
         "bitwise_rows": k4["bitwise_rows"],
         "rows": k4["rows"],
         "forecast_next_ms": k4["forecast_next_ms"],

@@ -17,7 +17,8 @@
 // keys and rows are masked).  Three routes; kernels/flash_attention.py::route
 // names one from (D, type) and the launcher takes exactly that one, never
 // another on a failure.  The fast routes take the head dims the build's
-// FLASH_FAST_D32_MASK lists (the wrapper's HEAD_DIMS: 64, 128, 160), by type:
+// FLASH_FAST_D32_MASK lists (the wrapper's HEAD_DIMS: 64, 128, 160, 256), by
+// type:
 //
 // bfloat16: tensor cores (flash_attention_wgmma).  One block per 128 folded
 // rows of one kv head: two consumer warpgroups own 64 rows each and one
@@ -32,14 +33,28 @@
 // panels, the last half filled with zeros by TMA's out-of-bounds fill).
 // Blocks with the longest key range start first.  The softmax runs in the
 // log2 domain (scale * log2 e folded into the logits, exp2).
+// D = 256 (paligemma-3b) takes the same kernel with 64-key tiles: four Q
+// panels (64 KB) and two K/V stages of 32 KB each (128 KB) make ~193 KB of
+// the 227 KB a block may use.  A consumer thread holds O's 128 float32 (64
+// rows x 256 / 128 threads) beside S's 32 and P's 16 registers, more than
+// the 168 a thread of the 288-thread block gets (ptxas counts it as three
+// warpgroups: 65,536 / 384); it spilled 856 bytes.  setmaxnreg (a producer
+// warpgroup at 40 registers, consumers at 232) did not lift ptxas's
+// allocation limit (still 168, 500 bytes spilled), and 32-key tiles would
+// leave ~165 of 168, so at D = 256 the block is the two consumer
+// warpgroups alone (255 registers a thread): thread 0 issues each K/V
+// tile's TMA loads at the top of the iteration before the tile's, after
+// waiting for the stage to be released, as the producer warp would.
+// chip_smoke.py's build log checks that ptxas spills nothing there.
 //
 // float32: float32 FMAs (flash_attention_fma), one block of 256 threads per
-// 64 folded rows; K is staged transposed and V in the same buffer.  TF32
-// tensor cores keep ~3 digits and cannot meet float32's 2e-5 tolerance.
+// 64 folded rows; K is staged transposed and V in the same buffer (156,672
+// bytes of shared memory at D = 256).  TF32 tensor cores keep ~3 digits and
+// cannot meet float32's 2e-5 tolerance.
 //
 // generic (flash_attention_generic): any other 1 <= D <= 256, float32 or
-// bfloat16 (the reduced configs' 8-20, paligemma-3b's 256).  The float32
-// kernel's tiling with the head dim padded to DP (16, 32, 64, 128 or 256)
+// bfloat16 (the reduced configs' 8-20).  The float32 kernel's tiling with
+// the head dim padded to DP (16, 32, 64, 128 or 256)
 // in shared memory and registers: loads are plain and masked (no TMA: a
 // bf16 row of D = 12 is 24 bytes, not a multiple of 16), padded columns
 // are zeros and never stored, everything runs in float32 FMAs with inputs
@@ -456,7 +471,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kRows = 128;          // folded q rows per block (2 warpgroups)
 constexpr int kKeys = 64;           // keys per K/V tile
-constexpr int kThreads = 288;       // 2 consumer warpgroups + 1 producer warp
+constexpr int kConsumers = 256;     // 2 consumer warpgroups (warps 0-7)
 constexpr int kPanelCols = 64;      // bf16 columns per 128-byte swizzle span
 constexpr int kRowBytes = 128;      // one panel row
 constexpr int kTileBytes = kKeys * kRowBytes;  // one panel of a K or V tile
@@ -471,6 +486,11 @@ struct Shape {
   static constexpr int kStages = D <= 128 ? 3 : 2;
   static constexpr size_t kSmem =
       1024 + kQBytes + 2 * kStages * kKVBytes + 3 * kStages * 8;
+  // O is kPanels x 32 float32 a consumer thread: four panels (D = 256) do
+  // not fit the 168 registers ptxas gives a thread of 288, so there the
+  // block has no producer warp (the header says why and how).
+  static constexpr bool kInlineLoads = kPanels > 3;
+  static constexpr int kThreads = kConsumers + (kInlineLoads ? 0 : 32);
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -607,7 +627,7 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Shape<D>::kThreads, 1)
 flash_attention_wgmma(const __grid_constant__ CUtensorMap tmap_k,
                       const __grid_constant__ CUtensorMap tmap_v,
                       const bf16* __restrict__ q, bf16* __restrict__ o, int S,
@@ -649,28 +669,36 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tmap_k,
   }
   __syncthreads();
 
-  if (warp == 8) {
+  // K/V tile it into stage it % kStages, once every consumer warp has
+  // released the stage's previous tile
+  auto load_tile = [&](int it) {
+    const int st = it % kStages;
+    const uint32_t use = it / kStages;
+    mbar_wait(&empty[st], (use & 1) ^ 1);
+    const int k0 = (j_lo + it) * kKeys;
+    uint8_t* kbuf = skv + st * 2 * Sh::kKVBytes;
+    uint8_t* vbuf = kbuf + Sh::kKVBytes;
+    mbar_expect_tx(&full_k[st], Sh::kKVBytes);
+#pragma unroll
+    for (int p = 0; p < kPanels; ++p)
+      tma_load_4d(kbuf + p * kTileBytes, &tmap_k, &full_k[st],
+                  p * kPanelCols, h, k0, b);
+    mbar_expect_tx(&full_v[st], Sh::kKVBytes);
+#pragma unroll
+    for (int p = 0; p < kPanels; ++p)
+      tma_load_4d(vbuf + p * kTileBytes, &tmap_v, &full_v[st],
+                  p * kPanelCols, h, k0, b);
+  };
+
+  if constexpr (Sh::kInlineLoads) {
+    // the first kStages - 1 tiles; thread 0 issues each later one at the
+    // top of the iteration kStages - 1 before it
+    if (threadIdx.x == 0)
+      for (int it = 0; it < min(kStages - 1, n_tiles); ++it) load_tile(it);
+  } else if (warp == 8) {
     // producer: one thread issues every TMA load
-    if (lane == 0) {
-      for (int it = 0; it < n_tiles; ++it) {
-        const int st = it % kStages;
-        const uint32_t use = it / kStages;
-        mbar_wait(&empty[st], (use & 1) ^ 1);
-        const int k0 = (j_lo + it) * kKeys;
-        uint8_t* kbuf = skv + st * 2 * Sh::kKVBytes;
-        uint8_t* vbuf = kbuf + Sh::kKVBytes;
-        mbar_expect_tx(&full_k[st], Sh::kKVBytes);
-#pragma unroll
-        for (int p = 0; p < kPanels; ++p)
-          tma_load_4d(kbuf + p * kTileBytes, &tmap_k, &full_k[st],
-                      p * kPanelCols, h, k0, b);
-        mbar_expect_tx(&full_v[st], Sh::kKVBytes);
-#pragma unroll
-        for (int p = 0; p < kPanels; ++p)
-          tma_load_4d(vbuf + p * kTileBytes, &tmap_v, &full_v[st],
-                      p * kPanelCols, h, k0, b);
-      }
-    }
+    if (lane == 0)
+      for (int it = 0; it < n_tiles; ++it) load_tile(it);
     return;
   }
 
@@ -721,6 +749,11 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tmap_k,
     const int k0 = (j_lo + it) * kKeys;
     const uint32_t k_addr = kv_addr + st * 2 * Sh::kKVBytes;
     const uint32_t v_addr = k_addr + Sh::kKVBytes;
+    if constexpr (Sh::kInlineLoads) {
+      if (threadIdx.x == 0 && it + kStages - 1 < n_tiles)
+        load_tile(it + kStages - 1);
+      __syncwarp();
+    }
 
     // S = Q . K^T
     float s[32];
@@ -900,7 +933,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   if (kv_map(&tk, k, B, S, Hkv, D) || kv_map(&tv, v, B, S, Hkv, D)) return -2;
   const long long n_rows = (long long)S * (Hq / Hkv);
   dim3 grid((unsigned)((n_rows + kRows - 1) / kRows), Hkv, B);
-  flash_attention_wgmma<D><<<grid, kThreads, smem, stream>>>(
+  flash_attention_wgmma<D><<<grid, Shape<D>::kThreads, smem, stream>>>(
       tk, tv, static_cast<const bf16*>(q), static_cast<bf16*>(o), S, Hq, Hkv,
       window, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();

@@ -13,33 +13,57 @@
 // the series and the reverse recursion back, each a chain of n dependent
 // steps, so one row is a chain of steps * 2n dependent GRU steps (18,000
 // at n = 60).  A row reads 4n bytes and the 517 initial parameters and
-// writes 4, so the kernel is bound by that chain's latency: inside a row
-// the only parallelism is across the 12 units.
+// writes 4, so the kernel is bound by the latency of that chain: inside a
+// row the only parallelism is across the 12 units and the two gates.
 //
-// Design.
-// - One warp per row, one row per block.  Lane u < 12 owns unit u: the
-//   rows u of Wz, Wr and Wc (the forward's products) and their columns u
-//   (the reverse recursion's transposed products) in registers, and row u
-//   of each weight gradient.  A step's 12-term sums read the other units'
-//   values by __shfl_sync, all 32 lanes taking part (lanes 12..31 compute
-//   on unit 11's copy and store nothing).
+// Design: the critical path of a step, and nothing else on it.
+// - Forward step: broadcast h -> Wr . h -> sigmoid -> r * h -> broadcast
+//   -> Wc . (r * h) -> tanhf -> h'.  Reverse step: gh -> dac -> broadcast
+//   -> Wc^T . dac -> dar -> broadcast -> Wr^T . dar -> gh.
+// - One warp per row, one row per block.  Lanes 0-11 (side 0) and 12-23
+//   (side 1) both hold the 12 units, lane 12 * side + u unit u: side 0
+//   computes the reset gate r, side 1 the update gate z, in the same
+//   instructions on other weights, so the two gates cost one gate's time.
+//   Lanes 24-31 repeat lanes 0-7 and store nothing.  Every lane of unit u
+//   computes c, h' and, in the reverse pass, gh alike, so only z crosses
+//   from side 1 (one shuffle, off the path).
+// - In the reverse pass side 1 computes Wz^T . daz while side 0 computes
+//   Wc^T . dac (one shuffle swaps the two results between the sides, off
+//   the path).  h, r * h, z, r and c come from shared memory, where the
+//   forward left them.  Each lane owns 18 of the 432 weight-gradient
+//   entries: side 0 row u of gWc and gWr[u][0..5], side 1 row u of gWz and
+//   gWr[u][6..11].
+// - A 12-term sum is one fixed tree of depth 4 (kernels/gru_fit.py::
+//   _rowsum): s_k = (p_k + p_{k+4}) + p_{k+8}, then (s_0 + s_1) +
+//   (s_2 + s_3), against 11 dependent adds left to right.
+// - A step's 12 values reach every lane through shared memory: the owners
+//   store them (the forward's h and r * h are stored for the reverse pass
+//   anyway), __syncwarp, and every lane reads them back in three 128-bit
+//   loads.  -DGRU_SMEM_BROADCAST=0 builds 12 __shfl_sync instead, for
+//   scripts/k4_compare.py to time both: on the H100 the shuffles are ~12%
+//   slower (PERF.md), as each broadcast issues 12 of them and one
+//   shuffle's latency is about a shared-memory round trip's.
 // - Shared memory holds the parameters, both Adam moments and the gradient
-//   (517 each), the normalised series, the loss's adjoint per step, and the
-//   forward's h, z, r and c per step for the reverse pass (~21 KB).
-// - The predictions and their adjoints run after the forward, one time
-//   step per lane; Adam runs over the 517 parameters, 17 per lane.
+//   (517 each), the normalised series, the loss's adjoint per step, and
+//   per step h, r * h and (z, r, c) for the reverse pass (~27 KB).  The
+//   predictions and their adjoints run after the forward, one time step
+//   per lane; Adam runs over the 517 parameters, 17 per lane.
 //
-// Rounding: every sum runs left to right (all products, then the adds in
-// index order), and the library is built with -fmad=false, so each
-// operation rounds on its own exactly as the plain version's separate
+// Rounding: every 12-term sum runs in _rowsum's tree, every other sum in
+// the plain version's order, and the library is built with -fmad=false, so
+// each operation rounds on its own exactly as the plain version's separate
 // tensor ops do; the sigmoid is 1 / (1 + expf(-x)) and the tanh tanhf, as
-// PyTorch's CUDA kernels compute them.  On the same card the two agree bit
-// for bit unless a library function (expf, tanhf, powf, sqrtf) differs.
-// Rows never interact, so a row's result is bitwise independent of the
-// launch.
+// PyTorch's CUDA kernels compute them (approximate intrinsics would break
+// this).  On the same card the two agree bit for bit unless a library
+// function (expf, tanhf, powf, sqrtf) differs.  Rows never interact, so a
+// row's result is bitwise independent of the launch.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#ifndef GRU_SMEM_BROADCAST
+#define GRU_SMEM_BROADCAST 1
+#endif
 
 namespace {
 
@@ -52,12 +76,16 @@ constexpr int kWz = 0, kWr = 144, kWc = 288, kUz = 432, kUr = 444,
               kBo = 516, kParams = 517;
 constexpr unsigned kAll = 0xffffffffu;
 
-struct Row {
+// The rows read as float4 come first, each 48 bytes, so all stay 16-byte
+// aligned.
+struct __align__(16) Row {
+  float hs[kMaxN + 1][kH];   // hs[t]: the state before step t
+  float rhs[kMaxN][kH];      // r * h of step t
+  float4 zrc[kMaxN][kH];     // (z, r, c, -) of step t
+  float ex[3][kH];           // reverse-pass broadcasts: dac, daz, dar
   float p[kParams], m[kParams], v[kParams], g[kParams];
   float y[kMaxN];            // normalised series
   float gp[kMaxN];           // d loss / d preds[t]
-  float hs[kMaxN + 1][kH];   // hs[t]: the state before step t
-  float zs[kMaxN][kH], rs[kMaxN][kH], cs[kMaxN][kH];
   float mu, sd;
 };
 
@@ -65,82 +93,97 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-// every lane's copy of lane j's value, j = 0 .. 11
-__device__ __forceinline__ void gather(float (&out)[kH], float mine) {
+// v[j] = unit j's value, j < 12, which lane src + j holds as `mine` and has
+// stored at row[j] before the call
+__device__ __forceinline__ void bcast(float (&v)[kH], const float* row,
+                                      float mine, int src) {
+#if GRU_SMEM_BROADCAST
+  (void)mine;
+  (void)src;
+  __syncwarp();
+  const float4* r4 = reinterpret_cast<const float4*>(row);
 #pragma unroll
-  for (int j = 0; j < kH; ++j) out[j] = __shfl_sync(kAll, mine, j);
+  for (int k = 0; k < 3; ++k) {
+    const float4 a = r4[k];
+    v[4 * k] = a.x;
+    v[4 * k + 1] = a.y;
+    v[4 * k + 2] = a.z;
+    v[4 * k + 3] = a.w;
+  }
+#else
+  (void)row;
+#pragma unroll
+  for (int j = 0; j < kH; ++j) v[j] = __shfl_sync(kAll, mine, src + j);
+#endif
 }
 
-// sum_j w[j] * v[j], left to right
+// sum_j w[j] * v[j] in _rowsum's tree: s_k = (p_k + p_{k+4}) + p_{k+8},
+// then (s_0 + s_1) + (s_2 + s_3)
 __device__ __forceinline__ float dot(const float (&w)[kH],
                                      const float (&v)[kH]) {
-  float s = w[0] * v[0];
+  float s[4];
 #pragma unroll
-  for (int j = 1; j < kH; ++j) s = s + w[j] * v[j];
-  return s;
+  for (int k = 0; k < 4; ++k) s[k] = w[k] * v[k] + w[k + 4] * v[k + 4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) s[k] = s[k] + w[k + 8] * v[k + 8];
+  return (s[0] + s[1]) + (s[2] + s[3]);
 }
 
-// This lane's unit's weights: rows (forward) and columns (reverse) of the
-// three gate matrices, the input and bias terms and its output weight.
+// This lane's weights for unit u on its side (0: r, 1: z).
 struct Unit {
-  float wz[kH], wr[kH], wc[kH];     // row u
-  float wzc[kH], wrc[kH], wcc[kH];  // column u
-  float uz, ur, uc, bz, br, bc, wo;
+  float wg[kH], wc[kH];   // forward: row u of Wr (side 0) or Wz, row u of Wc
+  float ta[kH], wrc[kH];  // reverse: column u of Wc (side 0) or Wz, of Wr
+  float ug, bg, uc, bc, wo;
 
-  __device__ __forceinline__ void load(const float* p, int u) {
+  __device__ __forceinline__ void load(const float* p, int u, int side) {
+    const int wgate = side ? kWz : kWr;
+    const int wt = side ? kWz : kWc;
 #pragma unroll
     for (int j = 0; j < kH; ++j) {
-      wz[j] = p[kWz + u * kH + j];
-      wr[j] = p[kWr + u * kH + j];
+      wg[j] = p[wgate + u * kH + j];
       wc[j] = p[kWc + u * kH + j];
-      wzc[j] = p[kWz + j * kH + u];
+      ta[j] = p[wt + j * kH + u];
       wrc[j] = p[kWr + j * kH + u];
-      wcc[j] = p[kWc + j * kH + u];
     }
-    uz = p[kUz + u];
-    ur = p[kUr + u];
+    ug = p[(side ? kUz : kUr) + u];
+    bg = p[(side ? kBz : kBr) + u];
     uc = p[kUc + u];
-    bz = p[kBz + u];
-    br = p[kBr + u];
     bc = p[kBc + u];
     wo = p[kWo + u];
   }
 };
 
-// The GRU over s.y[0..n) from h = 0 (gru_forward); keeps each step's
-// state and gates.
+// The GRU over s.y[0..n) from h = 0 (gru_forward); leaves each step's
+// state, r * h and gates in shared memory.
 __device__ void forward(Row& s, const Unit& w, int n, int u, bool owner) {
   float h = 0.f;
+  if (owner) s.hs[0][u] = 0.f;
   for (int t = 0; t < n; ++t) {
     const float x = s.y[t];
-    float hj[kH];
-    gather(hj, h);
-    float az = dot(w.wz, hj);
-    float ar = dot(w.wr, hj);
-    az = az + w.uz * x;
-    ar = ar + w.ur * x;
-    az = az + w.bz;
-    ar = ar + w.br;
-    const float z = sigmoid(az);
-    const float r = sigmoid(ar);
-    float rhj[kH];
-    gather(rhj, r * h);
-    float ac = dot(w.wc, rhj);
+    float hv[kH];
+    bcast(hv, s.hs[t], h, 0);
+    float a = dot(w.wg, hv);
+    a = a + w.ug * x;
+    a = a + w.bg;
+    const float g = sigmoid(a);                    // r (side 0) or z
+    const float z = __shfl_sync(kAll, g, kH + u);
+    const float rh = g * h;                        // r * h on side 0
+    if (owner) s.rhs[t][u] = rh;
+    float rv[kH];
+    bcast(rv, s.rhs[t], rh, 0);
+    float ac = dot(w.wc, rv);
     ac = ac + w.uc * x;
     ac = ac + w.bc;
     const float c = tanhf(ac);
-    if (owner) {
-      s.hs[t][u] = h;
-      s.zs[t][u] = z;
-      s.rs[t][u] = r;
-      s.cs[t][u] = c;
-    }
     h = (1.f - z) * h + z * c;
+    if (owner) {
+      s.zrc[t][u] = make_float4(z, g, c, 0.f);
+      s.hs[t + 1][u] = h;
+    }
   }
-  if (owner) s.hs[n][u] = h;
 }
 
-// preds[t] = wo . hs[t+1] + bo (left to right), one t per lane
+// preds[t] = wo . hs[t+1] + bo, one t per lane
 __device__ __forceinline__ float pred_at(const Row& s, int t) {
   float hv[kH], wo[kH];
 #pragma unroll
@@ -152,68 +195,86 @@ __device__ __forceinline__ float pred_at(const Row& s, int t) {
 }
 
 // The loss's gradient into s.g by the reverse recursion (gru_grad_manual).
-__device__ void backward(Row& s, const Unit& w, int n, int u, bool owner,
+__device__ void backward(Row& s, const Unit& w, int n, int u, int side,
                          int lane) {
-  float gwz[kH], gwr[kH], gwc[kH];
+  constexpr int kHalf = kH / 2;
+  float ga[kH], gr[kHalf];  // row u of gWc (side 0) or gWz; half of gWr's
 #pragma unroll
-  for (int j = 0; j < kH; ++j) gwz[j] = gwr[j] = gwc[j] = 0.f;
-  float guz = 0.f, gur = 0.f, guc = 0.f, gbz = 0.f, gbr = 0.f, gbc = 0.f;
+  for (int j = 0; j < kH; ++j) ga[j] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kHalf; ++j) gr[j] = 0.f;
+  float gua = 0.f, gba = 0.f, gur = 0.f, gbr = 0.f;
   float gwo = 0.f, gbo = 0.f, gh = 0.f;
+  // the right-hand vector of this side's gate gradient: r * h or h
+  const float* va_rows = side ? &s.hs[0][0] : &s.rhs[0][0];
+  float h1 = s.hs[n][u];
   for (int t = n - 1; t >= 0; --t) {
     const float gp = s.gp[t];
     const float x = s.y[t];
-    gwo = gwo + gp * s.hs[t + 1][u];
+    gwo = gwo + gp * h1;
     gbo = gbo + gp;
     gh = gh + gp * w.wo;
-    const float h = s.hs[t][u], z = s.zs[t][u], r = s.rs[t][u],
-                c = s.cs[t][u];
+    const float h = s.hs[t][u];
+    const float4 zrc = s.zrc[t][u];
+    const float z = zrc.x, r = zrc.y, c = zrc.z;
     const float dz = gh * (c - h);
     const float dc = gh * z;
     float dh = gh * (1.f - z);
     const float dac = dc * (1.f - c * c);
     const float daz = dz * (z * (1.f - z));
-    float rhj[kH], dacs[kH];
-    gather(rhj, r * h);
-    gather(dacs, dac);
-#pragma unroll
-    for (int j = 0; j < kH; ++j) gwc[j] = gwc[j] + dac * rhj[j];
-    guc = guc + dac * x;
-    gbc = gbc + dac;
-    const float drh = dot(w.wcc, dacs);
-    const float dr = drh * h;
+    const float a = side ? daz : dac;
+    if (lane < 2 * kH) s.ex[side][u] = a;
+    float av[kH];
+    bcast(av, s.ex[side], a, kH * side);
+    const float d1 = dot(w.ta, av);   // Wc^T dac (side 0) or Wz^T daz
+    const float other = __shfl_sync(kAll, d1, side ? u : kH + u);
+    const float dar = (d1 * h) * (r * (1.f - r));   // right on side 0
+    if (lane < kH) s.ex[2][u] = dar;
+    float dv[kH];
+    bcast(dv, s.ex[2], dar, 0);
+    const float drh = side ? other : d1;
     dh = dh + drh * r;
-    const float dar = dr * (r * (1.f - r));
-    float hj[kH], dazs[kH], dars[kH];
-    gather(hj, h);
-    gather(dazs, daz);
-    gather(dars, dar);
-#pragma unroll
-    for (int j = 0; j < kH; ++j) {
-      gwz[j] = gwz[j] + daz * hj[j];
-      gwr[j] = gwr[j] + dar * hj[j];
-    }
-    guz = guz + daz * x;
-    gbz = gbz + daz;
-    gur = gur + dar * x;
-    gbr = gbr + dar;
-    dh = dh + dot(w.wzc, dazs);
-    dh = dh + dot(w.wrc, dars);
+    dh = dh + (side ? d1 : other);
+    dh = dh + dot(w.wrc, dv);
     gh = dh;
-  }
-  if (owner) {
+
+    // the gradients, off the path
+    const float dar_u = __shfl_sync(kAll, dar, u);
+    const float4* va4 = reinterpret_cast<const float4*>(va_rows + t * kH);
 #pragma unroll
-    for (int j = 0; j < kH; ++j) {
-      s.g[kWz + u * kH + j] = gwz[j];
-      s.g[kWr + u * kH + j] = gwr[j];
-      s.g[kWc + u * kH + j] = gwc[j];
+    for (int k = 0; k < 3; ++k) {
+      const float4 q = va4[k];
+      ga[4 * k] = ga[4 * k] + a * q.x;
+      ga[4 * k + 1] = ga[4 * k + 1] + a * q.y;
+      ga[4 * k + 2] = ga[4 * k + 2] + a * q.z;
+      ga[4 * k + 3] = ga[4 * k + 3] + a * q.w;
     }
-    s.g[kUz + u] = guz;
+    const float* hb = &s.hs[t][kHalf * side];
+#pragma unroll
+    for (int j = 0; j < kHalf; ++j) gr[j] = gr[j] + dar_u * hb[j];
+    gua = gua + a * x;
+    gba = gba + a;
+    gur = gur + dar_u * x;
+    gbr = gbr + dar_u;
+    h1 = h;
+  }
+  if (lane < kH) {
+#pragma unroll
+    for (int j = 0; j < kH; ++j) s.g[kWc + u * kH + j] = ga[j];
+#pragma unroll
+    for (int j = 0; j < kHalf; ++j) s.g[kWr + u * kH + j] = gr[j];
+    s.g[kUc + u] = gua;
+    s.g[kBc + u] = gba;
     s.g[kUr + u] = gur;
-    s.g[kUc + u] = guc;
-    s.g[kBz + u] = gbz;
     s.g[kBr + u] = gbr;
-    s.g[kBc + u] = gbc;
     s.g[kWo + u] = gwo;
+  } else if (lane < 2 * kH) {
+#pragma unroll
+    for (int j = 0; j < kH; ++j) s.g[kWz + u * kH + j] = ga[j];
+#pragma unroll
+    for (int j = 0; j < kHalf; ++j) s.g[kWr + u * kH + kHalf + j] = gr[j];
+    s.g[kUz + u] = gua;
+    s.g[kBz + u] = gba;
   }
   if (lane == 0) s.g[kBo] = gbo;
 }
@@ -223,7 +284,8 @@ gru_fit_kernel(const float* __restrict__ y, const float* __restrict__ p0,
                float* __restrict__ out, int n, int steps, float lr) {
   __shared__ Row s;
   const int lane = threadIdx.x;
-  const int u = lane < kH ? lane : kH - 1;
+  const int u = lane % kH;
+  const int side = (lane / kH) & 1;
   const bool owner = lane < kH;
   const float* yr = y + static_cast<long long>(blockIdx.x) * n;
 
@@ -254,13 +316,13 @@ gru_fit_kernel(const float* __restrict__ y, const float* __restrict__ p0,
   const float scale = static_cast<float>(2.0 / (n - 1));
   Unit w;
   for (int it = 0; it < steps; ++it) {
-    w.load(s.p, u);
+    w.load(s.p, u, side);
     forward(s, w, n, u, owner);
     __syncwarp();
     for (int t = lane; t < n; t += kWarp)
       s.gp[t] = t < n - 1 ? scale * (pred_at(s, t) - s.y[t + 1]) : 0.f;
     __syncwarp();
-    backward(s, w, n, u, owner, lane);
+    backward(s, w, n, u, side, lane);
     __syncwarp();
     // Adam (float32 step counter), 17 parameters per lane
     const float step = static_cast<float>(it + 1);
@@ -278,10 +340,95 @@ gru_fit_kernel(const float* __restrict__ y, const float* __restrict__ p0,
     }
     __syncwarp();
   }
-  w.load(s.p, u);
+  w.load(s.p, u, side);
   forward(s, w, n, u, owner);
   __syncwarp();
   if (lane == 0) out[blockIdx.x] = pred_at(s, n - 1) * s.sd + s.mu;
+}
+
+// ---------------------------------------------------------------------------
+// latency probe: the parts of a step's critical path, for its chain bound
+// ---------------------------------------------------------------------------
+
+constexpr int kProbeOps = 512;
+constexpr int kProbes = 7;
+
+__device__ __forceinline__ long long clock_now() {
+  long long t;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t)::"memory");
+  return t;
+}
+
+// keeps the chain on v between the two clock reads around it
+__device__ __forceinline__ void pin(float& v) {
+  asm volatile("" : "+f"(v)::"memory");
+}
+
+// One warp times dependent chains of kProbeOps operations (clock64) and
+// writes SM cycles per operation to cycles[0..kProbes): an add, a
+// multiply, a __shfl_sync, the shared-memory broadcast (a store,
+// __syncwarp, a 128-bit load of it), the sigmoid as the fit computes it,
+// and tanhf then a multiply at |x| ~ 3 and at |x| < 0.5 (tanhf's two
+// ranges).  in[0..3] = (1e-7, 1.0000001, 3, 0.9) keep the compiler from
+// folding the chains.
+__global__ void gru_latency_probe(const float* __restrict__ in,
+                                  float* __restrict__ cycles,
+                                  float* __restrict__ sink) {
+  __shared__ __align__(16) float buf[2][kWarp];
+  const int lane = threadIdx.x;
+  const int next = (lane + 1) % kWarp;
+  const float add = in[0], mul = in[1], big = in[2], small = in[3];
+  long long t[kProbes + 1];
+  float v = 0.5f + lane * 1e-3f, acc = 0.f;
+  for (int k = 0; k < kProbes; ++k) {
+    if (k == 4) v = 0.5f + lane * 1e-3f;
+    if (k == 6) v = 0.4f;
+    pin(v);
+    t[k] = clock_now();
+    pin(v);
+    switch (k) {
+      case 0:
+#pragma unroll 8
+        for (int i = 0; i < kProbeOps; ++i) v = v + add;
+        break;
+      case 1:
+#pragma unroll 8
+        for (int i = 0; i < kProbeOps; ++i) v = v * mul;
+        break;
+      case 2:
+#pragma unroll 8
+        for (int i = 0; i < kProbeOps; ++i) v = __shfl_sync(kAll, v, next);
+        break;
+      case 3:
+        // two buffers in turn: a store never meets the last round's loads
+#pragma unroll 2
+        for (int i = 0; i < kProbeOps; ++i) {
+          buf[i & 1][lane] = v;
+          __syncwarp();
+          v = reinterpret_cast<const float4*>(buf[i & 1])[0].y;
+        }
+        break;
+      case 4:
+#pragma unroll 8
+        for (int i = 0; i < kProbeOps; ++i) v = sigmoid(v);
+        break;
+      case 5:
+#pragma unroll 8
+        for (int i = 0; i < kProbeOps; ++i) v = tanhf(v) * big;
+        break;
+      default:
+#pragma unroll 8
+        for (int i = 0; i < kProbeOps; ++i) v = tanhf(v) * small;
+        break;
+    }
+    pin(v);
+    t[k + 1] = clock_now();
+    acc = acc + v;
+  }
+  if (lane == 0)
+    for (int k = 0; k < kProbes; ++k)
+      cycles[k] = static_cast<float>(t[k + 1] - t[k]) / kProbeOps;
+  sink[lane] = acc;
 }
 
 }  // namespace
@@ -296,5 +443,13 @@ extern "C" int gru_fit_launch(const float* y, const float* p0, float* out,
     return static_cast<int>(cudaErrorInvalidValue);
   gru_fit_kernel<<<rows, kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
       y, p0, out, n, steps, lr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// in [4], cycles [7], sink [32] float32 on the card (gru_latency_probe).
+extern "C" int gru_latency_probe_launch(const float* in, float* cycles,
+                                        float* sink, void* stream) {
+  gru_latency_probe<<<1, kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
+      in, cycles, sink);
   return static_cast<int>(cudaGetLastError());
 }

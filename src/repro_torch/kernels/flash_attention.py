@@ -21,9 +21,10 @@ CUDA one takes any ``S >= 1``.  :func:`route` names its route from the head
 dim and the input type, and the launcher takes exactly that one: at the
 fast head dims :data:`HEAD_DIMS`, bfloat16 runs on the tensor cores
 (``wgmma`` fed by TMA) and float32 on float32 FMAs (TF32 cannot meet
-float32's tolerance); any other head dim up to :data:`MAX_HEAD_DIM` (the
-reduced configs' 8-20, paligemma-3b's 256) takes the generic route,
-float32 FMAs over the head dim padded in the kernel.
+float32's tolerance); paligemma-3b's 256 is one of them.  Any other head
+dim up to :data:`MAX_HEAD_DIM` (the reduced configs' 8-20, whose bf16 rows
+TMA cannot take) takes the generic route, float32 FMAs over the head dim
+padded in the kernel.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ NEG_INF = -1e30
 # one owner of the set: the build passes it to the source as a mask (bit
 # D / 32 - 1 per head dim), which instantiates the fast kernels at these D
 # and lets the launcher refuse the fast routes at any other.
-HEAD_DIMS = (64, 128, 160)
+HEAD_DIMS = (64, 128, 160, 256)
 MAX_HEAD_DIM = 256          # the generic route's widest head dim
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("fma", "wgmma", "generic")     # index = the launcher's route code

@@ -29,9 +29,12 @@ then forecast ``preds[-1] * sd + mu`` after one last forward pass.  It is
 not ``torch.nn.GRU``'s cell (the reset gate multiplies ``h`` before the
 product), so no library call computes the function.
 
-Every 12-term sum runs left to right: all products first, then the adds in
-index order.  The kernel, built with ``-fmad=false``, does the same, so on
-one card it rounds as this module's separate tensor ops do.
+Every 12-term sum runs in one fixed pairwise tree (:func:`_rowsum`: four
+dependent adds after the products, not eleven), every other sum in the
+order written here.  The kernel, built with ``-fmad=false``, does the
+same, so on one card it rounds as this module's separate tensor ops do;
+its design shortens each GRU step's critical path (``csrc/gru_fit.cu``'s
+header), and :func:`latency_probe` times that path's parts on the card.
 
 Parameters are one flat float32 vector of :data:`N_PARAMS` in the order of
 :data:`LAYOUT` (:func:`pack` / :func:`unpack`).
@@ -99,11 +102,15 @@ def pack(params: dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def _rowsum(prod: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis, left to right."""
-    s = prod[..., 0]
-    for j in range(1, prod.shape[-1]):
-        s = s + prod[..., j]
-    return s
+    """Sum over the last axis (a multiple of 4 long) in one fixed tree:
+    four partial sums ``s_k = p_k + p_{k+4} + p_{k+8} + ...`` taken chunk
+    by chunk, then ``(s_0 + s_1) + (s_2 + s_3)``.  For 12 terms that is
+    four dependent adds instead of eleven, in the order the kernel's
+    ``dot`` adds them."""
+    s = prod[..., 0:4]
+    for k in range(4, prod.shape[-1], 4):
+        s = s + prod[..., k:k + 4]
+    return (s[..., 0] + s[..., 1]) + (s[..., 2] + s[..., 3])
 
 
 def _matvec(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -262,8 +269,36 @@ def _load():
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        probe = lib.gru_latency_probe_launch
+        probe.argtypes = [ctypes.c_void_p] * 4
+        probe.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+PROBES = ("add", "mul", "shfl", "smem_broadcast", "sigmoid",
+          "tanhf_mul_large", "tanhf_mul_small")
+
+
+def latency_probe(device) -> dict[str, float]:
+    """SM cycles per operation of dependent chains on one warp of the card,
+    one entry per :data:`PROBES` name: an add, a multiply, a
+    ``__shfl_sync``, the shared-memory broadcast (store, ``__syncwarp``,
+    128-bit load), the fit's sigmoid, and ``tanhf`` followed by a multiply
+    at ``|x| ~ 3`` and at ``|x| < 0.5``.  The parts of a GRU step's
+    critical path, for the kernel's chain-latency bound."""
+    lib = _load()
+    consts = torch.tensor([1e-7, 1.0000001, 3.0, 0.9], dtype=torch.float32,
+                          device=device)
+    cycles = torch.zeros(len(PROBES), dtype=torch.float32, device=device)
+    sink = torch.empty(32, dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.gru_latency_probe_launch(consts.data_ptr(),
+                                           cycles.data_ptr(),
+                                           sink.data_ptr(), stream)
+    nvcc.check_launch("gru_latency_probe", err)
+    return dict(zip(PROBES, cycles.tolist()))
 
 
 def gru_fit(y: torch.Tensor, params0: torch.Tensor, steps: int,

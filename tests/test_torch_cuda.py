@@ -232,6 +232,16 @@ ATTN_SHAPES = [
     # the serving prefills: stablelm-12b, gemma3-27b's local-window layers
     (1, 2000, 32, 8, 160, None, torch.bfloat16, 2e-2),
     (1, 2000, 32, 16, 128, 1024, torch.bfloat16, 2e-2),
+    # head dim 256 (paligemma-3b): S=1, a ragged S, a window, a ragged S
+    # with a window, its full-width attention (8/1 heads at S=2048) in both
+    # types
+    (1, 1, 4, 1, 256, None, torch.bfloat16, 2e-2),
+    (2, 33, 8, 2, 256, None, torch.bfloat16, 2e-2),
+    (1, 256, 4, 2, 256, 128, torch.bfloat16, 2e-2),
+    (1, 300, 8, 2, 256, None, torch.bfloat16, 2e-2),
+    (1, 65, 4, 1, 256, 16, torch.float32, 2e-5),
+    (1, 2048, 8, 1, 256, None, torch.bfloat16, 2e-2),
+    (1, 2048, 8, 1, 256, None, torch.float32, 2e-5),
 ]
 
 
@@ -250,7 +260,8 @@ def test_flash_attention_kernel_matches_plain(cuda, b, s, hq, hkv, d, window,
     got = K2.flash_attention(q, k, v, window=window)
     want = K2.flash_attention_plain(q, k, v, window=window)
     torch.cuda.synchronize()
-    assert K2.LAUNCHES == 1 and got.dtype == dtype
+    assert K2.LAUNCHES == K2.ROUTE_LAUNCHES[K2.route(d, dtype)] == 1
+    assert K2.route(d, dtype) != "generic" and got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
@@ -425,18 +436,16 @@ GENERIC_ATTN_SHAPES = [
     (1, 256, 4, 4, 20, 64, torch.float32, 2e-5),
     (2, 100, 9, 3, 20, None, torch.bfloat16, 2e-2),
     (1, 1, 2, 1, 12, None, torch.float32, 2e-5),
-    (1, 300, 8, 2, 256, None, torch.bfloat16, 2e-2),
-    (1, 65, 4, 1, 256, 16, torch.float32, 2e-5),
+    # the widest padding (DP = 256) at head dims the fast routes leave out
+    (1, 300, 8, 2, 255, None, torch.bfloat16, 2e-2),
+    (1, 65, 4, 1, 200, 16, torch.float32, 2e-5),
     (1, 96, 2, 2, 1, None, torch.float32, 2e-5),
-    # chip_smoke.py phase 16: the reduced configs' attention at S=2048 and
-    # paligemma-3b's full width (8/1 heads of 256)
+    # chip_smoke.py phase 16: the reduced configs' attention at S=2048
     (1, 2048, 4, 2, 16, None, torch.bfloat16, 2e-2),
     (1, 2048, 6, 2, 12, None, torch.bfloat16, 2e-2),
     (1, 2048, 4, 2, 20, None, torch.float32, 2e-5),
     (1, 2048, 4, 2, 16, 32, torch.bfloat16, 2e-2),
     (1, 512, 4, 1, 8, None, torch.float32, 2e-5),
-    (1, 2048, 8, 1, 256, None, torch.float32, 2e-5),
-    (1, 2048, 8, 1, 256, None, torch.bfloat16, 2e-2),
 ]
 
 
@@ -541,8 +550,9 @@ def _gru_rows(seed, per_regime, n):
 @pytest.mark.parametrize("n", GRU_BUCKETS)
 def test_gru_fit_kernel_equals_plain_bitwise(cuda, n):
     """The kernel rounds every operation as the plain version's tensor ops
-    do (``-fmad=false``, sums left to right, PyTorch's sigmoid and tanh
-    formulas), so on one card the forecasts are equal bit for bit."""
+    do (``-fmad=false``, the 12-term sums in ``_rowsum``'s tree, the other
+    sums in the plain order, PyTorch's sigmoid and tanh formulas), so on one
+    card the forecasts are equal bit for bit."""
     y = _gru_rows(n, 8, n).to(cuda)
     p0 = init_params(0).to(cuda)
     K4.reset_counts()
@@ -574,6 +584,15 @@ def test_gru_predictor_is_one_launch_per_forecast(cuda):
     want = K4.gru_fit_plain(torch.from_numpy(series[-60:].copy()[None, :])
                             .to(cuda), model.params, 150, 0.03)
     assert got == float(want[0])
+
+
+def test_gru_latency_probe_gives_each_part_of_the_path(cuda):
+    """The chain bound's inputs: SM cycles per dependent operation, each
+    finite and at least one cycle; an add or a multiply takes a few."""
+    lat = K4.latency_probe(cuda)
+    assert tuple(lat) == K4.PROBES
+    assert all(1.0 <= c < 1000.0 for c in lat.values())
+    assert lat["add"] < 16 and lat["mul"] < 16
 
 
 def test_gru_fit_launch_refuses_what_it_does_not_take(cuda):

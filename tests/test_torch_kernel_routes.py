@@ -18,10 +18,17 @@ def test_k2_fast_head_dims_take_the_fast_route_of_their_type(d):
     assert K2.route(d, F32) == "fma"
 
 
-@pytest.mark.parametrize("d", [1, 8, 12, 16, 20, 32, 96, 192, 255, 256])
+@pytest.mark.parametrize("d", [1, 8, 12, 16, 20, 32, 96, 192, 255])
 @pytest.mark.parametrize("dtype", [F32, BF16])
 def test_k2_other_head_dims_take_the_generic_route(d, dtype):
     assert K2.route(d, dtype) == "generic"
+
+
+@pytest.mark.parametrize("dtype,path", [(BF16, "wgmma"), (F32, "fma")])
+def test_k2_head_dim_256_takes_the_fast_route_of_its_type(dtype, path):
+    """paligemma-3b's head dim: bf16 on the tensor cores, not the generic
+    route."""
+    assert K2.route(256, dtype) == path
 
 
 @pytest.mark.parametrize("d", [0, -1, 257, 512])
@@ -37,9 +44,10 @@ def test_k2_other_types_raise(dtype):
 
 
 def test_k2_build_lists_the_fast_head_dims():
-    """64, 128 and 160 as bits 1, 3 and 4 of the mask (bit D / 32 - 1)."""
-    assert K2.HEAD_DIMS == (64, 128, 160)
-    assert K2.NVCC_FLAGS == ("-DFLASH_FAST_D32_MASK=0x1au",)
+    """64, 128, 160 and 256 as bits 1, 3, 4 and 7 of the mask (bit D / 32 -
+    1)."""
+    assert K2.HEAD_DIMS == (64, 128, 160, 256)
+    assert K2.NVCC_FLAGS == ("-DFLASH_FAST_D32_MASK=0x9au",)
     assert set(K2.ROUTES) == {"fma", "wgmma", "generic"}
 
 

@@ -216,7 +216,7 @@ def test_k2_rejects_what_the_kernel_does_not_take(case):
         q = torch.zeros((1, 4, 8, 64)).transpose(1, 2)
     elif case.startswith("head_dim_"):
         # 96 and 256 past the generic route's widest head dim (96 and 256
-        # themselves take it: test_k2_takes_every_head_dim_up_to_256)
+        # themselves take a route: test_k2_takes_every_head_dim_up_to_256)
         d = K2.MAX_HEAD_DIM + int(case.rsplit("_", 1)[1])
         q, k, v = (torch.zeros(t.shape[:3] + (d,)) for t in (q, k, v))
     with pytest.raises((TypeError, ValueError)):
@@ -226,10 +226,12 @@ def test_k2_rejects_what_the_kernel_does_not_take(case):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [1, 12, 32, 96, 256])
 def test_k2_takes_every_head_dim_up_to_256(d, dtype):
-    """Head dims outside HEAD_DIMS take the generic route."""
+    """Every head dim up to 256 reaches a route: those outside HEAD_DIMS the
+    generic route, paligemma-3b's 256 the fast route of its type."""
     q = torch.zeros((1, 8, 4, d), dtype=dtype)
     k = v = torch.zeros((1, 8, 2, d), dtype=dtype)
-    assert K2._check(q, k, v, True) == "generic"
+    fast = "wgmma" if dtype == torch.bfloat16 else "fma"
+    assert K2._check(q, k, v, True) == (fast if d == 256 else "generic")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

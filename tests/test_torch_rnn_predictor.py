@@ -79,6 +79,22 @@ def test_init_params_draws_as_repro_does():
     assert drawn.numel() == 480 and 0.25 < float(drawn.std()) < 0.35
 
 
+def test_rowsum_adds_in_the_kernels_fixed_tree():
+    """``_rowsum`` adds ``s_k = (p_k + p_{k+4}) + p_{k+8}``, then
+    ``(s_0 + s_1) + (s_2 + s_3)``: the order ``csrc/gru_fit.cu``'s ``dot``
+    adds in.  On these float32 values left to right rounds to 25 and the
+    tree to 18, along any leading axes."""
+    p = np.float32([1e8, 3, 5, 7, 1, -1e8, 1, 1, 1, 2, 2, 2])
+    left_to_right = p[0]
+    for x in p[1:]:
+        left_to_right = np.float32(left_to_right + x)
+    s = [np.float32(np.float32(p[k] + p[k + 4]) + p[k + 8]) for k in range(4)]
+    tree = np.float32(np.float32(s[0] + s[1]) + np.float32(s[2] + s[3]))
+    assert (left_to_right, tree) == (25.0, 18.0)
+    got = G._rowsum(torch.from_numpy(np.tile(p, (2, 3, 1))))
+    assert got.shape == (2, 3) and bool((got == 18.0).all())
+
+
 @pytest.mark.parametrize("n", [4, 16, 60])
 def test_forward_matches_predict_series(jax_params, flat, n):
     """Predictions and the last state at rtol 1e-5 (atol 1e-6)."""
