@@ -31,9 +31,9 @@ non-zero):
    identical counters through the vector engine (batched K1 launches) and
    the reference engine (one padded K1 group per prediction);
 7. report the builds of the flash attention (K2) and SSD scan (K3)
-   kernels (their ``nvcc`` runs, and the GRU fit's (K4), start with K1's
-   in phase 1) and check that ptxas spilled nothing in
-   ``flash_attention_wgmma<256>``;
+   kernels (their ``nvcc`` runs, and those of the GRU fit (K4) and its
+   latency probe, start with K1's in phase 1); after phase 8, check that
+   ptxas spilled nothing in ``flash_attention_wgmma<256>``;
 8. K2 against its plain version on the JAX package's ``ATTN_SWEEP`` shapes,
    ragged lengths, head dim 160, the stablelm-12b and gemma3-27b (window)
    prefill shapes, paligemma-3b's full-width attention (head dim 256, both
@@ -73,7 +73,8 @@ non-zero):
     120-row call per bucket on each side); at n = 60 one row's kernel and
     plain times, one ``GRUPredictor.forecast_next`` end to end, the
     operations bound and the chain-latency bound (the latencies of the
-    step's critical path probed on the card, at its maximum SM clock);
+    step's critical path probed on the card by
+    ``csrc/gru_latency_probe.cu``, at its maximum SM clock);
 15. ``beyond_rnn_predictor.run`` through the port (main path of K4): 3
     regimes x 40 forecasts through ``predict_next_timestamp_rnn`` (K4) and
     ``predict_next_timestamp`` (K1): mean relative errors, microseconds per
@@ -105,9 +106,17 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
 
     python3 chip_smoke.py
+
+``--only k2 k4`` (either or both) runs only phase 0, the named kernels'
+builds and their phases (7-8 for K2, 14 for K4), then prints their records
+as ``{"kernels": [...]}`` and no ``ok`` line: a quick way to time the
+kernels of two checkouts in one call, by copying this script (and
+``src/repro_torch/csrc/gru_latency_probe.cu``, for K4) into the other.
 """
 from __future__ import annotations
 
+import argparse
+import ctypes
 import dataclasses
 import json
 import math
@@ -1491,13 +1500,42 @@ def sm_clock_max_mhz() -> float:
     return float(out.stdout.strip().splitlines()[0])
 
 
+GRU_PROBES = ("add", "mul", "shfl", "smem_broadcast", "sigmoid",
+              "tanhf_mul_large", "tanhf_mul_small")
+
+
+def gru_latency_probe(torch, nvcc, flags, dev) -> dict[str, float]:
+    """SM cycles per operation of dependent chains on one warp of the
+    card (``csrc/gru_latency_probe.cu``, built with K4's ``flags``), one
+    entry per :data:`GRU_PROBES` name: an add, a multiply, a
+    ``__shfl_sync``, the shared-memory broadcast (store, ``__syncwarp``,
+    128-bit load), the fit's sigmoid, and ``tanhf`` followed by a multiply
+    at ``|x| ~ 3`` and at ``|x| < 0.5``."""
+    fn = nvcc.load("gru_latency_probe", flags).gru_latency_probe_launch
+    fn.argtypes = [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    consts = torch.tensor([1e-7, 1.0000001, 3.0, 0.9], dtype=torch.float32,
+                          device=dev)
+    cycles = torch.zeros(len(GRU_PROBES), dtype=torch.float32, device=dev)
+    sink = torch.empty(32, dtype=torch.float32, device=dev)
+    err = fn(consts.data_ptr(), cycles.data_ptr(), sink.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    nvcc.check_launch("gru_latency_probe", err)
+    lat = dict(zip(GRU_PROBES, cycles.tolist()))
+    # each finite and at least one cycle; an add or a multiply takes a few
+    if not all(1.0 <= c < 1000.0 for c in lat.values()) or \
+            not (lat["add"] < 16 and lat["mul"] < 16):
+        raise AssertionError(f"K4 latency probe out of range: {lat}")
+    return lat
+
+
 def gru_chain_cycles(lat: dict) -> tuple[float, float]:
     """Fewest SM cycles one forward and one reverse GRU step's critical
     path can take (``csrc/gru_fit.cu``'s header), from the latencies
-    ``K4.latency_probe`` measured: a broadcast of 12 values (the faster of
-    one shuffle and one shared-memory round trip), a 12-term sum (a
-    multiply, then the tree's four dependent adds), the sigmoid and tanhf
-    (the faster of its two ranges) as the fit computes them.
+    :func:`gru_latency_probe` measured: a broadcast of 12 values (the
+    faster of one shuffle and one shared-memory round trip), a 12-term sum
+    (a multiply, then the tree's four dependent adds), the sigmoid and
+    tanhf (the faster of its two ranges) as the fit computes them.
 
     Forward: broadcast h, Wr . h, + ur x, + br, sigmoid, r * h, broadcast,
     Wc . (r h), + uc x, + bc, tanhf, z * c, + (1 - z) h.  Reverse: gh +=
@@ -1513,7 +1551,7 @@ def gru_chain_cycles(lat: dict) -> tuple[float, float]:
     return fwd, rev
 
 
-def phase_k4(torch, np, K4, T_rnn, dev) -> dict:
+def phase_k4(torch, np, K4, T_rnn, nvcc, dev) -> dict:
     """Phase 14: K4 against its plain version on the card, bitwise, at
     every bucket: the three regimes' 40 histories each (the last n gaps of
     a history; a history shorter than n gives the regime's first n gaps),
@@ -1573,7 +1611,7 @@ def phase_k4(torch, np, K4, T_rnn, dev) -> dict:
     rec["bound_ms"], rec["bound_by"] = bound_ms([gru_work(1, 60)])
     # the chain-latency bound: steps x (forward + reverse) steps' paths and
     # the last forward pass, at the card's maximum SM clock
-    lat = K4.latency_probe(dev)
+    lat = gru_latency_probe(torch, nvcc, K4.NVCC_FLAGS, dev)
     fwd, rev = gru_chain_cycles(lat)
     mhz = sm_clock_max_mhz()
     cycles = GRU_STEPS * 60 * (fwd + rev) + 60 * fwd
@@ -1984,7 +2022,44 @@ def train_phase(torch, counts: dict, dev) -> dict:
     return out
 
 
-def main() -> int:
+def check_wgmma_256(spills: dict[str, int]) -> None:
+    """Phase 7's check, made once phase 8 has timed the kernel: ptxas
+    spilled nothing in ``flash_attention_wgmma<256>``."""
+    wg256 = {f: b for f, b in spills.items()
+             if "flash_attention_wgmmaILi256E" in f}
+    log(f"K2 flash_attention_wgmma<256> spill store bytes: "
+        f"{list(wg256.values())}")
+    if len(wg256) != 1 or any(wg256.values()):
+        raise AssertionError(f"K2 flash_attention_wgmma<256>: spill stores "
+                             f"{wg256} (want one instantiation, 0 bytes)")
+
+
+def run_only(torch, np, only, built, K2, K4, T_rnn, nvcc, dev) -> int:
+    """``--only``: the named kernels' phases (7-8 for K2, 14 for K4) and
+    their records as one ``{"kernels": [...]}`` line."""
+    records = []
+    if "k2" in only:
+        log("== phase 7: build K2")
+        spills = log_build("K2", *built["K2"])
+        records.append(phase_k2(torch, K2, dev))
+        check_wgmma_256(spills)
+    if "k4" in only:
+        log_build("K4", *built["K4"])
+        log_build("K4 probe", *built["K4 probe"])
+        records.append({"name": "gru_fit",
+                        **phase_k4(torch, np, K4, T_rnn, nvcc, dev)})
+    log(json.dumps({"kernels": records}))
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        description="Smoke run of the PyTorch port on one CUDA card.")
+    parser.add_argument(
+        "--only", nargs="+", choices=("k2", "k4"),
+        help="run only these kernels' builds and phases (7-8: K2, 14: K4) "
+             "and print their records; no ok line")
+    args = parser.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -1996,7 +2071,7 @@ def main() -> int:
         return 2
     if not all((SRC / "repro_torch" / "csrc" / f"{name}.cu").is_file()
                for name in ("arima_bank", "flash_attention", "ssd_scan",
-                            "gru_fit")):
+                            "gru_fit", "gru_latency_probe")):
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
@@ -2009,6 +2084,7 @@ def main() -> int:
     from repro_torch.kernels import arima_bank as K
     from repro_torch.kernels import flash_attention as K2
     from repro_torch.kernels import gru_fit as K4
+    from repro_torch.kernels import nvcc
     from repro_torch.kernels import ssd_scan as K3
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2021,36 +2097,40 @@ def main() -> int:
         f"device={torch.cuda.get_device_name(0)} "
         f"count={torch.cuda.device_count()}")
 
-    log("== phase 1: build K1 (K2, K3 and K4 build alongside, one nvcc "
-        "each)")
+    starts = {"K1": K.start_build, "K2": K2.start_build,
+              "K3": K3.start_build, "K4": K4.start_build,
+              "K4 probe": lambda verbose: nvcc.start(
+                  "gru_latency_probe", K4.NVCC_FLAGS, verbose)}
+    if args.only:
+        log(f"== phase 1: build {' and '.join(args.only)}")
+        starts = {name: start for name, start in starts.items()
+                  if name.split()[0].lower() in args.only}
+    else:
+        log("== phase 1: build K1 (K2, K3, K4 and K4's latency probe build "
+            "alongside, one nvcc each)")
     t_build = time.perf_counter()
-    builds = {"K1": K.start_build(verbose=True),
-              "K2": K2.start_build(verbose=True),
-              "K3": K3.start_build(verbose=True),
-              "K4": K4.start_build(verbose=True)}
+    builds = {name: start(verbose=True) for name, start in starts.items()}
     # collected in turn: each time is from the common start to the moment
     # that build was collected, so at least its own nvcc time
     built = {name: (b.wait(), time.perf_counter() - t_build)
              for name, b in builds.items()}
+    dev = torch.device("cuda")
+    if args.only:
+        return run_only(torch, np, args.only, built, K2, K4, T_rnn, nvcc,
+                        dev)
     spills = log_build("K1", *built["K1"])
     reg_spills = {f: b for f, b in spills.items() if "fit_211" in f}
     if len(reg_spills) != 5 or any(reg_spills.values()):
         raise AssertionError(f"K1 register path: spill stores {reg_spills} "
                              f"(want 0 for each of the 5 instantiations)")
 
-    dev = torch.device("cuda")
     kernels, reuse = drive(torch, np, T, T_arima, K, dev)
 
     log("== phase 7: build K2 and K3")
-    wg256 = {f: b for f, b in log_build("K2", *built["K2"]).items()
-             if "flash_attention_wgmmaILi256E" in f}
-    log(f"K2 flash_attention_wgmma<256> spill store bytes: "
-        f"{list(wg256.values())}")
-    if len(wg256) != 1 or any(wg256.values()):
-        raise AssertionError(f"K2 flash_attention_wgmma<256>: spill stores "
-                             f"{wg256} (want one instantiation, 0 bytes)")
+    wg_spills = log_build("K2", *built["K2"])
     log_build("K3", *built["K3"])
     k2 = phase_k2(torch, K2, dev)
+    check_wgmma_256(wg_spills)
     k3 = phase_k3(torch, K3, dev)
     counters_lm = {"K1": K, "K2": K2, "K3": K3}
     k2["launches"] = serve_phase(torch, "yi-6b", "K2", counters_lm, dev,
@@ -2061,7 +2141,8 @@ def main() -> int:
     kernels[0]["launches_interval_hpm"] = interval_phase(T, K, dev, reuse)
 
     log_build("K4", *built["K4"])
-    k4 = phase_k4(torch, np, K4, T_rnn, dev)
+    log_build("K4 probe", *built["K4 probe"])
+    k4 = phase_k4(torch, np, K4, T_rnn, nvcc, dev)
     launches = phase_gru_vs_arima(torch, np, K, K4, T_arima, T_rnn, dev)
     kernels[0]["launches_gru_vs_arima"] = launches["K1"]
     k2["generic"], k3["generic"] = phase_generic_routes(torch, K2, K3, dev)

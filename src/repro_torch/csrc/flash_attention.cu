@@ -38,13 +38,15 @@
 // the 227 KB a block may use.  A consumer thread holds O's 128 float32 (64
 // rows x 256 / 128 threads) beside S's 32 and P's 16 registers, more than
 // the 168 a thread of the 288-thread block gets (ptxas counts it as three
-// warpgroups: 65,536 / 384); it spilled 856 bytes.  setmaxnreg (a producer
-// warpgroup at 40 registers, consumers at 232) did not lift ptxas's
-// allocation limit (still 168, 500 bytes spilled), and 32-key tiles would
-// leave ~165 of 168, so at D = 256 the block is the two consumer
-// warpgroups alone (255 registers a thread): thread 0 issues each K/V
-// tile's TMA loads at the top of the iteration before the tile's, after
-// waiting for the stage to be released, as the producer warp would.
+// warpgroups: 65,536 / 384): with the producer warp it spills 856 bytes
+// and takes 2.5x as long.  setmaxnreg (a producer warpgroup at 40
+// registers, consumers at 232) did not lift ptxas's allocation limit, and
+// 32-key tiles would leave ~165 of 168, so at D = 256 the block is the two
+// consumer warpgroups alone (255 registers a thread): thread 0 issues each
+// K/V tile's TMA loads at the top of the iteration before the tile's,
+// after waiting for the stage to be released, as the producer warp would.
+// D <= 160 keep the producer warp: the same inline loads there made
+// yi-6b's, stablelm-12b's and gemma3-27b's prefills 3-7% slower (PERF.md).
 // chip_smoke.py's build log checks that ptxas spills nothing there.
 //
 // float32: float32 FMAs (flash_attention_fma), one block of 256 threads per
@@ -488,7 +490,8 @@ struct Shape {
       1024 + kQBytes + 2 * kStages * kKVBytes + 3 * kStages * 8;
   // O is kPanels x 32 float32 a consumer thread: four panels (D = 256) do
   // not fit the 168 registers ptxas gives a thread of 288, so there the
-  // block has no producer warp (the header says why and how).
+  // block has no producer warp; below that the producer warp is faster
+  // (the header says why and how).
   static constexpr bool kInlineLoads = kPanels > 3;
   static constexpr int kThreads = kConsumers + (kInlineLoads ? 0 : 32);
 };

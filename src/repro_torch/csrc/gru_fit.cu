@@ -39,10 +39,9 @@
 // - A step's 12 values reach every lane through shared memory: the owners
 //   store them (the forward's h and r * h are stored for the reverse pass
 //   anyway), __syncwarp, and every lane reads them back in three 128-bit
-//   loads.  -DGRU_SMEM_BROADCAST=0 builds 12 __shfl_sync instead, for
-//   scripts/k4_compare.py to time both: on the H100 the shuffles are ~12%
-//   slower (PERF.md), as each broadcast issues 12 of them and one
-//   shuffle's latency is about a shared-memory round trip's.
+//   loads.  On the H100 12 __shfl_sync were ~12% slower (PERF.md): a
+//   broadcast issues 12 of them, and one shuffle's latency is about a
+//   shared-memory round trip's.
 // - Shared memory holds the parameters, both Adam moments and the gradient
 //   (517 each), the normalised series, the loss's adjoint per step, and
 //   per step h, r * h and (z, r, c) for the reverse pass (~27 KB).  The
@@ -60,10 +59,6 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
-
-#ifndef GRU_SMEM_BROADCAST
-#define GRU_SMEM_BROADCAST 1
-#endif
 
 namespace {
 
@@ -93,13 +88,9 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-// v[j] = unit j's value, j < 12, which lane src + j holds as `mine` and has
-// stored at row[j] before the call
-__device__ __forceinline__ void bcast(float (&v)[kH], const float* row,
-                                      float mine, int src) {
-#if GRU_SMEM_BROADCAST
-  (void)mine;
-  (void)src;
+// v[j] = row[j], j < 12, which the lanes owning them have stored before
+// the call
+__device__ __forceinline__ void bcast(float (&v)[kH], const float* row) {
   __syncwarp();
   const float4* r4 = reinterpret_cast<const float4*>(row);
 #pragma unroll
@@ -110,11 +101,6 @@ __device__ __forceinline__ void bcast(float (&v)[kH], const float* row,
     v[4 * k + 2] = a.z;
     v[4 * k + 3] = a.w;
   }
-#else
-  (void)row;
-#pragma unroll
-  for (int j = 0; j < kH; ++j) v[j] = __shfl_sync(kAll, mine, src + j);
-#endif
 }
 
 // sum_j w[j] * v[j] in _rowsum's tree: s_k = (p_k + p_{k+4}) + p_{k+8},
@@ -161,7 +147,7 @@ __device__ void forward(Row& s, const Unit& w, int n, int u, bool owner) {
   for (int t = 0; t < n; ++t) {
     const float x = s.y[t];
     float hv[kH];
-    bcast(hv, s.hs[t], h, 0);
+    bcast(hv, s.hs[t]);
     float a = dot(w.wg, hv);
     a = a + w.ug * x;
     a = a + w.bg;
@@ -170,7 +156,7 @@ __device__ void forward(Row& s, const Unit& w, int n, int u, bool owner) {
     const float rh = g * h;                        // r * h on side 0
     if (owner) s.rhs[t][u] = rh;
     float rv[kH];
-    bcast(rv, s.rhs[t], rh, 0);
+    bcast(rv, s.rhs[t]);
     float ac = dot(w.wc, rv);
     ac = ac + w.uc * x;
     ac = ac + w.bc;
@@ -225,13 +211,13 @@ __device__ void backward(Row& s, const Unit& w, int n, int u, int side,
     const float a = side ? daz : dac;
     if (lane < 2 * kH) s.ex[side][u] = a;
     float av[kH];
-    bcast(av, s.ex[side], a, kH * side);
+    bcast(av, s.ex[side]);
     const float d1 = dot(w.ta, av);   // Wc^T dac (side 0) or Wz^T daz
     const float other = __shfl_sync(kAll, d1, side ? u : kH + u);
     const float dar = (d1 * h) * (r * (1.f - r));   // right on side 0
     if (lane < kH) s.ex[2][u] = dar;
     float dv[kH];
-    bcast(dv, s.ex[2], dar, 0);
+    bcast(dv, s.ex[2]);
     const float drh = side ? other : d1;
     dh = dh + drh * r;
     dh = dh + (side ? d1 : other);
@@ -346,91 +332,6 @@ gru_fit_kernel(const float* __restrict__ y, const float* __restrict__ p0,
   if (lane == 0) out[blockIdx.x] = pred_at(s, n - 1) * s.sd + s.mu;
 }
 
-// ---------------------------------------------------------------------------
-// latency probe: the parts of a step's critical path, for its chain bound
-// ---------------------------------------------------------------------------
-
-constexpr int kProbeOps = 512;
-constexpr int kProbes = 7;
-
-__device__ __forceinline__ long long clock_now() {
-  long long t;
-  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t)::"memory");
-  return t;
-}
-
-// keeps the chain on v between the two clock reads around it
-__device__ __forceinline__ void pin(float& v) {
-  asm volatile("" : "+f"(v)::"memory");
-}
-
-// One warp times dependent chains of kProbeOps operations (clock64) and
-// writes SM cycles per operation to cycles[0..kProbes): an add, a
-// multiply, a __shfl_sync, the shared-memory broadcast (a store,
-// __syncwarp, a 128-bit load of it), the sigmoid as the fit computes it,
-// and tanhf then a multiply at |x| ~ 3 and at |x| < 0.5 (tanhf's two
-// ranges).  in[0..3] = (1e-7, 1.0000001, 3, 0.9) keep the compiler from
-// folding the chains.
-__global__ void gru_latency_probe(const float* __restrict__ in,
-                                  float* __restrict__ cycles,
-                                  float* __restrict__ sink) {
-  __shared__ __align__(16) float buf[2][kWarp];
-  const int lane = threadIdx.x;
-  const int next = (lane + 1) % kWarp;
-  const float add = in[0], mul = in[1], big = in[2], small = in[3];
-  long long t[kProbes + 1];
-  float v = 0.5f + lane * 1e-3f, acc = 0.f;
-  for (int k = 0; k < kProbes; ++k) {
-    if (k == 4) v = 0.5f + lane * 1e-3f;
-    if (k == 6) v = 0.4f;
-    pin(v);
-    t[k] = clock_now();
-    pin(v);
-    switch (k) {
-      case 0:
-#pragma unroll 8
-        for (int i = 0; i < kProbeOps; ++i) v = v + add;
-        break;
-      case 1:
-#pragma unroll 8
-        for (int i = 0; i < kProbeOps; ++i) v = v * mul;
-        break;
-      case 2:
-#pragma unroll 8
-        for (int i = 0; i < kProbeOps; ++i) v = __shfl_sync(kAll, v, next);
-        break;
-      case 3:
-        // two buffers in turn: a store never meets the last round's loads
-#pragma unroll 2
-        for (int i = 0; i < kProbeOps; ++i) {
-          buf[i & 1][lane] = v;
-          __syncwarp();
-          v = reinterpret_cast<const float4*>(buf[i & 1])[0].y;
-        }
-        break;
-      case 4:
-#pragma unroll 8
-        for (int i = 0; i < kProbeOps; ++i) v = sigmoid(v);
-        break;
-      case 5:
-#pragma unroll 8
-        for (int i = 0; i < kProbeOps; ++i) v = tanhf(v) * big;
-        break;
-      default:
-#pragma unroll 8
-        for (int i = 0; i < kProbeOps; ++i) v = tanhf(v) * small;
-        break;
-    }
-    pin(v);
-    t[k + 1] = clock_now();
-    acc = acc + v;
-  }
-  if (lane == 0)
-    for (int k = 0; k < kProbes; ++k)
-      cycles[k] = static_cast<float>(t[k + 1] - t[k]) / kProbeOps;
-  sink[lane] = acc;
-}
-
 }  // namespace
 
 // y [rows, n] float32, p0 [517] float32 (the same initial parameters for
@@ -443,13 +344,5 @@ extern "C" int gru_fit_launch(const float* y, const float* p0, float* out,
     return static_cast<int>(cudaErrorInvalidValue);
   gru_fit_kernel<<<rows, kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
       y, p0, out, n, steps, lr);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// in [4], cycles [7], sink [32] float32 on the card (gru_latency_probe).
-extern "C" int gru_latency_probe_launch(const float* in, float* cycles,
-                                        float* sink, void* stream) {
-  gru_latency_probe<<<1, kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
-      in, cycles, sink);
   return static_cast<int>(cudaGetLastError());
 }

@@ -34,7 +34,7 @@ dependent adds after the products, not eleven), every other sum in the
 order written here.  The kernel, built with ``-fmad=false``, does the
 same, so on one card it rounds as this module's separate tensor ops do;
 its design shortens each GRU step's critical path (``csrc/gru_fit.cu``'s
-header), and :func:`latency_probe` times that path's parts on the card.
+header).
 
 Parameters are one flat float32 vector of :data:`N_PARAMS` in the order of
 :data:`LAYOUT` (:func:`pack` / :func:`unpack`).
@@ -269,36 +269,8 @@ def _load():
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        probe = lib.gru_latency_probe_launch
-        probe.argtypes = [ctypes.c_void_p] * 4
-        probe.restype = ctypes.c_int
         _lib = lib
     return _lib
-
-
-PROBES = ("add", "mul", "shfl", "smem_broadcast", "sigmoid",
-          "tanhf_mul_large", "tanhf_mul_small")
-
-
-def latency_probe(device) -> dict[str, float]:
-    """SM cycles per operation of dependent chains on one warp of the card,
-    one entry per :data:`PROBES` name: an add, a multiply, a
-    ``__shfl_sync``, the shared-memory broadcast (store, ``__syncwarp``,
-    128-bit load), the fit's sigmoid, and ``tanhf`` followed by a multiply
-    at ``|x| ~ 3`` and at ``|x| < 0.5``.  The parts of a GRU step's
-    critical path, for the kernel's chain-latency bound."""
-    lib = _load()
-    consts = torch.tensor([1e-7, 1.0000001, 3.0, 0.9], dtype=torch.float32,
-                          device=device)
-    cycles = torch.zeros(len(PROBES), dtype=torch.float32, device=device)
-    sink = torch.empty(32, dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.gru_latency_probe_launch(consts.data_ptr(),
-                                           cycles.data_ptr(),
-                                           sink.data_ptr(), stream)
-    nvcc.check_launch("gru_latency_probe", err)
-    return dict(zip(PROBES, cycles.tolist()))
 
 
 def gru_fit(y: torch.Tensor, params0: torch.Tensor, steps: int,
