@@ -37,11 +37,12 @@ non-zero):
 8. K2 against its plain version on the JAX package's ``ATTN_SWEEP`` shapes,
    ragged lengths, head dim 160, the stablelm-12b and gemma3-27b (window)
    prefill shapes, paligemma-3b's full-width attention (head dim 256, both
-   types; also the generic route's time on the same inputs) and yi-6b's
-   prefill: the route each launch took (it must be the one ``route()``
-   names), errors, kernel, plain and ``scaled_dot_product_attention``
-   times, bound, TFLOP/s, the share of the bf16 bound and the ratio to
-   SDPA;
+   types; also the generic route's time on the same inputs; and at its
+   served length, 2256), arctic-480b's (56/8 heads, a group of 7),
+   musicgen-large's (32/32 heads of 64 at 2064) and yi-6b's prefill: the
+   route each launch took (it must be the one ``route()`` names), errors,
+   kernel, plain and ``scaled_dot_product_attention`` times, bound,
+   TFLOP/s, the share of the bf16 bound and the ratio to SDPA;
 9. K3 against its plain version (the exact recurrence) on ``SSD_SWEEP``
    and the mamba2-1.3b prefill shape: the share of the bytes bound, CUDA
    kernels per call and scratch bytes;
@@ -82,15 +83,19 @@ non-zero):
 16. K2 and K3 on their generic routes (the reduced configs' head dims
     8-20; N, P = 16, 16 and 16, 64) against their plain versions: the
     route taken, errors, times, SDPA, bounds;
-17. ``launch/serve.py --reduced --device cuda`` for yi-6b, starcoder2-7b,
-    stablelm-12b, gemma3-27b and mamba2-1.3b: every K2/K3 launch on the
-    generic route, and one prefill through the kernel against the same
-    prefill through its plain version;
+17. ``launch/serve.py --reduced --device cuda`` for all ten configs
+    (yi-6b, starcoder2-7b, stablelm-12b, gemma3-27b, mamba2-1.3b,
+    deepseek-v3-671b, arctic-480b, jamba-1.5-large-398b, musicgen-large,
+    paligemma-3b): K2 launches where a config has GQA attention, K3 where
+    it has Mamba layers (deepseek-v3's MLA launches neither), every one on
+    the generic route, and one prefill through the kernels against the same
+    prefill through their plain versions;
 18. training on the card, through the plain attention and SSD paths with
     autograd (K2 and K3 have no backward; their launches must stay at
-    zero): (a) one float32 ``make_train_step`` step of reduced yi-6b and
-    mamba2-1.3b on the card against the CPU (loss within rtol 1e-4, the
-    first moment within 1e-3 relative L2); (b) ``train_loop`` on
+    zero): (a) one float32 ``make_train_step`` step of reduced yi-6b,
+    mamba2-1.3b, deepseek-v3 (MLA, MoE, MTP, aux loss) and jamba on the
+    card against the CPU (loss within rtol 1e-4, the first moment within
+    1e-3 relative L2); (b) ``train_loop`` on
     mamba2-1.3b at full width and depth, bf16, ``SyntheticLM`` through
     ``PrefetchingLoader``, 4 x 2048 tokens a step, 6 steps: losses and grad
     norms finite and no step skipped; step time, tokens/s, 6·N·T per step
@@ -100,7 +105,24 @@ non-zero):
     same for yi-6b at full width with its 32 layers cut to 4; (d) a
     checkpoint at step 2 resumed to step 4 on a reduced config, bitwise
     equal to restoring by hand, then ``python -m repro_torch.launch.train
-    --arch yi-6b --reduced --steps 3`` on the card by default.
+    --arch yi-6b --reduced --steps 3`` on the card by default;
+19. deepseek-v3-671b at full width, 4 of 61 layers (3 dense MLA layers,
+    one MLA/MoE unit and the MTP layer ``init_params`` builds; ~50 GiB of
+    random weights), served as in phase 10: no K2/K3 launch (MLA's
+    attention and the experts are plain paths), K1 schedules; TTFT, decode
+    rate, peak memory, busy shares; the share of routed slots dropped over
+    capacity in a cold prefill and a decode step; a teacher-forced decode
+    of one token against the prefill of the extended prompt;
+20. paligemma-3b at full width and depth served as in phase 10 (2000-token
+    prompts after 256 zero prefix embeddings): 18 K2 launches a prefill,
+    all on ``wgmma`` at head dim 256, and a 256-token prefill through K2
+    against its plain version;
+21. one 2000-token prefill each of (a) arctic-480b at full width, 1 of 35
+    layers (one K2 launch on ``wgmma``, 56/8 heads: a group of 7) and (b)
+    musicgen-large at full width and depth (48 launches on ``wgmma`` at
+    head dim 64 after 64 prefix positions, 4 codebooks), each checked
+    against the plain version as in phase 20; musicgen then decodes 8
+    steps.  A ``phases 19-21 summary:`` JSON line follows phase 21.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -713,7 +735,10 @@ def close(name: str, got, want, tol: float) -> tuple[float, float]:
 # prefills of a 2000-token prompt of stablelm-12b (head dim 160) and of
 # gemma3-27b's local layers (window 1024), paligemma-3b's full-width
 # attention (8/1 heads of 256, `src/repro/configs/multimodal.py`) in both
-# types, then yi-6b's (the main path's shape, last)
+# types and at its served length (2000 tokens after 256 prefix positions),
+# arctic-480b's (56/8 heads of 128: a group of 7), musicgen-large's (32/32
+# heads of 64 at 2000 + 64 prefix positions), then yi-6b's (the main
+# path's shape, last)
 ATTN_SHAPES = [
     (1, 256, 2, 2, 128, None, "float32", 2e-5),
     (2, 256, 4, 2, 128, None, "float32", 2e-5),
@@ -729,6 +754,9 @@ ATTN_SHAPES = [
     (1, 2000, 32, 16, 128, 1024, "bfloat16", 2e-2),
     (1, 2048, 8, 1, 256, None, "bfloat16", 2e-2),
     (1, 2048, 8, 1, 256, None, "float32", 2e-5),
+    (1, 2256, 8, 1, 256, None, "bfloat16", 2e-2),
+    (1, 2000, 56, 8, 128, None, "bfloat16", 2e-2),
+    (1, 2064, 32, 32, 64, None, "bfloat16", 2e-2),
     (1, 2000, 32, 4, 128, None, "bfloat16", 2e-2),
 ]
 
@@ -957,27 +985,63 @@ def arrivals() -> list[tuple[int, float]]:
             for r in range(ROUNDS) for c in range(N_CLIENTS)]
 
 
-def serve_phase(torch, arch: str, kernel: str, counts: dict, dev,
-                phase: str) -> int:
-    """Serve ``arch`` at full width through ``ServeEngine``; check that each
-    prefill launched ``kernel`` once per layer and the scheduler launched
-    K1; return the kernel's launches."""
-    import gc
+def stub_inputs(torch, cfg, n: int, dev, mult: int = 5):
+    """A deterministic ``n``-token prompt [1, n] ([1, n, CB] with codebooks)
+    and the modality stub's prefix embeddings (zeros, None without a
+    prefix), as ``ServeEngine`` feeds them."""
+    tokens = torch.arange(n, device=dev) * mult % cfg.vocab
+    if cfg.codebooks > 1:
+        tokens = (tokens[:, None] + torch.arange(cfg.codebooks, device=dev)
+                  ) % cfg.vocab
+    pe = (torch.zeros((1, cfg.n_prefix, cfg.d_model), dtype=torch.bfloat16,
+                      device=dev) if cfg.n_prefix else None)
+    return tokens[None], pe
 
-    import numpy as np
 
-    from repro_torch.configs import get_config
+def attn_layers(cfg) -> int:
+    """GQA attention layers (K2 launches per prefill)."""
+    specs = list(cfg.prelude) + list(cfg.pattern) * cfg.n_units
+    return sum(m.startswith("attn") for m, _ in specs)
+
+
+def init_model(torch, cfg, label: str, dev):
+    """Random parameters from seed 0 on the card; logs their count."""
     from repro_torch.models.transformer import init_params
-    from repro_torch.serve import engine as TE
-
-    log(f"== {phase}: serve {arch} at full width")
-    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    log(f"{arch}: params={n_params} dtype={cfg.dtype} init_seconds="
-        f"{time.perf_counter() - t0:.2f}")
+    log(f"{label}: params={n_params} dtype={cfg.dtype} n_layers="
+        f"{cfg.n_layers} init_seconds={time.perf_counter() - t0:.2f} "
+        f"allocated_gib={torch.cuda.memory_allocated() / 2**30:.2f}")
+    return params
+
+
+def free(torch) -> None:
+    """Collect and return the card's cached blocks, once the caller has
+    dropped its references to a model."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_phase(torch, cfg, params, label: str, per_prefill: dict,
+                counts: dict, dev, phase: str, route: str | None = None
+                ) -> dict:
+    """Serve ``cfg`` at full width through ``ServeEngine`` on the traffic of
+    ``arrivals()``; check that each prefill launched each kernel of
+    ``per_prefill`` that many times (on ``route`` where one is named) and
+    the scheduler launched K1; then a prefill through the kernels against
+    the same prefill through their plain versions (where a kernel runs) and
+    one cold request profiled.  Returns the launches and the requests'
+    TTFT and decode rate."""
+    import statistics
+
+    import numpy as np
+
+    from repro_torch.serve import engine as TE
+
+    log(f"== {phase}: serve {label} at full width")
     engine = TE.ServeEngine(cfg, params, max_len=PROMPT_LEN + MAX_NEW + 8,
                             device=dev)
     prefills, finite = [0], []
@@ -1012,113 +1076,155 @@ def serve_phase(torch, arch: str, kernel: str, counts: dict, dev,
         TE.decode_step = inner_decode
     seconds = time.perf_counter() - t_run
     launches = {name: mod.LAUNCHES for name, mod in counts.items()}
-    n_layers = cfg.n_layers
+    rates = []
     for c in comps:
-        rate = MAX_NEW / (c.done_at - c.first_token_at)
-        log(f"{arch} req {c.request_id}: prefetched={c.prefetched} "
-            f"ttft_ms={c.ttft * 1e3:.2f} decode_tokens_per_s={rate:.2f} "
+        rates.append(MAX_NEW / (c.done_at - c.first_token_at))
+        log(f"{label} req {c.request_id}: prefetched={c.prefetched} "
+            f"ttft_ms={c.ttft * 1e3:.2f} decode_tokens_per_s={rates[-1]:.2f} "
             f"tokens={c.tokens[:4]}...")
-    log(f"{arch}: requests={len(comps)} seconds={seconds:.3f} prefills="
+    cold = [c.ttft * 1e3 for c in comps if not c.prefetched]
+    warm = [c.ttft * 1e3 for c in comps if c.prefetched]
+    summary = {"requests": len(comps), "seconds": seconds,
+               "ttft_cold_ms_median": statistics.median(cold),
+               "ttft_prewarmed_ms_median": (statistics.median(warm)
+                                            if warm else None),
+               "decode_tokens_per_s_median": statistics.median(rates),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches": launches}
+    log(f"{label}: requests={len(comps)} seconds={seconds:.3f} prefills="
         f"{prefills[0]} launches={launches} stats={engine.stats} "
-        f"peak_gib={torch.cuda.max_memory_allocated() / 2**30:.2f}")
-    if launches[kernel] != n_layers * prefills[0]:
-        raise AssertionError(f"{arch}: {kernel} launched {launches[kernel]} "
-                             f"times for {prefills[0]} prefills of "
-                             f"{n_layers} layers")
+        f"peak_gib={summary['peak_gib']:.2f} ttft_cold_ms_median="
+        f"{summary['ttft_cold_ms_median']:.2f} ttft_prewarmed_ms_median="
+        f"{summary['ttft_prewarmed_ms_median']} decode_tokens_per_s_median="
+        f"{summary['decode_tokens_per_s_median']:.2f}")
+    for name, n in per_prefill.items():
+        if launches[name] != n * prefills[0]:
+            raise AssertionError(f"{label}: {name} launched "
+                                 f"{launches[name]} times for {prefills[0]} "
+                                 f"prefills of {n} launches")
+        if route and n and counts[name].ROUTE_LAUNCHES[route] != \
+                launches[name]:
+            raise AssertionError(f"{label}: {name} launches "
+                                 f"{counts[name].ROUTE_LAUNCHES} are not all "
+                                 f"on the {route} route")
     if launches["K1"] == 0:
-        raise AssertionError(f"{arch}: the scheduler never launched K1")
+        raise AssertionError(f"{label}: the scheduler never launched K1")
     if engine.stats["prefetched_prefills"] == 0:
-        raise AssertionError(f"{arch}: no prefill was prewarmed")
+        raise AssertionError(f"{label}: no prefill was prewarmed")
     if not all(0 <= t < cfg.vocab for c in comps for t in c.tokens) or \
             any(len(c.tokens) != MAX_NEW for c in comps):
-        raise AssertionError(f"{arch}: a token out of range or missing")
+        raise AssertionError(f"{label}: a token out of range or missing")
     if not bool(torch.stack(finite).all()):
-        raise AssertionError(f"{arch}: non-finite logits")
+        raise AssertionError(f"{label}: non-finite logits")
 
-    via_kernel, via_plain = prefill_pair(torch, cfg, params, counts[kernel],
-                                         dev)
-    check_prefill_pair(arch, via_kernel, via_plain)
-    profile_request(torch, arch, cfg, params, dev)
-    del engine, params
-    gc.collect()
-    torch.cuda.empty_cache()
-    return launches[kernel]
+    mods = [counts[name] for name, n in per_prefill.items() if n]
+    if mods:
+        check_prefill_pair(label, *prefill_pair(torch, cfg, params, mods,
+                                                dev))
+    summary["busy_share"] = profile_request(torch, label, cfg, params, dev)
+    del engine
+    return summary
 
 
-def prefill_pair(torch, cfg, params, mod, dev):
-    """Last-token logits of the same full-width 256-token prefill through
-    the kernel module ``mod`` and through its plain version (a short prompt
-    keeps the plain one cheap)."""
+def prefill_pair(torch, cfg, params, mods, dev):
+    """Last-token logits of the same full-width 256-token prefill (after the
+    prefix, where the model has one) through the kernel modules ``mods``
+    and through their plain versions (a short prompt keeps the plain ones
+    cheap)."""
     from repro_torch.models.transformer import prefill
-    fn_name = "flash_attention" if hasattr(mod, "flash_attention") \
-        else "ssd_scan"
-    tokens = torch.arange(256, device=dev)[None, :] * 7 % cfg.vocab
-    via_kernel = prefill(params, cfg, tokens)[0].float()
-    wrapper = getattr(mod, fn_name)
-    setattr(mod, fn_name, getattr(mod, fn_name + "_plain"))
+    tokens, pe = stub_inputs(torch, cfg, 256, dev, mult=7)
+    via_kernel = prefill(params, cfg, tokens, pe)[0].float()
+    swapped = []
+    for mod in mods:
+        fn_name = "flash_attention" if hasattr(mod, "flash_attention") \
+            else "ssd_scan"
+        swapped.append((mod, fn_name, getattr(mod, fn_name)))
+        setattr(mod, fn_name, getattr(mod, fn_name + "_plain"))
     try:
-        via_plain = prefill(params, cfg, tokens)[0].float()
+        via_plain = prefill(params, cfg, tokens, pe)[0].float()
     finally:
-        setattr(mod, fn_name, wrapper)
+        for mod, fn_name, wrapper in swapped:
+            setattr(mod, fn_name, wrapper)
     return via_kernel, via_plain
 
 
-def check_prefill_pair(arch: str, via_kernel, via_plain) -> None:
+def check_prefill_pair(arch: str, via_kernel, via_plain,
+                       what: str = "prefill logits via the kernel vs via its "
+                                   "plain version, 256 tokens") -> None:
     """The kernel's prefill logits within 5e-2 relative L2 of the plain
     version's, with the same argmax: the kernel's top token is a top token
-    of the plain version (bf16 logits can tie at the top)."""
+    of the plain version (bf16 logits can tie at the top).  With codebooks,
+    per codebook."""
     rel = float((via_kernel - via_plain).norm() / via_plain.norm())
-    flat = via_plain.flatten()
-    same = bool(flat[via_kernel.flatten().argmax()] == flat.max())
-    top2 = flat.topk(2).values
-    log(f"{arch}: prefill logits via the kernel vs via its plain version, "
-        f"256 tokens: rel_l2={rel:.3g} max_abs="
+    flat_k = via_kernel.reshape(-1, via_kernel.shape[-1])
+    flat_p = via_plain.reshape(-1, via_plain.shape[-1])
+    picked = flat_p.gather(1, flat_k.argmax(-1, keepdim=True))[:, 0]
+    same = bool((picked == flat_p.amax(-1)).all())
+    top2 = flat_p.topk(2, dim=-1).values
+    log(f"{arch}: {what}: rel_l2={rel:.3g} max_abs="
         f"{float((via_kernel - via_plain).abs().max()):.3g} "
-        f"same_argmax={same} plain_top2_gap={float(top2[0] - top2[1]):.3g}")
+        f"same_argmax={same} plain_top2_gap="
+        f"{float((top2[:, 0] - top2[:, 1]).min()):.3g}")
     if not rel < 5e-2:
-        raise AssertionError(f"{arch}: kernel and plain prefill disagree")
+        raise AssertionError(f"{arch}: {what}: disagree")
     if not same:
-        raise AssertionError(f"{arch}: kernel and plain prefill argmax differ")
+        raise AssertionError(f"{arch}: {what}: argmax differs")
 
 
-def stablelm_phase(torch, K2, dev) -> int:
-    """Phase 12: one full-width stablelm-12b prefill of a PROMPT_LEN prompt
-    (head dim 160); returns K2's launches in it."""
-    import gc
+def prefill_phase(torch, cfg, label: str, K2, dev, phase: str,
+                  decode_steps: int = 0) -> int:
+    """One full-width prefill of a PROMPT_LEN prompt (after the prefix,
+    where the model has one): one K2 launch per attention layer, all on the
+    route ``K2.route`` names, finite logits, the 256-token prefill through
+    K2 against its plain version, then ``decode_steps`` greedy decode steps
+    (finite logits, tokens in range).  Returns K2's launches."""
+    from repro_torch.models.transformer import decode_step, prefill
 
-    from repro_torch.configs import get_config
-    from repro_torch.models.transformer import init_params, prefill
-
-    arch = "stablelm-12b"
-    log(f"== phase 12: {arch} prefill at full width (head dim 160)")
-    cfg = get_config(arch)
-    t0 = time.perf_counter()
-    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    log(f"{arch}: params={n_params} dtype={cfg.dtype} head_dim="
-        f"{cfg.attn.head_dim} init_seconds={time.perf_counter() - t0:.2f}")
-    tokens = (torch.arange(PROMPT_LEN, device=dev)[None, :] * 5) % cfg.vocab
+    log(f"== {phase}: {label} prefill at full width (K2 at head dim "
+        f"{cfg.attn.head_dim}, {cfg.attn.n_heads}/{cfg.attn.n_kv_heads} "
+        f"heads)")
+    params = init_model(torch, cfg, label, dev)
+    tokens, pe = stub_inputs(torch, cfg, PROMPT_LEN, dev)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     K2.reset_counts()                        # counts of this run only
     t0 = time.perf_counter()
-    logits, _, _ = prefill(params, cfg, tokens)
+    logits, caches, n = prefill(params, cfg, tokens, pe,
+                                max_len=PROMPT_LEN + cfg.n_prefix
+                                + decode_steps + 1)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     launches = K2.LAUNCHES
-    log(f"{arch}: prefill tokens={PROMPT_LEN} wall_ms={wall_ms:.2f} "
-        f"K2_launches={launches} logits={tuple(logits.shape)} "
+    named = K2.route(cfg.attn.head_dim, cfg.dtype)
+    log(f"{label}: prefill tokens={PROMPT_LEN} prefix={cfg.n_prefix} "
+        f"wall_ms={wall_ms:.2f} K2_launches={launches} routes="
+        f"{dict(K2.ROUTE_LAUNCHES)} logits={tuple(logits.shape)} "
         f"peak_gib={torch.cuda.max_memory_allocated() / 2**30:.2f}")
-    if launches != cfg.n_layers:
-        raise AssertionError(f"{arch}: K2 launched {launches} times for one "
-                             f"prefill of {cfg.n_layers} layers")
-    if not bool(torch.isfinite(logits).all()):
-        raise AssertionError(f"{arch}: non-finite logits")
-    check_prefill_pair(arch, *prefill_pair(torch, cfg, params, K2, dev))
-    del params, logits
-    gc.collect()
-    torch.cuda.empty_cache()
+    if launches != attn_layers(cfg) or K2.ROUTE_LAUNCHES[named] != launches:
+        raise AssertionError(f"{label}: K2 launched {K2.ROUTE_LAUNCHES} for "
+                             f"one prefill of {attn_layers(cfg)} attention "
+                             f"layers on route {named}")
+    finite = [torch.isfinite(logits).all()]
+    tok, out = logits.argmax(-1), []
+    t0 = time.perf_counter()
+    for i in range(decode_steps):
+        logits, caches = decode_step(params, cfg, tok, caches, n + i)
+        finite.append(torch.isfinite(logits).all())
+        tok = logits.argmax(-1)
+        out.append(tok)
+    if decode_steps:
+        torch.cuda.synchronize()
+        rate = decode_steps / (time.perf_counter() - t0)
+        toks = torch.stack(out).flatten().tolist()
+        log(f"{label}: decode steps={decode_steps} tokens_per_s={rate:.2f} "
+            f"tokens={toks[:8]}...")
+        if not all(0 <= t < cfg.vocab for t in toks):
+            raise AssertionError(f"{label}: a decoded token out of range")
+    if not bool(torch.stack(finite).all()):
+        raise AssertionError(f"{label}: non-finite logits")
+    check_prefill_pair(label, *prefill_pair(torch, cfg, params, [K2], dev))
+    del params, logits, caches
+    free(torch)
     return launches
 
 
@@ -1144,20 +1250,22 @@ def device_kernels(torch, fn, key: str) -> tuple[int | None, float]:
     return None, 0.0
 
 
-def profile_request(torch, arch: str, cfg, params, dev) -> None:
+def profile_request(torch, arch: str, cfg, params, dev) -> dict:
     """One cold prefill of a PROMPT_LEN prompt and MAX_NEW decode steps
     under ``torch.profiler``: wall time, device busy time and share, and
-    device time by kernel (the profiler's own host cost inflates wall)."""
+    device time by kernel (the profiler's own host cost inflates wall).
+    Returns the busy share of each part."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models.transformer import decode_step, prefill
-    tokens = (torch.arange(PROMPT_LEN, device=dev)[None, :] * 5) % cfg.vocab
-    state = {}
+    tokens, pe = stub_inputs(torch, cfg, PROMPT_LEN, dev)
+    state, shares = {}, {}
 
     def run_prefill():
-        state["out"] = prefill(params, cfg, tokens,
-                               max_len=PROMPT_LEN + MAX_NEW + 8)
+        state["out"] = prefill(params, cfg, tokens, pe,
+                               max_len=PROMPT_LEN + MAX_NEW + 8
+                               + cfg.n_prefix)
 
     def run_decode():
         logits, caches, n = state["out"]
@@ -1181,6 +1289,7 @@ def profile_request(torch, arch: str, cfg, params, dev) -> None:
             k in e.key for k in ("flash_attention_", "ssd_", "arima_bank"))]
         ours_ms = sum(e.self_device_time_total for e in ours) / 1e3
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+        shares[part] = busy_ms / wall_ms
         log(f"{arch} profiled {part}: wall_ms={wall_ms:.2f} "
             f"device_busy_ms={busy_ms:.2f} busy_share="
             f"{busy_ms / wall_ms:.3f} kernels="
@@ -1191,6 +1300,7 @@ def profile_request(torch, arch: str, cfg, params, dev) -> None:
             log(f"{arch} profiled {part} kernel: ms="
                 f"{e.self_device_time_total / 1e3:.3f} count={e.count} "
                 f"name={e.key[:90]}")
+    return shares
 
 
 def _leaves(tree):
@@ -1715,40 +1825,50 @@ def phase_generic_routes(torch, K2, K3, dev) -> tuple[list, list]:
 
 
 REDUCED_ARCHS = ("yi-6b", "starcoder2-7b", "stablelm-12b", "gemma3-27b",
-                 "mamba2-1.3b")
+                 "mamba2-1.3b", "deepseek-v3-671b", "arctic-480b",
+                 "jamba-1.5-large-398b", "musicgen-large", "paligemma-3b")
 
 
 def reduced_serve_phase(torch, counts: dict, dev) -> dict:
     """Phase 17: ``launch/serve.py --reduced --device cuda`` for each
-    reduced config (12 requests, 32-token prompts, 8 new tokens): every
-    K2/K3 launch on the generic route; then one 256-token prefill through
-    the kernel against the same prefill through its plain version.
-    Returns the kernel's launches per config."""
+    reduced config (12 requests, 32-token prompts, 8 new tokens): K2
+    launches where the config has GQA attention, K3 where it has Mamba
+    layers (none for deepseek-v3's MLA), every one on the generic route;
+    then one 256-token prefill through the kernels against the same prefill
+    through their plain versions.  Returns each kernel's launches per
+    config."""
     from repro_torch.launch import serve as L
 
     log("== phase 17: reduced configs served on the card "
         "(launch/serve.py --reduced --device cuda)")
     out = {}
     for arch in REDUCED_ARCHS:
-        key = "K3" if arch.startswith("mamba") else "K2"
-        mod = counts[key]
         for m in counts.values():
             m.reset_counts()                 # counts of this run only
         t0 = time.perf_counter()
         engine = L.main(["--arch", arch, "--reduced", "--device", "cuda"])
         torch.cuda.synchronize()
-        launches, generic = mod.LAUNCHES, mod.ROUTE_LAUNCHES["generic"]
+        mixers = {m for m, _ in engine.cfg.prelude + engine.cfg.pattern}
+        expect = {"K2": any(m.startswith("attn") for m in mixers),
+                  "K3": "mamba" in mixers}
+        got = {key: (counts[key].LAUNCHES,
+                     counts[key].ROUTE_LAUNCHES["generic"])
+               for key in expect}
         log(f"{arch}-reduced: seconds={time.perf_counter() - t0:.2f} "
             f"requests={engine.stats['total']} prewarmed="
-            f"{engine.stats['prefetched_prefills']} {key}_launches={launches}"
-            f" generic_route_launches={generic} K1_launches="
-            f"{counts['K1'].LAUNCHES}")
-        if launches == 0 or generic != launches:
-            raise AssertionError(f"{arch}-reduced: {key} launched {launches} "
-                                 f"times, {generic} on the generic route")
-        check_prefill_pair(f"{arch}-reduced", *prefill_pair(
-            torch, engine.cfg, engine.params, mod, dev))
-        out[arch] = launches
+            f"{engine.stats['prefetched_prefills']} launches_and_generic="
+            f"{got} K1_launches={counts['K1'].LAUNCHES}")
+        for key, runs in expect.items():
+            launches, generic = got[key]
+            if (launches > 0) != runs or generic != launches:
+                raise AssertionError(f"{arch}-reduced: {key} launched "
+                                     f"{launches} times, {generic} on the "
+                                     f"generic route")
+        mods = [counts[key] for key, runs in expect.items() if runs]
+        if mods:
+            check_prefill_pair(f"{arch}-reduced", *prefill_pair(
+                torch, engine.cfg, engine.params, mods, dev))
+        out[arch] = {key: got[key][0] for key in expect}
     return out
 
 
@@ -1770,8 +1890,9 @@ def rel_l2(torch, got, want) -> float:
 
 
 def train_card_vs_cpu(torch, dev) -> None:
-    """18a: one float32 ``make_train_step`` step of reduced yi-6b and
-    mamba2-1.3b on the card and on the CPU, same parameters and batch:
+    """18a: one float32 ``make_train_step`` step of reduced yi-6b,
+    mamba2-1.3b, deepseek-v3 (MLA, MoE, MTP, aux loss) and jamba (Mamba,
+    attention, MoE) on the card and on the CPU, same parameters and batch:
     loss within rtol 1e-4, the first moment within 1e-3 relative L2."""
     from repro_torch.configs import get_reduced_config
     from repro_torch.data.pipeline import SyntheticLM
@@ -1782,7 +1903,8 @@ def train_card_vs_cpu(torch, dev) -> None:
 
     log("== phase 18a: one train step on the card against the CPU "
         "(reduced, float32)")
-    for arch in ("yi-6b", "mamba2-1.3b"):
+    for arch in ("yi-6b", "mamba2-1.3b", "deepseek-v3-671b",
+                 "jamba-1.5-large-398b"):
         cfg = dataclasses.replace(get_reduced_config(arch),
                                   dtype=torch.float32)
         params = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
@@ -1799,6 +1921,8 @@ def train_card_vs_cpu(torch, dev) -> None:
         m_rel = rel_l2(torch, dev_opt["m"], cpu_opt["m"])
         log(f"{arch}-reduced f32: loss card={float(dev_m['loss']):.7f} "
             f"cpu={float(cpu_m['loss']):.7f} rel={loss_rel:.3g} "
+            f"aux card={float(dev_m['aux']):.7f} "
+            f"cpu={float(cpu_m['aux']):.7f} "
             f"grad_norm card={float(dev_m['grad_norm']):.7f} "
             f"cpu={float(cpu_m['grad_norm']):.7f} m_rel_l2={m_rel:.3g}")
         if not (loss_rel <= 1e-4 and m_rel <= 1e-3):
@@ -2022,6 +2146,160 @@ def train_phase(torch, counts: dict, dev) -> dict:
     return out
 
 
+def full_serve(torch, arch: str, kernel: str, counts: dict, dev,
+               phase: str) -> int:
+    """Phases 10-11: ``arch`` at full width and depth served, ``kernel``
+    launched once per layer and prefill on its fast route; returns its
+    launches."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    params = init_model(torch, cfg, arch, dev)
+    out = serve_phase(torch, cfg, params, arch, {kernel: cfg.n_layers},
+                      counts, dev, phase,
+                      route={"K2": "wgmma", "K3": "chunked"}[kernel])
+    del params
+    free(torch)
+    return out["launches"][kernel]
+
+
+# ---------------------------------------------------------------------------
+# phases 19-21: MoE, MLA and the multimodal stubs at full width
+# ---------------------------------------------------------------------------
+
+class MoEDrops:
+    """While active, wraps the decoder stack's ``moe_apply`` and records, per
+    call, its tokens, which routed slots fit their expert's capacity (the
+    router recomputed on the same input, ``moe._dispatch``'s ranks) and the
+    last token's input.  Kept out of timed runs."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe as TM
+        from repro_torch.models import transformer as TT
+        self.inner = TT.moe_apply
+
+        def wrapped(params, cfg, x):
+            t = x.shape[0] * x.shape[1]
+            logits = x.reshape(t, -1).to(cfg.router_dtype) @ params["router"]
+            idx = TM._router_probs(cfg, logits)[1]
+            keep = TM._dispatch(idx, cfg.n_experts, TM.capacity(cfg, t))[2]
+            self.calls.append((keep.reshape(t, cfg.top_k), x[:, -1].float()))
+            return self.inner(params, cfg, x)
+
+        TT.moe_apply = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer as TT
+        TT.moe_apply = self.inner
+
+    def dropped_share(self) -> float:
+        kept = sum(int(keep.sum()) for keep, _ in self.calls)
+        return 1 - kept / sum(keep.numel() for keep, _ in self.calls)
+
+    def last_token_dropped(self) -> bool:
+        return any(not bool(keep[-1].all()) for keep, _ in self.calls)
+
+
+def deepseek_phase(torch, counts: dict, dev) -> dict:
+    """Phase 19: deepseek-v3-671b at full width, its 61 layers cut to 4 (the
+    3 dense MLA prelude layers and one MLA/MoE unit, plus the MTP layer
+    ``init_params`` builds), served on phase 10's traffic.  MLA's attention
+    and the experts are the plain paths (no kernel of ``repro``'s either):
+    no K2/K3 launch; K1 schedules.  Then the share of routed slots dropped
+    over capacity in one cold prefill (and one decode step), and a
+    teacher-forced decode of one token against the prefill of the extended
+    prompt: the latent caches at full width, read at the MoE layer's input
+    (the logits too where the prefill kept all of that token's routed
+    slots)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import capacity
+    from repro_torch.models.transformer import decode_step, prefill
+
+    full = get_config("deepseek-v3-671b")
+    cfg = dataclasses.replace(full, n_layers=4)
+    label = "deepseek-v3-671b-4l"
+    log(f"== phase 19: {label} (n_layers cut from {full.n_layers} to "
+        f"{cfg.n_layers}; MTP layer built)")
+    params = init_model(torch, cfg, label, dev)
+    out = serve_phase(torch, cfg, params, label, {"K2": 0, "K3": 0}, counts,
+                      dev, "phase 19")
+    tokens, _ = stub_inputs(torch, cfg, PROMPT_LEN + 1, dev)
+    with MoEDrops() as pre:
+        want = prefill(params, cfg, tokens)[0].float()
+    with MoEDrops() as dec:
+        _, caches, n = prefill(params, cfg, tokens[:, :PROMPT_LEN],
+                               max_len=PROMPT_LEN + 8)
+        dec.calls.clear()
+        got, _ = decode_step(params, cfg, tokens[:, PROMPT_LEN], caches, n)
+    share, decode_share = pre.dropped_share(), dec.dropped_share()
+    log(f"{label}: MoE layer, prefill of {PROMPT_LEN + 1} tokens: capacity="
+        f"{capacity(cfg.moe, PROMPT_LEN + 1)} routed_slots="
+        f"{(PROMPT_LEN + 1) * cfg.moe.top_k} dropped_share={share:.5f} "
+        f"last_token_lost_a_slot={pre.last_token_dropped()}; one decode "
+        f"step dropped_share={decode_share:.5f}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: non-finite decode logits")
+    # every MLA layer comes before the MoE layer's FFN: its input at the
+    # new token reads the latent caches of all four layers, and routing
+    # cannot move it; held to the same 5e-2 relative L2 as the logits
+    h_dec, h_pre = dec.calls[0][1], pre.calls[0][1]
+    rel = float((h_dec - h_pre).norm() / h_pre.norm())
+    log(f"{label}: MoE layer input of the token decoded at {n} (latent "
+        f"caches) vs the prefill of {PROMPT_LEN + 1} tokens: rel_l2={rel:.3g}"
+        f" max_abs={float((h_dec - h_pre).abs().max()):.3g}")
+    if not rel < 5e-2:
+        raise AssertionError(f"{label}: the decode's MoE input disagrees "
+                             f"with the prefill's")
+    what = (f"logits of the token decoded at {n} vs the prefill of "
+            f"{PROMPT_LEN + 1} tokens")
+    if pre.last_token_dropped():
+        # the prefill drops some of that token's routed slots (it ranks
+        # last in its experts) and the decode keeps all: information only
+        rel = float((got.float() - want).norm() / want.norm())
+        log(f"{label}: {what}: rel_l2={rel:.3g} (not held: the prefill "
+            f"dropped routed slots of that token)")
+    else:
+        check_prefill_pair(label, got.float(), want, what)
+    out.update(prefill_dropped_share=share, decode_dropped_share=decode_share)
+    del params, caches, want, got
+    free(torch)
+    return out
+
+
+def multimodal_phases(torch, counts: dict, K2, dev) -> dict:
+    """Phases 20-21: paligemma-3b at full width and depth served on phase
+    10's traffic (2000-token prompts after 256 prefix positions, S=2256;
+    every prefill 18 K2 launches on ``wgmma`` at D=256); arctic-480b at full
+    width, 1 of 35 layers (K2 at D=128 with 56/8 heads, G=7) and
+    musicgen-large at full width and depth (48 launches at D=64, G=1, 64
+    prefix positions, 4 codebooks), one prefill each, musicgen then a few
+    decode steps."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("paligemma-3b")
+    if K2.route(cfg.attn.head_dim, cfg.dtype) != "wgmma":
+        raise AssertionError("paligemma-3b: K2.route names "
+                             f"{K2.route(cfg.attn.head_dim, cfg.dtype)}")
+    params = init_model(torch, cfg, "paligemma-3b", dev)
+    out = {"paligemma-3b": serve_phase(
+        torch, cfg, params, "paligemma-3b", {"K2": attn_layers(cfg)},
+        counts, dev, "phase 20", route="wgmma")}
+    del params
+    free(torch)
+    full = get_config("arctic-480b")
+    cut = dataclasses.replace(full, n_layers=1)
+    out["arctic-480b-1l"] = prefill_phase(
+        torch, cut, "arctic-480b-1l", K2, dev,
+        f"phase 21a (n_layers cut from {full.n_layers} to 1)")
+    out["musicgen-large"] = prefill_phase(
+        torch, get_config("musicgen-large"), "musicgen-large", K2, dev,
+        "phase 21b", decode_steps=8)
+    return out
+
+
 def check_wgmma_256(spills: dict[str, int]) -> None:
     """Phase 7's check, made once phase 8 has timed the kernel: ptxas
     spilled nothing in ``flash_attention_wgmma<256>``."""
@@ -2081,6 +2359,7 @@ def main(argv=None) -> int:
     import repro_torch.core as T
     import repro_torch.core.arima as T_arima
     import repro_torch.core.rnn_predictor as T_rnn
+    from repro_torch.configs import get_config
     from repro_torch.kernels import arima_bank as K
     from repro_torch.kernels import flash_attention as K2
     from repro_torch.kernels import gru_fit as K4
@@ -2133,11 +2412,13 @@ def main(argv=None) -> int:
     check_wgmma_256(wg_spills)
     k3 = phase_k3(torch, K3, dev)
     counters_lm = {"K1": K, "K2": K2, "K3": K3}
-    k2["launches"] = serve_phase(torch, "yi-6b", "K2", counters_lm, dev,
-                                 "phase 10")
-    k3["launches"] = serve_phase(torch, "mamba2-1.3b", "K3", counters_lm,
-                                 dev, "phase 11")
-    k2["launches_stablelm_12b"] = stablelm_phase(torch, K2, dev)
+    k2["launches"] = full_serve(torch, "yi-6b", "K2", counters_lm, dev,
+                                "phase 10")
+    k3["launches"] = full_serve(torch, "mamba2-1.3b", "K3", counters_lm,
+                                dev, "phase 11")
+    k2["launches_stablelm_12b"] = prefill_phase(
+        torch, get_config("stablelm-12b"), "stablelm-12b", K2, dev,
+        "phase 12")
     kernels[0]["launches_interval_hpm"] = interval_phase(T, K, dev, reuse)
 
     log_build("K4", *built["K4"])
@@ -2146,13 +2427,18 @@ def main(argv=None) -> int:
     launches = phase_gru_vs_arima(torch, np, K, K4, T_arima, T_rnn, dev)
     kernels[0]["launches_gru_vs_arima"] = launches["K1"]
     k2["generic"], k3["generic"] = phase_generic_routes(torch, K2, K3, dev)
-    served = reduced_serve_phase(torch, {"K1": K, "K2": K2, "K3": K3}, dev)
-    k2["launches_reduced_serve"] = {a: n for a, n in served.items()
-                                    if not a.startswith("mamba")}
-    k3["launches_reduced_serve"] = {a: n for a, n in served.items()
-                                    if a.startswith("mamba")}
+    served = reduced_serve_phase(torch, counters_lm, dev)
+    for key, rec in (("K2", k2), ("K3", k3)):
+        rec["launches_reduced_serve"] = {a: n[key] for a, n in served.items()
+                                         if n[key]}
     trained = train_phase(torch, {"K2": K2, "K3": K3}, dev)
     log("phase 18 summary: " + json.dumps(trained))
+    big = {"deepseek-v3-671b-4l": deepseek_phase(torch, counters_lm, dev)}
+    big.update(multimodal_phases(torch, counters_lm, K2, dev))
+    log("phases 19-21 summary: " + json.dumps(big))
+    k2["launches_paligemma_3b"] = big["paligemma-3b"]["launches"]["K2"]
+    k2["launches_arctic_480b_1l"] = big["arctic-480b-1l"]
+    k2["launches_musicgen_large"] = big["musicgen-large"]
     kernels += [k2, k3, {
         "name": "gru_fit",
         "route": "cuda",

@@ -32,6 +32,10 @@ SHAPES = {
     "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
 }
 
+# archs that may run long_500k (sub-quadratic / windowed / SSM decode);
+# pure full-attention archs skip it
+LONG_CONTEXT_ARCHS = {"mamba2-1.3b", "jamba-1.5-large-398b", "gemma3-27b"}
+
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 _REDUCED: dict[str, Callable[[], ModelConfig]] = {}
 
@@ -56,3 +60,18 @@ def get_config(name: str) -> ModelConfig:
 
 def get_reduced_config(name: str) -> ModelConfig:
     return _REDUCED[name]()
+
+
+def list_archs() -> list[str]:
+    return sorted(_REGISTRY)
+
+
+def cells() -> list[tuple[str, str]]:
+    """All (arch, shape) cells, honoring long-context applicability."""
+    out = []
+    for arch in list_archs():
+        for shape in SHAPES:
+            if shape == "long_500k" and arch not in LONG_CONTEXT_ARCHS:
+                continue
+            out.append((arch, shape))
+    return out

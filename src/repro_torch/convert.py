@@ -54,8 +54,9 @@ def prefetch_plan_from_tuples(ops: Iterable[Sequence[tuple]],
 
 
 # parameters the JAX package keeps in float32 whatever the model's dtype
-_FLOAT32_LEAVES = frozenset({"norm1", "norm2", "final_norm", "A_log",
-                             "dt_bias", "D", "norm_scale"})
+_FLOAT32_LEAVES = frozenset({"norm1", "norm2", "final_norm", "norm",
+                             "A_log", "dt_bias", "D", "norm_scale",
+                             "router"})
 
 
 def params_from_numpy(tree, cfg: ModelConfig, device=None):
@@ -64,8 +65,9 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None):
 
     ``repro`` stacks the unit parameters on a leading axis (one entry per
     pattern layer, each of shape ``[n_units, ...]``); the port keeps a list
-    of units.  Float arrays become ``cfg.dtype`` (float32 for norm scales
-    and the SSM's ``A_log``/``dt_bias``/``D``, as ``repro`` keeps them).
+    of units; the MTP subtree (``mtp``) is not stacked.  Float arrays become
+    ``cfg.dtype`` (float32 for norm scales, the MoE router and the SSM's
+    ``A_log``/``dt_bias``/``D``, as ``repro`` keeps them).
     JAX's bfloat16 arrays do not cross as NumPy, so pass float32 arrays:
     casting those to bfloat16 is exact for bfloat16 values."""
     device = resolve_device(device)

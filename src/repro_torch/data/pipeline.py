@@ -24,16 +24,19 @@ class SyntheticLM:
     """Deterministic synthetic LM data, shard-addressable."""
 
     def __init__(self, vocab: int, seq_len: int, batch: int,
-                 n_shards: int = 1024, seed: int = 0):
+                 n_shards: int = 1024, codebooks: int = 1, seed: int = 0):
         self.vocab = vocab
         self.seq_len = seq_len
         self.batch = batch
         self.n_shards = n_shards
+        self.codebooks = codebooks
         self.seed = seed
 
     def load_shard(self, shard_id: int) -> np.ndarray:
         rng = np.random.default_rng(self.seed * 100003 + shard_id)
         shape = (self.batch, self.seq_len + 1)
+        if self.codebooks > 1:
+            shape = (self.batch, self.seq_len + 1, self.codebooks)
         # order-1 markov-ish stream: next token correlated with previous
         base = rng.integers(0, self.vocab, size=shape, dtype=np.int32)
         shifted = np.roll(base, 1, axis=1)

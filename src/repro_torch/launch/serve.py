@@ -5,8 +5,9 @@ HPM-scheduled engine, on the card unless ``--device cpu``.
         --reduced --device cpu [--requests 12]
 
 Traffic: three recurring clients in turn, one request every 20 s of
-simulated time, each client always sending the same prompt.  Weights are
-random, drawn from seed 0.
+simulated time, each client always sending the same prompt (with codebooks,
+a new random prompt from ``default_rng(0)`` each time).  Weights are random,
+drawn from seed 0; the modality stubs' prefix embeddings are zeros.
 """
 from __future__ import annotations
 
@@ -40,11 +41,16 @@ def main(argv=None):
     engine = ServeEngine(cfg, params,
                          max_len=args.prompt_len + args.max_new + 8,
                          device=device)
+    rng = np.random.default_rng(0)
     now = 0.0
     lat = []
     for i in range(args.requests):
         client = i % 3                      # 3 recurring clients
-        prompt = (np.arange(args.prompt_len) * (client + 3)) % cfg.vocab
+        if cfg.codebooks > 1:
+            prompt = rng.integers(0, cfg.vocab,
+                                  size=(args.prompt_len, cfg.codebooks))
+        else:
+            prompt = (np.arange(args.prompt_len) * (client + 3)) % cfg.vocab
         t0 = time.monotonic()
         comp = engine.serve(Request(i, client, now, prompt, args.max_new),
                             now)

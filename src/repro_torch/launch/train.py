@@ -4,10 +4,11 @@
         [--reduced] [--steps 50] [--batch 4] [--seq 128] [--ckpt-dir DIR] \
         [--microbatches 1] [--device cuda|cpu]
 
-Random initial parameters (seed 0), ``SyntheticLM`` data through the
-push-prefetching loader, checkpoint/restart (``--ckpt-dir``), NaN-step
-skipping.  One device; the JAX package's mesh and shardings wait for the
-distributed slice.
+Random initial parameters (seed 0), ``SyntheticLM`` data (one stream per
+codebook where the model has codebooks) through the push-prefetching
+loader, zero prefix embeddings for the modality stubs, checkpoint/restart
+(``--ckpt-dir``), NaN-step skipping.  One device; the JAX package's mesh
+and shardings wait for the distributed slice.
 """
 from __future__ import annotations
 
@@ -42,12 +43,21 @@ def main(argv=None):
     print(f"device: {name}")
 
     source = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq, batch=args.batch,
-                         n_shards=512)
+                         n_shards=512, codebooks=cfg.codebooks)
     loader = PrefetchingLoader(source, n_steps=args.steps + 1)
+
+    def add_prefix(it):
+        """The modality stub's prefix embeddings: zeros."""
+        for b in it:
+            if cfg.n_prefix:
+                b = dict(b, prefix_embeddings=torch.zeros(
+                    (args.batch, cfg.n_prefix, cfg.d_model), dtype=cfg.dtype))
+            yield b
+
     tcfg = TrainConfig(microbatches=args.microbatches)
     try:
         params, opt_state, history = train_loop(
-            cfg, tcfg, iter(loader), args.steps,
+            cfg, tcfg, add_prefix(iter(loader)), args.steps,
             checkpoint_dir=args.ckpt_dir,
             log_fn=lambda s, m: print(f"step {s}: {m}", flush=True),
             device=device)

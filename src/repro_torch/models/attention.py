@@ -1,4 +1,5 @@
-"""Attention: GQA (RoPE, optional sliding window), prefill and decode paths.
+"""Attention: GQA (RoPE, optional sliding window), MLA (DeepSeek-V3 style),
+prefill and decode paths.
 
 Two plain compute paths:
 
@@ -13,8 +14,12 @@ training forward, ``gqa_forward``, calls ``attention_any`` on every device,
 as the JAX package does, so that autograd differentiates it (K2 has no
 backward).
 
-MLA (DeepSeek-V3 style) is not ported yet: ``MLAConfig`` is kept so that
-configs can name it, and the ``mla_*`` functions raise.
+MLA is evaluated in its *absorbed* form: the per-head no-PE query is
+projected into the KV latent space, so attention runs like MQA with a shared
+576-dim key (512 latent + 64 rope) and a 512-dim latent value; the KV cache
+stores only the latent.  Its prefill calls ``attention_any`` on every
+device, as the JAX package does: K2 takes one head dim for q, k and v, and
+MLA's key and value differ (576 and 512).
 """
 from __future__ import annotations
 
@@ -51,14 +56,6 @@ class AttentionConfig:
     dense_threshold: int = 2048        # use dense path for S <= this
 
 
-def _mla_not_ported(*_args, **_kwargs):
-    raise NotImplementedError("MLA attention is not ported to repro_torch "
-                              "yet (MoE/MLA slice)")
-
-
-mla_forward = mla_prefill = mla_decode = _mla_not_ported
-
-
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
@@ -66,7 +63,22 @@ mla_forward = mla_prefill = mla_decode = _mla_not_ported
 def make_attention_params(gen: torch.Generator, cfg: AttentionConfig,
                           dtype=DEFAULT_DTYPE) -> dict:
     if cfg.mla is not None:
-        _mla_not_ported()
+        m = cfg.mla
+        return {
+            "w_dq": dense_init(gen, cfg.d_model, m.q_lora_rank, dtype),
+            "w_uq": dense_init(gen, m.q_lora_rank,
+                               cfg.n_heads * (m.nope_head_dim
+                                              + m.rope_head_dim), dtype),
+            "w_dkv": dense_init(gen, cfg.d_model,
+                                m.kv_lora_rank + m.rope_head_dim, dtype),
+            # per-head absorption matrices
+            "w_uk": dense_init(gen, cfg.n_heads * m.nope_head_dim,
+                               m.kv_lora_rank, dtype),
+            "w_uv": dense_init(gen, m.kv_lora_rank,
+                               cfg.n_heads * m.v_head_dim, dtype),
+            "w_o": dense_init(gen, cfg.n_heads * m.v_head_dim, cfg.d_model,
+                              dtype),
+        }
     return {
         "w_q": dense_init(gen, cfg.d_model, cfg.n_heads * cfg.head_dim, dtype),
         "w_k": dense_init(gen, cfg.d_model, cfg.n_kv_heads * cfg.head_dim,
@@ -258,3 +270,83 @@ def gqa_decode(params, cfg: AttentionConfig, x, cache, cache_len: int):
     out = torch.einsum("bkgst,btkd->bskgd", probs, v_cache)
     out = out.reshape(b, 1, -1) @ params["w_o"]
     return out, {"k": k_cache, "v": v_cache}
+
+
+# ---------------------------------------------------------------------------
+# MLA (absorbed form)
+# ---------------------------------------------------------------------------
+
+def _mla_qkv(params, cfg: AttentionConfig, x, positions):
+    """Absorbed-form q' (latent space), rope query, latent and rope key."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    cq = x @ params["w_dq"]
+    q = (cq @ params["w_uq"]).reshape(b, s, h,
+                                      m.nope_head_dim + m.rope_head_dim)
+    q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    # absorb W_uk: q' = q_nope @ W_uk (per head) -> latent dim
+    w_uk = params["w_uk"].reshape(h, m.nope_head_dim, m.kv_lora_rank)
+    q_lat = torch.einsum("bshd,hdr->bshr", q_nope, w_uk)
+    ckv = x @ params["w_dkv"]
+    c_lat, k_rope = ckv[..., :m.kv_lora_rank], ckv[..., m.kv_lora_rank:]
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+    return q_lat, q_rope, c_lat, k_rope[:, :, 0, :]
+
+
+def _mla_out(params, cfg: AttentionConfig, attn_lat):
+    """attn_lat: [B,S,H,latent] -> output projection."""
+    m = cfg.mla
+    b, s, h, _ = attn_lat.shape
+    w_uv = params["w_uv"].reshape(m.kv_lora_rank, h, m.v_head_dim)
+    o = torch.einsum("bshr,rhd->bshd", attn_lat, w_uv)
+    return o.reshape(b, s, h * m.v_head_dim) @ params["w_o"]
+
+
+def _mla_scale(m: MLAConfig) -> float:
+    return 1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim)
+
+
+def _mla_attend(params, cfg: AttentionConfig, x, positions):
+    """MQA over the shared (latent ⊕ rope) key; returns (out, c, k_rope)."""
+    q_lat, q_rope, c_lat, k_rope = _mla_qkv(params, cfg, x, positions)
+    q_cat = torch.cat([q_lat, q_rope], dim=-1)               # [B,S,H,dc+dr]
+    k_cat = torch.cat([c_lat, k_rope], dim=-1)[:, :, None, :]
+    attn = attention_any(q_cat, k_cat, c_lat[:, :, None, :], causal=True,
+                         chunk_size=cfg.chunk_size,
+                         dense_threshold=cfg.dense_threshold,
+                         scale=_mla_scale(cfg.mla))
+    return _mla_out(params, cfg, attn), c_lat, k_rope
+
+
+def mla_forward(params, cfg: AttentionConfig, x, positions):
+    """MLA self-attention (training).  Absorbed form: MQA with shared
+    (latent ⊕ rope) key of dim kv_lora_rank + rope_head_dim."""
+    return _mla_attend(params, cfg, x, positions)[0]
+
+
+def mla_prefill(params, cfg: AttentionConfig, x, positions):
+    """Prefill: returns (out, latent-only cache ``c`` [B,S,R], ``k_rope``
+    [B,S,Dr])."""
+    out, c_lat, k_rope = _mla_attend(params, cfg, x, positions)
+    return out, {"c": c_lat, "k_rope": k_rope}
+
+
+def mla_decode(params, cfg: AttentionConfig, x, cache, cache_len: int):
+    """One-token decode over the latent cache; the new latent and rope key
+    are written into ``cache`` in place, as in ``gqa_decode``."""
+    pos = int(cache_len)
+    posv = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+    q_lat, q_rope, c_lat, k_rope = _mla_qkv(params, cfg, x, posv)
+    c_cache, kr_cache = cache["c"], cache["k_rope"]
+    c_cache[:, pos] = c_lat[:, 0]
+    kr_cache[:, pos] = k_rope[:, 0]
+    logits = (torch.einsum("bshr,btr->bhst", q_lat, c_cache)
+              + torch.einsum("bshr,btr->bhst", q_rope, kr_cache))
+    logits = logits.float() * _mla_scale(cfg.mla)
+    valid = torch.arange(c_cache.shape[1], device=x.device) <= pos
+    logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1).to(c_cache.dtype)
+    attn = torch.einsum("bhst,btr->bshr", probs, c_cache)
+    return _mla_out(params, cfg, attn), {"c": c_cache, "k_rope": kr_cache}

@@ -1,20 +1,27 @@
 """Decoder stack: embedding, prelude + repeated unit of layers, final norm
 and head; the training forward and loss, prefill and one-token decode.
 
-A model is a *prelude* (irregular leading layers) followed by ``n_units``
-repetitions of a *pattern* (a tuple of ``LayerSpec``):
+A model is a *prelude* (irregular leading layers, e.g. DeepSeek's first
+dense layers) followed by ``n_units`` repetitions of a *pattern* (a tuple of
+``LayerSpec``):
 
+- jamba:   8-layer unit  attention at index 4, mamba elsewhere; MoE on odd
+  layers
 - gemma3:  6-layer unit  5×(attn_local, dense) + 1×(attn_global, dense)
+- deepseek: prelude 3×(mla, dense) + unit (mla, moe), and an MTP layer
 - mamba2:  unit (mamba, none)
 
 Unit parameters are a list over units of lists over the pattern (the JAX
 package stacks them on a leading axis for ``lax.scan``; here the units are
 a Python loop, so there is no ``scan_units``).  Each unit of the training
 forward is rematerialised in the backward as ``ModelConfig.remat`` says,
-through ``torch.utils.checkpoint``.  MoE layers and MLA attention are not
-ported yet and raise; so the aux loss is always zero, and DeepSeek's MTP
-head and the multimodal stubs (prefix embeddings, MusicGen's codebooks)
-belong to the MoE/multimodal slice.
+through ``torch.utils.checkpoint``.
+
+Modality frontends ([audio] musicgen, [vlm] paligemma) are stubs, as in the
+JAX package: ``prefix_embeddings`` (precomputed frame/patch embeddings) are
+concatenated in front of the token embeddings.  MusicGen's 4 EnCodec
+codebooks are handled with summed codebook embeddings and 4 parallel output
+heads.
 """
 from __future__ import annotations
 
@@ -31,13 +38,15 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (AttentionConfig, gqa_decode,
                                           gqa_forward, gqa_prefill,
-                                          make_attention_params)
+                                          make_attention_params, mla_decode,
+                                          mla_forward, mla_prefill)
 from repro_torch.models.layers import (DEFAULT_DTYPE, cross_entropy_loss,
                                        embed_init, make_mlp_params, mlp_apply,
                                        norm_init, rmsnorm)
 from repro_torch.models.mamba import (MambaConfig, make_mamba_params,
                                       mamba_decode, mamba_forward,
                                       mamba_prefill)
+from repro_torch.models.moe import MoEConfig, make_moe_params, moe_apply
 
 LayerSpec = tuple[str, str]          # (mixer, ffn)
 
@@ -53,10 +62,15 @@ class ModelConfig:
     attn: AttentionConfig | None = None
     attn_global: AttentionConfig | None = None   # for attn_global mixer
     mamba: MambaConfig | None = None
+    moe: MoEConfig | None = None
     d_ff: int = 0
     gated_mlp: bool = True
+    n_prefix: int = 0                 # modality-stub prefix tokens
+    codebooks: int = 1                # musicgen: 4
     tie_embeddings: bool = True
+    mtp: bool = False                 # deepseek multi-token prediction head
     aux_loss_weight: float = 0.01
+    mtp_loss_weight: float = 0.3
     dtype: torch.dtype = DEFAULT_DTYPE
     remat: str = "nothing_saveable"   # "none" | "nothing_saveable" | "dots"
 
@@ -74,20 +88,12 @@ class ModelConfig:
         return self.attn
 
 
-def _check_ported(spec: LayerSpec) -> None:
-    mixer, ffn = spec
-    if mixer == "mla" or ffn == "moe":
-        raise NotImplementedError(f"layer {spec}: MLA and MoE are not ported "
-                                  f"to repro_torch yet (MoE/MLA slice)")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
 def _make_layer_params(gen: torch.Generator, cfg: ModelConfig,
                        spec: LayerSpec) -> dict:
-    _check_ported(spec)
     mixer, ffn = spec
     p: dict[str, Any] = {"norm1": norm_init(cfg.d_model, gen.device)}
     if mixer == "mamba":
@@ -97,8 +103,11 @@ def _make_layer_params(gen: torch.Generator, cfg: ModelConfig,
                                            cfg.dtype)
     if ffn != "none":
         p["norm2"] = norm_init(cfg.d_model, gen.device)
-        p["mlp"] = make_mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
-                                   cfg.dtype)
+        if ffn == "moe":
+            p["mlp"] = make_moe_params(gen, cfg.moe, cfg.dtype)
+        else:
+            p["mlp"] = make_mlp_params(gen, cfg.d_model, cfg.d_ff,
+                                       cfg.gated_mlp, cfg.dtype)
     return p
 
 
@@ -107,17 +116,24 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, device=None):
     ``device`` (CUDA by default)."""
     device = resolve_device(device)
     gen = generator
+    vocab = cfg.vocab * cfg.codebooks
     params: dict[str, Any] = {
-        "embed": embed_init(gen, cfg.vocab, cfg.d_model, cfg.dtype),
+        "embed": embed_init(gen, vocab, cfg.d_model, cfg.dtype),
         "final_norm": norm_init(cfg.d_model, gen.device),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = embed_init(gen, cfg.vocab, cfg.d_model,
-                                       cfg.dtype)
+        params["lm_head"] = embed_init(gen, vocab, cfg.d_model, cfg.dtype)
     params["prelude"] = [_make_layer_params(gen, cfg, s)
                          for s in cfg.prelude]
     params["units"] = [[_make_layer_params(gen, cfg, s) for s in cfg.pattern]
                        for _ in range(cfg.n_units)]
+    if cfg.mtp:
+        params["mtp"] = {
+            "layer": _make_layer_params(gen, cfg, cfg.pattern[-1]),
+            "norm": norm_init(cfg.d_model, gen.device),
+            "in_proj": embed_init(gen, 2 * cfg.d_model, cfg.d_model,
+                                  cfg.dtype),
+        }
     return _to(params, device)
 
 
@@ -133,38 +149,72 @@ def _to(tree, device):
 # embedding and head
 # ---------------------------------------------------------------------------
 
-def embed_tokens(params, tokens):
-    """tokens: [B,S] ids.  Returns [B,S,D]."""
+def _embed(params, cfg: ModelConfig, tokens):
+    """tokens: [...] or [..., CB] (musicgen: per-codebook vocab offsets,
+    summed embeddings).  Returns [..., D]."""
+    if cfg.codebooks > 1:
+        offs = torch.arange(cfg.codebooks, device=tokens.device) * cfg.vocab
+        return params["embed"][tokens + offs].sum(dim=-2)
     return params["embed"][tokens]
 
 
+def embed_tokens(params, cfg: ModelConfig, tokens, prefix_embeddings=None):
+    """tokens: [B,S] or [B,S,CB] (musicgen).  Returns [B, n_prefix+S, D]."""
+    x = _embed(params, cfg, tokens)
+    if cfg.n_prefix:
+        if prefix_embeddings is None:
+            raise ValueError(f"{cfg.name}: needs prefix_embeddings "
+                             f"[B, {cfg.n_prefix}, {cfg.d_model}]")
+        x = torch.cat([prefix_embeddings.to(x.dtype), x], dim=1)
+    return x
+
+
 def logits_fn(params, cfg: ModelConfig, x):
+    """[B,S,D] -> [B,S,V], or [B,S,CB,V] with codebooks."""
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return x @ head.T
+    logits = x @ head.T
+    if cfg.codebooks > 1:
+        logits = logits.reshape(*logits.shape[:-1], cfg.codebooks, cfg.vocab)
+    return logits
 
 
 # ---------------------------------------------------------------------------
 # forward (training)
 # ---------------------------------------------------------------------------
 
+def _ffn(p, cfg: ModelConfig, ffn: str, x):
+    """The layer's feed-forward half with its residual; returns (x, aux),
+    aux None but for an MoE layer."""
+    aux = None
+    if ffn == "none":
+        return x, aux
+    h = rmsnorm(x, p["norm2"])
+    if ffn == "moe":
+        h, aux = moe_apply(p["mlp"], cfg.moe, h)
+    else:
+        h = mlp_apply(p["mlp"], h)
+    return x + h, aux
+
+
 def _layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x, positions):
-    _check_ported(spec)
     mixer, ffn = spec
     h = rmsnorm(x, p["norm1"])
     if mixer == "mamba":
         h = mamba_forward(p["mixer"], cfg.mamba, h)
+    elif mixer == "mla":
+        h = mla_forward(p["mixer"], cfg.mixer_cfg(mixer), h, positions)
     else:
         h = gqa_forward(p["mixer"], cfg.mixer_cfg(mixer), h, positions)
-    x = x + h
-    if ffn != "none":
-        x = x + mlp_apply(p["mlp"], rmsnorm(x, p["norm2"]))
-    return x
+    return _ffn(p, cfg, ffn, x + h)
 
 
 def _unit_forward(unit_params, cfg: ModelConfig, x, positions):
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, spec in zip(unit_params, cfg.pattern):
-        x = _layer_forward(p, cfg, spec, x, positions)
-    return x
+        x, aux = _layer_forward(p, cfg, spec, x, positions)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return x, aux_total
 
 
 # the products whose outputs the "dots" policy keeps for the backward
@@ -188,29 +238,55 @@ def _remat_wrap(fn, cfg: ModelConfig):
     return functools.partial(checkpoint, fn, **kwargs)
 
 
-def forward(params, cfg: ModelConfig, tokens):
-    """Full forward -> (logits [B,S,V], aux loss, final hidden [B,S,D]).
-    The aux (load-balancing) loss comes from MoE layers, not ported yet:
-    it is zero."""
-    x = embed_tokens(params, tokens)
+def forward(params, cfg: ModelConfig, tokens, prefix_embeddings=None):
+    """Full forward -> (logits [B,S(+prefix),V] or [B,S(+prefix),CB,V], the
+    MoE layers' summed aux (load-balancing) loss, final hidden)."""
+    x = embed_tokens(params, cfg, tokens, prefix_embeddings)
     positions = torch.arange(x.shape[1], device=x.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, spec in zip(params["prelude"], cfg.prelude):
-        x = _layer_forward(p, cfg, spec, x, positions)
+        x, aux = _layer_forward(p, cfg, spec, x, positions)
+        if aux is not None:
+            aux_total = aux_total + aux
     unit_fn = _remat_wrap(
         lambda up, xx: _unit_forward(up, cfg, xx, positions), cfg)
     for up in params["units"]:
-        x = unit_fn(up, x)
+        x, aux = unit_fn(up, x)
+        aux_total = aux_total + aux
     x = rmsnorm(x, params["final_norm"])
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return logits_fn(params, cfg, x), aux, x
+    return logits_fn(params, cfg, x), aux_total, x
 
 
 def loss_fn(params, cfg: ModelConfig, batch):
-    """batch: {"tokens": [B,S], "labels": [B,S]} -> (total, metrics)."""
-    logits, aux, _ = forward(params, cfg, batch["tokens"])
+    """batch: {"tokens": [B,S] or [B,S,CB], "labels": same,
+    "prefix_embeddings": optional [B,P,D]} -> (total, metrics)."""
+    logits, aux, x = forward(params, cfg, batch["tokens"],
+                             batch.get("prefix_embeddings"))
+    if cfg.n_prefix:
+        logits = logits[:, cfg.n_prefix:]
     loss = cross_entropy_loss(logits, batch["labels"])
     total = loss + cfg.aux_loss_weight * aux
+    if cfg.mtp and "mtp" in params:
+        total = total + cfg.mtp_loss_weight * _mtp_loss(params, cfg, x, batch)
     return total, {"loss": loss, "aux": aux}
+
+
+def _mtp_loss(params, cfg: ModelConfig, x, batch):
+    """DeepSeek-V3 multi-token prediction: one extra layer predicts t+2 from
+    (hidden_t ⊕ embed(token_{t+1}))."""
+    mtp = params["mtp"]
+    labels = batch["labels"]
+    if cfg.codebooks > 1 or cfg.n_prefix:
+        return torch.zeros((), dtype=torch.float32, device=x.device)
+    emb_next = params["embed"][labels]                  # labels = t+1
+    h = torch.cat([x, emb_next.to(x.dtype)], dim=-1) @ mtp["in_proj"]
+    positions = torch.arange(h.shape[1], device=h.device)
+    h, _ = _layer_forward(mtp["layer"], cfg, cfg.pattern[-1], h, positions)
+    h = rmsnorm(h, mtp["norm"])
+    logits2 = logits_fn(params, cfg, h)
+    # predict t+2: shift labels by one more
+    lab2 = torch.cat([labels[:, 1:], labels[:, -1:]], dim=1)
+    return cross_entropy_loss(logits2[:, :-1], lab2[:, :-1])
 
 
 def param_count(params) -> int:
@@ -222,17 +298,15 @@ def param_count(params) -> int:
 # ---------------------------------------------------------------------------
 
 def _layer_prefill(p, cfg: ModelConfig, spec: LayerSpec, x, positions):
-    _check_ported(spec)
     mixer, ffn = spec
     h = rmsnorm(x, p["norm1"])
     if mixer == "mamba":
         h, cache = mamba_prefill(p["mixer"], cfg.mamba, h)
+    elif mixer == "mla":
+        h, cache = mla_prefill(p["mixer"], cfg.mixer_cfg(mixer), h, positions)
     else:
         h, cache = gqa_prefill(p["mixer"], cfg.mixer_cfg(mixer), h, positions)
-    x = x + h
-    if ffn != "none":
-        x = x + mlp_apply(p["mlp"], rmsnorm(x, p["norm2"]))
-    return x, cache
+    return _ffn(p, cfg, ffn, x + h)[0], cache
 
 
 def _pad_cache(cache, max_len: int):
@@ -247,9 +321,12 @@ def _pad_cache(cache, max_len: int):
     return out
 
 
-def prefill(params, cfg: ModelConfig, tokens, max_len: int | None = None):
-    """Run the prompt; returns (last_logits [B,V], caches, length)."""
-    x = embed_tokens(params, tokens)
+def prefill(params, cfg: ModelConfig, tokens, prefix_embeddings=None,
+            max_len: int | None = None):
+    """Run the prompt; returns (last_logits [B,V] or [B,CB,V], caches,
+    length).  ``length`` counts the prefix positions too: the next token
+    decodes at ``length``."""
+    x = embed_tokens(params, cfg, tokens, prefix_embeddings)
     s = x.shape[1]
     max_len = max_len or s + 1
     positions = torch.arange(s, device=x.device)
@@ -274,20 +351,20 @@ def _layer_decode(p, cfg: ModelConfig, spec: LayerSpec, x, cache,
     h = rmsnorm(x, p["norm1"])
     if mixer == "mamba":
         h, cache = mamba_decode(p["mixer"], cfg.mamba, h, cache)
+    elif mixer == "mla":
+        h, cache = mla_decode(p["mixer"], cfg.mixer_cfg(mixer), h, cache,
+                              cache_len)
     else:
         h, cache = gqa_decode(p["mixer"], cfg.mixer_cfg(mixer), h, cache,
                               cache_len)
-    x = x + h
-    if ffn != "none":
-        x = x + mlp_apply(p["mlp"], rmsnorm(x, p["norm2"]))
-    return x, cache
+    return _ffn(p, cfg, ffn, x + h)[0], cache
 
 
 def decode_step(params, cfg: ModelConfig, token, caches, cache_len: int):
-    """One decode step.  token: [B]; caches from prefill; cache_len:
-    current length.  Returns (logits, new caches); attention caches are
-    updated in place."""
-    x = embed_tokens(params, token)[:, None, :]
+    """One decode step.  token: [B] or [B,CB]; caches from prefill;
+    cache_len: current length (prefix included).  Returns (logits, new
+    caches); attention caches are updated in place."""
+    x = _embed(params, cfg, token)[:, None, :]
     new_caches: dict[str, Any] = {"prelude": [], "units": []}
     for p, spec, cache in zip(params["prelude"], cfg.prelude,
                               caches["prelude"]):

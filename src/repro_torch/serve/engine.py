@@ -35,7 +35,7 @@ class Request:
     request_id: int
     client_id: int
     arrival: float
-    prompt: np.ndarray               # [S] token ids
+    prompt: np.ndarray               # [S] token ids ([S, CB] with codebooks)
     max_new_tokens: int = 16
 
 
@@ -96,9 +96,16 @@ class ServeEngine:
                                       time.monotonic())
 
     def _prefill(self, prompt: np.ndarray):
+        """Prompt [S] (or [S, CB]) -> (last logits, caches, length); the
+        modality stub's prefix embeddings are zeros."""
+        cfg = self.cfg
         tokens = torch.as_tensor(np.asarray(prompt), dtype=torch.int64,
-                                 device=self.device)[None, :]
-        return prefill(self.params, self.cfg, tokens, max_len=self.max_len)
+                                 device=self.device)[None]
+        pe = (torch.zeros((1, cfg.n_prefix, cfg.d_model),
+                          dtype=torch.bfloat16, device=self.device)
+              if cfg.n_prefix else None)
+        return prefill(self.params, cfg, tokens, pe,
+                       max_len=self.max_len + cfg.n_prefix)
 
     # -- serving --------------------------------------------------------------
 
@@ -116,11 +123,13 @@ class ServeEngine:
             t0 = t_pre
         else:
             logits, caches, length = self._prefill(req.prompt)
-        # greedy next token
+        # greedy next token; musicgen picks one token per codebook
         tok = torch.argmax(logits[0], dim=-1)
         first = tok.tolist()                    # waits for the device
         t_first = time.monotonic()
         out_tokens: list = []
+        # ``length`` counts the prefix positions already; the JAX package's
+        # engine adds ``n_prefix`` once more and decodes past its cache
         pos = length
         for i in range(req.max_new_tokens):
             out_tokens.append(first if i == 0 else tok.tolist())

@@ -2,7 +2,8 @@
 segmented launch), flash attention (K2: fast and generic routes), SSD scan
 (K3: chunked and generic routes) and GRU fit (K4) kernels against their
 plain PyTorch versions on CUDA tensors, the port's device paths on
-CUDA, and K2/K3's entry refusing an input that requires grad (the train
+CUDA (MoE, MLA and the prefix and codebook stubs included, against the
+CPU), and K2/K3's entry refusing an input that requires grad (the train
 step on the card against the CPU's is phase 18a of ``chip_smoke.py``).
 
 Marked ``cuda``; every test skips where ``torch.cuda.is_available()`` is
@@ -242,6 +243,14 @@ ATTN_SHAPES = [
     (1, 65, 4, 1, 256, 16, torch.float32, 2e-5),
     (1, 2048, 8, 1, 256, None, torch.bfloat16, 2e-2),
     (1, 2048, 8, 1, 256, None, torch.float32, 2e-5),
+    # groups of 7 query heads (arctic-480b's 56/8), ragged and at its
+    # prefill; musicgen-large's 32/32 heads of 64 and paligemma-3b's 8/1 of
+    # 256 at their served lengths (2000 tokens after 64 and 256 prefix
+    # positions)
+    (1, 77, 14, 2, 128, None, torch.bfloat16, 2e-2),
+    (1, 2000, 56, 8, 128, None, torch.bfloat16, 2e-2),
+    (1, 2064, 32, 32, 64, None, torch.bfloat16, 2e-2),
+    (1, 2256, 8, 1, 256, None, torch.bfloat16, 2e-2),
 ]
 
 
@@ -528,6 +537,77 @@ def test_reduced_prefill_on_cuda_takes_the_generic_route(cuda, arch):
     kernel = K3 if arch.startswith("mamba") else K2
     assert kernel.LAUNCHES == kernel.ROUTE_LAUNCHES["generic"] > 0
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+# MoE, MLA, the prefix and codebook stubs on the card (reduced, float32)
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "arctic-480b",
+                                  "jamba-1.5-large-398b"])
+def test_moe_apply_on_cuda_matches_cpu(cuda, arch):
+    """The MoE layer at a capacity factor that drops slots: the dispatch
+    (experts, ranks, kept slots) equal to the CPU's, the output and aux
+    loss at 1e-5."""
+    from repro_torch.models import moe as TM
+    cfg = dataclasses.replace(get_reduced_config(arch).moe,
+                              capacity_factor=0.5)
+    params = TM.make_moe_params(torch.Generator().manual_seed(0), cfg,
+                                torch.float32)
+    x = torch.randn((2, 40, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    want, want_aux = TM.moe_apply(params, cfg, x)
+    got, got_aux = TM.moe_apply(TT._to(params, cuda), cfg, x.to(cuda))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(got_aux.cpu(), want_aux, atol=1e-5, rtol=1e-5)
+    t = x.shape[0] * x.shape[1]
+    cap = TM.capacity(cfg, t)
+    for dev in ("cpu", cuda):
+        logits = x.reshape(t, -1).to(dev) @ params["router"].to(dev)
+        idx = TM._router_probs(cfg, logits)[1]
+        out = [a.cpu() for a in TM._dispatch(idx, cfg.n_experts, cap)]
+        if dev == "cpu":
+            ref = out
+            assert not bool(out[2].all())         # slots were dropped
+        else:
+            for a, b in zip(out, ref):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "arctic-480b",
+                                  "jamba-1.5-large-398b", "musicgen-large",
+                                  "paligemma-3b"])
+def test_reduced_moe_mla_and_stub_models_on_cuda_match_cpu(cuda, arch):
+    """Prefill and two decode steps of a reduced config on the card against
+    the same float32 parameters on the CPU at 1e-4: MLA (plain attention on
+    every device), MoE, prefix embeddings and codebooks; the GQA layers'
+    prefills go through K2's generic route, jamba's SSD through K3's."""
+    cfg = dataclasses.replace(get_reduced_config(arch), dtype=torch.float32)
+    params = TT.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    shape = (2, 40, cfg.codebooks) if cfg.codebooks > 1 else (2, 40)
+    tokens = torch.randint(0, cfg.vocab, shape, generator=gen)
+    pe = (torch.randn((2, cfg.n_prefix, cfg.d_model), generator=gen) * 0.02
+          if cfg.n_prefix else None)
+    max_len = 48 + cfg.n_prefix
+    want, want_c, n = TT.prefill(params, cfg, tokens, pe, max_len=max_len)
+    K2.reset_counts()
+    K3.reset_counts()
+    on_card = TT._to(params, cuda)
+    got, got_c, _ = TT.prefill(on_card, cfg, tokens.to(cuda),
+                               None if pe is None else pe.to(cuda),
+                               max_len=max_len)
+    torch.cuda.synchronize()
+    n_attn = sum(m.startswith("attn") for m, _ in cfg.pattern) * cfg.n_units
+    assert K2.LAUNCHES == K2.ROUTE_LAUNCHES["generic"] == n_attn
+    assert K3.LAUNCHES == K3.ROUTE_LAUNCHES["generic"] == sum(
+        m == "mamba" for m, _ in cfg.pattern) * cfg.n_units
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    tok = want.argmax(-1)
+    for i in range(2):
+        want, want_c = TT.decode_step(params, cfg, tok, want_c, n + i)
+        got, got_c = TT.decode_step(on_card, cfg, tok.to(cuda), got_c, n + i)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+        tok = want.argmax(-1)
 
 
 # K4: the GRU fit.  Inputs: the three regimes of

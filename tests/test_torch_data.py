@@ -49,12 +49,14 @@ def test_push_server_learns_sequential_scan():
     assert stats["pushed_hits"] > stats["misses"]
 
 
-@pytest.mark.parametrize("seed,shard", [(3, 7), (0, 0), (11, 1023)])
-def test_deterministic_shards(seed, shard):
-    src = TP.SyntheticLM(vocab=64, seq_len=16, batch=2, seed=seed)
+@pytest.mark.parametrize("seed,shard,codebooks", [(3, 7, 1), (0, 0, 1),
+                                                   (11, 1023, 1), (5, 2, 4)])
+def test_deterministic_shards(seed, shard, codebooks):
+    src = TP.SyntheticLM(vocab=64, seq_len=16, batch=2, codebooks=codebooks,
+                         seed=seed)
     a = src.load_shard(shard)
     np.testing.assert_array_equal(a, src.load_shard(shard))
-    want = JP.SyntheticLM(vocab=64, seq_len=16, batch=2,
+    want = JP.SyntheticLM(vocab=64, seq_len=16, batch=2, codebooks=codebooks,
                           seed=seed).load_shard(shard)
     assert a.dtype == want.dtype and a.shape == want.shape
     np.testing.assert_array_equal(a, want)

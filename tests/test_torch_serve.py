@@ -3,7 +3,10 @@
 Reduced ``yi-6b`` in float32 with ``repro``'s parameters carried across;
 both engines see the traffic of ``launch/serve.py`` (three recurring
 clients in turn, one request every 20 s of simulated time) and must emit
-identical greedy tokens and prewarm (``prefetched``) flags.
+identical greedy tokens and prewarm (``prefetched``) flags; so must reduced
+deepseek-v3 (MLA, MoE).  With prefix embeddings the port decodes at
+``prefill``'s ``length``, where ``repro``'s engine decodes ``n_prefix``
+positions later; two tests show which of the two agrees with ``forward``.
 """
 import dataclasses
 
@@ -14,11 +17,13 @@ import pytest
 import torch
 
 from repro.configs import get_reduced_config as repro_config
+from repro.models import transformer as JT
 from repro.models.transformer import init_params as repro_init
 from repro.serve import engine as JE
 from repro_torch.configs import get_reduced_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.launch import serve as launch_serve
+from repro_torch.models import transformer as TT
 from repro_torch.serve import engine as TE
 
 
@@ -74,3 +79,94 @@ def test_launcher_serves_on_the_cpu(capsys):
                                 "--prompt-len", "20", "--max-new", "3"])
     assert engine.stats == {"prefetched_prefills": 0, "total": 5}
     assert "served 5" in capsys.readouterr().out
+
+
+def test_moe_mla_tokens_match_repro():
+    """Reduced deepseek-v3 (MLA, MoE) in float32: the two engines' greedy
+    tokens and prewarm flags on six requests of the launcher's traffic."""
+    jcfg = dataclasses.replace(repro_config("deepseek-v3-671b"),
+                               dtype=jnp.float32)
+    tcfg = dataclasses.replace(get_reduced_config("deepseek-v3-671b"),
+                               dtype=torch.float32)
+    jp = repro_init(jax.random.PRNGKey(0), jcfg)
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), tcfg,
+                           device="cpu")
+    jeng = JE.ServeEngine(jcfg, jp, max_len=32)
+    teng = TE.ServeEngine(tcfg, tp, max_len=32, device="cpu")
+    for i, client, now, prompt in _traffic(6, 20, 256, 0.0):
+        jc = jeng.serve(JE.Request(i, client, now, prompt, 6), now)
+        tc = teng.serve(TE.Request(i, client, now, prompt, 6), now)
+        assert tc.tokens == [int(t) for t in jc.tokens], i
+        assert tc.prefetched == jc.prefetched, i
+
+
+def _paligemma_repro_engine():
+    cfg = dataclasses.replace(repro_config("paligemma-3b"), dtype=jnp.float32)
+    params = repro_init(jax.random.PRNGKey(0), cfg)
+    return cfg, params, JE.ServeEngine(cfg, params, max_len=48)
+
+
+def test_repro_engine_decodes_past_the_prefix():
+    """Why the port's engine decodes at ``length``: ``repro``'s
+    ``ServeEngine.serve`` decodes at ``length + n_prefix``, but ``prefill``'s
+    ``length`` holds the prefix already.  Reduced paligemma-3b (16 prefix
+    positions), a 32-token prompt, caches of 48 + 16: decoding the next
+    token at ``length`` (48) gives ``forward``'s logits on the extended
+    sequence; at the engine's position (64) the write lands past the cache,
+    where ``dynamic_update_slice`` clamps it, and the logits disagree."""
+    cfg, params, engine = _paligemma_repro_engine()
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, size=33)
+    _, caches, length = engine._prefill(toks[:32])
+    assert length == 32 + cfg.n_prefix == 48
+    pe = jnp.zeros((1, cfg.n_prefix, cfg.d_model), jnp.bfloat16)
+    want = np.asarray(JT.forward(params, cfg, jnp.asarray(toks)[None],
+                                 pe)[0][0, -1])
+    nxt = jnp.asarray(toks[32:33], jnp.int32)
+    at_length = np.asarray(engine._decode(params, nxt, caches,
+                                          jnp.int32(length))[0][0])
+    pos = jnp.int32(length + cfg.n_prefix)
+    at_engine = np.asarray(engine._decode(params, nxt, caches, pos)[0][0])
+    np.testing.assert_allclose(at_length, want, atol=1e-4, rtol=1e-4)
+    assert np.abs(at_engine - want).max() > 0.1
+
+
+def test_port_engine_decodes_at_length():
+    """The port's engine on the same model and prompt: its first decode
+    step, at ``length``, gives ``forward``'s logits on the prompt extended
+    by the first greedy token (float32, 1e-4)."""
+    cfg, params, _ = _paligemma_repro_engine()
+    tcfg = dataclasses.replace(get_reduced_config("paligemma-3b"),
+                               dtype=torch.float32)
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, params), tcfg,
+                           device="cpu")
+    engine = TE.ServeEngine(tcfg, tp, max_len=48, device="cpu")
+    seen = []
+    inner = TE.decode_step
+
+    def spy(p, c, tok, caches, pos):
+        logits, caches = inner(p, c, tok, caches, pos)
+        seen.append((pos, logits))
+        return logits, caches
+
+    prompt = np.random.default_rng(0).integers(0, tcfg.vocab, size=32)
+    TE.decode_step = spy
+    try:
+        comp = engine.serve(TE.Request(0, 0, 0.0, prompt, 2), 0.0)
+    finally:
+        TE.decode_step = inner
+    assert seen[0][0] == 32 + tcfg.n_prefix
+    toks = torch.from_numpy(np.append(prompt, comp.tokens[0]))[None]
+    pe = torch.zeros((1, tcfg.n_prefix, tcfg.d_model))
+    want = TT.forward(tp, tcfg, toks, pe)[0][0, -1]
+    np.testing.assert_allclose(seen[0][1][0].numpy(), want.numpy(),
+                               atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["musicgen-large", "paligemma-3b",
+                                  "jamba-1.5-large-398b"])
+def test_launcher_serves_prefix_and_codebook_models_on_the_cpu(arch):
+    engine = launch_serve.main(["--arch", arch, "--reduced", "--device",
+                                "cpu", "--requests", "4", "--prompt-len",
+                                "16", "--max-new", "3"])
+    assert engine.stats["total"] == 4

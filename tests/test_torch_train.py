@@ -66,10 +66,17 @@ def _params(jcfg, tcfg):
     return jp, params_from_numpy(_to_numpy(jp), tcfg, device="cpu")
 
 
-def _batch(vocab: int, b: int, s: int, seed: int = 0):
+def _batch(vocab: int, b: int, s: int, seed: int = 0, cfg=None):
+    """The same batch for both; ``cfg`` (repro's) adds codebooks and
+    prefix embeddings where the model has them."""
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, vocab, size=(b, s + 1)).astype(np.int32)
+    cb = cfg.codebooks if cfg is not None else 1
+    shape = (b, s + 1, cb) if cb > 1 else (b, s + 1)
+    toks = rng.integers(0, vocab, size=shape).astype(np.int32)
     nb = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg is not None and cfg.n_prefix:
+        nb["prefix_embeddings"] = (rng.normal(
+            size=(b, cfg.n_prefix, cfg.d_model)) * 0.02).astype(np.float32)
     return ({k: jnp.asarray(v) for k, v in nb.items()},
             {k: torch.from_numpy(np.ascontiguousarray(v))
              for k, v in nb.items()})
@@ -103,9 +110,12 @@ def _jax_loss_and_grads(jp, jcfg, jbatch):
 
 # (arch, attention overrides, batch, sequence): gemma3's local layers see a
 # window of 32, so S=40 crosses it; starcoder2 has the ungated GELU MLP;
-# mamba2's S=40 is padded to its chunk of 16.  The last two run
+# mamba2's S=40 is padded to its chunk of 16.  The two chunked cases run
 # chunked_attention (S=48 > dense_threshold=16, chunks of 16) in the
-# forward and the backward, gemma3's with its window.
+# forward and the backward, gemma3's with its window.  deepseek-v3 adds MLA,
+# MoE (aux loss) and the MTP loss; arctic and jamba MoE; musicgen the
+# codebook loss over [B,S,4,V] logits after its 8 prefix positions;
+# paligemma 16 prefix positions.
 LOSS_CASES = [
     ("yi-6b", {}, 2, 24),
     ("gemma3-27b", {}, 2, 40),
@@ -113,6 +123,11 @@ LOSS_CASES = [
     ("mamba2-1.3b", {}, 2, 40),
     ("yi-6b", {"dense_threshold": 16, "chunk_size": 16}, 2, 48),
     ("gemma3-27b", {"dense_threshold": 16, "chunk_size": 16}, 2, 48),
+    ("deepseek-v3-671b", {}, 2, 24),
+    ("arctic-480b", {}, 2, 24),
+    ("jamba-1.5-large-398b", {}, 2, 40),
+    ("musicgen-large", {}, 2, 24),
+    ("paligemma-3b", {}, 2, 24),
 ]
 
 
@@ -122,14 +137,16 @@ LOSS_CASES = [
 def test_loss_and_grads_match_repro(arch, attn, b, s):
     jcfg, tcfg = _configs(arch, **attn)
     jp, tp = _params(jcfg, tcfg)
-    jbatch, tbatch = _batch(jcfg.vocab, b, s)
+    jbatch, tbatch = _batch(jcfg.vocab, b, s, cfg=jcfg)
     jtotal, jmetrics, jgrads = _jax_loss_and_grads(jp, jcfg, jbatch)
     ttotal, tmetrics, tgrads = _loss_and_grads(tp, tcfg, tbatch)
     assert set(tmetrics) == set(jmetrics) == {"loss", "aux"}
     np.testing.assert_allclose(float(ttotal), float(jtotal), **F32)
     np.testing.assert_allclose(float(tmetrics["loss"]),
                                float(jmetrics["loss"]), **F32)
-    assert float(tmetrics["aux"]) == float(jmetrics["aux"]) == 0.0
+    np.testing.assert_allclose(float(tmetrics["aux"]),
+                               float(jmetrics["aux"]), **F32)
+    assert (float(tmetrics["aux"]) > 0) == (tcfg.moe is not None)
     want = params_from_numpy(_to_numpy(jgrads), tcfg, device="cpu")
     _assert_trees_close(tgrads, want, **F32)
 
@@ -244,6 +261,51 @@ def test_adamw_decays_stacked_unit_vectors_as_repro():
     assert torch.equal(got["final_norm"], undecayed["final_norm"])
 
 
+def test_adamw_decays_experts_and_mtp_as_repro():
+    """Reduced deepseek-v3's real parameter tree: stacked expert weights
+    ([n_units, E, d, f] in ``repro``), float32 routers, the shared expert
+    and the unstacked ``mtp`` subtree take the same AdamW step in both;
+    ``mtp``'s norm (a vector outside the units) does not decay, its
+    matrices and router do."""
+    jcfg, tcfg = _configs("deepseek-v3-671b")
+    jp, tp = _params(jcfg, tcfg)
+    rng = np.random.default_rng(3)
+    draw = [jax.tree_util.tree_map(
+        lambda a: np.asarray(rng.normal(size=a.shape), np.float32), jp)
+        for _ in range(3)]
+    g, m, v = draw[0], draw[1], jax.tree_util.tree_map(
+        lambda a: np.abs(a) * 0.01, draw[2])
+    ocfg = JO.AdamWConfig(lr=1e-2)
+    jout = jax.jit(lambda *a: JO.adamw_update(*a, ocfg)[0])(
+        *jax.tree_util.tree_map(jnp.asarray, (g, {"m": m, "v": v,
+                                                 "step": np.int32(2)}, jp)))
+
+    def port(weight_decay):
+        state = {"m": params_from_numpy(m, tcfg, device="cpu"),
+                 "v": params_from_numpy(v, tcfg, device="cpu"),
+                 "step": torch.tensor(2, dtype=torch.int32)}
+        return TO.adamw_update(params_from_numpy(g, tcfg, device="cpu"),
+                               state, tp, TO.AdamWConfig(
+                                   lr=1e-2, weight_decay=weight_decay))[0]
+
+    got = port(0.1)
+    want = params_from_numpy(_to_numpy(jout), tcfg, device="cpu")
+    # 1e-6 relative, and 1e-7 absolute where the step cancels a parameter
+    # (about one float32 ulp of the operands, which are below ~1)
+    _assert_trees_close(got, want, rtol=1e-6, atol=1e-7)
+    undecayed = port(0.0)
+    assert torch.equal(got["mtp"]["norm"], undecayed["mtp"]["norm"])
+    for key in ("in_proj",):
+        assert not torch.equal(got["mtp"][key], undecayed["mtp"][key])
+    for tree in (got["mtp"]["layer"], got["units"][0][0]):
+        und = (undecayed["mtp"]["layer"] if tree is got["mtp"]["layer"]
+               else undecayed["units"][0][0])
+        for key in ("router", "w_gate"):
+            assert not torch.equal(tree["mlp"][key], und["mlp"][key])
+    assert not torch.equal(got["units"][0][0]["norm1"],
+                           undecayed["units"][0][0]["norm1"])
+
+
 # test_substrate.py's three optimizer cases, through the port
 
 def test_adamw_reduces_quadratic():
@@ -277,11 +339,12 @@ def test_grad_clip():
 
 
 @pytest.mark.parametrize("arch,micro", [("yi-6b", 1), ("yi-6b", 2),
-                                        ("mamba2-1.3b", 2)])
+                                        ("mamba2-1.3b", 2),
+                                        ("deepseek-v3-671b", 1)])
 def test_train_step_matches_repro(arch, micro):
     jcfg, tcfg = _configs(arch)
     jp, tp = _params(jcfg, tcfg)
-    jbatch, tbatch = _batch(jcfg.vocab, 4, 32, seed=1)
+    jbatch, tbatch = _batch(jcfg.vocab, 4, 32, seed=1, cfg=jcfg)
     jt = JL.TrainConfig(microbatches=micro)
     tt = TL.TrainConfig(microbatches=micro)
     mesh = jax.make_mesh((1, 1), ("data", "model"))
@@ -293,9 +356,8 @@ def test_train_step_matches_repro(arch, micro):
         tp, TO.adamw_init(tp, tt.optimizer), tbatch)
 
     assert set(tm) == set(jm) == {"loss", "aux", "grad_norm"}
-    for key in ("loss", "grad_norm"):
+    for key in ("loss", "grad_norm", "aux"):
         np.testing.assert_allclose(float(tm[key]), float(jm[key]), **F32)
-    assert float(tm["aux"]) == float(jm["aux"]) == 0.0
     assert int(topt2["step"]) == int(jopt2["step"]) == 1
     # m = 0.1 * clipped gradient: the gradients' tolerance, scaled
     for key in ("m", "v"):
@@ -378,3 +440,15 @@ def test_thirty_steps_lower_the_loss():
     assert len(losses) == 30 and all(np.isfinite(losses))
     assert losses[-1] < losses[0], losses
     assert loader.stats["pushed_hits"] > loader.stats["misses"]
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "musicgen-large",
+                                  "paligemma-3b"])
+def test_launcher_trains_moe_prefix_and_codebook_models_on_the_cpu(arch):
+    """``launch/train.py`` feeds codebook batches (``SyntheticLM``'s
+    codebooks) and zero prefix embeddings; losses stay finite."""
+    from repro_torch.launch import train as launch_train
+    _, _, history = launch_train.main(
+        ["--arch", arch, "--reduced", "--device", "cpu", "--steps", "2",
+         "--batch", "2", "--seq", "16"])
+    assert history and all(np.isfinite(m["loss"]) for _, m in history)
