@@ -122,7 +122,30 @@ non-zero):
     musicgen-large at full width and depth (48 launches on ``wgmma`` at
     head dim 64 after 64 prefix positions, 4 codebooks), each checked
     against the plain version as in phase 20; musicgen then decodes 8
-    steps.  A ``phases 19-21 summary:`` JSON line follows phase 21.
+    steps.  A ``phases 19-21 summary:`` JSON line follows phase 21;
+22. the multi-device layer on a 1 x 1 (data, model) mesh over NCCL at
+    world size 1: yi-6b at full width, 4 of 32 layers, trained through
+    ``train_loop(..., mesh=mesh)`` on phase 18c's traffic (4 x 2048 tokens)
+    for 3 steps, its losses against the no-mesh loop's on the same
+    batches; the step time beside phase 18c's, the busy share and the
+    peak memory; then a checkpoint of the mesh's state restored into its
+    placements, bitwise;
+23. serve placements on the same mesh: yi-6b and mamba2-1.3b at full width
+    and depth prefill a 2000-token prompt as DTensors under the decode
+    cache hints, then decode 4 tokens: one K2 (K3) launch per layer on the
+    fast route through ``local_map`` (``kernels.ops.per_rank``; 32 K2 and
+    144 = 48 x 3 K3 CUDA kernels in a traced prefill), logits
+    against the no-mesh prefill and decode; then one MoE layer of
+    deepseek-v3-671b at full width (256 experts of 7168 x 2048, top-8,
+    ~22.5 GB of bf16 weights) through ``moe_apply_ep`` in train and serve
+    mode against ``moe_apply`` on the same 2000 tokens;
+24. ``compressed_all_reduce`` on a 1 x 1 x 1 (pod, data, model) mesh over
+    NCCL: each element within half its block's scale plus the bf16
+    payload's rounding; then the roofline terms (H100 datasheet peaks) and
+    the measured roofline fraction of phases 18b, 18c and 22's steps and
+    of phase 23's no-mesh prefills (phases 10-11's configuration), by
+    device time and by wall time.  A ``phases 22-24 summary:`` JSON line
+    follows phase 24.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -2312,6 +2335,400 @@ def check_wgmma_256(spills: dict[str, int]) -> None:
                              f"{wg256} (want one instantiation, 0 bytes)")
 
 
+# ---------------------------------------------------------------------------
+# phases 22-24: the multi-device layer at mesh size 1 (NCCL)
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_STEPS = 3
+MESH_DECODE_STEPS = 4
+
+
+def card_mesh(shape, axes):
+    """A mesh on the card over a one-rank NCCL group (started by the first
+    call)."""
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh(shape, axes)
+
+
+def bitwise(torch, a, b) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and bool(
+        torch.equal(a.reshape(-1).view(torch.uint8),
+                    b.reshape(-1).view(torch.uint8)))
+
+
+def mesh_train_phase(torch, dev, phase18c: dict) -> dict:
+    """Phase 22: yi-6b, full width, 4 layers, on a 1 x 1 mesh through
+    ``train_loop(..., mesh=mesh)``; gates: every loss within 1e-3 of the
+    no-mesh loop's on the same batches, no K2/K3 launch, the checkpoint
+    restored bitwise into the mesh's placements."""
+    import shutil
+    import statistics
+
+    import torch.utils._pytree as pytree
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.train.loop import (TrainConfig, batch_to_device,
+                                        make_train_step, train_loop)
+
+    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=4)
+    label = "yi-6b-4l-mesh"
+    log(f"== phase 22: train {label} on a 1 x 1 (data, model) mesh over "
+        f"NCCL, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, {MESH_TRAIN_STEPS} steps")
+    mesh = card_mesh((1, 1), ("data", "model"))
+    src = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH,
+                      n_shards=512)
+    batches = [src.batch_from_shard(src.load_shard(i))
+               for i in range(MESH_TRAIN_STEPS)]
+    tcfg = TrainConfig(log_every=1)
+    plain = []
+    p, o, _ = train_loop(cfg, tcfg, iter(batches), MESH_TRAIN_STEPS,
+                         device=dev, log_fn=lambda s, m: plain.append(m))
+    del p, o
+    free(torch)
+    hist = []
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, _ = train_loop(cfg, tcfg, iter(batches), MESH_TRAIN_STEPS,
+                                device=dev, mesh=mesh,
+                                log_fn=lambda s, m: hist.append(m))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in hist]
+    want = [m["loss"] for m in plain]
+    same = [a == b for a, b in zip(losses, want)]
+    times = [m["step_time"] for m in hist]
+    med = statistics.median(times[1:])
+    log(f"{label}: loss={losses} no_mesh_loss={want} bitwise={same}")
+    log(f"{label}: grad_norm={[m['grad_norm'] for m in hist]} no_mesh="
+        f"{[m['grad_norm'] for m in plain]}")
+    log(f"{label}: step_s={[round(t, 4) for t in times]} median_step_s_2_to_"
+        f"{MESH_TRAIN_STEPS}={med:.4f} phase_18c_median_step_s="
+        f"{phase18c['median_step_s']:.4f} ratio="
+        f"{med / phase18c['median_step_s']:.3f} peak_gib="
+        f"{peak / 2**30:.2f} phase_18c_peak_gib={phase18c['peak_gib']:.2f}")
+    if len(hist) != MESH_TRAIN_STEPS or not all(
+            abs(a - b) <= 1e-3 * abs(b) for a, b in zip(losses, want)):
+        raise AssertionError(f"{label}: the mesh step's losses disagree")
+    if not all(isinstance(t, DTensor) for t in pytree.tree_leaves(params)):
+        raise AssertionError(f"{label}: a parameter left the mesh")
+
+    step = make_train_step(cfg, tcfg, mesh)
+    batch = batch_to_device(batches[0], dev)
+    state = {}
+
+    def one_step():
+        state.pop("out", None)
+        state["out"] = step(params, opt, batch)
+
+    share = busy_share(torch, one_step, label)
+    state.clear()
+
+    ckpt = ROOT / "build" / "chip_smoke_mesh_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        mgr = CheckpointManager(str(ckpt))
+        mgr.save((params, opt), MESH_TRAIN_STEPS, blocking=True)
+        template = pytree.tree_map(torch.zeros_like, (params, opt))
+        got = mgr.restore(template, MESH_TRAIN_STEPS)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    pairs = list(zip(pytree.tree_leaves(got), pytree.tree_leaves(
+        (params, opt))))
+    n_same = sum(isinstance(a, DTensor) and a.placements == b.placements
+                 and bitwise(torch, a.to_local(), b.to_local())
+                 for a, b in pairs)
+    log(f"{label}: checkpoint restored into the mesh's placements: "
+        f"bitwise_equal_tensors={n_same}/{len(pairs)}")
+    if n_same != len(pairs):
+        raise AssertionError(f"{label}: the restored state differs")
+    out = {"loss": losses, "no_mesh_loss": want, "bitwise": all(same),
+           "median_step_s": med,
+           "phase_18c_median_step_s": phase18c["median_step_s"],
+           "peak_gib": peak / 2**30, "busy_share": share,
+           "restored_bitwise": n_same}
+    del params, opt, got, template, pairs
+    free(torch)
+    return out
+
+
+def _prefill_and_decode(torch, params, cfg, tokens, pe, max_len: int,
+                        feed=None):
+    """Logits of a prefill and of MESH_DECODE_STEPS decode steps, fed
+    ``feed`` (greedy when None); returns (logits list, fed tokens)."""
+    from repro_torch.models.transformer import decode_step, prefill
+    with torch.no_grad():
+        logits, caches, n = prefill(params, cfg, tokens, pe, max_len=max_len)
+        outs, fed = [logits], []
+        for i in range(MESH_DECODE_STEPS):
+            tok = feed[i] if feed is not None else \
+                logits.full_tensor().argmax(-1) if hasattr(
+                    logits, "full_tensor") else logits.argmax(-1)
+            fed.append(tok)
+            logits, caches = decode_step(params, cfg, tok, caches, n + i)
+            outs.append(logits)
+    return outs, fed
+
+
+def mesh_serve_phase(torch, counts: dict, dev) -> dict:
+    """Phase 23: serve placements on a 1 x 1 mesh."""
+    from torch.distributed.tensor import DTensor
+
+    import repro_torch.kernels.ops as ops
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.ctx import sharding_hints
+    from repro_torch.launch.dryrun import _decode_hints
+    from repro_torch.launch.shardings import distribute, param_shardings
+    from repro_torch.models.transformer import prefill
+
+    mesh = card_mesh((1, 1), ("data", "model"))
+    out = {}
+    for arch, kernel, route in (("yi-6b", "K2", "wgmma"),
+                                ("mamba2-1.3b", "K3", "chunked")):
+        cfg = get_config(arch)
+        log(f"== phase 23: {arch} at full width and depth, serve "
+            f"placements on a 1 x 1 mesh, {PROMPT_LEN}-token prefill and "
+            f"{MESH_DECODE_STEPS} decode steps")
+        params = init_model(torch, cfg, arch, dev)
+        tokens, pe = stub_inputs(torch, cfg, PROMPT_LEN, dev)
+        max_len = PROMPT_LEN + MESH_DECODE_STEPS + 8
+        want, fed = _prefill_and_decode(torch, params, cfg, tokens, pe,
+                                        max_len)
+
+        def plain_prefill():
+            with torch.no_grad():
+                prefill(params, cfg, tokens, pe, max_len=max_len)
+        plain_wall, plain_busy, _, _ = profiled(torch, plain_prefill,
+                                                host=False)
+        placed = distribute(params, mesh,
+                            param_shardings(params, mesh, "serve", cfg))
+        hints = _decode_hints(cfg, ShapeSpec("serve", max_len, 1, "decode"),
+                              mesh)
+        calls = {"n": 0}
+        inner = ops.per_rank
+
+        def counted(*a, **kw):
+            calls["n"] += 1
+            return inner(*a, **kw)
+
+        for mod in counts.values():
+            mod.reset_counts()
+        ops.per_rank = counted
+        try:
+            with sharding_hints(**hints):
+                with torch.no_grad():
+                    prefill(placed, cfg, tokens, pe, max_len=max_len)
+                torch.cuda.synchronize()
+                launches = counts[kernel].LAUNCHES
+                on_route = counts[kernel].ROUTE_LAUNCHES[route]
+                prefill_calls = calls["n"]
+                got, _ = _prefill_and_decode(torch, placed, cfg, tokens, pe,
+                                             max_len, feed=fed)
+        finally:
+            ops.per_rank = inner
+
+        def mesh_prefill():
+            with sharding_hints(**hints), torch.no_grad():
+                prefill(placed, cfg, tokens, pe, max_len=max_len)
+        mesh_wall, mesh_busy, _, _ = profiled(torch, mesh_prefill,
+                                              host=False)
+        # CUDA kernels of the kernel's name in one traced mesh prefill, as
+        # phases 10-11's profile counts them (K3's chunked route is three
+        # kernels a call)
+        traced, _ = device_kernels(torch, mesh_prefill, {
+            "K2": "flash_attention_", "K3": "ssd_"}[kernel])
+        rows = []
+        for i, (g, w) in enumerate(zip(got, want)):
+            if not isinstance(g, DTensor):
+                raise AssertionError(f"{arch}: logits left the mesh")
+            g = g.full_tensor()
+            rows.append((i, bitwise(torch, g, w), float(
+                (g.float() - w.float()).norm() / w.float().norm())))
+        per_call = {"K2": 1, "K3": 3}[kernel]
+        log(f"{arch} mesh: {kernel}_launches={launches} on_{route}="
+            f"{on_route} per_rank_calls={prefill_calls} traced_cuda_kernels="
+            f"{'not measured' if traced is None else traced} (one prefill; "
+            f"{per_call} a launch); "
+            f"logits prefill+decode vs no mesh (step, bitwise, rel_l2)="
+            f"{rows}")
+        log(f"{arch} mesh: prefill card-only profiled wall_ms="
+            f"{mesh_wall:.2f} device_busy_ms={mesh_busy:.2f}; no mesh wall_ms="
+            f"{plain_wall:.2f} device_busy_ms={plain_busy:.2f}")
+        if launches != cfg.n_layers or on_route != launches:
+            raise AssertionError(f"{arch}: {kernel} launched {launches} "
+                                 f"times ({on_route} on {route}) for "
+                                 f"{cfg.n_layers} layers")
+        if traced is not None and traced != per_call * cfg.n_layers:
+            raise AssertionError(f"{arch}: the trace holds {traced} "
+                                 f"{kernel} kernels for {cfg.n_layers} "
+                                 f"layers")
+        if prefill_calls != cfg.n_layers:
+            raise AssertionError(f"{arch}: {prefill_calls} per-rank calls "
+                                 f"for {cfg.n_layers} layers")
+        if not all(r < 1e-3 for _, _, r in rows):
+            raise AssertionError(f"{arch}: mesh logits disagree")
+        out[arch] = {"launches": {kernel: launches},
+                     "traced_cuda_kernels": traced,
+                     "per_rank_calls": prefill_calls,
+                     "bitwise": [b for _, b, _ in rows],
+                     "max_rel_l2": max(r for _, _, r in rows),
+                     "prefill_wall_ms": mesh_wall,
+                     "prefill_device_ms": mesh_busy,
+                     "no_mesh_prefill_wall_ms": plain_wall,
+                     "no_mesh_prefill_device_ms": plain_busy}
+        del params, placed, want, got
+        free(torch)
+    out["deepseek-v3-671b-moe-layer"] = mesh_moe_case(torch, mesh, dev)
+    return out
+
+
+def mesh_moe_case(torch, mesh, dev) -> dict:
+    """Phase 23, MoE: one deepseek-v3-671b MoE layer at full width through
+    ``moe_apply_ep`` in train and serve mode against ``moe_apply`` on the
+    same 2000 tokens; gate: relative L2 below 1e-3 and aux within 1e-3."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shardings import distribute, param_shardings
+    from repro_torch.models.moe import (make_moe_params, moe_apply,
+                                        moe_apply_ep)
+
+    mcfg = get_config("deepseek-v3-671b").moe
+    log(f"== phase 23: one deepseek-v3-671b MoE layer ({mcfg.n_experts} "
+        f"experts of {mcfg.d_model} x {mcfg.d_ff_expert}, top-"
+        f"{mcfg.top_k}) through moe_apply_ep on the 1 x 1 mesh")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = make_moe_params(gen, mcfg, torch.bfloat16)
+    x = torch.randn((1, PROMPT_LEN, mcfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    log(f"moe layer: allocated_gib="
+        f"{torch.cuda.memory_allocated() / 2**30:.2f}")
+    with torch.no_grad():
+        want, aux_want = moe_apply(p, mcfg, x)
+    out = {}
+    for mode in ("train", "serve"):
+        tree = {"mlp": p}
+        placed = distribute(tree, mesh, param_shardings(tree, mesh, mode))
+        with torch.no_grad():
+            y, aux = moe_apply_ep(placed["mlp"], mcfg, x, mesh, ("data",),
+                                  mode)
+        y, aux = y.full_tensor(), float(aux.full_tensor())
+        rel = float((y.float() - want.float()).norm() / want.float().norm())
+        same = bitwise(torch, y, want)
+        log(f"moe layer {mode}: weights {placed['mlp']['w_gate'].placements}"
+            f" bitwise={same} rel_l2={rel:.3g} aux={aux:.6f} moe_apply_aux="
+            f"{float(aux_want):.6f} allocated_gib="
+            f"{torch.cuda.memory_allocated() / 2**30:.2f}")
+        if not (rel < 1e-3 and abs(aux - float(aux_want))
+                <= 1e-3 * abs(float(aux_want))):
+            raise AssertionError(f"moe_apply_ep ({mode}) disagrees with "
+                                 f"moe_apply")
+        out[mode] = {"bitwise": same, "rel_l2": rel}
+        del placed, y
+    del p, x, want
+    free(torch)
+    return out
+
+
+def compression_roofline_phase(torch, dev, cells: dict) -> dict:
+    """Phase 24: the compressed all-reduce over NCCL, then each cell's
+    roofline terms and measured fraction.  ``cells``: label -> (config,
+    ShapeSpec, device seconds, wall seconds)."""
+    from repro_torch.distributed.compression import (compressed_all_reduce,
+                                                     quantize_int8)
+    from repro_torch.roofline.analysis import (measured_roofline_fraction,
+                                               roofline_terms)
+    from repro_torch.roofline.flops_model import (cell_flops,
+                                                  cell_hbm_bytes,
+                                                  kv_cache_bytes,
+                                                  param_bytes)
+
+    log("== phase 24: compressed all-reduce on a 1 x 1 x 1 (pod, data, "
+        "model) mesh over NCCL, then the roofline")
+    mesh = card_mesh((1, 1, 1), ("pod", "data", "model"))
+    x = torch.randn(1 << 20 | 77, generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev)
+    got = compressed_all_reduce(x, mesh.get_group("pod"))
+    q, scale = quantize_int8(x)
+    deq = (q.float() * scale).reshape(-1)[:x.numel()]
+    per = scale.repeat_interleave(256)[:x.numel()]
+    err = (got - x).abs()
+    # two bf16 roundings of the payload: the scale's and the product's
+    bound = per / 2 + deq.abs() * (2.0 ** -7 + 2.0 ** -16)
+    quant_err = float(((deq - x).abs() / per).max())
+    log(f"compressed all-reduce: n={x.numel()} max_err_over_scale="
+        f"{float((err / per).max()):.4f} max_quant_err_over_scale="
+        f"{quant_err:.4f} within_bound={bool((err <= bound).all())}")
+    if not (quant_err <= 0.5 and bool((err <= bound).all())):
+        raise AssertionError("compressed all-reduce: error past its bound")
+    smi = smi_line()
+    rows = {}
+    for label, (cfg, shape, device_s, wall_s) in cells.items():
+        entry = {"shape": shape.name, "n_devices": 1,
+                 "flops": cell_flops(cfg, shape, 1,
+                                     remat=shape.kind == "train")["global"],
+                 "hbm_model_bytes": cell_hbm_bytes(cfg, shape,
+                                                   1)["per_device"],
+                 "min_hbm_bytes": param_bytes(cfg) + (
+                     kv_cache_bytes(cfg, shape.global_batch, shape.seq_len)
+                     if shape.kind != "train" else 0.0),
+                 "collective_bytes": {}}
+        terms = roofline_terms(entry, cfg, shape)
+        rows[label] = {
+            "t_compute_ms": terms["t_compute_s"] * 1e3,
+            "t_memory_ms": terms["t_memory_s"] * 1e3,
+            "dominant": terms["dominant"],
+            "ideal_ms": max(terms["ideal_compute_s"],
+                            terms["ideal_memory_s"]) * 1e3,
+            "device_ms": device_s * 1e3, "wall_ms": wall_s * 1e3,
+            "roofline_fraction_device": measured_roofline_fraction(
+                terms, device_s),
+            "roofline_fraction_wall": measured_roofline_fraction(
+                terms, wall_s)}
+        log(f"roofline {label} ({smi}): " + " ".join(
+            f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in rows[label].items()))
+    return {"compression_max_err_over_scale": float((err / per).max()),
+            "roofline": rows}
+
+
+def mesh_phases(torch, counts: dict, dev, trained: dict) -> dict:
+    """Phases 22-24; ``trained``: phase 18's summary."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+
+    train_shape = ShapeSpec("train_card", TRAIN_SEQ, TRAIN_BATCH, "train")
+    prefill_shape = ShapeSpec("prefill_card", PROMPT_LEN, 1, "prefill")
+    try:
+        out = {"phase22": mesh_train_phase(torch, dev, trained["yi-6b-4l"])}
+        out["phase23"] = mesh_serve_phase(torch, counts, dev)
+        yi4 = dataclasses.replace(get_config("yi-6b"), n_layers=4)
+        cells = {}
+        for label, cfg in (("18b mamba2-1.3b", get_config("mamba2-1.3b")),
+                           ("18c yi-6b-4l", yi4)):
+            t = trained[label.split()[1]]
+            cells[label] = (cfg, train_shape,
+                            t["median_step_s"] * (t["busy_share"] or 0.0),
+                            t["median_step_s"])
+        t = out["phase22"]
+        cells["22 yi-6b-4l mesh"] = (yi4, train_shape, t["median_step_s"]
+                                     * (t["busy_share"] or 0.0),
+                                     t["median_step_s"])
+        for arch in ("yi-6b", "mamba2-1.3b"):
+            t = out["phase23"][arch]
+            cells[f"23 {arch} prefill"] = (
+                get_config(arch), prefill_shape,
+                t["no_mesh_prefill_device_ms"] / 1e3,
+                t["no_mesh_prefill_wall_ms"] / 1e3)
+        out["phase24"] = compression_roofline_phase(torch, dev, cells)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return out
+
+
 def run_only(torch, np, only, built, K2, K4, T_rnn, nvcc, dev) -> int:
     """``--only``: the named kernels' phases (7-8 for K2, 14 for K4) and
     their records as one ``{"kernels": [...]}`` line."""
@@ -2436,6 +2853,12 @@ def main(argv=None) -> int:
     big = {"deepseek-v3-671b-4l": deepseek_phase(torch, counters_lm, dev)}
     big.update(multimodal_phases(torch, counters_lm, K2, dev))
     log("phases 19-21 summary: " + json.dumps(big))
+    meshed = mesh_phases(torch, counters_lm, dev, trained)
+    log("phases 22-24 summary: " + json.dumps(meshed))
+    k2["launches_mesh_prefill_yi_6b"] = \
+        meshed["phase23"]["yi-6b"]["launches"]["K2"]
+    k3["launches_mesh_prefill_mamba2_1_3b"] = \
+        meshed["phase23"]["mamba2-1.3b"]["launches"]["K3"]
     k2["launches_paligemma_3b"] = big["paligemma-3b"]["launches"]["K2"]
     k2["launches_arctic_480b_1l"] = big["arctic-480b-1l"]
     k2["launches_musicgen_large"] = big["musicgen-large"]

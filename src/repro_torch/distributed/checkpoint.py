@@ -13,8 +13,14 @@
   patterns (int16) and the manifest names their dtype ``bfloat16``: a
   restore is bitwise.
 
-One process writes ``shard_0``; the JAX package's per-host shards and
-resharding restore wait for the distributed slice.
+On a mesh the tree's leaves are DTensors.  ``save`` gathers each one
+whole (``full_tensor()``, a collective every rank joins) and rank 0 writes
+``shard_0.npz`` with ``n_processes`` set to the world size; every rank
+waits for the write in ``wait``.  ``restore(template, step)`` reads the
+whole arrays and puts each back into its template leaf's placements
+(``distribute_tensor``), so a checkpoint written at one world size
+restores at another (elastic restart).  Plain templates restore as plain
+tensors, as before.
 """
 from __future__ import annotations
 
@@ -26,7 +32,9 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.utils._pytree as pytree
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 
 def _name(path) -> str:
@@ -40,8 +48,19 @@ def _tree_flatten_with_names(tree):
             treedef)
 
 
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _world() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
 def _to_host(t: torch.Tensor) -> tuple[np.ndarray, str]:
-    """A host copy of ``t`` as NumPy, and the name of its dtype."""
+    """A host copy of ``t`` (a DTensor gathered whole) as NumPy, and the
+    name of its dtype."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy(), "bfloat16"
@@ -53,7 +72,11 @@ def _from_host(arr: np.ndarray, dtype: str, template: torch.Tensor):
     t = torch.from_numpy(arr)
     if dtype == "bfloat16":
         t = t.view(torch.bfloat16)
-    return t.to(device=template.device, dtype=template.dtype)
+    t = t.to(device=template.device, dtype=template.dtype)
+    if isinstance(template, DTensor):
+        return distribute_tensor(t, template.device_mesh,
+                                 list(template.placements))
+    return t
 
 
 class CheckpointManager:
@@ -62,6 +85,7 @@ class CheckpointManager:
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
         self._thread: threading.Thread | None = None
+        self._sync = False          # ranks wait for rank 0's write
 
     # -- save ---------------------------------------------------------------
 
@@ -70,6 +94,7 @@ class CheckpointManager:
         self.wait()
         names, leaves, _ = _tree_flatten_with_names(tree)
         host = [_to_host(leaf) for leaf in leaves]
+        self._sync = _world() > 1
 
         def _write():
             path = os.path.join(self.dir, f"step_{step}")
@@ -82,7 +107,7 @@ class CheckpointManager:
                 "names": names,
                 "shapes": [list(a.shape) for a, _ in host],
                 "dtypes": [dtype for _, dtype in host],
-                "n_processes": 1,
+                "n_processes": _world(),
             }
             with open(os.path.join(tmp, "manifest.json"), "w") as f:
                 json.dump(manifest, f)
@@ -91,16 +116,22 @@ class CheckpointManager:
             os.rename(tmp, path)
             self._gc()
 
-        if blocking:
+        if _rank() == 0 and blocking:
             _write()
-        else:
+        elif _rank() == 0:
             self._thread = threading.Thread(target=_write, daemon=True)
             self._thread.start()
+        if blocking:
+            self.wait()
 
     def wait(self) -> None:
+        """Until the last save is on disk, on every rank."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._sync:
+            dist.barrier()
+            self._sync = False
 
     def _gc(self) -> None:
         for s in self.steps()[: -self.keep]:
@@ -119,7 +150,8 @@ class CheckpointManager:
         return sorted(out)
 
     def restore(self, template: Any, step: int):
-        """Restore into the structure, devices and dtypes of ``template``."""
+        """Restore into the structure, devices, dtypes and placements of
+        ``template``."""
         path = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)

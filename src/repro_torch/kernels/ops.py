@@ -14,17 +14,32 @@ models' results do not depend on the dispatch beyond rounding.
 K2 and K3 have no backward: a CUDA input that requires grad while grad
 mode is on raises rather than being detached silently.  The training
 forward calls the plain paths directly, as the JAX package does.
+
+On DTensors (a model placed on a mesh) both run per rank on the local
+batch and heads through ``local_map`` (:func:`attention_per_rank`,
+:func:`ssd_per_rank`, which the training forward's plain paths use too):
+the inputs are first redistributed to batch over the data axes as they
+come and heads over ``model`` when the heads divide it, replicated
+otherwise.  On the meta device (the dry run) they
+run the plain paths, which only propagate shapes there.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels import flash_attention as _k2
 from repro_torch.kernels import ssd_scan as _k3
 
 
-def _cpu_only(t) -> None:
-    if t.device.type != "cpu":
+def _cpu_only(t, meta: bool = False) -> None:
+    """The plain path runs on the CPU, and on the meta device for a mesh
+    (the dry run's shards); anywhere else there is neither it nor a
+    kernel."""
+    if t.device.type != "cpu" and not (meta and t.device.type == "meta"):
         raise ValueError(f"no kernel or plain path for device {t.device}")
 
 
@@ -37,16 +52,141 @@ def _no_backward(kernel: str, *inputs) -> None:
             f"or call under torch.no_grad()")
 
 
+def model_size(x: DTensor) -> int:
+    """The size of the ``model`` axis of ``x``'s mesh (1 without one)."""
+    names = x.device_mesh.mesh_dim_names
+    return x.device_mesh.shape[names.index("model")] if "model" in names \
+        else 1
+
+
+def _redistributed(t, mesh, layout: tuple) -> DTensor:
+    """``t`` on ``layout``; a plain tensor made beside the DTensors is the
+    whole value on every rank (replicated)."""
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return t if tuple(t.placements) == layout else \
+        t.redistribute(mesh, layout)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose backward makes the gradient contiguous: gradients
+    leaving a ``local_map`` go on through views of the DTensor's local
+    tensors, which a transposed gradient cannot take."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def per_rank(fn, args, dims, out_dims, split: bool):
+    """``fn(*args)`` on each rank's local tensors, through ``local_map``.
+
+    ``args[0]`` is a DTensor and sets the batch layout: dimension 0 of
+    every argument and output with a batch dimension stays split over the
+    data axes where ``args[0]``'s is, and is gathered otherwise.  ``dims``
+    and ``out_dims`` give each argument's and output's ``(batch, heads)``:
+    whether its dimension 0 is the batch, and which dimension goes over
+    ``model`` when ``split`` (``None``: replicated there).
+
+    An argument replicated over an axis on which the others are split
+    (no batch dimension on a data axis that splits the batch; no heads
+    while the heads are split over ``model``) feeds a different
+    computation on each rank of that axis, so its gradient is a partial
+    sum there (``in_grad_placements``)."""
+    x = args[0]
+    mesh = x.device_mesh
+
+    def layout(batch, heads, grad=False):
+        model = Replicate()
+        if split and heads is not None:
+            model = Shard(heads)
+        elif split and grad:
+            model = Partial()
+        out = []
+        for name, p in zip(mesh.mesh_dim_names, x.placements):
+            if name == "model":
+                out.append(model)
+            elif p == Shard(0):
+                out.append(Shard(0) if batch else
+                           (Partial() if grad else Replicate()))
+            else:
+                out.append(Replicate())
+        return tuple(out)
+
+    in_layouts = tuple(layout(*d) for d in dims)
+    grad_layouts = tuple(layout(*d, grad=True) for d in dims)
+    out_layouts = tuple(layout(*d) for d in out_dims)
+
+    def local(*ls):
+        return fn(*(_ContiguousGrad.apply(t) if t.requires_grad else t
+                    for t in ls))
+
+    mapped = local_map(local, out_placements=out_layouts,
+                       in_placements=in_layouts,
+                       in_grad_placements=grad_layouts, device_mesh=mesh)
+    return mapped(*(_redistributed(t, mesh, lay)
+                    for t, lay in zip(args, in_layouts)))
+
+
+def attention_per_rank(fn, q, k, v):
+    """``fn(q, k, v)`` (attention over [B, S, H, D] tensors) on each rank's
+    local batch and heads when ``q`` is a DTensor; query heads go over
+    ``model`` when they divide it and the key heads divide it too or are
+    one (MQA: keys replicated); otherwise every rank takes all heads.  On
+    plain tensors it is ``fn(q, k, v)``."""
+    if not isinstance(q, DTensor):
+        return fn(q, k, v)
+    hkv = k.shape[2]
+    split = q.shape[2] % model_size(q) == 0 and (
+        hkv % model_size(q) == 0 or hkv == 1)
+    kv = (True, 2 if hkv > 1 else None)
+    return per_rank(fn, (q, k, v), ((True, 2), kv, kv), ((True, 2),),
+                    split)
+
+
+def ssd_per_rank(fn, x, dt, A, B, C, *heads, chunk_size: int):
+    """``fn(x, dt, A, B, C, *heads, chunk_size)`` (the SSD, returning
+    ``(y, final_state)``; ``heads``: more [H] vectors) on each rank's local
+    batch and heads when ``x`` is a DTensor; heads go over ``model`` when
+    they divide it and the groups do too or are one (B and C replicated).
+    On plain tensors it is the call."""
+    if not isinstance(x, DTensor):
+        return fn(x, dt, A, B, C, *heads, chunk_size)
+    tp = model_size(x)
+    g = B.shape[2]
+    split = x.shape[2] % tp == 0 and (g == 1 or g % tp == 0)
+    bc = (True, 2 if g > 1 else None)                 # [Bt, S, G, N]
+    return per_rank(lambda *a: fn(*a, chunk_size), (x, dt, A, B, C, *heads),
+                    ((True, 2), (True, 2), (False, 0), bc, bc)
+                    + ((False, 0),) * len(heads),
+                    ((True, 2), (True, 1)), split)
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int | None = None, scale: float | None = None,
                     chunk_size: int = 512, dense_threshold: int = 2048):
     """Causal GQA attention.  ``chunk_size`` and ``dense_threshold`` steer
     the CPU path only."""
+    kw = dict(causal=causal, window=window, scale=scale,
+              chunk_size=chunk_size, dense_threshold=dense_threshold)
+    if isinstance(q, DTensor):
+        return attention_per_rank(
+            functools.partial(_flash_attention, meta=True, **kw), q, k, v)
+    return _flash_attention(q, k, v, **kw)
+
+
+def _flash_attention(q, k, v, *, causal, window, scale, chunk_size,
+                     dense_threshold, meta: bool = False):
     if q.device.type == "cuda":
         _no_backward("K2 (flash attention)", q, k, v)
         return _k2.flash_attention(q, k, v, causal=causal, window=window,
                                    scale=scale)
-    _cpu_only(q)
+    _cpu_only(q, meta)
     from repro_torch.models.attention import attention_any
     return attention_any(q, k, v, causal=causal, window=window,
                          chunk_size=chunk_size,
@@ -56,9 +196,20 @@ def flash_attention(q, k, v, *, causal: bool = True,
 def ssd_scan(x, dt, A, B, C, *, chunk_size: int = 128):
     """Mamba-2 SSD; returns ``(y, final_state)``.  ``chunk_size`` is the
     CPU path's chunk (it must divide S there); the kernel uses its own."""
+    return _ssd_scan(x, dt, A, B, C, chunk_size)
+
+
+def local_ssd_scan(x, dt, A, B, C, *, chunk_size: int = 128):
+    """:func:`ssd_scan` on one rank's local tensors, inside a computation
+    that ``ssd_per_rank`` maps over a mesh: the kernel on CUDA, the plain
+    path on the CPU or on the meta device (the dry run's shards)."""
+    return _ssd_scan(x, dt, A, B, C, chunk_size, meta=True)
+
+
+def _ssd_scan(x, dt, A, B, C, chunk_size, meta: bool = False):
     if x.device.type == "cuda":
         _no_backward("K3 (SSD scan)", x, dt, A, B, C)
         return _k3.ssd_scan(x, dt, A, B, C)
-    _cpu_only(x)
+    _cpu_only(x, meta)
     from repro_torch.models.mamba import ssd_chunked
     return ssd_chunked(x, dt, A, B, C, chunk_size)

@@ -24,12 +24,16 @@ MLA's key and value differ (576 and 512).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import DEFAULT_DTYPE, apply_rope, dense_init
+from repro_torch.launch.ctx import constrain
+from repro_torch.models.layers import (DEFAULT_DTYPE, apply_rope, dense_init,
+                                       split_last)
 
 NEG_INF = -1e30
 
@@ -205,10 +209,9 @@ def attention_any(q, k, v, *, causal: bool = True, window: int | None = None,
 # ---------------------------------------------------------------------------
 
 def _qkv(params, cfg: AttentionConfig, x, positions):
-    b, s, _ = x.shape
-    q = (x @ params["w_q"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (x @ params["w_k"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ params["w_v"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = split_last(x @ params["w_q"], cfg.n_heads, cfg.head_dim)
+    k = split_last(x @ params["w_k"], cfg.n_kv_heads, cfg.head_dim)
+    v = split_last(x @ params["w_v"], cfg.n_kv_heads, cfg.head_dim)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -219,9 +222,10 @@ def gqa_forward(params, cfg: AttentionConfig, x: torch.Tensor,
     """Training self-attention.  x: [B,S,D]; positions: [S]."""
     b, s, _ = x.shape
     q, k, v = _qkv(params, cfg, x, positions)
-    out = attention_any(q, k, v, causal=True, window=cfg.window,
-                        chunk_size=cfg.chunk_size,
-                        dense_threshold=cfg.dense_threshold)
+    out = ops.attention_per_rank(functools.partial(
+        attention_any, causal=True, window=cfg.window,
+        chunk_size=cfg.chunk_size, dense_threshold=cfg.dense_threshold),
+        q, k, v)
     return out.reshape(b, s, -1) @ params["w_o"]
 
 
@@ -258,16 +262,25 @@ def gqa_decode(params, cfg: AttentionConfig, x, cache, cache_len: int):
     k_cache, v_cache = cache["k"], cache["v"]
     k_cache[:, write_at] = k[:, 0]
     v_cache[:, write_at] = v[:, 0]
-    qg = _gqa_expand(q, cfg.n_kv_heads)                       # [B,1,K,G,D]
-    logits = torch.einsum("bskgd,btkd->bkgst", qg.float(), k_cache.float())
-    logits = logits / math.sqrt(cfg.head_dim)
-    kpos = torch.arange(smax, device=x.device)
-    valid = kpos <= pos        # warm-up; all-true once the ring is full
-    if cfg.window is not None and not ring:
-        valid &= kpos > pos - cfg.window
-    logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
-    probs = torch.softmax(logits, dim=-1).to(v_cache.dtype)
-    out = torch.einsum("bkgst,btkd->bskgd", probs, v_cache)
+    k_cache = constrain(k_cache, "kv_cache")
+    v_cache = constrain(v_cache, "kv_cache")
+
+    def attend(q, k_cache, v_cache):
+        qg = _gqa_expand(q, k_cache.shape[2])                 # [B,1,K,G,D]
+        logits = torch.einsum("bskgd,btkd->bkgst", qg.float(),
+                              k_cache.float())
+        logits = logits / math.sqrt(cfg.head_dim)
+        kpos = torch.arange(smax, device=q.device)
+        valid = kpos <= pos    # warm-up; all-true once the ring is full
+        if cfg.window is not None and not ring:
+            valid &= kpos > pos - cfg.window
+        logits = torch.where(valid, logits,
+                             torch.full_like(logits, NEG_INF))
+        probs = torch.softmax(logits, dim=-1).to(v_cache.dtype)
+        out = torch.einsum("bkgst,btkd->bskgd", probs, v_cache)
+        return out.reshape(*q.shape[:3], v_cache.shape[-1])
+
+    out = ops.attention_per_rank(attend, q, k_cache, v_cache)
     out = out.reshape(b, 1, -1) @ params["w_o"]
     return out, {"k": k_cache, "v": v_cache}
 
@@ -313,10 +326,10 @@ def _mla_attend(params, cfg: AttentionConfig, x, positions):
     q_lat, q_rope, c_lat, k_rope = _mla_qkv(params, cfg, x, positions)
     q_cat = torch.cat([q_lat, q_rope], dim=-1)               # [B,S,H,dc+dr]
     k_cat = torch.cat([c_lat, k_rope], dim=-1)[:, :, None, :]
-    attn = attention_any(q_cat, k_cat, c_lat[:, :, None, :], causal=True,
-                         chunk_size=cfg.chunk_size,
-                         dense_threshold=cfg.dense_threshold,
-                         scale=_mla_scale(cfg.mla))
+    attn = ops.attention_per_rank(functools.partial(
+        attention_any, causal=True, chunk_size=cfg.chunk_size,
+        dense_threshold=cfg.dense_threshold, scale=_mla_scale(cfg.mla)),
+        q_cat, k_cat, c_lat[:, :, None, :])
     return _mla_out(params, cfg, attn), c_lat, k_rope
 
 
@@ -342,11 +355,26 @@ def mla_decode(params, cfg: AttentionConfig, x, cache, cache_len: int):
     c_cache, kr_cache = cache["c"], cache["k_rope"]
     c_cache[:, pos] = c_lat[:, 0]
     kr_cache[:, pos] = k_rope[:, 0]
-    logits = (torch.einsum("bshr,btr->bhst", q_lat, c_cache)
-              + torch.einsum("bshr,btr->bhst", q_rope, kr_cache))
-    logits = logits.float() * _mla_scale(cfg.mla)
-    valid = torch.arange(c_cache.shape[1], device=x.device) <= pos
-    logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
-    probs = torch.softmax(logits, dim=-1).to(c_cache.dtype)
-    attn = torch.einsum("bhst,btr->bshr", probs, c_cache)
+    c_cache = constrain(c_cache, "latent_cache")
+    kr_cache = constrain(kr_cache, "latent_cache")
+
+    def attend(q_lat, q_rope, c_cache, kr_cache):
+        logits = (torch.einsum("bshr,btr->bhst", q_lat, c_cache)
+                  + torch.einsum("bshr,btr->bhst", q_rope, kr_cache))
+        logits = logits.float() * _mla_scale(cfg.mla)
+        valid = torch.arange(c_cache.shape[1], device=q_lat.device) <= pos
+        logits = torch.where(valid, logits,
+                             torch.full_like(logits, NEG_INF))
+        probs = torch.softmax(logits, dim=-1).to(c_cache.dtype)
+        return torch.einsum("bhst,btr->bshr", probs, c_cache)
+
+    if isinstance(q_lat, DTensor):
+        # per rank: local batch, query heads over model; the latent cache
+        # has no heads and is replicated over model
+        split = cfg.n_heads % ops.model_size(q_lat) == 0
+        attn = ops.per_rank(attend, (q_lat, q_rope, c_cache, kr_cache),
+                            ((True, 2), (True, 2), (True, None),
+                             (True, None)), ((True, 2),), split)
+    else:
+        attn = attend(q_lat, q_rope, c_cache, kr_cache)
     return _mla_out(params, cfg, attn), {"c": c_cache, "k_rope": kr_cache}

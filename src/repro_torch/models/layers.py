@@ -8,12 +8,33 @@ generator's device; they cannot reproduce ``jax.random``'s numbers.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 DEFAULT_DTYPE = torch.bfloat16
+
+_META_INIT = contextvars.ContextVar("meta_init", default=False)
+
+
+@contextlib.contextmanager
+def meta_init():
+    """Initialisers make meta tensors (shapes and dtypes, no storage)."""
+    token = _META_INIT.set(True)
+    try:
+        yield
+    finally:
+        _META_INIT.reset(token)
+
+
+def init_device(gen: torch.Generator) -> torch.device:
+    """Where the initialisers put their draws: ``gen``'s device, or meta
+    under :func:`meta_init`."""
+    return torch.device("meta") if _META_INIT.get() else gen.device
 
 
 # ---------------------------------------------------------------------------
@@ -24,7 +45,7 @@ def normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
     """``N(0, 1) * scale`` drawn in float32 on ``gen``'s device, cast.  The
     draw is scaled in place: one float32 copy at a time (14 GiB for one of
     deepseek-v3's stacked expert weights)."""
-    x = torch.randn(shape, generator=gen, device=gen.device,
+    x = torch.randn(shape, generator=gen, device=init_device(gen),
                     dtype=torch.float32)
     return x.mul_(scale).to(dtype)
 
@@ -49,6 +70,20 @@ def norm_init(d: int, device, dtype=torch.float32) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # ops
 # ---------------------------------------------------------------------------
+
+def split_last(t: torch.Tensor, a: int, b: int) -> torch.Tensor:
+    """[..., a*b] -> [..., a, b].  A DTensor whose last dimension is split
+    over a mesh axis that does not divide ``a`` (arctic's 56 heads, or
+    musicgen's 4 codebooks, over 16 ranks) is gathered over that axis
+    first: DTensor cannot split a sharded dimension unevenly."""
+    if isinstance(t, DTensor):
+        mesh, last = t.device_mesh, t.dim() - 1
+        keep = [Replicate() if p.is_shard(last) and a % mesh.size(i) else p
+                for i, p in enumerate(t.placements)]
+        if keep != list(t.placements):
+            t = t.redistribute(mesh, keep)
+    return t.reshape(*t.shape[:-1], a, b)
+
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
@@ -131,6 +166,15 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     logits that equals the JAX package's one-hot contraction exactly, and
     it needs no [..., V] float32 one-hot.
     """
+    if isinstance(logits, DTensor):
+        # the gold-logit gather has no sharding rule over a split vocab or
+        # partial sums: the logits are all-gathered (or all-reduced) here
+        # over the axes that split the vocab (or hold partial sums)
+        last = logits.dim() - 1
+        logits = logits.redistribute(
+            logits.device_mesh,
+            [Replicate() if p.is_shard(last) or p.is_partial() else p
+             for p in logits.placements])
     logits = logits.float()
     m = torch.amax(logits, dim=-1, keepdim=True).detach()
     logz = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]

@@ -3,10 +3,13 @@
 The SSD chunked algorithm (Dao & Gu, 2024): split the sequence into chunks,
 compute the intra-chunk part as a masked attention-like product and carry
 inter-chunk states with a sequential scan over chunks.  The prefill's scan
-goes through :func:`repro_torch.kernels.ops.ssd_scan`: the hand-written
-kernel K3 on CUDA, :func:`ssd_chunked` on the CPU.  The training forward,
-``mamba_forward``, calls :func:`ssd_chunked` on every device, as the JAX
-package does, so that autograd differentiates it (K3 has no backward).
+goes through :func:`repro_torch.kernels.ops.local_ssd_scan`: the
+hand-written kernel K3 on CUDA, :func:`ssd_chunked` on the CPU.  The
+training forward, ``mamba_forward``, calls :func:`ssd_chunked` on every
+device, as the JAX package does, so that autograd differentiates it (K3
+has no backward).  On a mesh both run per rank on the local batch and
+heads (``ops.ssd_per_rank``), with the chunk padding and the ``D`` skip,
+and so does the decode's state update.
 
 Projections are kept separate (w_z, w_x, w_B, w_C, w_dt), as in the JAX
 package, so its parameters carry across unchanged.
@@ -17,9 +20,11 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import DEFAULT_DTYPE, dense_init, normal
+from repro_torch.models.layers import (DEFAULT_DTYPE, dense_init, init_device,
+                                       normal)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,7 +49,7 @@ class MambaConfig:
 def make_mamba_params(gen: torch.Generator, cfg: MambaConfig,
                       dtype=DEFAULT_DTYPE) -> dict:
     di, n, g, h = cfg.d_inner, cfg.d_state, cfg.n_groups, cfg.n_heads
-    dev = gen.device
+    dev = init_device(gen)
 
     def zeros(d):
         return torch.zeros(d, dtype=dtype, device=dev)
@@ -172,9 +177,10 @@ def _gated_norm(y, z, scale, eps=1e-6):
 
 
 def _ssd_full(params, cfg: MambaConfig, x, conv_state=None,
-              want_state=False, scan=ops.ssd_scan):
-    """Shared forward core.  ``scan`` computes the SSD: ``ops.ssd_scan``
-    (K3 on CUDA) or :func:`ssd_chunked`.  Returns (out, state_dict_or_None)."""
+              want_state=False, scan=ops.local_ssd_scan):
+    """Shared forward core.  ``scan`` computes the SSD on (each rank's
+    local) tensors: ``ops.local_ssd_scan`` (K3 on CUDA) or
+    :func:`ssd_chunked`.  Returns (out, state_dict_or_None)."""
     b, s, _ = x.shape
     di, g, n, h, p = (cfg.d_inner, cfg.n_groups, cfg.d_state, cfg.n_heads,
                       cfg.head_dim)
@@ -190,19 +196,24 @@ def _ssd_full(params, cfg: MambaConfig, x, conv_state=None,
     Cm = Cm.reshape(b, s, g, n)
     dt = F.softplus(dt.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
-    # pad to a chunk multiple with dt = 0: dA = 0 so the padded positions
-    # leave the SSM state untouched and the final state stays exact
-    l = cfg.chunk_size
-    pad = (-s) % l
-    if pad:
-        y, final_state = scan(
-            F.pad(xs, (0, 0, 0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad)), A,
-            F.pad(Bm, (0, 0, 0, 0, 0, pad)), F.pad(Cm, (0, 0, 0, 0, 0, pad)),
-            chunk_size=l)
-        y = y[:, :s]
-    else:
-        y, final_state = scan(xs, dt, A, Bm, Cm, chunk_size=l)
-    y = y + xs * params["D"][None, None, :, None].to(x.dtype)
+    def ssd(xs, dt, A, Bm, Cm, D, chunk_size):
+        # pad to a chunk multiple with dt = 0: dA = 0 so the padded
+        # positions leave the SSM state untouched and the final state
+        # stays exact
+        pad = (-s) % chunk_size
+        if pad:
+            y, final_state = scan(
+                F.pad(xs, (0, 0, 0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad)),
+                A, F.pad(Bm, (0, 0, 0, 0, 0, pad)),
+                F.pad(Cm, (0, 0, 0, 0, 0, pad)), chunk_size=chunk_size)
+            y = y[:, :s]
+        else:
+            y, final_state = scan(xs, dt, A, Bm, Cm, chunk_size=chunk_size)
+        return y + xs * D[None, None, :, None].to(xs.dtype), final_state
+
+    # on a mesh, per rank: the local batch and heads
+    y, final_state = ops.ssd_per_rank(ssd, xs, dt, A, Bm, Cm, params["D"],
+                                      chunk_size=cfg.chunk_size)
     y = _gated_norm(y.reshape(b, s, di), z, params["norm_scale"])
     out = y @ params["out_proj"]
     if not want_state:
@@ -239,14 +250,31 @@ def mamba_decode(params, cfg: MambaConfig, x: torch.Tensor, state):
     Cm = Cm.reshape(b, g, n)
     dt = F.softplus(dt.float() + params["dt_bias"])[:, 0]
     A = -torch.exp(params["A_log"])
-    dA = torch.exp(dt * A[None, :])                             # [B,H]
-    rep = h // g
-    Bh = torch.repeat_interleave(Bm, rep, dim=1)                # [B,H,N]
-    Ch = torch.repeat_interleave(Cm, rep, dim=1)
-    s_new = (state["ssm"] * dA[..., None, None]
-             + torch.einsum("bhn,bh,bhp->bhnp", Bh.float(), dt, xs.float()))
-    y = torch.einsum("bhn,bhnp->bhp", Ch, s_new.to(x.dtype))
-    y = y + xs * params["D"][None, :, None].to(x.dtype)
+
+    def step(xs, ssm, dt, A, Bm, Cm, D):
+        dA = torch.exp(dt * A[None, :])                         # [B,H]
+        rep = xs.shape[1] // Bm.shape[1]
+        Bh = torch.repeat_interleave(Bm, rep, dim=1)            # [B,H,N]
+        Ch = torch.repeat_interleave(Cm, rep, dim=1)
+        s_new = (ssm * dA[..., None, None]
+                 + torch.einsum("bhn,bh,bhp->bhnp", Bh.float(), dt,
+                                xs.float()))
+        y = torch.einsum("bhn,bhnp->bhp", Ch, s_new.to(xs.dtype))
+        return s_new, y + xs * D[None, :, None].to(xs.dtype)
+
+    if isinstance(xs, DTensor):
+        # per rank: local batch, heads over model when they (and the
+        # groups, or a single group) divide it
+        tp = ops.model_size(xs)
+        bc = (True, 1 if g > 1 else None)
+        s_new, y = ops.per_rank(
+            step, (xs, state["ssm"], dt, A, Bm, Cm, params["D"]),
+            ((True, 1), (True, 1), (True, 1), (False, 0), bc, bc,
+             (False, 0)),
+            ((True, 1), (True, 1)),
+            h % tp == 0 and (g == 1 or g % tp == 0))
+    else:
+        s_new, y = step(xs, state["ssm"], dt, A, Bm, Cm, params["D"])
     y = _gated_norm(y.reshape(b, 1, di).to(x.dtype), z, params["norm_scale"])
     out = y @ params["out_proj"]
     return out, {"ssm": s_new, "conv": {"x": conv_x, "B": conv_B,

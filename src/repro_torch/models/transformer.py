@@ -25,6 +25,8 @@ heads.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import functools
 from typing import Any
@@ -32,6 +34,8 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 import torch.utils._pytree as pytree
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -41,8 +45,9 @@ from repro_torch.models.attention import (AttentionConfig, gqa_decode,
                                           make_attention_params, mla_decode,
                                           mla_forward, mla_prefill)
 from repro_torch.models.layers import (DEFAULT_DTYPE, cross_entropy_loss,
-                                       embed_init, make_mlp_params, mlp_apply,
-                                       norm_init, rmsnorm)
+                                       embed_init, init_device,
+                                       make_mlp_params, meta_init, mlp_apply,
+                                       norm_init, rmsnorm, split_last)
 from repro_torch.models.mamba import (MambaConfig, make_mamba_params,
                                       mamba_decode, mamba_forward,
                                       mamba_prefill)
@@ -95,14 +100,15 @@ class ModelConfig:
 def _make_layer_params(gen: torch.Generator, cfg: ModelConfig,
                        spec: LayerSpec) -> dict:
     mixer, ffn = spec
-    p: dict[str, Any] = {"norm1": norm_init(cfg.d_model, gen.device)}
+    dev = init_device(gen)
+    p: dict[str, Any] = {"norm1": norm_init(cfg.d_model, dev)}
     if mixer == "mamba":
         p["mixer"] = make_mamba_params(gen, cfg.mamba, cfg.dtype)
     else:
         p["mixer"] = make_attention_params(gen, cfg.mixer_cfg(mixer),
                                            cfg.dtype)
     if ffn != "none":
-        p["norm2"] = norm_init(cfg.d_model, gen.device)
+        p["norm2"] = norm_init(cfg.d_model, dev)
         if ffn == "moe":
             p["mlp"] = make_moe_params(gen, cfg.moe, cfg.dtype)
         else:
@@ -119,7 +125,7 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, device=None):
     vocab = cfg.vocab * cfg.codebooks
     params: dict[str, Any] = {
         "embed": embed_init(gen, vocab, cfg.d_model, cfg.dtype),
-        "final_norm": norm_init(cfg.d_model, gen.device),
+        "final_norm": norm_init(cfg.d_model, init_device(gen)),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = embed_init(gen, vocab, cfg.d_model, cfg.dtype)
@@ -130,11 +136,19 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, device=None):
     if cfg.mtp:
         params["mtp"] = {
             "layer": _make_layer_params(gen, cfg, cfg.pattern[-1]),
-            "norm": norm_init(cfg.d_model, gen.device),
+            "norm": norm_init(cfg.d_model, init_device(gen)),
             "in_proj": embed_init(gen, 2 * cfg.d_model, cfg.d_model,
                                   cfg.dtype),
         }
     return _to(params, device)
+
+
+def param_shapes(cfg: ModelConfig):
+    """The parameter tree of ``cfg`` as meta tensors: every shape and dtype
+    ``init_params`` makes, nothing allocated (deepseek-v3-671b's 1.3 TB
+    cannot be drawn on a host)."""
+    with meta_init():
+        return init_params(torch.Generator(), cfg, "meta")
 
 
 def _to(tree, device):
@@ -145,17 +159,61 @@ def _to(tree, device):
     return tree.to(device)
 
 
+_IN_MESH_SCOPE = contextvars.ContextVar("in_mesh_scope", default=False)
+
+
+@contextlib.contextmanager
+def mesh_scope(t):
+    """On a mesh (``t`` a DTensor), every plain tensor the model makes
+    beside a DTensor (positions, masks, zeros, iotas, the modality stub's
+    prefix) enters each op as the whole value, replicated on the DTensors'
+    mesh.  Without a mesh this does nothing.  Scopes nest: the outermost
+    one ends it (``implicit_replication`` alone would end at the first
+    exit)."""
+    if not isinstance(t, DTensor) or _IN_MESH_SCOPE.get():
+        yield
+        return
+    token = _IN_MESH_SCOPE.set(True)
+    try:
+        with implicit_replication():
+            yield
+    finally:
+        _IN_MESH_SCOPE.reset(token)
+
+
+def _on_mesh(fn):
+    """``fn(params, cfg, ...)`` in the mesh scope of its parameters."""
+    @functools.wraps(fn)
+    def wrapped(params, cfg, *args, **kwargs):
+        with mesh_scope(params["embed"]):
+            return fn(params, cfg, *args, **kwargs)
+    return wrapped
+
+
 # ---------------------------------------------------------------------------
 # embedding and head
 # ---------------------------------------------------------------------------
+
+def _lookup(table, ids):
+    """Rows ``ids`` of ``table``.  On a mesh the table's vocabulary shards
+    are all-gathered first and the rows taken by ``F.embedding``: DTensor's
+    rules for a lookup into a split vocabulary (masked partial sums) and
+    for the index's backward do not hold up across torch versions.  Plain
+    indexing without a mesh, as before."""
+    if isinstance(table, DTensor):
+        table = table.redistribute(table.device_mesh, [
+            Replicate() if p.is_shard(0) else p for p in table.placements])
+        return F.embedding(ids, table)
+    return table[ids]
+
 
 def _embed(params, cfg: ModelConfig, tokens):
     """tokens: [...] or [..., CB] (musicgen: per-codebook vocab offsets,
     summed embeddings).  Returns [..., D]."""
     if cfg.codebooks > 1:
         offs = torch.arange(cfg.codebooks, device=tokens.device) * cfg.vocab
-        return params["embed"][tokens + offs].sum(dim=-2)
-    return params["embed"][tokens]
+        return _lookup(params["embed"], tokens + offs).sum(dim=-2)
+    return _lookup(params["embed"], tokens)
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens, prefix_embeddings=None):
@@ -174,7 +232,7 @@ def logits_fn(params, cfg: ModelConfig, x):
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     logits = x @ head.T
     if cfg.codebooks > 1:
-        logits = logits.reshape(*logits.shape[:-1], cfg.codebooks, cfg.vocab)
+        logits = split_last(logits, cfg.codebooks, cfg.vocab)
     return logits
 
 
@@ -238,6 +296,7 @@ def _remat_wrap(fn, cfg: ModelConfig):
     return functools.partial(checkpoint, fn, **kwargs)
 
 
+@_on_mesh
 def forward(params, cfg: ModelConfig, tokens, prefix_embeddings=None):
     """Full forward -> (logits [B,S(+prefix),V] or [B,S(+prefix),CB,V], the
     MoE layers' summed aux (load-balancing) loss, final hidden)."""
@@ -248,8 +307,11 @@ def forward(params, cfg: ModelConfig, tokens, prefix_embeddings=None):
         x, aux = _layer_forward(p, cfg, spec, x, positions)
         if aux is not None:
             aux_total = aux_total + aux
-    unit_fn = _remat_wrap(
-        lambda up, xx: _unit_forward(up, cfg, xx, positions), cfg)
+    def unit(up, xx):
+        # in scope again when the backward recomputes the unit
+        with mesh_scope(xx):
+            return _unit_forward(up, cfg, xx, positions)
+    unit_fn = _remat_wrap(unit, cfg)
     for up in params["units"]:
         x, aux = unit_fn(up, x)
         aux_total = aux_total + aux
@@ -257,6 +319,7 @@ def forward(params, cfg: ModelConfig, tokens, prefix_embeddings=None):
     return logits_fn(params, cfg, x), aux_total, x
 
 
+@_on_mesh
 def loss_fn(params, cfg: ModelConfig, batch):
     """batch: {"tokens": [B,S] or [B,S,CB], "labels": same,
     "prefix_embeddings": optional [B,P,D]} -> (total, metrics)."""
@@ -278,7 +341,7 @@ def _mtp_loss(params, cfg: ModelConfig, x, batch):
     labels = batch["labels"]
     if cfg.codebooks > 1 or cfg.n_prefix:
         return torch.zeros((), dtype=torch.float32, device=x.device)
-    emb_next = params["embed"][labels]                  # labels = t+1
+    emb_next = _lookup(params["embed"], labels)          # labels = t+1
     h = torch.cat([x, emb_next.to(x.dtype)], dim=-1) @ mtp["in_proj"]
     positions = torch.arange(h.shape[1], device=h.device)
     h, _ = _layer_forward(mtp["layer"], cfg, cfg.pattern[-1], h, positions)
@@ -321,6 +384,7 @@ def _pad_cache(cache, max_len: int):
     return out
 
 
+@_on_mesh
 def prefill(params, cfg: ModelConfig, tokens, prefix_embeddings=None,
             max_len: int | None = None):
     """Run the prompt; returns (last_logits [B,V] or [B,CB,V], caches,
@@ -360,6 +424,7 @@ def _layer_decode(p, cfg: ModelConfig, spec: LayerSpec, x, cache,
     return _ffn(p, cfg, ffn, x + h)[0], cache
 
 
+@_on_mesh
 def decode_step(params, cfg: ModelConfig, token, caches, cache_len: int):
     """One decode step.  token: [B] or [B,CB]; caches from prefill;
     cache_len: current length (prefix included).  Returns (logits, new

@@ -1,4 +1,5 @@
-"""Training step factory and loop with fault tolerance, on one device.
+"""Training step factory and loop with fault tolerance, on one device or
+on a mesh.
 
 ``make_train_step`` builds the (params, opt_state, batch) -> (params,
 opt_state, metrics) function: the loss and its gradients by autograd
@@ -11,6 +12,14 @@ step), periodic async checkpointing and logging.  Its data iterator yields
 NumPy (or tensor) batches, which the loop moves to the device.  A resumed
 run restores the parameters and optimizer state, not the data position:
 the iterator starts from its beginning, as in the JAX package.
+
+With a mesh (``make_train_step(cfg, tcfg, mesh)``, ``train_loop(...,
+mesh=mesh)``) the parameters and AdamW moments are DTensors placed by
+``param_shardings(mode="train")`` (TP over ``model``, FSDP over the data
+axes), batches by ``batch_spec``; the step is the same code on DTensors,
+and its gradient norm is a global reduction.  ``mesh=None`` keeps the
+single-device step as it was.  ``train_loop`` takes the mesh as a keyword
+(the JAX package passes it third, before the data iterator).
 """
 from __future__ import annotations
 
@@ -21,8 +30,13 @@ from typing import Callable
 import torch
 import torch.utils._pytree as pytree
 
+from torch.distributed.tensor import DTensor, distribute_tensor
+
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import ModelConfig, init_params, loss_fn
+from repro_torch.launch.shardings import (batch_sharding, distribute,
+                                          param_shardings)
+from repro_torch.models.transformer import (ModelConfig, init_params, loss_fn,
+                                          mesh_scope)
 from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
 
 
@@ -36,29 +50,64 @@ class TrainConfig:
 
 def _value_and_grad(leaves, spec, cfg: ModelConfig, batch):
     """loss_fn's (total, metrics) at the parameters ``leaves`` (a flattened
-    tree) and its gradients, one per leaf in the leaf's dtype."""
+    tree) and its gradients, one per leaf in the leaf's dtype.  On a mesh
+    the backward runs in the forward's mesh scope too: the plain tensors
+    autograd saved beside DTensors meet the gradients there."""
     live = [p.detach().requires_grad_() for p in leaves]
-    total, metrics = loss_fn(pytree.tree_unflatten(live, spec), cfg, batch)
-    grads = torch.autograd.grad(total, live)
+    with mesh_scope(live[0]):
+        total, metrics = loss_fn(pytree.tree_unflatten(live, spec), cfg,
+                                 batch)
+        grads = torch.autograd.grad(total, live)
     return (total.detach(), {k: v.detach() for k, v in metrics.items()},
             list(grads))
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
-    """The train step (no mesh: one device, no shardings)."""
+def _microbatch(v, n: int, i: int):
+    """Microbatch ``i`` of ``n`` along the leading axis.  A DTensor batch
+    splits each rank's local rows, so microbatch ``i`` is rows ``i`` of
+    every rank's shard: the same tokens over all ``n``, another grouping."""
+    if isinstance(v, DTensor):
+        loc = v.to_local()
+        loc = loc.reshape(n, loc.shape[0] // n, *loc.shape[1:])[i]
+        return DTensor.from_local(loc, v.device_mesh, v.placements,
+                                  run_check=False)
+    return v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
+
+
+def place_batch(batch: dict, mesh) -> dict:
+    """Batch tensors (the whole global batch on every rank) placed by
+    ``batch_spec``: batch over the data axes."""
+    return {k: v if isinstance(v, DTensor) else
+            distribute_tensor(v, mesh, list(batch_sharding(mesh, v.dim())))
+            for k, v in batch.items()}
+
+
+def place_state(cfg: ModelConfig, params, opt_state, mesh, mode="train"):
+    """Parameters and optimizer state placed by ``param_shardings``."""
+    return (distribute(params, mesh,
+                       param_shardings(params, mesh, mode, cfg)),
+            distribute(opt_state, mesh,
+                       param_shardings(opt_state, mesh, mode, cfg)))
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
+    """The train step: one device without a mesh; with one, on DTensor
+    parameters and state (:func:`place_state`), plain batches placed by
+    :func:`place_batch`."""
     ocfg = tcfg.optimizer
 
     def step_fn(params, opt_state, batch):
+        if mesh is not None:
+            batch = place_batch(batch, mesh)
         leaves, spec = pytree.tree_flatten(params)
         n = tcfg.microbatches
         if n > 1:
             # split the batch on its leading axis; float32 gradient sums
-            g_acc = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device) for p in leaves]
+            g_acc = [torch.zeros_like(p, dtype=torch.float32)
+                     for p in leaves]
             loss_sum = 0.0
             for i in range(n):
-                mb = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
-                      for k, v in batch.items()}
+                mb = {k: _microbatch(v, n, i) for k, v in batch.items()}
                 total, _, grads = _value_and_grad(leaves, spec, cfg, mb)
                 for a, g in zip(g_acc, grads):
                     a += g.float()
@@ -70,6 +119,12 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
                                           device=loss.device)}
         else:
             loss, metrics, grads = _value_and_grad(leaves, spec, cfg, batch)
+        if mesh is not None:
+            # each gradient onto its parameter's placements: partial sums
+            # over the data axes are reduced (and scattered, for FSDP)
+            grads = [g if g.placements == p.placements else
+                     g.redistribute(p.device_mesh, p.placements)
+                     for g, p in zip(grads, leaves)]
 
         new_params, new_opt, gnorm = adamw_update(
             pytree.tree_unflatten(grads, spec), opt_state, params, ocfg)
@@ -83,6 +138,11 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
         new_opt = pytree.tree_map(keep, new_opt, opt_state)
         metrics = dict(metrics)
         metrics["grad_norm"] = gnorm
+        if mesh is not None:
+            # the whole values (a loss over a data-sharded batch is a
+            # partial mean on each rank until it is reduced)
+            metrics = {k: v.full_tensor() if isinstance(v, DTensor) else v
+                       for k, v in metrics.items()}
         return new_params, new_opt, metrics
 
     return step_fn
@@ -95,17 +155,21 @@ def batch_to_device(batch: dict, device) -> dict:
 def train_loop(cfg: ModelConfig, tcfg: TrainConfig, data_iter, n_steps: int,
                checkpoint_dir: str | None = None,
                log_fn: Callable[[int, dict], None] | None = None,
-               device=None):
+               device=None, mesh=None):
     """Init (parameters from seed 0) or resume, step, checkpoint, log, on
-    ``device`` (CUDA by default)."""
+    ``device`` (CUDA by default), placed on ``mesh`` when one is given
+    (every rank draws the same parameters and reads the same global
+    batches; each keeps its shard)."""
     from repro_torch.distributed.checkpoint import CheckpointManager
 
     device = resolve_device(device)
-    step_fn = make_train_step(cfg, tcfg)
+    step_fn = make_train_step(cfg, tcfg, mesh)
     first = batch_to_device(next(data_iter), device)
     params = init_params(torch.Generator(device=device).manual_seed(0), cfg,
                          device)
     opt_state = adamw_init(params, tcfg.optimizer)
+    if mesh is not None:
+        params, opt_state = place_state(cfg, params, opt_state, mesh)
     start_step = 0
     ckpt = None
     if checkpoint_dir:

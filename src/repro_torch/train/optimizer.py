@@ -12,6 +12,9 @@ Weight decay follows the JAX package's rule, which decays tensors of ndim
 axis, so a tensor under ``params["units"]`` counts one dimension more than
 it has in the port's list of units: its norm scales, ``A_log``, ``D`` and
 biases decay, the prelude's and ``final_norm`` do not.
+
+On a mesh every tensor is a DTensor and the update runs shard by shard;
+the global norm is a sum over every shard of every tensor.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import dataclasses
 
 import torch
 import torch.utils._pytree as pytree
+from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,13 +37,19 @@ class AdamWConfig:
 
 
 def adamw_init(params, cfg: AdamWConfig):
+    """Zero moments placed like the parameters (DTensors on a mesh); the
+    step count replicated beside them."""
     def zeros_like(p):
-        return torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
-    device = pytree.tree_leaves(params)[0].device
+        return torch.zeros_like(p, dtype=cfg.moment_dtype)
+    first = pytree.tree_leaves(params)[0]
+    step = torch.zeros((), dtype=torch.int32, device=first.device)
+    if isinstance(first, DTensor):
+        mesh = first.device_mesh
+        step = distribute_tensor(step, mesh, [Replicate()] * mesh.ndim)
     return {
         "m": pytree.tree_map(zeros_like, params),
         "v": pytree.tree_map(zeros_like, params),
-        "step": torch.zeros((), dtype=torch.int32, device=device),
+        "step": step,
     }
 
 

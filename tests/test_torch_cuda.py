@@ -3,8 +3,12 @@ segmented launch), flash attention (K2: fast and generic routes), SSD scan
 (K3: chunked and generic routes) and GRU fit (K4) kernels against their
 plain PyTorch versions on CUDA tensors, the port's device paths on
 CUDA (MoE, MLA and the prefix and codebook stubs included, against the
-CPU), and K2/K3's entry refusing an input that requires grad (the train
-step on the card against the CPU's is phase 18a of ``chip_smoke.py``).
+CPU), K2/K3's entry refusing an input that requires grad (the train
+step on the card against the CPU's is phase 18a of ``chip_smoke.py``), and
+the multi-device layer at mesh size 1 over NCCL (the train step,
+a prefill through K2/K3 on local shards, ``moe_apply_ep``, the compressed
+all-reduce and a checkpoint into placements; phases 22-24 at reduced
+size).
 
 Marked ``cuda``; every test skips where ``torch.cuda.is_available()`` is
 false.  On the card:
@@ -712,3 +716,133 @@ def test_kernel_entry_refuses_an_input_that_requires_grad(cuda, kernel,
     torch.cuda.synchronize()
     assert mod.LAUNCHES == 2
 
+
+
+# ---------------------------------------------------------------------------
+# the multi-device layer at mesh size 1 on the card (NCCL, one rank):
+# chip_smoke.py phases 22-24 at reduced size
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def mesh(cuda):
+    """A 1 x 1 (data, model) mesh over a one-rank NCCL group (started by
+    the first test that asks, kept for the session)."""
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh((1, 1), ("data", "model"))
+
+
+def _full(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "mamba2-1.3b",
+                                  "deepseek-v3-671b"])
+def test_mesh_train_step_on_card_matches_no_mesh(cuda, mesh, arch):
+    """One train step on DTensors at mesh size 1 against the no-mesh step
+    on the card: loss at rtol 1e-5, parameters within one bf16 ulp plus
+    2·lr (as on the CPU meshes)."""
+    import torch.utils._pytree as pytree
+
+    from repro_torch.train.loop import (TrainConfig, make_train_step,
+                                        place_state)
+    from repro_torch.train.optimizer import adamw_init
+    cfg = get_reduced_config(arch)
+    tcfg = TrainConfig()
+    p = TT.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                       cuda)
+    o = adamw_init(p, tcfg.optimizer)
+    tok = torch.randint(0, cfg.vocab, (4, 32), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(1))
+    batch = {"tokens": tok, "labels": torch.roll(tok, -1, 1)}
+    want_p, _, want = make_train_step(cfg, tcfg)(p, o, batch)
+    pd, od = place_state(cfg, p, o, mesh)
+    got_p, _, got = make_train_step(cfg, tcfg, mesh)(pd, od, batch)
+    assert float(got["loss"]) == pytest.approx(float(want["loss"]),
+                                               rel=1e-5)
+    for a, b in zip(pytree.tree_leaves(got_p), pytree.tree_leaves(want_p)):
+        a, b = _full(a).float(), b.float()
+        assert bool(((a - b).abs() <= 2 * tcfg.optimizer.lr
+                     + 2 ** -7 * torch.maximum(a.abs(), b.abs())).all())
+
+
+@pytest.mark.parametrize("arch,kernel", [("yi-6b", K2), ("mamba2-1.3b", K3)])
+def test_mesh_prefill_on_card_goes_through_the_kernels(cuda, mesh, arch,
+                                                       kernel):
+    """A reduced prefill under serve placements at mesh size 1: one
+    kernel launch per layer, on local shards through ``ops.per_rank``,
+    logits and a decode step as without the mesh."""
+    from repro_torch.launch.shardings import distribute, param_shardings
+    cfg = get_reduced_config(arch)
+    p = TT.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                       cuda)
+    tok = torch.randint(0, cfg.vocab, (2, 64), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(2))
+    with torch.no_grad():
+        want, caches, n = TT.prefill(p, cfg, tok, max_len=72)
+        want_dec, _ = TT.decode_step(p, cfg, want.argmax(-1), caches, n)
+        pd = distribute(p, mesh, param_shardings(p, mesh, "serve", cfg))
+        kernel.reset_counts()
+        got, caches, n = TT.prefill(pd, cfg, tok, max_len=72)
+        torch.cuda.synchronize()
+        assert kernel.LAUNCHES == cfg.n_layers
+        got_dec, _ = TT.decode_step(pd, cfg, want.argmax(-1), caches, n)
+    torch.testing.assert_close(_full(got), want, atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(_full(got_dec), want_dec, atol=1e-3,
+                               rtol=1e-3)
+
+
+@pytest.mark.parametrize("mode", ["train", "serve"])
+def test_moe_apply_ep_on_card_matches_moe_apply(cuda, mesh, mode):
+    """``repro``'s multi-device MoE case on the card at mesh size 1, at
+    its tolerances (atol 2e-5, rtol 1e-4; aux within 15%)."""
+    from repro_torch.launch.shardings import distribute, param_shardings
+    from repro_torch.models.moe import (MoEConfig, make_moe_params,
+                                        moe_apply, moe_apply_ep)
+    cfg = MoEConfig(d_model=32, n_experts=8, top_k=2, d_ff_expert=16,
+                    capacity_factor=8.0)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = make_moe_params(gen, cfg, torch.float32)
+    x = torch.randn((4, 8, 32), generator=gen, device=cuda)
+    want, aux_want = moe_apply(p, cfg, x)
+    placed = distribute({"mlp": p}, mesh,
+                        param_shardings({"mlp": p}, mesh, mode))["mlp"]
+    y, aux = moe_apply_ep(placed, cfg, x, mesh, ("data",), mode)
+    torch.testing.assert_close(_full(y), want, atol=2e-5, rtol=1e-4)
+    assert abs(float(_full(aux)) - float(aux_want)) < \
+        0.15 * float(aux_want) + 1e-3
+
+
+def test_compressed_all_reduce_and_checkpoint_on_card(cuda, mesh, tmp_path):
+    """The int8 all-reduce over NCCL on a 1 x 1 x 1 (pod, data, model)
+    mesh (each element within half its block's scale plus the bf16
+    payload's rounding), and a checkpoint of placed state restored into
+    its placements, bitwise."""
+    import torch.utils._pytree as pytree
+
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.distributed.compression import (compressed_all_reduce,
+                                                     quantize_int8)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.loop import TrainConfig, place_state
+    from repro_torch.train.optimizer import adamw_init
+    mesh3 = make_mesh((1, 1, 1), ("pod", "data", "model"))
+    x = torch.randn(5000, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(3))
+    got = compressed_all_reduce(x, mesh3.get_group("pod"))
+    q, scale = quantize_int8(x)
+    deq = (q.float() * scale).reshape(-1)[:x.numel()]
+    per = scale.repeat_interleave(256)[:x.numel()]
+    assert bool(((deq - x).abs() <= per / 2).all())
+    assert bool(((got - x).abs() <= per / 2 + deq.abs() * (2.0 ** -7 + 2.0 ** -16)).all())
+
+    cfg = get_reduced_config("yi-6b")
+    p = TT.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                       cuda)
+    state = place_state(cfg, p, adamw_init(p, TrainConfig().optimizer),
+                        mesh)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(state, 1, blocking=True)
+    back = mgr.restore(pytree.tree_map(torch.zeros_like, state), 1)
+    for a, b in zip(pytree.tree_leaves(back), pytree.tree_leaves(state)):
+        assert a.placements == b.placements
+        assert torch.equal(a.to_local(), b.to_local())
