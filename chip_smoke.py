@@ -2358,9 +2358,11 @@ def bitwise(torch, a, b) -> bool:
 
 def mesh_train_phase(torch, dev, phase18c: dict) -> dict:
     """Phase 22: yi-6b, full width, 4 layers, on a 1 x 1 mesh through
-    ``train_loop(..., mesh=mesh)``; gates: every loss within 1e-3 of the
-    no-mesh loop's on the same batches, no K2/K3 launch, the checkpoint
-    restored bitwise into the mesh's placements."""
+    ``train_loop(..., mesh=mesh)``; gates: every loss within 1e-4
+    (relative) of the no-mesh loop's on the same batches, no K2/K3
+    launch, the checkpoint restored bitwise into the mesh's placements.
+    The no-mesh loop runs twice, so that a difference can be told from
+    the card's run-to-run noise."""
     import shutil
     import statistics
 
@@ -2383,11 +2385,12 @@ def mesh_train_phase(torch, dev, phase18c: dict) -> dict:
     batches = [src.batch_from_shard(src.load_shard(i))
                for i in range(MESH_TRAIN_STEPS)]
     tcfg = TrainConfig(log_every=1)
-    plain = []
-    p, o, _ = train_loop(cfg, tcfg, iter(batches), MESH_TRAIN_STEPS,
-                         device=dev, log_fn=lambda s, m: plain.append(m))
-    del p, o
-    free(torch)
+    plain, again = [], []
+    for hist in (plain, again):
+        p, o, _ = train_loop(cfg, tcfg, iter(batches), MESH_TRAIN_STEPS,
+                             device=dev, log_fn=lambda s, m: hist.append(m))
+        del p, o
+        free(torch)
     hist = []
     torch.cuda.reset_peak_memory_stats()
     params, opt, _ = train_loop(cfg, tcfg, iter(batches), MESH_TRAIN_STEPS,
@@ -2400,7 +2403,9 @@ def mesh_train_phase(torch, dev, phase18c: dict) -> dict:
     same = [a == b for a, b in zip(losses, want)]
     times = [m["step_time"] for m in hist]
     med = statistics.median(times[1:])
-    log(f"{label}: loss={losses} no_mesh_loss={want} bitwise={same}")
+    log(f"{label}: loss={losses} no_mesh_loss={want} bitwise={same} "
+        f"no_mesh_run_to_run_bitwise="
+        f"{[m['loss'] for m in again] == want}")
     log(f"{label}: grad_norm={[m['grad_norm'] for m in hist]} no_mesh="
         f"{[m['grad_norm'] for m in plain]}")
     log(f"{label}: step_s={[round(t, 4) for t in times]} median_step_s_2_to_"
@@ -2409,7 +2414,7 @@ def mesh_train_phase(torch, dev, phase18c: dict) -> dict:
         f"{med / phase18c['median_step_s']:.3f} peak_gib="
         f"{peak / 2**30:.2f} phase_18c_peak_gib={phase18c['peak_gib']:.2f}")
     if len(hist) != MESH_TRAIN_STEPS or not all(
-            abs(a - b) <= 1e-3 * abs(b) for a, b in zip(losses, want)):
+            abs(a - b) <= 1e-4 * abs(b) for a, b in zip(losses, want)):
         raise AssertionError(f"{label}: the mesh step's losses disagree")
     if not all(isinstance(t, DTensor) for t in pytree.tree_leaves(params)):
         raise AssertionError(f"{label}: a parameter left the mesh")
@@ -2444,6 +2449,8 @@ def mesh_train_phase(torch, dev, phase18c: dict) -> dict:
     if n_same != len(pairs):
         raise AssertionError(f"{label}: the restored state differs")
     out = {"loss": losses, "no_mesh_loss": want, "bitwise": all(same),
+           "no_mesh_run_to_run_bitwise":
+               [m["loss"] for m in again] == want,
            "median_step_s": med,
            "phase_18c_median_step_s": phase18c["median_step_s"],
            "peak_gib": peak / 2**30, "busy_share": share,

@@ -34,7 +34,6 @@ import math
 
 import torch
 import torch.nn.functional as F
-import torch.utils._pytree as pytree
 from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
 from torch.distributed.tensor.experimental import local_map
@@ -135,8 +134,8 @@ def moe_apply(params, cfg: MoEConfig, x: torch.Tensor
 
     On a mesh — the ``moe_ep`` hint's, or that of a DTensor ``x`` — the
     dispatch runs expert-parallel (:func:`moe_apply_ep`) when the shapes
-    divide the mesh; otherwise a DTensor layer runs whole on every rank,
-    replicated."""
+    divide the mesh; otherwise a DTensor layer runs the plain dispatch on
+    the experts as they are split (:func:`_plain_on_mesh`)."""
     mesh = get_hint("moe_ep")
     if mesh is None and isinstance(x, DTensor):
         mesh = x.device_mesh
@@ -145,7 +144,8 @@ def moe_apply(params, cfg: MoEConfig, x: torch.Tensor
         if out is not None:
             return out
         if isinstance(x, DTensor):
-            return _replicated(params, cfg, x)
+            return _plain_on_mesh(params, cfg, x,
+                                  get_hint("moe_mode") or "train")
     return _moe_plain(params, cfg, x)
 
 
@@ -184,25 +184,6 @@ def _moe_plain(params, cfg: MoEConfig, x: torch.Tensor):
     return out.reshape(b, s, d).to(x.dtype), aux.float()
 
 
-def _replicated(params, cfg: MoEConfig, x: DTensor):
-    """The plain dispatch on every rank over the whole batch: the inputs
-    are gathered (replicated) first and the output is re-split like
-    ``x``.  The fallback where the shapes do not divide the mesh."""
-    mesh = x.device_mesh
-    rep = (Replicate(),) * mesh.ndim
-    leaves, spec = pytree.tree_flatten(params)
-
-    def local(xl, *ls):
-        return _moe_plain(pytree.tree_unflatten(list(ls), spec), cfg, xl)
-
-    fn = local_map(local, out_placements=(rep, rep),
-                   in_placements=(rep,) * (1 + len(leaves)),
-                   device_mesh=mesh)
-    y, aux = fn(*(_placed(t, mesh, rep) for t in (x, *leaves)))
-    return y.redistribute(mesh, [Replicate() if p.is_partial() else p
-                                 for p in x.placements]), aux
-
-
 # ---------------------------------------------------------------------------
 # expert-parallel dispatch
 # ---------------------------------------------------------------------------
@@ -220,6 +201,61 @@ def _placed(t, mesh, placements) -> DTensor:
     if tuple(t.placements) == placements:
         return t
     return t.redistribute(mesh, placements)
+
+
+def _plain_on_mesh(params, cfg: MoEConfig, x: DTensor, mode: str):
+    """The plain dispatch where the shapes do not divide the mesh (a batch
+    smaller than the data axes), on the expert weights as they are split:
+    every rank routes the whole batch to the experts it holds and the
+    partial outputs are summed over the axes that split the experts
+    (:func:`_dispatch_local` with the whole batch and the rank's offset).
+    The experts stay split over the whole mesh where ``serve`` placed them
+    so, and over ``model`` otherwise (each layer's data shards of the
+    expert weights are gathered, as the train layout does).  The batch is
+    gathered; no rank gathers the experts of a rank it sums with.  Where
+    ``model`` does not divide the experts, or there is none, every rank
+    holds them all."""
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    b, s, d = x.shape
+    e = cfg.n_experts
+    if mode == "serve" and e % mesh.size() == 0:
+        axes = names
+    else:
+        axes = ("model",) if "model" in names and \
+            e % _size(mesh, "model") == 0 else ()
+    ways, rank = 1, 0
+    for n in names:                       # linear index, mesh order
+        if n in axes:
+            ways *= _size(mesh, n)
+            rank = rank * _size(mesh, n) + mesh.get_local_rank(n)
+
+    def over(p):
+        return tuple(p if n in axes else Replicate() for n in names)
+
+    rep = (Replicate(),) * mesh.ndim
+    w_layout, y_layout = over(Shard(0)), over(Partial())
+    offset = rank * (e // ways)
+
+    def inner(xl, router, wg, wu, wd):
+        y, aux = _dispatch_local(cfg, xl.reshape(b * s, d), router, wg, wu,
+                                 wd, offset)
+        # every rank routes the same tokens: the aux is a sum of equal
+        # shares over the ranks that split the experts
+        return y.reshape(b, s, d), aux / ways
+
+    fn = local_map(inner, out_placements=(y_layout, y_layout),
+                   in_placements=(rep, rep, w_layout, w_layout, w_layout),
+                   in_grad_placements=(y_layout, y_layout, w_layout,
+                                       w_layout, w_layout),
+                   device_mesh=mesh)
+    y, aux = fn(_placed(x, mesh, rep), _placed(params["router"], mesh, rep),
+                *(_placed(params[w], mesh, w_layout)
+                  for w in ("w_gate", "w_up", "w_down")))
+    y = y.redistribute(mesh, [Replicate() if p.is_partial() else p
+                              for p in x.placements])
+    y = _shared(params, cfg, y, x)
+    return y.to(x.dtype), aux.redistribute(mesh, rep).float()
 
 
 def _try_ep(params, cfg: MoEConfig, x, mesh):

@@ -34,8 +34,10 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 import torch.utils._pytree as pytree
-from torch.distributed.tensor import DTensor, Replicate
-from torch.distributed.tensor.experimental import implicit_replication
+from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                      distribute_tensor)
+from torch.distributed.tensor.experimental import (implicit_replication,
+                                                   local_map)
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -195,16 +197,26 @@ def _on_mesh(fn):
 # ---------------------------------------------------------------------------
 
 def _lookup(table, ids):
-    """Rows ``ids`` of ``table``.  On a mesh the table's vocabulary shards
-    are all-gathered first and the rows taken by ``F.embedding``: DTensor's
-    rules for a lookup into a split vocabulary (masked partial sums) and
-    for the index's backward do not hold up across torch versions.  Plain
-    indexing without a mesh, as before."""
-    if isinstance(table, DTensor):
-        table = table.redistribute(table.device_mesh, [
-            Replicate() if p.is_shard(0) else p for p in table.placements])
-        return F.embedding(ids, table)
-    return table[ids]
+    """Rows ``ids`` of ``table`` by indexing, on one device and on a mesh
+    alike.  On a mesh the index runs on each rank's local ids
+    (``local_map``) into the whole table: the table's vocabulary shards
+    are all-gathered first (one explicit redistribution; the gradient
+    goes back as a reduce-scatter), and the rows are split like the
+    ids."""
+    if not isinstance(table, DTensor):
+        return table[ids]
+    mesh = table.device_mesh
+    rep = (Replicate(),) * mesh.ndim
+    if not isinstance(ids, DTensor):
+        ids = distribute_tensor(ids, mesh, list(rep))
+    lay = tuple(ids.placements)
+    # each rank's rows come from its own ids: the table's gradient is a
+    # partial sum over the axes that split them
+    grad = tuple(Partial() if p.is_shard() else Replicate() for p in lay)
+    rows = local_map(lambda t, i: t[i], out_placements=(lay,),
+                     in_placements=(rep, lay), in_grad_placements=(grad, lay),
+                     device_mesh=mesh)
+    return rows(table.redistribute(mesh, rep), ids)
 
 
 def _embed(params, cfg: ModelConfig, tokens):

@@ -738,15 +738,20 @@ def _full(t):
 @pytest.mark.parametrize("arch", ["yi-6b", "mamba2-1.3b",
                                   "deepseek-v3-671b"])
 def test_mesh_train_step_on_card_matches_no_mesh(cuda, mesh, arch):
-    """One train step on DTensors at mesh size 1 against the no-mesh step
-    on the card: loss at rtol 1e-5, parameters within one bf16 ulp plus
-    2·lr (as on the CPU meshes)."""
+    """One float32 train step on DTensors at mesh size 1 against the
+    no-mesh step on the card: loss at rtol 1e-5, both AdamW moments at
+    relative L2 1e-4 per tensor, and each parameter's update at relative
+    L2 1e-2 (as on the CPU meshes: a gradient at AdamW's eps turns a last
+    bit into another step; a skipped, halved or reversed update reads 0.5
+    or more)."""
+    import dataclasses
+
     import torch.utils._pytree as pytree
 
     from repro_torch.train.loop import (TrainConfig, make_train_step,
                                         place_state)
     from repro_torch.train.optimizer import adamw_init
-    cfg = get_reduced_config(arch)
+    cfg = dataclasses.replace(get_reduced_config(arch), dtype=torch.float32)
     tcfg = TrainConfig()
     p = TT.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
                        cuda)
@@ -754,15 +759,21 @@ def test_mesh_train_step_on_card_matches_no_mesh(cuda, mesh, arch):
     tok = torch.randint(0, cfg.vocab, (4, 32), device=cuda,
                         generator=torch.Generator(device=cuda).manual_seed(1))
     batch = {"tokens": tok, "labels": torch.roll(tok, -1, 1)}
-    want_p, _, want = make_train_step(cfg, tcfg)(p, o, batch)
+    want_p, want_o, want = make_train_step(cfg, tcfg)(p, o, batch)
     pd, od = place_state(cfg, p, o, mesh)
-    got_p, _, got = make_train_step(cfg, tcfg, mesh)(pd, od, batch)
+    got_p, got_o, got = make_train_step(cfg, tcfg, mesh)(pd, od, batch)
     assert float(got["loss"]) == pytest.approx(float(want["loss"]),
                                                rel=1e-5)
-    for a, b in zip(pytree.tree_leaves(got_p), pytree.tree_leaves(want_p)):
-        a, b = _full(a).float(), b.float()
-        assert bool(((a - b).abs() <= 2 * tcfg.optimizer.lr
-                     + 2 ** -7 * torch.maximum(a.abs(), b.abs())).all())
+
+    def rel(a, b):
+        return float((_full(a) - b).norm() / b.norm().clamp(min=1e-30))
+    for k in ("m", "v"):
+        for a, b in zip(pytree.tree_leaves(got_o[k]),
+                        pytree.tree_leaves(want_o[k])):
+            assert rel(a, b) < 1e-4, k
+    for a, b, p0 in zip(pytree.tree_leaves(got_p),
+                        pytree.tree_leaves(want_p), pytree.tree_leaves(p)):
+        assert rel(_full(a) - p0, b - p0) < 1e-2
 
 
 @pytest.mark.parametrize("arch,kernel", [("yi-6b", K2), ("mamba2-1.3b", K3)])

@@ -56,12 +56,14 @@ def _reduced_todo(kinds):
 
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
-    """Four dry-run processes at once: train (two halves), prefill and
-    decode for the reduced configs; then the full-size cell."""
+    """Six dry-run processes at once, of about equal work: the reduced
+    train cells in thirds, the reduced prefill and decode cells in
+    halves, and the full-size cell."""
     tmp = tmp_path_factory.mktemp("dryrun")
     train = _reduced_todo(["train"])
-    groups = [train[::2], train[1::2], _reduced_todo(["prefill"]),
-              _reduced_todo(["decode"])]
+    serve = _reduced_todo(["prefill", "decode"])
+    groups = [train[0::3], train[1::3], train[2::3], serve[0::2],
+              serve[1::2]]
     procs = [(_start(REDUCED_MESH, True, tmp / f"r{i}.json", g),
               tmp / f"r{i}.json") for i, g in enumerate(groups)]
     procs.append((_start((16, 16), False, tmp / "full.json",
