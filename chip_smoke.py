@@ -50,9 +50,15 @@ non-zero):
     ``ServeEngine``: three jittered recurring clients, 2000-token prompts;
     every prefill's 32 attention layers go through K2, the scheduler's
     ARIMA fit through K1; the full-width prefill through K2 agrees with
-    the same prefill through K2's plain version; then one cold request
-    (prefill and decode) under ``torch.profiler``: device busy share and
-    device time by kernel;
+    the same prefill through K2's plain version; the engine decodes through
+    its ``DecodeProgram``, one decode step captured in a CUDA graph at the
+    first request and replayed per token (capture seconds; the logits
+    buffer finite after every replay); then one cold request: 16 tokens
+    from one prefill through the graph and through the eager per-token
+    loop, unprofiled (tokens/s of each) and under ``torch.profiler``
+    (prefill and both decodes: device busy share and device time by
+    kernel); the graph's tokens equal the eager loop's, and the last
+    step's logits are compared bit for bit;
 11. serve mamba2-1.3b the same way; every prefill's 48 layers go through K3;
 12. one stablelm-12b prefill (head dim 160) of a 2000-token prompt at full
     width: 40 K2 launches, finite logits, and the 256-token prefill through
@@ -89,7 +95,8 @@ non-zero):
     paligemma-3b): K2 launches where a config has GQA attention, K3 where
     it has Mamba layers (deepseek-v3's MLA launches neither), every one on
     the generic route, and one prefill through the kernels against the same
-    prefill through their plain versions;
+    prefill through their plain versions (each engine decodes through its
+    captured graph);
 18. training on the card, through the plain attention and SSD paths with
     autograd (K2 and K3 have no backward; their launches must stay at
     zero): (a) one float32 ``make_train_step`` step of reduced yi-6b,
@@ -122,7 +129,8 @@ non-zero):
     musicgen-large at full width and depth (48 launches on ``wgmma`` at
     head dim 64 after 64 prefix positions, 4 codebooks), each checked
     against the plain version as in phase 20; musicgen then decodes 8
-    steps.  A ``phases 19-21 summary:`` JSON line follows phase 21;
+    steps through a captured ``DecodeProgram`` and through the eager loop,
+    tokens equal.  A ``phases 19-21 summary:`` JSON line follows phase 21;
 22. the multi-device layer on a 1 x 1 (data, model) mesh over NCCL at
     world size 1: yi-6b at full width, 4 of 32 layers, trained through
     ``train_loop(..., mesh=mesh)`` on phase 18c's traffic (4 x 2048 tokens)
@@ -1068,7 +1076,7 @@ def serve_phase(torch, cfg, params, label: str, per_prefill: dict,
     engine = TE.ServeEngine(cfg, params, max_len=PROMPT_LEN + MAX_NEW + 8,
                             device=dev)
     prefills, finite = [0], []
-    inner_prefill, inner_decode = engine._prefill, TE.decode_step
+    inner_prefill, inner_advance = engine._prefill, TE.DecodeProgram.advance
 
     def counted_prefill(prompt):
         logits, caches, length = inner_prefill(prompt)
@@ -1076,13 +1084,13 @@ def serve_phase(torch, cfg, params, label: str, per_prefill: dict,
         finite.append(torch.isfinite(logits).all())
         return logits, caches, length
 
-    def checked_decode(*args):
-        logits, caches = inner_decode(*args)
-        finite.append(torch.isfinite(logits).all())
-        return logits, caches
+    def checked_advance(program):
+        # the logits buffer after each replay of the captured step
+        inner_advance(program)
+        finite.append(torch.isfinite(program.logits).all())
 
     engine._prefill = counted_prefill
-    TE.decode_step = checked_decode
+    TE.DecodeProgram.advance = checked_advance
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     for mod in counts.values():
@@ -1096,8 +1104,12 @@ def serve_phase(torch, cfg, params, label: str, per_prefill: dict,
                 TE.Request(i, client, now, prompt, MAX_NEW), now))
         torch.cuda.synchronize()
     finally:
-        TE.decode_step = inner_decode
+        TE.DecodeProgram.advance = inner_advance
     seconds = time.perf_counter() - t_run
+    if engine.program is None or engine.program.graph is None:
+        raise AssertionError(f"{label}: the engine decoded without a graph")
+    log(f"{label}: decode graph captured once, capture_seconds="
+        f"{engine.program.capture_seconds:.3f}")
     launches = {name: mod.LAUNCHES for name, mod in counts.items()}
     rates = []
     for c in comps:
@@ -1113,6 +1125,7 @@ def serve_phase(torch, cfg, params, label: str, per_prefill: dict,
                                             if warm else None),
                "decode_tokens_per_s_median": statistics.median(rates),
                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "capture_seconds": engine.program.capture_seconds,
                "launches": launches}
     log(f"{label}: requests={len(comps)} seconds={seconds:.3f} prefills="
         f"{prefills[0]} launches={launches} stats={engine.stats} "
@@ -1144,7 +1157,8 @@ def serve_phase(torch, cfg, params, label: str, per_prefill: dict,
     if mods:
         check_prefill_pair(label, *prefill_pair(torch, cfg, params, mods,
                                                 dev))
-    summary["busy_share"] = profile_request(torch, label, cfg, params, dev)
+    summary.update(profile_request(torch, label, cfg, params,
+                                   engine.program))
     del engine
     return summary
 
@@ -1200,7 +1214,8 @@ def prefill_phase(torch, cfg, label: str, K2, dev, phase: str,
     where the model has one): one K2 launch per attention layer, all on the
     route ``K2.route`` names, finite logits, the 256-token prefill through
     K2 against its plain version, then ``decode_steps`` greedy decode steps
-    (finite logits, tokens in range).  Returns K2's launches."""
+    through a captured ``DecodeProgram`` and through the eager loop (tokens
+    equal, finite logits, tokens in range).  Returns K2's launches."""
     from repro_torch.models.transformer import decode_step, prefill
 
     log(f"== {phase}: {label} prefill at full width (K2 at head dim "
@@ -1228,6 +1243,15 @@ def prefill_phase(torch, cfg, label: str, K2, dev, phase: str,
                              f"one prefill of {attn_layers(cfg)} attention "
                              f"layers on route {named}")
     finite = [torch.isfinite(logits).all()]
+    if decode_steps:
+        from repro_torch.serve.engine import DecodeProgram
+        program = DecodeProgram(params, cfg, caches, logits[0].argmax(-1))
+        graph_vs_eager(torch, label, params, cfg, program,
+                       (logits, caches, n), decode_steps)
+        finite.append(torch.isfinite(program.logits).all())
+        log(f"{label}: decode graph captured once, capture_seconds="
+            f"{program.capture_seconds:.3f}")
+        del program
     tok, out = logits.argmax(-1), []
     t0 = time.perf_counter()
     for i in range(decode_steps):
@@ -1273,16 +1297,56 @@ def device_kernels(torch, fn, key: str) -> tuple[int | None, float]:
     return None, 0.0
 
 
-def profile_request(torch, arch: str, cfg, params, dev) -> dict:
-    """One cold prefill of a PROMPT_LEN prompt and MAX_NEW decode steps
-    under ``torch.profiler``: wall time, device busy time and share, and
-    device time by kernel (the profiler's own host cost inflates wall).
-    Returns the busy share of each part."""
+def eager_decode(params, cfg, logits, caches, n: int, steps: int):
+    """The per-token loop the engine ran before its decode program: int
+    positions, caches written in place, each token read back to the host
+    before its step.  Returns those tokens (a list) and the last step's
+    logits."""
+    from repro_torch.models.transformer import decode_step
+    tok, toks = logits.argmax(-1), []
+    for i in range(steps):
+        toks.append(tok[0].tolist())
+        logits, caches = decode_step(params, cfg, tok, caches, n + i)
+        tok = logits.argmax(-1)
+    return toks, logits
+
+
+def graph_vs_eager(torch, label: str, params, cfg, program, out,
+                   steps: int) -> dict:
+    """``steps`` tokens from the prefill ``out`` through the captured
+    decode program and through the eager loop (the program first: it
+    copies the caches, the loop writes them): the tokens must be equal;
+    the last step's logits are compared bit for bit (largest difference
+    printed)."""
+    logits, caches, n = out
+    got = program.decode(caches, logits[0].argmax(-1), n, steps).tolist()
+    got_logits = program.logits.clone()
+    want, want_logits = eager_decode(params, cfg, logits, caches, n, steps)
+    same = got == want
+    diff = float((got_logits.float() - want_logits.float()).abs().max())
+    log(f"{label}: graph vs eager decode, {steps} steps: tokens_equal={same} "
+        f"last_logits_bitwise={bool(torch.equal(got_logits, want_logits))} "
+        f"last_logits_max_abs={diff:.3g} tokens={got[:4]}")
+    if not same:
+        raise AssertionError(f"{label}: graph-decoded tokens differ from the "
+                             f"eager loop's")
+    return {"graph_tokens_equal": same, "graph_logits_max_abs": diff}
+
+
+def profile_request(torch, arch: str, cfg, params, program) -> dict:
+    """One cold prefill of a PROMPT_LEN prompt, then MAX_NEW decode steps
+    through the engine's captured ``program`` and through the eager loop,
+    from that prefill: unprofiled wall time and tokens/s of each decode,
+    then each part under ``torch.profiler``: wall time, device busy time
+    and share, and device time by kernel (the profiler's own host cost
+    inflates wall; the decodes' busy time is also given over the
+    unprofiled wall).  The graph's tokens must equal the eager loop's.
+    Returns the busy shares, both decode rates and the comparison."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.models.transformer import decode_step, prefill
-    tokens, pe = stub_inputs(torch, cfg, PROMPT_LEN, dev)
+    from repro_torch.models.transformer import prefill
+    tokens, pe = stub_inputs(torch, cfg, PROMPT_LEN, program.device)
     state, shares = {}, {}
 
     def run_prefill():
@@ -1290,14 +1354,27 @@ def profile_request(torch, arch: str, cfg, params, dev) -> dict:
                                max_len=PROMPT_LEN + MAX_NEW + 8
                                + cfg.n_prefix)
 
-    def run_decode():
+    def run_graph():
         logits, caches, n = state["out"]
-        tok = logits.argmax(-1)
-        for i in range(MAX_NEW):
-            logits, caches = decode_step(params, cfg, tok, caches, n + i)
-            tok = logits.argmax(-1)
+        program.decode(caches, logits[0].argmax(-1), n, MAX_NEW).tolist()
 
-    for part, fn in (("prefill", run_prefill), ("decode", run_decode)):
+    def run_eager():
+        eager_decode(params, cfg, *state["out"], MAX_NEW)
+
+    run_prefill()
+    rates = {}
+    for part, fn in (("decode_graph", run_graph), ("decode_eager", run_eager)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        rates[part] = MAX_NEW / (time.perf_counter() - t0)
+    log(f"{arch} unprofiled decode, {MAX_NEW} tokens from one prefill: "
+        f"graph_tokens_per_s={rates['decode_graph']:.2f} eager_tokens_per_s="
+        f"{rates['decode_eager']:.2f} graph_over_eager="
+        f"{rates['decode_graph'] / rates['decode_eager']:.2f}")
+    for part, fn in (("prefill", run_prefill), ("decode_graph", run_graph),
+                     ("decode_eager", run_eager)):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1313,9 +1390,14 @@ def profile_request(torch, arch: str, cfg, params, dev) -> dict:
         ours_ms = sum(e.self_device_time_total for e in ours) / 1e3
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
         shares[part] = busy_ms / wall_ms
+        # the profiler's host cost inflates wall: the device busy time over
+        # the unprofiled run's wall too
+        over_unprofiled = (f" busy_over_unprofiled_wall="
+                           f"{busy_ms * rates[part] / MAX_NEW / 1e3:.3f}"
+                           if part in rates else "")
         log(f"{arch} profiled {part}: wall_ms={wall_ms:.2f} "
             f"device_busy_ms={busy_ms:.2f} busy_share="
-            f"{busy_ms / wall_ms:.3f} kernels="
+            f"{busy_ms / wall_ms:.3f}{over_unprofiled} kernels="
             f"{sum(e.count for e in kernels)} port_kernels_ms={ours_ms:.3f} "
             f"port_kernels_share_of_busy={ours_ms / max(busy_ms, 1e-9):.3f} "
             f"port_kernel_launches={sum(e.count for e in ours)}")
@@ -1323,7 +1405,12 @@ def profile_request(torch, arch: str, cfg, params, dev) -> dict:
             log(f"{arch} profiled {part} kernel: ms="
                 f"{e.self_device_time_total / 1e3:.3f} count={e.count} "
                 f"name={e.key[:90]}")
-    return shares
+    run_prefill()                  # caches the eager loop has not written
+    check = graph_vs_eager(torch, arch, params, cfg, program, state["out"],
+                           MAX_NEW)
+    return {"busy_share": shares,
+            "decode_tokens_per_s_graph": rates["decode_graph"],
+            "decode_tokens_per_s_eager": rates["decode_eager"], **check}
 
 
 def _leaves(tree):

@@ -140,8 +140,13 @@ def chunked_attention(q, k, v, *, causal: bool = True,
                       scale: float | None = None) -> torch.Tensor:
     """Online-softmax attention over (q-chunk, kv-chunk) pairs.
 
-    Only causally-reachable chunk pairs are visited.  Works for self-
-    attention (Sq == Skv) with q and k aligned at position 0.
+    Only causally-reachable chunk pairs are visited, one diagonal
+    d = i - j at a time: every pair (i, i - d) of a diagonal goes through
+    one batched einsum and one carry update, so the op count grows with
+    the number of chunks, not its square.  The diagonals run from the
+    farthest down to 0, which visits each q chunk's kv chunks in ascending
+    order, the JAX package's pair order.  Works for self-attention
+    (Sq == Skv) with q and k aligned at position 0.
     """
     b, s, hq, dk = q.shape
     hkv = k.shape[2]
@@ -149,41 +154,45 @@ def chunked_attention(q, k, v, *, causal: bool = True,
     scale = scale if scale is not None else 1.0 / math.sqrt(dk)
     if s % chunk_size:
         raise ValueError(f"S={s} is not a multiple of chunk {chunk_size}")
-    n = s // chunk_size
-    wc = None if window is None else max(0, math.ceil(window / chunk_size))
-    qg = _gqa_expand(q, hkv)                    # [B,S,K,G,D]
-    g = hq // hkv
     c = chunk_size
+    n = s // c
+    wc = None if window is None else max(0, math.ceil(window / c))
+    g = hq // hkv
+    qg = q.reshape(b, n, c, hkv, g, dk)
+    kc = k.reshape(b, n, c, hkv, dk)
+    vc = v.reshape(b, n, c, hkv, dv)
     dev = q.device
     base = torch.arange(c, device=dev)
-    # one online-softmax carry per q chunk, over the kv chunks the
-    # causal/window mask allows in order; the carry is replaced rather than
-    # written in place, so that autograd can differentiate through it
-    outs = []
-    for i in range(n):
-        qs = slice(i * c, (i + 1) * c)
-        acc = torch.zeros((b, c, hkv, g, dv), dtype=torch.float32, device=dev)
-        m = torch.full((b, c, hkv, g), -math.inf, dtype=torch.float32,
-                       device=dev)
-        l = torch.zeros((b, c, hkv, g), dtype=torch.float32, device=dev)
-        for j in range(0 if wc is None else max(0, i - wc), i + 1):
-            ks = slice(j * c, (j + 1) * c)
-            logits = torch.einsum("bskgd,btkd->bkgst", qg[:, qs],
-                                  k[:, ks]).float() * scale
-            mask = _mask(base + i * c, base + j * c, causal, window)
+    # one online-softmax carry per q chunk; chunks i < d have not started
+    # at diagonal d.  The carry is replaced rather than written in place,
+    # so that autograd can differentiate through it
+    acc = torch.zeros((b, n, c, hkv, g, dv), dtype=torch.float32, device=dev)
+    m = torch.full((b, n, c, hkv, g), -math.inf, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((b, n, c, hkv, g), dtype=torch.float32, device=dev)
+    for d in range(n - 1 if wc is None else min(wc, n - 1), -1, -1):
+        logits = torch.einsum("bnskgd,bntkd->bnkgst", qg[:, d:],
+                              kc[:, :n - d]).float() * scale
+        # every pair of a diagonal has the same mask: the causal one only
+        # at d = 0, the window's only where a distance reaches it
+        if (causal and d == 0) or (window is not None
+                                   and (d + 1) * c - 1 >= window):
+            mask = _mask(base + d * c, base, causal, window)
             logits = torch.where(mask, logits,
                                  torch.full_like(logits, NEG_INF))
-            m_blk = torch.amax(logits, dim=-1).movedim(-1, 1)   # [B,c,K,G]
-            m_new = torch.maximum(m, m_blk)
-            p = torch.exp(logits - m_new.movedim(1, -1)[..., None])
-            l_blk = torch.sum(p, dim=-1).movedim(-1, 1)
-            alpha = torch.exp(m - m_new)
-            pv = torch.einsum("bkgst,btkd->bskgd", p.to(v.dtype), v[:, ks])
-            acc = acc * alpha[..., None] + pv.float()
-            m = m_new
-            l = l * alpha + l_blk
-        outs.append(acc / torch.clamp(l[..., None], min=1e-30))
-    out = torch.cat(outs, dim=1)
+        m_d, l_d, acc_d = m[:, d:], l[:, d:], acc[:, d:]
+        m_blk = torch.amax(logits, dim=-1).movedim(-1, 2)   # [B,n-d,c,K,G]
+        m_new = torch.maximum(m_d, m_blk)
+        p = torch.exp(logits - m_new.movedim(2, -1)[..., None])
+        l_blk = torch.sum(p, dim=-1).movedim(-1, 2)
+        alpha = torch.exp(m_d - m_new)
+        pv = torch.einsum("bnkgst,bntkd->bnskgd", p.to(v.dtype),
+                          vc[:, :n - d])
+        acc = torch.cat([acc[:, :d], acc_d * alpha[..., None] + pv.float()],
+                        dim=1)
+        m = torch.cat([m[:, :d], m_new], dim=1)
+        l = torch.cat([l[:, :d], l_d * alpha + l_blk], dim=1)
+    out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.to(q.dtype).reshape(b, s, hq, dv)
 
 
@@ -240,12 +249,32 @@ def gqa_prefill(params, cfg: AttentionConfig, x, positions):
     return out, {"k": k, "v": v}
 
 
-def gqa_decode(params, cfg: AttentionConfig, x, cache, cache_len: int):
+def _positions(cache_len, device) -> torch.Tensor:
+    """The decode position as a [1] int64 tensor: from a Python int, or a
+    view of a 0-d tensor already on the device (a captured decode step
+    reads its position there)."""
+    if isinstance(cache_len, torch.Tensor):
+        return cache_len.reshape(1)
+    return torch.full((1,), int(cache_len), dtype=torch.int64, device=device)
+
+
+def _write(cache: torch.Tensor, at, new: torch.Tensor) -> None:
+    """cache[:, at] = new[:, 0] in place.  A Python int writes through a
+    slice, which a DTensor cache on a mesh takes too; a [1] device tensor
+    through ``index_copy_``, with no read-back to the host."""
+    if isinstance(at, torch.Tensor):
+        cache.index_copy_(1, at, new)
+    else:
+        cache[:, at] = new[:, 0]
+
+
+def gqa_decode(params, cfg: AttentionConfig, x, cache, cache_len):
     """One-token decode.  x: [B,1,D]; cache k/v: [B,Smax,Hkv,D];
-    cache_len: number of valid cache positions.  Returns (out [B,1,D],
-    cache).  The new key and value are written into ``cache`` in place (the
-    JAX package returns updated copies); the cache belongs to the caller's
-    sequence, so nothing else sees the write.
+    cache_len: number of valid cache positions, an int or a 0-d int64
+    tensor on ``x``'s device (bitwise the same result).  Returns (out
+    [B,1,D], cache).  The new key and value are written into ``cache`` in
+    place (the JAX package returns updated copies); the cache belongs to
+    the caller's sequence, so nothing else sees the write.
 
     Sliding-window layers may use a RING cache of size <= window: the write
     index wraps (``pos % Smax``) and positions the window can no longer see
@@ -254,14 +283,16 @@ def gqa_decode(params, cfg: AttentionConfig, x, cache, cache_len: int):
     """
     b = x.shape[0]
     smax = cache["k"].shape[1]
-    pos = int(cache_len)
+    posv = _positions(cache_len, x.device)
+    # a tensor position stays on the device: the write, the ring's modulo
+    # and the masks read it there
+    pos = posv if isinstance(cache_len, torch.Tensor) else int(cache_len)
     ring = cfg.window is not None and smax <= cfg.window
-    posv = torch.full((1,), pos, dtype=torch.int64, device=x.device)
     q, k, v = _qkv(params, cfg, x, posv)
     write_at = pos % smax if ring else pos
     k_cache, v_cache = cache["k"], cache["v"]
-    k_cache[:, write_at] = k[:, 0]
-    v_cache[:, write_at] = v[:, 0]
+    _write(k_cache, write_at, k)
+    _write(v_cache, write_at, v)
     k_cache = constrain(k_cache, "kv_cache")
     v_cache = constrain(v_cache, "kv_cache")
 
@@ -346,15 +377,16 @@ def mla_prefill(params, cfg: AttentionConfig, x, positions):
     return out, {"c": c_lat, "k_rope": k_rope}
 
 
-def mla_decode(params, cfg: AttentionConfig, x, cache, cache_len: int):
+def mla_decode(params, cfg: AttentionConfig, x, cache, cache_len):
     """One-token decode over the latent cache; the new latent and rope key
-    are written into ``cache`` in place, as in ``gqa_decode``."""
-    pos = int(cache_len)
-    posv = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+    are written into ``cache`` in place, and ``cache_len`` is an int or a
+    0-d device tensor, as in ``gqa_decode``."""
+    posv = _positions(cache_len, x.device)
+    pos = posv if isinstance(cache_len, torch.Tensor) else int(cache_len)
     q_lat, q_rope, c_lat, k_rope = _mla_qkv(params, cfg, x, posv)
     c_cache, kr_cache = cache["c"], cache["k_rope"]
-    c_cache[:, pos] = c_lat[:, 0]
-    kr_cache[:, pos] = k_rope[:, 0]
+    _write(c_cache, pos, c_lat)
+    _write(kr_cache, pos, k_rope)
     c_cache = constrain(c_cache, "latent_cache")
     kr_cache = constrain(kr_cache, "latent_cache")
 

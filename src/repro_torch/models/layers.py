@@ -97,8 +97,10 @@ def rope_freqs(head_dim: int, theta: float = 10000.0,
                device=None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    # a fill on the device, not a host tensor copied over: a captured
+    # decode step cannot copy from pageable host memory
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                      device=device), exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

@@ -422,7 +422,7 @@ def prefill(params, cfg: ModelConfig, tokens, prefix_embeddings=None,
 
 
 def _layer_decode(p, cfg: ModelConfig, spec: LayerSpec, x, cache,
-                  cache_len: int):
+                  cache_len):
     mixer, ffn = spec
     h = rmsnorm(x, p["norm1"])
     if mixer == "mamba":
@@ -437,10 +437,13 @@ def _layer_decode(p, cfg: ModelConfig, spec: LayerSpec, x, cache,
 
 
 @_on_mesh
-def decode_step(params, cfg: ModelConfig, token, caches, cache_len: int):
+def decode_step(params, cfg: ModelConfig, token, caches, cache_len):
     """One decode step.  token: [B] or [B,CB]; caches from prefill;
-    cache_len: current length (prefix included).  Returns (logits, new
-    caches); attention caches are updated in place."""
+    cache_len: current length (prefix included), a Python int or a 0-d
+    int64 tensor on the device, as the JAX package's jitted step takes a
+    traced scalar (bitwise the same result; a captured step reads it
+    there).  Returns (logits, new caches); attention caches are updated in
+    place, Mamba's states are new tensors."""
     x = _embed(params, cfg, token)[:, None, :]
     new_caches: dict[str, Any] = {"prelude": [], "units": []}
     for p, spec, cache in zip(params["prelude"], cfg.prelude,

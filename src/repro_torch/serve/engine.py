@@ -14,7 +14,10 @@ requests arriving at high frequency.  The engine
 Prefill and decode run on the engine's device (CUDA by default, where
 prefill goes through the attention and SSD kernels); the scheduler is
 host-side control logic whose ARIMA forecasts go through the ARIMA bank
-kernel.
+kernel.  Decode runs through one :class:`DecodeProgram` per engine: on
+CUDA one decode step captured in a CUDA graph and replayed per token (the
+counterpart of the JAX package's jitted decode step), on the CPU the same
+step eagerly.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from repro_torch.core.arima import ARIMA, predict_next_timestamp
 from repro_torch.device import resolve_device
@@ -56,6 +60,90 @@ class Completion:
         return self.first_token_at - self.served_at
 
 
+class DecodeProgram:
+    """Greedy decode of one sequence over fixed buffers: every layer's
+    cache, the input token ([1], or [1, CB] with codebooks), the position
+    (a 0-d int64 tensor) and the logits.
+
+    One step runs ``decode_step`` at the position buffer, copies Mamba's
+    new states into their buffers (attention caches are written in place),
+    writes the argmax into the token buffer and advances the position, all
+    on the device.  On CUDA the step is captured once in a
+    ``torch.cuda.CUDAGraph`` (after one warm-up step on the capture's
+    stream) and every later step replays it; a capture that fails raises.
+    On the CPU the step runs eagerly.  Requests load their caches into the
+    buffers by copy, so a prefill's or prewarmed cache's own tensors are
+    never written.
+    """
+
+    def __init__(self, params, cfg: ModelConfig, caches, token: torch.Tensor):
+        self.params, self.cfg = params, cfg
+        self.device = token.device
+        self.caches = pytree.tree_map(torch.empty_like, caches)
+        self.token = torch.empty_like(token)[None]
+        self.pos = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.logits: torch.Tensor | None = None
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.capture_seconds: float | None = None
+
+    def load(self, caches, token: torch.Tensor, pos: int) -> None:
+        for buf, src in zip(pytree.tree_leaves(self.caches),
+                            pytree.tree_leaves(caches), strict=True):
+            buf.copy_(src)
+        self.token[0].copy_(token)
+        self.pos.fill_(pos)
+
+    def _step(self) -> torch.Tensor:
+        logits, caches = decode_step(self.params, self.cfg, self.token,
+                                     self.caches, self.pos)
+        for buf, new in zip(pytree.tree_leaves(self.caches),
+                            pytree.tree_leaves(caches), strict=True):
+            if new is not buf:
+                buf.copy_(new)
+        self.token[0].copy_(torch.argmax(logits[0], dim=-1))
+        self.pos.add_(1)
+        return logits
+
+    def capture(self) -> None:
+        """Warm up on a side stream (the step runs for real and writes the
+        buffers: reload them before replaying) and capture one step."""
+        t0 = time.perf_counter()
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            self._step()
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            self.logits = self._step()
+        torch.cuda.synchronize(self.device)
+        self.graph = graph
+        self.capture_seconds = time.perf_counter() - t0
+
+    def advance(self) -> None:
+        """One step: the captured graph's replay, or the eager step."""
+        if self.graph is not None:
+            self.graph.replay()
+        else:
+            self.logits = self._step()
+
+    def decode(self, caches, token: torch.Tensor, pos: int,
+               steps: int) -> torch.Tensor:
+        """``steps`` steps from ``token`` at ``pos`` over ``caches``;
+        returns each step's input token, [steps] or [steps, CB], on the
+        device.  On CUDA the first call captures the step."""
+        if self.device.type == "cuda" and self.graph is None:
+            self.load(caches, token, pos)
+            self.capture()
+        self.load(caches, token, pos)
+        out = torch.empty((steps, *token.shape), dtype=self.token.dtype,
+                          device=self.device)
+        for i in range(steps):
+            out[i].copy_(self.token[0])
+            self.advance()
+        return out
+
+
 class ServeEngine:
     """Single-host engine: one request at a time, greedy decoding."""
 
@@ -71,6 +159,7 @@ class ServeEngine:
         self._sched_arima = ARIMA(bank=False, device=self.device)
         self._client_history: dict[int, list[float]] = {}
         self._prewarmed: dict[int, tuple[Any, int, float]] = {}
+        self.program: DecodeProgram | None = None    # made at first decode
         self.stats = {"prefetched_prefills": 0, "total": 0}
 
     # -- HPM-style scheduling -----------------------------------------------
@@ -112,6 +201,11 @@ class ServeEngine:
     def serve(self, req: Request, now: float | None = None) -> Completion:
         t_entry = time.monotonic()
         now = t_entry if now is None else now
+        if len(req.prompt) + req.max_new_tokens > self.max_len:
+            # a captured step cannot check its write position on the host
+            raise ValueError(f"request {req.request_id}: {len(req.prompt)} "
+                             f"prompt and {req.max_new_tokens} new tokens "
+                             f"exceed max_len={self.max_len}")
         self.stats["total"] += 1
         pre = self._prewarmed.pop(req.client_id, None)
         prefetched = False
@@ -125,19 +219,14 @@ class ServeEngine:
             logits, caches, length = self._prefill(req.prompt)
         # greedy next token; musicgen picks one token per codebook
         tok = torch.argmax(logits[0], dim=-1)
-        first = tok.tolist()                    # waits for the device
+        tok.tolist()            # the first token's read-back: waits for it
         t_first = time.monotonic()
-        out_tokens: list = []
+        if self.program is None:
+            self.program = DecodeProgram(self.params, self.cfg, caches, tok)
         # ``length`` counts the prefix positions already; the JAX package's
         # engine adds ``n_prefix`` once more and decodes past its cache
-        pos = length
-        for i in range(req.max_new_tokens):
-            out_tokens.append(first if i == 0 else tok.tolist())
-            logits, caches = decode_step(self.params, self.cfg, tok[None],
-                                         caches, pos + i)
-            tok = torch.argmax(logits[0], dim=-1)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        toks = self.program.decode(caches, tok, length, req.max_new_tokens)
+        out_tokens = toks.tolist()              # one read-back, at the end
         t_done = time.monotonic()
         # next-request prediction (subscription)
         prewarm_at = self.observe_arrival(req.client_id, now)

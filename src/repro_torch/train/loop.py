@@ -19,7 +19,8 @@ mesh=mesh)``) the parameters and AdamW moments are DTensors placed by
 axes), batches by ``batch_spec``; the step is the same code on DTensors,
 and its gradient norm is a global reduction.  ``mesh=None`` keeps the
 single-device step as it was.  ``train_loop`` takes the mesh as a keyword
-(the JAX package passes it third, before the data iterator).
+(the JAX package passes it third, before the data iterator) and raises
+``TypeError`` on a mesh in the data iterator's place.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from typing import Callable
 import torch
 import torch.utils._pytree as pytree
 
+from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.device import resolve_device
@@ -162,6 +164,10 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, data_iter, n_steps: int,
     batches; each keeps its shard)."""
     from repro_torch.distributed.checkpoint import CheckpointManager
 
+    if isinstance(data_iter, DeviceMesh):
+        raise TypeError("train_loop takes the mesh as a keyword, mesh=...; "
+                        "the JAX package's third positional argument is "
+                        "data_iter here")
     device = resolve_device(device)
     step_fn = make_train_step(cfg, tcfg, mesh)
     first = batch_to_device(next(data_iter), device)

@@ -8,7 +8,8 @@ step on the card against the CPU's is phase 18a of ``chip_smoke.py``), and
 the multi-device layer at mesh size 1 over NCCL (the train step,
 a prefill through K2/K3 on local shards, ``moe_apply_ep``, the compressed
 all-reduce and a checkpoint into placements; phases 22-24 at reduced
-size).
+size), and the serving engine's decode step captured in a CUDA graph
+against the eager loop.
 
 Marked ``cuda``; every test skips where ``torch.cuda.is_available()`` is
 false.  On the card:
@@ -716,6 +717,104 @@ def test_kernel_entry_refuses_an_input_that_requires_grad(cuda, kernel,
     torch.cuda.synchronize()
     assert mod.LAUNCHES == 2
 
+
+
+# ---------------------------------------------------------------------------
+# the serving engine's decode program captured in a CUDA graph (before the
+# mesh tests, whose NCCL group starts a watchdog thread)
+# ---------------------------------------------------------------------------
+
+GRAPH_ARCHS = ["yi-6b", "gemma3-27b", "mamba2-1.3b", "deepseek-v3-671b",
+               "jamba-1.5-large-398b", "musicgen-large", "paligemma-3b"]
+
+
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_graph_decode_matches_eager_decode(cuda, arch):
+    """A reduced config's decode program captured on the card against the
+    eager per-token loop (int positions) from the same prefill, 16 steps:
+    tokens equal, every step's logits bitwise; the prefill's caches are
+    left as they were."""
+    from repro_torch.serve.engine import DecodeProgram
+    cfg = get_reduced_config(arch)
+    params = TT.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                            cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    shape = (1, 20, cfg.codebooks) if cfg.codebooks > 1 else (1, 20)
+    toks = torch.randint(0, cfg.vocab, shape, generator=gen, device=cuda)
+    pe = (torch.zeros((1, cfg.n_prefix, cfg.d_model), dtype=cfg.dtype,
+                      device=cuda) if cfg.n_prefix else None)
+    logits, caches, n = TT.prefill(params, cfg, toks, pe,
+                                   max_len=40 + cfg.n_prefix)
+    kept = [t.clone() for t in torch.utils._pytree.tree_leaves(caches)]
+    tok0 = logits[0].argmax(-1)
+    program = DecodeProgram(params, cfg, caches, tok0)
+    got = program.decode(caches, tok0, n, 16)
+    assert program.graph is not None and program.capture_seconds > 0
+    program.load(caches, tok0, n)
+    got_logits = []
+    for _ in range(16):
+        program.advance()
+        got_logits.append(program.logits.clone())
+    assert all(torch.equal(a, b) for a, b in zip(
+        kept, torch.utils._pytree.tree_leaves(caches)))
+    tok, want = logits.argmax(-1), []
+    for i in range(16):
+        want.append(tok[0])
+        step_logits, caches = TT.decode_step(params, cfg, tok, caches, n + i)
+        assert torch.equal(got_logits[i], step_logits), i
+        tok = step_logits.argmax(-1)
+    assert torch.equal(got, torch.stack(want))
+
+
+def test_serve_on_cuda_replays_one_graph_per_engine(cuda):
+    """``ServeEngine.serve`` on the card captures its decode step at the
+    first request and replays that graph for every later one; its tokens
+    equal the eager loop's."""
+    from repro_torch.serve import engine as TE
+    cfg = get_reduced_config("yi-6b")
+    params = TT.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                            cuda)
+    engine = TE.ServeEngine(cfg, params, max_len=40, device=cuda)
+    graphs = []
+    for i in range(4):
+        prompt = (np.arange(24) * (i % 3 + 3)) % cfg.vocab
+        comp = engine.serve(TE.Request(i, i % 3, 20.0 * i, prompt, 8),
+                            20.0 * i)
+        graphs.append(engine.program.graph)
+        logits, caches, n = engine._prefill(prompt)
+        tok, want = logits.argmax(-1), []
+        for j in range(8):
+            want.append(int(tok[0]))
+            step_logits, caches = TT.decode_step(params, cfg, tok, caches,
+                                                 n + j)
+            tok = step_logits.argmax(-1)
+        assert comp.tokens == want, i
+    assert graphs[0] is not None and all(g is graphs[0] for g in graphs)
+
+
+def test_graph_capture_that_meets_a_host_sync_raises(cuda, monkeypatch):
+    """A decode step that reads a value back to the host cannot be
+    captured: ``serve`` raises and leaves no graph, and no eager decode
+    takes its place."""
+    from repro_torch.serve import engine as TE
+    cfg = get_reduced_config("yi-6b")
+    params = TT.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                            cuda)
+    inner = TE.decode_step
+
+    def syncing(p, c, tok, caches, pos):
+        logits, caches = inner(p, c, tok, caches, pos)
+        float(logits.sum())                      # a host read-back
+        return logits, caches
+
+    monkeypatch.setattr(TE, "decode_step", syncing)
+    engine = TE.ServeEngine(cfg, params, max_len=40, device=cuda)
+    with pytest.raises(RuntimeError):
+        engine.serve(TE.Request(0, 0, 0.0, np.arange(24) % cfg.vocab, 4),
+                     0.0)
+    torch.cuda.synchronize()
+    assert engine.program.graph is None
+    assert engine.program.capture_seconds is None
 
 
 # ---------------------------------------------------------------------------

@@ -96,6 +96,47 @@ def test_chunked_attention_matches_repro(s, window):
     np.testing.assert_allclose(_np(got), _np(dense), atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("window", [None, 100])
+def test_chunked_attention_in_64_token_chunks_matches_repro(window):
+    """S = 9 x 64: no chunk of 512, 256 or 128 divides it, so both
+    packages' ``attention_any`` take 64-token chunks (musicgen-large's
+    prefill with its prefix is 513 x 64); a window of 100 is no multiple of
+    the chunk, so two diagonals need its mask."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv(5, 1, 9 * 64, 4, 2, 16, "f32")
+    want = jattn.attention_any(jq, jk, jv, window=window,
+                               dense_threshold=256)
+    got = tattn.attention_any(tq, tk, tv, window=window, dense_threshold=256)
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=1e-5)
+    dense = tattn.dense_attention(tq, tk, tv, causal=True, window=window)
+    np.testing.assert_allclose(_np(got), _np(dense), atol=2e-5, rtol=2e-5)
+
+
+class _OpCount(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts the ATen ops dispatched inside the block."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("window", [None, 100])
+def test_chunked_attention_ops_grow_with_the_chunk_count(window):
+    """The pairs of one diagonal run as one batch: 16 chunks take at most
+    2.5x the ATen ops of 8.  A loop over pairs takes ~3.7x, and ~2.8x with
+    the window of 100 (7 chunks of 16 back)."""
+    counts = []
+    for n in (8, 16):
+        _, (tq, tk, tv) = _qkv(6, 1, n * 16, 2, 1, 8, "f32")
+        with _OpCount() as mode:
+            tattn.chunked_attention(tq, tk, tv, window=window, chunk_size=16)
+        counts.append(mode.n)
+    assert counts[1] <= 2.5 * counts[0], counts
+
+
 def test_attention_any_picks_chunked_above_threshold():
     (jq, jk, jv), (tq, tk, tv) = _qkv(3, 1, 192, 2, 1, 16, "f32")
     want = jattn.attention_any(jq, jk, jv, chunk_size=128, dense_threshold=64)

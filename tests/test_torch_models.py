@@ -171,3 +171,60 @@ def test_ring_cache_decode_matches_full_prefill():
     out, _ = gqa_decode(p, cfg, x[:, s:s + 1], ring, s)
     np.testing.assert_allclose(out[:, 0].numpy(), ref[:, -1].numpy(),
                                atol=2e-5, rtol=2e-5)
+
+
+def _clone(tree):
+    return torch.utils._pytree.tree_map(torch.clone, tree)
+
+
+def _bitwise(a, b) -> bool:
+    la, lb = (torch.utils._pytree.tree_leaves(t) for t in (a, b))
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x.view(torch.uint8),
+                                           y.view(torch.uint8))
+        for x, y in zip(la, lb))
+
+
+# gemma3's prompt of 26 and caches of 32 <= its window make its local layers
+# ring caches; deepseek-v3 has MLA and MoE, musicgen codebooks and a prefix
+@pytest.mark.parametrize("arch,s,max_len", [
+    ("yi-6b", 24, 32), ("gemma3-27b", 26, 32), ("mamba2-1.3b", 40, 48),
+    ("deepseek-v3-671b", 24, 32), ("musicgen-large", 24, 32)])
+def test_decode_step_takes_a_tensor_position_bitwise(arch, s, max_len):
+    """``decode_step`` at a 0-d int64 tensor position (what a captured
+    decode step reads) gives bitwise the logits and caches of the same
+    call at a Python int, over four steps of the served type (bf16)."""
+    cfg = get_reduced_config(arch)
+    tp = TT.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    rng = np.random.default_rng(3)
+    toks, pe = _inputs(cfg, rng, 2, s)
+    pe = None if pe is None else torch.from_numpy(pe).to(cfg.dtype)
+    _, at_int, n = TT.prefill(tp, cfg, torch.from_numpy(toks), pe,
+                              max_len=max_len + cfg.n_prefix)
+    at_tensor = _clone(at_int)
+    for i in range(4):
+        tok = torch.from_numpy(_inputs(cfg, rng, 2, 1)[0][:, 0])
+        want, at_int = TT.decode_step(tp, cfg, tok, at_int, n + i)
+        got, at_tensor = TT.decode_step(tp, cfg, tok, at_tensor,
+                                        torch.tensor(n + i))
+        assert _bitwise(got, want), i
+        assert _bitwise(at_tensor, at_int), i
+
+
+def test_ring_cache_wraps_at_a_tensor_position_bitwise():
+    """A ring cache of 8 written past its end (positions 24-27 land in
+    slots 0-3): a tensor position gives bitwise the int's outputs and
+    cache."""
+    cfg = AttentionConfig(d_model=32, n_heads=4, n_kv_heads=2, head_dim=8,
+                          window=8)
+    gen = torch.Generator().manual_seed(1)
+    p = make_attention_params(gen, cfg, torch.float32)
+    x = torch.randn((2, 28, 32), generator=gen)
+    _, cache = gqa_prefill(p, cfg, x[:, :24], torch.arange(24))
+    ring = {k: v[:, 16:24].clone() for k, v in cache.items()}
+    ring_t = _clone(ring)
+    for pos in range(24, 28):
+        want, ring = gqa_decode(p, cfg, x[:, pos:pos + 1], ring, pos)
+        got, ring_t = gqa_decode(p, cfg, x[:, pos:pos + 1], ring_t,
+                                 torch.tensor(pos))
+        assert _bitwise(got, want) and _bitwise(ring_t, ring), pos

@@ -146,7 +146,8 @@ def test_port_engine_decodes_at_length():
 
     def spy(p, c, tok, caches, pos):
         logits, caches = inner(p, c, tok, caches, pos)
-        seen.append((pos, logits))
+        # the decode program's position is a tensor it advances in place
+        seen.append((int(pos), logits))
         return logits, caches
 
     prompt = np.random.default_rng(0).integers(0, tcfg.vocab, size=32)
@@ -170,3 +171,58 @@ def test_launcher_serves_prefix_and_codebook_models_on_the_cpu(arch):
                                 "cpu", "--requests", "4", "--prompt-len",
                                 "16", "--max-new", "3"])
     assert engine.stats["total"] == 4
+
+
+def _plain_decode(params, cfg, caches, tok, pos, steps):
+    """The per-token loop the engine ran before its decode program: each
+    step's input token, as a list."""
+    out = []
+    for i in range(steps):
+        out.append(tok.tolist())
+        logits, caches = TT.decode_step(params, cfg, tok[None], caches,
+                                        pos + i)
+        tok = torch.argmax(logits[0], dim=-1)
+    return out
+
+
+@pytest.mark.parametrize("arch", ["paligemma-3b", "musicgen-large",
+                                  "mamba2-1.3b", "jamba-1.5-large-398b"])
+def test_decode_program_matches_a_plain_decode_loop(arch):
+    """Reduced prefix (paligemma), codebook (musicgen) and Mamba models
+    (states copied back into the program's buffers): the engine's decode
+    program, run eagerly as on the CPU, gives the tokens of a plain
+    per-token ``decode_step`` loop and leaves the prefill's caches as they
+    were; so does ``serve`` on two requests."""
+    cfg = get_reduced_config(arch)
+    params = TT.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    engine = TE.ServeEngine(cfg, params, max_len=32, device="cpu")
+    rng = np.random.default_rng(0)
+    shape = (20, cfg.codebooks) if cfg.codebooks > 1 else (20,)
+    prompts = [rng.integers(0, cfg.vocab, size=shape) for _ in range(2)]
+    for i, prompt in enumerate(prompts):
+        logits, caches, length = engine._prefill(prompt)
+        tok = torch.argmax(logits[0], dim=-1)
+        kept = torch.utils._pytree.tree_map(torch.clone, caches)
+        want = _plain_decode(params, cfg, kept, tok, length, 8)
+        got = engine.serve(TE.Request(i, i, 0.0, prompt, 8), 0.0).tokens
+        assert got == want, i
+        program = engine.program
+        assert program.decode(caches, tok, length, 8).tolist() == want, i
+        leaves = torch.utils._pytree.tree_leaves
+        assert all(torch.equal(a, b) for a, b in zip(
+            leaves(caches), leaves(engine._prefill(prompt)[1])))
+    assert program.graph is None
+
+
+def test_engine_refuses_a_request_past_max_len():
+    """A captured step cannot check its write position on the host: the
+    engine refuses a request whose prompt and new tokens pass
+    ``max_len`` before it prefills."""
+    cfg = get_reduced_config("yi-6b")
+    params = TT.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    engine = TE.ServeEngine(cfg, params, max_len=24, device="cpu")
+    with pytest.raises(ValueError, match="max_len=24"):
+        engine.serve(TE.Request(0, 0, 0.0, np.arange(20), 5), 0.0)
+    assert engine.stats["total"] == 0

@@ -452,3 +452,22 @@ def test_launcher_trains_moe_prefix_and_codebook_models_on_the_cpu(arch):
         ["--arch", arch, "--reduced", "--device", "cpu", "--steps", "2",
          "--batch", "2", "--seq", "16"])
     assert history and all(np.isfinite(m["loss"]) for _, m in history)
+
+
+def test_train_loop_refuses_a_mesh_in_data_iters_place():
+    """``repro``'s ``train_loop(cfg, tcfg, mesh, data_iter, ...)`` called
+    positionally hands the port a mesh as ``data_iter``: a ``TypeError``
+    that names the keyword, before anything is built."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    started = not dist.is_initialized()
+    mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+    try:
+        cfg = get_reduced_config("yi-6b")
+        with pytest.raises(TypeError, match="mesh="):
+            TL.train_loop(cfg, TL.TrainConfig(), mesh, iter([]), 1,
+                          device="cpu")
+    finally:
+        if started:
+            dist.destroy_process_group()
