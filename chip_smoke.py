@@ -45,7 +45,11 @@ non-zero):
    TFLOP/s, the share of the bf16 bound and the ratio to SDPA;
 9. K3 against its plain version (the exact recurrence) on ``SSD_SWEEP``
    and the mamba2-1.3b prefill shape: the share of the bytes bound, CUDA
-   kernels per call and scratch bytes;
+   kernels per call and scratch bytes; 9b. K3's backward against its plain
+   version (the same chunked decomposition in eager float32) on both
+   routes and at mamba2-1.3b's training shape (4 x 2048 tokens): the route
+   taken, relative L2 per gradient, two calls bitwise equal, kernel and
+   plain times, the bound, CUDA kernels per call and scratch bytes;
 10. serve yi-6b at full width (random weights from a seed) with
     ``ServeEngine``: three jittered recurring clients, 2000-token prompts;
     every prefill's 32 attention layers go through K2, the scheduler's
@@ -97,22 +101,33 @@ non-zero):
     the generic route, and one prefill through the kernels against the same
     prefill through their plain versions (each engine decodes through its
     captured graph);
-18. training on the card, through the plain attention and SSD paths with
-    autograd (K2 and K3 have no backward; their launches must stay at
-    zero): (a) one float32 ``make_train_step`` step of reduced yi-6b,
-    mamba2-1.3b, deepseek-v3 (MLA, MoE, MTP, aux loss) and jamba on the
-    card against the CPU (loss within rtol 1e-4, the first moment within
-    1e-3 relative L2); (b) ``train_loop`` on
-    mamba2-1.3b at full width and depth, bf16, ``SyntheticLM`` through
-    ``PrefetchingLoader``, 4 x 2048 tokens a step, 6 steps: losses and grad
-    norms finite and no step skipped; step time, tokens/s, 6·N·T per step
-    time as a share of 989 TFLOP/s, peak memory, the loader's stats and the
-    device busy share of one more step profiled tracing the card only
-    (beside an unprofiled step's wall time); (c) the
-    same for yi-6b at full width with its 32 layers cut to 4; (d) a
-    checkpoint at step 2 resumed to step 4 on a reduced config, bitwise
-    equal to restoring by hand, then ``python -m repro_torch.launch.train
-    --arch yi-6b --reduced --steps 3`` on the card by default;
+18. training on the card, the SSD through K3 forward and backward (an
+    autograd Function), attention through the plain path with autograd (K2
+    has no backward; its launches must stay at zero), each ``train_loop``
+    step after the first a replay of one captured CUDA graph: (a) one
+    float32 ``make_train_step`` step of reduced yi-6b, mamba2-1.3b,
+    deepseek-v3 (MLA, MoE, MTP, aux loss) and jamba on the card against
+    the CPU (loss within rtol 1e-4, the first moment within 1e-3 relative
+    L2); (b) ``train_loop`` on mamba2-1.3b at full width and depth, bf16,
+    ``SyntheticLM`` through ``PrefetchingLoader``, 4 x 2048 tokens a step,
+    6 steps: losses and grad norms finite and no step skipped, K3's
+    forward and backward wrappers called 96 and 48 times a step (in the
+    eager warm-up step and in the captured one), and a profiled replay's
+    kernel table holding 96 and 48 K3 calls; the launches reported are
+    those executed (warm-up and replays); step time, tokens/s,
+    6·N·T per step time as a share of 989 TFLOP/s, peak memory and the
+    loader's stats; then in the same run eager steps and replays of a
+    captured ``TrainProgram``, each with its wall time, tokens/s, 6·N·T
+    share, peak memory and the busy share and kernels of one step profiled
+    tracing the card only; the graph step's device time by op (K3
+    forward, K3 backward, GEMMs, the largest other kernels by name, AdamW
+    timed alone) and one layer's SSD at the training shape forward and
+    backward through K3 and through autograd of the plain
+    ``ssd_chunked``; (c) the same for yi-6b at full width with its 32
+    layers cut to 4 (no K3 launch); (d) a checkpoint at step 2 resumed to
+    step 4 on a reduced config, bitwise equal to restoring by hand, then
+    ``python -m repro_torch.launch.train --arch yi-6b --reduced --steps
+    3`` on the card by default;
 19. deepseek-v3-671b at full width, 4 of 61 layers (3 dense MLA layers,
     one MLA/MoE unit and the MTP layer ``init_params`` builds; ~50 GiB of
     random weights), served as in phase 10: no K2/K3 launch (MLA's
@@ -1000,6 +1015,167 @@ def phase_k3(torch, K3, dev) -> dict:
                                           "bound_by", "library_ms",
                                           "cuda_kernels_per_call")},
             "shape": "Bt=1 S=2048 H=64 P=64 G=1 N=128 bf16"}
+
+
+# bt, s, h, p, g, n, dtype name: K3's backward on the chunked route (N = P
+# = 128 in float32, two groups in bf16), on the generic route (phase 16's
+# reduced shape, and phase 18a's float32 training batch of reduced
+# mamba2-1.3b), then mamba2-1.3b's training shape (4 x 2048 tokens, the
+# main path's, last)
+SSD_BWD_SHAPES = [
+    (1, 256, 2, 128, 1, 128, "float32"),
+    (2, 300, 4, 64, 2, 128, "bfloat16"),
+    (1, 2048, 8, 16, 1, 16, "bfloat16"),
+    (4, 128, 8, 16, 1, 16, "float32"),
+    (4, 2048, 64, 64, 1, 128, "bfloat16"),
+]
+# relative L2 of each gradient against the plain backward: float32 sums in
+# other orders (the generic route runs the exact recurrence); bf16 adds
+# the rounding of dx, dB, dC to bf16 on both sides.  The bf16 limit lies
+# between the kernel (<= 1.3e-4) and a build whose float32 factors lose
+# their lo terms (dx, dB, dC 2.5e-3-2.8e-3; scripts/k3_bwd_lo_control.py)
+SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 5e-4}
+
+
+def ssd_bwd_work(bt, s, h, p, g, n, esize) -> tuple[int, int]:
+    """(bytes, operations) of one backward call.  Bytes: x, dy, dx, B, C,
+    dB, dC in the inputs' type, dt, ddt, A, dA and the final state's
+    cotangent in float32, each read or written once.  Operations: 14 N P
+    per token and head, the exact reverse recurrence's: the state again
+    (3: its decay, the B x product and the sum; the forward's output
+    product C state is not needed, dy is given), the state's cotangent
+    (3), dx, dB, dC and the decay's gradient (2 each)."""
+    nbytes = (3 * bt * s * h * p + 4 * bt * s * g * n) * esize + \
+        (2 * bt * s * h + 2 * h + bt * h * n * p) * 4
+    return nbytes, 14 * n * p * s * h * bt
+
+
+def ssd_inputs(torch, gen, dev, bt, s, h, p, g, n, dtype):
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    x = randn(bt, s, h, p).to(dtype)
+    dt = torch.nn.functional.softplus(randn(bt, s, h))
+    A = -torch.exp(randn(h) * 0.5)
+    B, C = randn(bt, s, g, n).to(dtype), randn(bt, s, g, n).to(dtype)
+    return x, dt, A, B, C
+
+
+def k3_bwd_case(torch, K3, dev, gen, shape) -> dict:
+    """One shape of K3's backward: the kernel against its plain version
+    (relative L2 per gradient), bitwise across two calls, its time and the
+    plain version's (CUDA events), the bound, CUDA kernels per call and
+    scratch bytes; logs one line and returns the numbers."""
+    bt, s, h, p, g, n, dname = shape
+    dtype = getattr(torch, dname)
+    tol = SSD_BWD_TOL[dname]
+    x, dt, A, B, C = ssd_inputs(torch, gen, dev, bt, s, h, p, g, n, dtype)
+    dy = torch.randn((bt, s, h, p), generator=gen, device=dev).to(dtype)
+    dfinal = torch.randn((bt, h, n, p), generator=gen, device=dev)
+    args = (x, dt, A, B, C, dy, dfinal)
+    path = K3.backward_route(n, p, dtype)
+    before = dict(K3.BWD_ROUTE_LAUNCHES)
+    got = K3.ssd_scan_backward(*args)
+    moved = [r for r, c in K3.BWD_ROUTE_LAUNCHES.items() if c != before[r]]
+    if moved != [path]:
+        raise AssertionError(f"K3 backward: launched {moved}, "
+                             f"backward_route() names {path}")
+    again = K3.ssd_scan_backward(*args)
+    out = {}
+
+    def plain():
+        out["want"] = K3.ssd_scan_backward_plain(*args)
+
+    plain_ms = cuda_ms(plain, reps=1, warmup=False)
+    errs = {}
+    for name, a, w in zip(("dx", "ddt", "dA", "dB", "dC"), got,
+                          out["want"]):
+        rel = float((a.float() - w.float()).norm() / w.float().norm())
+        errs[name] = (rel, float((a.float() - w.float()).abs().max()))
+        if not (rel <= tol and bool(torch.isfinite(a).all())):
+            raise AssertionError(f"K3 backward {shape} {name}: rel L2 "
+                                 f"{rel:.3g} past {tol}")
+    bitwise = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+    if not bitwise:
+        raise AssertionError(f"K3 backward {shape}: two calls differ")
+    ms = cuda_ms(lambda: K3.ssd_scan_backward(*args), reps=5)
+    nbytes, flops = ssd_bwd_work(bt, s, h, p, g, n, x.element_size())
+    bound, by = roofline(nbytes, flops, dtype)
+    per_call, _ = device_kernels(
+        torch, lambda: K3.ssd_scan_backward(*args), "::bwd_")
+    err = max(e[1] for e in errs.values())
+    log(f"K3 backward bt={bt} s={s} h={h} p={p} g={g} n={n} {dname} "
+        f"route={path}: rel_l2=" + ",".join(
+            f"{k}:{v[0]:.3g}" for k, v in errs.items())
+        + f" (tol {tol}) max_abs_err={err:.3g} bitwise_two_calls={bitwise}"
+        f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=null "
+        f"bound_ms={bound:.5f} ({by}) share_of_bound={bound / ms:.4f} "
+        f"cuda_kernels_per_call="
+        f"{'not measured' if per_call is None else per_call} "
+        f"scratch_bytes={K3.backward_scratch_bytes(bt, s, h, n, p, dtype)}")
+    return {"shape": f"Bt={bt} S={s} H={h} P={p} G={g} N={n} {dname}",
+            "route": path, "max_abs_err": err,
+            "rel_l2": {k: v[0] for k, v in errs.items()}, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound,
+            "bound_by": by, "cuda_kernels_per_call": per_call}
+
+
+def ssd_autograd_ms(torch, K3, dev, shape) -> dict:
+    """One Mamba layer's SSD at ``shape`` forward and backward, by K3
+    (``ops.ssd_scan`` under autograd: the forward kernel, then the
+    backward kernel) and by autograd of the plain ``ssd_chunked`` (chunk
+    256, the model's), on the same inputs (CUDA events)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.mamba import ssd_chunked
+    bt, s, h, p, g, n, dname = shape
+    dtype = getattr(torch, dname)
+    gen = torch.Generator(device=dev).manual_seed(91)
+    ins = ssd_inputs(torch, gen, dev, bt, s, h, p, g, n, dtype)
+    dy = torch.randn((bt, s, h, p), generator=gen, device=dev).to(dtype)
+    out = {}
+    for label, fn in (("k3", lambda *t: ops.ssd_scan(*t)),
+                      ("plain", lambda *t: ssd_chunked(*t, 256))):
+        live = [t.detach().requires_grad_() for t in ins]
+
+        def fwd():
+            out["y"] = fn(*live)[0]
+
+        def bwd():
+            torch.autograd.grad(out["y"], live, dy, retain_graph=True)
+
+        fwd_ms = cuda_ms(fwd, reps=3)
+        bwd_ms = cuda_ms(bwd, reps=3)
+        out[label] = (fwd_ms, bwd_ms)
+        out.pop("y")
+    log(f"one Mamba layer's SSD at Bt={bt} S={s} H={h} P={p} N={n} {dname}"
+        f", forward and backward: K3 forward_ms={out['k3'][0]:.4f} "
+        f"backward_ms={out['k3'][1]:.4f}; autograd of the plain ssd_chunked"
+        f" forward_ms={out['plain'][0]:.4f} backward_ms="
+        f"{out['plain'][1]:.4f}")
+    return {"k3_forward_ms": out["k3"][0], "k3_backward_ms": out["k3"][1],
+            "plain_forward_ms": out["plain"][0],
+            "plain_backward_ms": out["plain"][1]}
+
+
+def phase_k3_backward(torch, K3, dev) -> dict:
+    log("== phase 9b: K3 backward vs plain (the same chunked decomposition "
+        "in eager float32)")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    cases = [k3_bwd_case(torch, K3, dev, gen, shape)
+             for shape in SSD_BWD_SHAPES]
+    main = cases[-1]
+    return {"name": "ssd_scan_backward", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:98 (the pallas_call "
+                        "of _ssd_kernel has no backward in repro: its train "
+                        "step differentiates src/repro/models/mamba.py:85 "
+                        "ssd_chunked, fused by XLA)",
+            "launches": 0,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            **{key: main[key] for key in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms",
+                                          "cuda_kernels_per_call")},
+            "shape": "Bt=4 S=2048 H=64 P=64 G=1 N=128 bf16",
+            "generic": [c for c in cases if c["route"] == "generic"]}
 
 
 PROMPT_LEN, MAX_NEW, N_CLIENTS, ROUNDS = 2000, 16, 3, 5
@@ -2059,48 +2235,120 @@ def profiled(torch, fn, host: bool) -> tuple[float, float, int, list]:
     return wall_ms, busy_ms, sum(e.count for e in kernels), kernels
 
 
-def busy_share(torch, fn, label: str) -> float | None:
-    """The device busy share of one call of ``fn``: device busy ms over the
-    wall ms of the same call, profiled tracing the card only (CUPTI adds
-    little host cost, unlike the host operator trace).  Logs an unprofiled
-    call's wall time beside it, and one call tracing the host too with its
-    largest kernels.  None where the card-only trace shows no device
-    time."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    wall, busy, n, _ = profiled(torch, fn, host=False)
+def step_profile(torch, fn, label: str, reps: int = 3) -> dict:
+    """One step ``fn`` on the card: the median wall ms of ``reps``
+    unprofiled calls; device busy ms, busy share (busy over the wall of the
+    same call) and kernels of one call profiled tracing the card only
+    (CUPTI adds little host cost, unlike the host operator trace), with
+    the card-only kernel table; then one call tracing the host too, whose
+    largest kernels are logged.  The busy share is None where the
+    card-only trace shows no device time."""
+    import statistics
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    plain_ms = statistics.median(walls)
+    wall, busy, n, table = profiled(torch, fn, host=False)
     share = busy / wall if busy > 0 else None
-    log(f"{label}: unprofiled step wall_ms={plain_ms:.2f}; card-only "
-        f"profiled step wall_ms={wall:.2f} device_busy_ms={busy:.2f} "
-        f"busy_share={'not measured' if share is None else f'{share:.3f}'}"
-        f" kernels={n}")
-    wall, busy, n, kernels = profiled(torch, fn, host=True)
-    log(f"{label}: host-and-card profiled step wall_ms={wall:.2f} "
-        f"device_busy_ms={busy:.2f} busy_share={busy / wall:.3f} "
-        f"kernels={n}")
+    log(f"{label}: unprofiled step wall_ms={plain_ms:.2f} (median of "
+        f"{reps}); card-only profiled step wall_ms={wall:.2f} "
+        f"device_busy_ms={busy:.2f} busy_share="
+        f"{'not measured' if share is None else f'{share:.3f}'} kernels={n}")
+    hwall, hbusy, hn, kernels = profiled(torch, fn, host=True)
+    log(f"{label}: host-and-card profiled step wall_ms={hwall:.2f} "
+        f"device_busy_ms={hbusy:.2f} busy_share={hbusy / hwall:.3f} "
+        f"kernels={hn}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  profiled step kernel: ms={e.self_device_time_total / 1e3:.3f}"
             f" count={e.count} name={e.key[:90]}")
-    return share
+    return {"wall_ms": plain_ms, "busy_ms": busy, "busy_share": share,
+            "kernels": n, "table": table}
+
+
+# what the device time of a profiled train step is split into, by kernel
+# name: K3 forward, K3 backward, matrix products (cuBLAS); the rest are
+# the elementwise, reduction and copy kernels
+def op_class(name: str) -> str:
+    low = name.lower()
+    if "::bwd_" in name:
+        return "K3 backward"
+    if "ssd_" in name:
+        return "K3 forward"
+    if any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet", "cublas")):
+        return "GEMMs"
+    return "other"
+
+
+# kernels that each K3 call launches once, by route: its forward's output
+# pass or generic scan, its backward's gradient pass or generic backward
+K3_ONCE_PER_CALL = {"K3": ("::ssd_output_", "::ssd_scan_generic"),
+                    "K3_backward": ("::bwd_grad_", "::bwd_generic")}
+
+
+def k3_calls(table) -> dict:
+    """K3 forward and backward calls a profiled kernel table holds."""
+    return {k: sum(e.count for e in table if any(m in e.key for m in marks))
+            for k, marks in K3_ONCE_PER_CALL.items()}
+
+
+def op_split(torch, label: str, table, adamw_ms: float) -> dict:
+    """Device ms of a profiled step by op class (:func:`op_class`), the
+    eight largest other kernels by name, and AdamW timed alone."""
+    by = {}
+    for e in table:
+        key = op_class(e.key)
+        by[key] = by.get(key, 0.0) + e.self_device_time_total / 1e3
+    others = sorted((e for e in table if op_class(e.key) == "other"),
+                    key=lambda e: -e.self_device_time_total)[:8]
+    log(f"{label}: device ms by op: " + " ".join(
+        f"{k.replace(' ', '_')}={v:.2f}" for k, v in sorted(by.items()))
+        + f" adamw_alone_ms={adamw_ms:.2f}")
+    for e in others:
+        log(f"  other kernel: ms={e.self_device_time_total / 1e3:.3f} "
+            f"count={e.count} name={e.key[:90]}")
+    return {**by, "adamw_alone_ms": adamw_ms,
+            "largest_other": [(e.key[:90], e.self_device_time_total / 1e3,
+                               e.count) for e in others]}
+
+
+def mamba_layers(cfg) -> int:
+    return sum(m == "mamba" for m, _ in cfg.prelude) + \
+        cfg.n_units * sum(m == "mamba" for m, _ in cfg.pattern)
 
 
 def train_cell(torch, cfg, dev, counts: dict, label: str) -> dict:
     """18b/18c: ``train_loop`` (bf16, default ``TrainConfig``, remat per
     unit) on ``SyntheticLM`` through ``PrefetchingLoader``, TRAIN_BATCH x
-    TRAIN_SEQ tokens a step for TRAIN_STEPS steps, then three more steps
-    for the busy share (``busy_share``).  Gates: every loss and grad norm finite, no step
-    skipped, no K2/K3 launch."""
+    TRAIN_SEQ tokens a step for TRAIN_STEPS steps: an eager warm-up step,
+    then one step captured in a CUDA graph and replayed.  Gates: every loss
+    and grad norm finite, no step skipped, no K2 launch, and K3's forward
+    and backward wrappers called exactly the step's count twice (the
+    warm-up and the capture; replays call no wrapper).  Then, in the same
+    run, eager ``make_train_step`` steps and replays of a captured
+    ``TrainProgram``: wall, tokens/s, 6·N·T share, busy share, kernels and
+    peak memory of each, and (Mamba) the device time by op and one layer's
+    SSD through K3 and through autograd of the plain ``ssd_chunked``.  A
+    gate reads the profiled replay's kernel table: it ran K3's forward and
+    backward the step's count of times.  The launches reported are those
+    executed: the warm-up's and each replay's, TRAIN_STEPS steps of the
+    step's count."""
     import gc
     import statistics
 
+    import torch.utils._pytree as pytree
+
     from repro_torch.data.pipeline import PrefetchingLoader, SyntheticLM
     from repro_torch.models.transformer import param_count
-    from repro_torch.train.loop import (TrainConfig, batch_to_device,
-                                        make_train_step, train_loop)
+    from repro_torch.train.loop import (TrainConfig, TrainProgram,
+                                        batch_to_device, make_train_step,
+                                        train_loop)
+    from repro_torch.train.optimizer import adamw_update
 
+    K3 = counts["K3"]
     tcfg = TrainConfig(log_every=1)
     loader = PrefetchingLoader(
         SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH,
@@ -2122,8 +2370,12 @@ def train_cell(torch, cfg, dev, counts: dict, label: str) -> dict:
         batch = batch_to_device(next(loader), dev)
     finally:
         loader.close()
-    launches = {name: sum(mod.ROUTE_LAUNCHES.values())
-                for name, mod in counts.items()}
+    wrapper_calls = {"K2": sum(counts["K2"].ROUTE_LAUNCHES.values()),
+                     "K3": K3.LAUNCHES, "K3_backward": K3.BWD_LAUNCHES}
+    n_mamba = mamba_layers(cfg)
+    per_step = {"K2": 0,
+                "K3": n_mamba * (1 if cfg.remat == "none" else 2),
+                "K3_backward": n_mamba}
     n = param_count(params)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     times = [m["step_time"] for m in history]
@@ -2135,12 +2387,15 @@ def train_cell(torch, cfg, dev, counts: dict, label: str) -> dict:
         f"seconds_with_init={seconds:.2f}")
     log(f"{label}: loss={[round(m['loss'], 5) for m in history]}")
     log(f"{label}: grad_norm={[round(m['grad_norm'], 5) for m in history]}")
-    log(f"{label}: step_s={[round(t, 4) for t in times]} "
-        f"median_step_s_2_to_{TRAIN_STEPS}={med:.4f} tokens_per_s="
-        f"{tokens / med:.1f} six_n_t_share_of_989_tflops={share:.4f}")
+    log(f"{label}: graph step_s={[round(t, 4) for t in times]} (step 1: "
+        f"eager warm-up and capture) median_step_s_2_to_{TRAIN_STEPS}="
+        f"{med:.4f} tokens_per_s={tokens / med:.1f} "
+        f"six_n_t_share_of_989_tflops={share:.4f}")
     log(f"{label}: peak_gib={peak / 2**30:.2f} card_gib={total / 2**30:.2f} "
         f"peak_share={peak / total:.3f} pipeline_stats={stats} "
-        f"opt_step={int(opt['step'])} K2_K3_launches={launches}")
+        f"opt_step={int(opt['step'])} wrapper_calls={wrapper_calls} (per "
+        f"step {per_step}; in the warm-up and the capture, the "
+        f"{TRAIN_STEPS - 1} replays call no wrapper)")
     bad = [m for m in history if not (math.isfinite(m["loss"])
                                       and math.isfinite(m["grad_norm"]))]
     if bad or len(history) != TRAIN_STEPS:
@@ -2148,23 +2403,75 @@ def train_cell(torch, cfg, dev, counts: dict, label: str) -> dict:
     if int(opt["step"]) != TRAIN_STEPS:
         raise AssertionError(f"{label}: {TRAIN_STEPS - int(opt['step'])} "
                              f"steps skipped")
-    if any(launches.values()):
-        raise AssertionError(f"{label}: K2/K3 launched in training "
-                             f"({launches})")
+    if wrapper_calls != {k: 2 * v for k, v in per_step.items()}:
+        raise AssertionError(f"{label}: wrapper calls {wrapper_calls}, "
+                             f"want twice {per_step}")
 
+    # eager steps in the same run, then replays of a captured program
     step = make_train_step(cfg, tcfg)
     state = {}
 
-    def one_step():
+    def eager_step():
         state.pop("out", None)
         state["out"] = step(params, opt, batch)
 
+    eager_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eager_step()
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated()
+    eager = step_profile(torch, eager_step, f"{label} eager")
+    state.clear()
+    gc.collect()
+    program = TrainProgram(step, params, opt, batch)
+    program.step(batch)                     # warm-up and capture
+    graph = step_profile(torch, lambda: program.step(batch),
+                         f"{label} graph")
+    if program.graph is None or program.replays != 5:
+        raise AssertionError(f"{label}: the program did not replay its "
+                             f"graph ({program.replays} replays)")
+    replayed = k3_calls(graph["table"])
+    launches = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    log(f"{label}: one profiled replay ran K3 {replayed} times (kernels "
+        f"launched once a call); executed launches over the "
+        f"{TRAIN_STEPS} steps (warm-up and {TRAIN_STEPS - 1} replays) "
+        f"{launches}")
+    if replayed != {k: per_step[k] for k in replayed}:
+        raise AssertionError(f"{label}: a replay ran K3 {replayed} times, "
+                             f"want {per_step}")
+    for name, r, pk in (("graph", graph, peak), ("eager", eager, eager_peak)):
+        r["peak_gib"] = pk / 2**30
+        r["tokens_per_s"] = tokens / (r["wall_ms"] / 1e3)
+        r["share_of_989"] = 6 * n * tokens / (r["wall_ms"] / 1e3) \
+            / BF16_FLOP_PER_S
+    log(f"{label}: graph vs eager in one run: " + "; ".join(
+        f"{name} step_s={r['wall_ms'] / 1e3:.4f} tokens_per_s="
+        f"{r['tokens_per_s']:.1f} six_n_t_share={r['share_of_989']:.4f} "
+        f"busy_share={r['busy_share']} kernels={r['kernels']} "
+        f"peak_gib={r['peak_gib']:.2f}" for name, r in
+        (("graph", graph), ("eager", eager))) + f" capture_seconds="
+        f"{program.capture_seconds:.3f}")
     out = {"params": n, "median_step_s": med, "tokens_per_s": tokens / med,
            "share_of_989": share, "peak_gib": peak / 2**30,
-           "busy_share": busy_share(torch, one_step, label),
-           "loss": [m["loss"] for m in history],
-           "pipeline": stats}
-    del params, opt, state, batch
+           "busy_share": graph["busy_share"],
+           "loss": [m["loss"] for m in history], "launches": launches,
+           "wrapper_calls": wrapper_calls, "launches_per_step": per_step,
+           "graph": {k: v for k, v in graph.items() if k != "table"},
+           "eager": {k: v for k, v in eager.items() if k != "table"},
+           "capture_seconds": program.capture_seconds, "pipeline": stats}
+    if n_mamba:
+        grads = pytree.tree_map(torch.zeros_like, params)
+        adamw = cuda_ms(lambda: adamw_update(grads, opt, params,
+                                             tcfg.optimizer), reps=3)
+        del grads
+        out["op_split"] = op_split(torch, f"{label} graph step", graph[
+            "table"], adamw)
+        m = cfg.mamba
+        out["ssd_layer"] = ssd_autograd_ms(torch, K3, dev, (
+            TRAIN_BATCH, TRAIN_SEQ, m.n_heads, m.head_dim, m.n_groups,
+            m.d_state, "bfloat16"))
+    del params, opt, state, batch, program, graph, eager
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -2239,8 +2546,9 @@ def train_resume(torch, dev) -> None:
 
 
 def train_phase(torch, counts: dict, dev) -> dict:
-    """Phase 18: training on the card.  ``counts``: the K2 and K3 modules,
-    whose launches must stay at zero."""
+    """Phase 18: training on the card.  ``counts``: the K2 and K3 modules
+    (K2's launches must stay at zero, K3's must match each step's Mamba
+    layers)."""
     from repro_torch.configs import get_config
 
     train_card_vs_cpu(torch, dev)
@@ -2514,7 +2822,7 @@ def mesh_train_phase(torch, dev, phase18c: dict) -> dict:
         state.pop("out", None)
         state["out"] = step(params, opt, batch)
 
-    share = busy_share(torch, one_step, label)
+    share = step_profile(torch, one_step, label, reps=1)["busy_share"]
     state.clear()
 
     ckpt = ROOT / "build" / "chip_smoke_mesh_ckpt"
@@ -2860,7 +3168,7 @@ def main(argv=None) -> int:
         return 2
     if not all((SRC / "repro_torch" / "csrc" / f"{name}.cu").is_file()
                for name in ("arima_bank", "flash_attention", "ssd_scan",
-                            "gru_fit", "gru_latency_probe")):
+                            "ssd_scan_bwd", "gru_fit", "gru_latency_probe")):
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
@@ -2888,7 +3196,8 @@ def main(argv=None) -> int:
         f"count={torch.cuda.device_count()}")
 
     starts = {"K1": K.start_build, "K2": K2.start_build,
-              "K3": K3.start_build, "K4": K4.start_build,
+              "K3": K3.start_build, "K3 backward": K3.start_build_backward,
+              "K4": K4.start_build,
               "K4 probe": lambda verbose: nvcc.start(
                   "gru_latency_probe", K4.NVCC_FLAGS, verbose)}
     if args.only:
@@ -2896,8 +3205,8 @@ def main(argv=None) -> int:
         starts = {name: start for name, start in starts.items()
                   if name.split()[0].lower() in args.only}
     else:
-        log("== phase 1: build K1 (K2, K3, K4 and K4's latency probe build "
-            "alongside, one nvcc each)")
+        log("== phase 1: build K1 (K2, K3, K3's backward, K4 and K4's "
+            "latency probe build alongside, one nvcc each)")
     t_build = time.perf_counter()
     builds = {name: start(verbose=True) for name, start in starts.items()}
     # collected in turn: each time is from the common start to the moment
@@ -2916,12 +3225,14 @@ def main(argv=None) -> int:
 
     kernels, reuse = drive(torch, np, T, T_arima, K, dev)
 
-    log("== phase 7: build K2 and K3")
+    log("== phase 7: build K2, K3 and K3's backward")
     wg_spills = log_build("K2", *built["K2"])
     log_build("K3", *built["K3"])
+    log_build("K3 backward", *built["K3 backward"])
     k2 = phase_k2(torch, K2, dev)
     check_wgmma_256(wg_spills)
     k3 = phase_k3(torch, K3, dev)
+    k3b = phase_k3_backward(torch, K3, dev)
     counters_lm = {"K1": K, "K2": K2, "K3": K3}
     k2["launches"] = full_serve(torch, "yi-6b", "K2", counters_lm, dev,
                                 "phase 10")
@@ -2944,6 +3255,14 @@ def main(argv=None) -> int:
                                          if n[key]}
     trained = train_phase(torch, {"K2": K2, "K3": K3}, dev)
     log("phase 18 summary: " + json.dumps(trained))
+    mamba = trained["mamba2-1.3b"]
+    k3["launches_train_mamba2_1_3b"] = mamba["launches"]["K3"]
+    k3["wrapper_calls_train_mamba2_1_3b"] = mamba["wrapper_calls"]["K3"]
+    k3b["launches"] = mamba["launches"]["K3_backward"]
+    k3b["wrapper_calls"] = mamba["wrapper_calls"]["K3_backward"]
+    k3b["launches_per_step"] = mamba["launches_per_step"]["K3_backward"]
+    k3b["graph_replays_train_mamba2_1_3b"] = TRAIN_STEPS - 1
+    k3b["plain_autograd_ssd_chunked"] = mamba["ssd_layer"]
     big = {"deepseek-v3-671b-4l": deepseek_phase(torch, counters_lm, dev)}
     big.update(multimodal_phases(torch, counters_lm, K2, dev))
     log("phases 19-21 summary: " + json.dumps(big))
@@ -2956,7 +3275,7 @@ def main(argv=None) -> int:
     k2["launches_paligemma_3b"] = big["paligemma-3b"]["launches"]["K2"]
     k2["launches_arctic_480b_1l"] = big["arctic-480b-1l"]
     k2["launches_musicgen_large"] = big["musicgen-large"]
-    kernels += [k2, k3, {
+    kernels += [k2, k3, k3b, {
         "name": "gru_fit",
         "route": "cuda",
         "source": "src/repro_torch/csrc/gru_fit.cu",

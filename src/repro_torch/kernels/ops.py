@@ -11,9 +11,14 @@ models' own chunked PyTorch paths, exactly what the JAX package runs off
 the TPU (``attention_any``, ``ssd_chunked``).  Same function, so the
 models' results do not depend on the dispatch beyond rounding.
 
-K2 and K3 have no backward: a CUDA input that requires grad while grad
-mode is on raises rather than being detached silently.  The training
-forward calls the plain paths directly, as the JAX package does.
+K3 has a backward: on CUDA it runs as :class:`SSDScan`, an autograd
+Function whose forward is K3 and whose backward is K3's backward kernel
+(:func:`repro_torch.kernels.ssd_scan.ssd_scan_backward`), so training
+runs the SSD through K3 in both directions.  K2 has none: a CUDA input
+that requires grad while grad mode is on raises rather than being
+detached silently, and the training forward calls the plain attention
+path directly, as the JAX package does.  On the CPU autograd
+differentiates both plain paths.
 
 On DTensors (a model placed on a mesh) both run per rank on the local
 batch and heads through ``local_map`` (:func:`attention_per_rank`,
@@ -48,8 +53,28 @@ def _no_backward(kernel: str, *inputs) -> None:
         raise RuntimeError(
             f"{kernel} has no backward: an input requires grad, and the "
             f"kernel's output would not carry it; differentiate the plain "
-            f"path (models.attention.attention_any, models.mamba.ssd_chunked) "
-            f"or call under torch.no_grad()")
+            f"path (models.attention.attention_any) or call under "
+            f"torch.no_grad()")
+
+
+class SSDScan(torch.autograd.Function):
+    """K3 under autograd: ``(y, final_state)`` by the forward kernel, the
+    gradients of ``x, dt, A, B, C`` by the backward kernel from the
+    cotangents of both outputs (a missing one counts as zero)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, B, C)
+        return _k3.ssd_scan(x, dt, A, B, C)
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, dt, A, B, C = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        if dfinal is not None:
+            dfinal = dfinal.contiguous()
+        return _k3.ssd_scan_backward(x, dt, A, B, C, dy, dfinal)
 
 
 def model_size(x: DTensor) -> int:
@@ -208,8 +233,7 @@ def local_ssd_scan(x, dt, A, B, C, *, chunk_size: int = 128):
 
 def _ssd_scan(x, dt, A, B, C, chunk_size, meta: bool = False):
     if x.device.type == "cuda":
-        _no_backward("K3 (SSD scan)", x, dt, A, B, C)
-        return _k3.ssd_scan(x, dt, A, B, C)
+        return SSDScan.apply(x, dt, A, B, C)
     _cpu_only(x, meta)
     from repro_torch.models.mamba import ssd_chunked
     return ssd_chunked(x, dt, A, B, C, chunk_size)

@@ -26,6 +26,22 @@ is the chunked route, at the N and P of :data:`STATE_DIMS` and
 float32 state fits in a block's shared memory the generic route: one CUDA
 kernel running the exact per-token recurrence, no scratch.  The launcher
 takes exactly the route named.
+
+The backward, :func:`ssd_scan_backward` (``csrc/ssd_scan_bwd.cu``, its own
+library ``build/kernels/libssd_scan_bwd.so``), gives ``dx, ddt, dA, dB,
+dC`` from ``dy`` and the final state's cotangent, on the same two routes:
+the chunked route recomputes each chunk's incoming state, walks the
+chunks in reverse for the state's cotangent and runs one chunk pass for
+the gradients (bfloat16 inputs on the tensor cores, float32 inputs on
+float32 FMAs; chunks of :func:`backward_chunk` positions); the generic
+route runs the exact
+per-token recurrence in reverse, its states recomputed from per-segment
+checkpoints.  Sums over the heads of a group (``dB``, ``dC``) and over
+batch and sequence (``dA``) go through per-head partials and a
+fixed-order reduction, so two calls give the same bits.
+:func:`ssd_scan_backward_plain` is the same chunked decomposition in eager
+float32 PyTorch: the oracle the kernel is held against, and the CPU's
+version.
 """
 from __future__ import annotations
 
@@ -56,17 +72,23 @@ def _mask(dims) -> str:
 NVCC_FLAGS = (f"-DSSD_FAST_N_MASK={_mask(STATE_DIMS)}",
               f"-DSSD_FAST_P_MASK={_mask(HEAD_DIMS)}")
 
-# Kernel launches (never the plain version's calls), in all and by route.
+# Kernel launches (never the plain version's calls), in all and by route,
+# of the forward and of the backward.
 LAUNCHES = 0
 ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
+BWD_LAUNCHES = 0
+BWD_ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
 
 _lib = None
+_bwd_lib = None
 
 
 def reset_counts() -> None:
-    global LAUNCHES
+    global LAUNCHES, BWD_LAUNCHES
     LAUNCHES = 0
     ROUTE_LAUNCHES.update(dict.fromkeys(ROUTES, 0))
+    BWD_LAUNCHES = 0
+    BWD_ROUTE_LAUNCHES.update(dict.fromkeys(ROUTES, 0))
 
 
 def generic_smem_bytes(n: int, p: int) -> int:
@@ -197,3 +219,221 @@ def ssd_scan(x, dt, A, B, C):
     LAUNCHES += 1
     ROUTE_LAUNCHES[path] += 1
     return y, state
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+def generic_bwd_smem_bytes(n: int, p: int) -> int:
+    """Shared memory of the generic backward: the state and its cotangent
+    [N, P], B_t and C_t, x_t, dy_t and two [P] partial sums, in float32."""
+    return 4 * (2 * n * p + 2 * n + 4 * p)
+
+
+def backward_route(n: int, p: int, dtype: torch.dtype) -> str:
+    """The backward's route: the forward's (:func:`route`), and on the
+    generic route a state and its cotangent that fit a block's shared
+    memory together.  Raises beyond that."""
+    path = route(n, p, dtype)
+    if path == "generic" and generic_bwd_smem_bytes(n, p) > MAX_BLOCK_SMEM:
+        raise ValueError(f"ssd_scan backward takes N, P whose float32 state "
+                         f"and cotangent fit {MAX_BLOCK_SMEM} bytes of "
+                         f"shared memory, got N={n}, P={p}")
+    return path
+
+
+def backward_chunk(path: str, n: int, p: int, dtype: torch.dtype) -> int:
+    """Positions per chunk of the chunked backward (per checkpointed
+    segment of the generic one) at ``n, p`` on ``dtype`` inputs, as the
+    built library states it."""
+    return _load_bwd().ssd_scan_bwd_chunk(ROUTES.index(path), n, p,
+                                          _DTYPES[dtype])
+
+
+def backward_scratch_bytes(bt: int, s: int, h: int, n: int, p: int,
+                           dtype: torch.dtype) -> int:
+    """Bytes of the backward's float32 scratch for one call: per-head
+    ``dB``/``dC`` ``[Bt, S, H, N]`` each; on the chunked route each chunk's
+    incoming state and its cotangent ``[Bt, chunks, H, N, P]``, the chunk
+    decays and ``dA`` partials ``[Bt, chunks, H]``; on the generic route
+    the segment checkpoints ``[Bt, H, segments, N, P]``, one segment's
+    states ``[Bt, H, chunk, N, P]`` and ``dA`` partials ``[Bt, H]``."""
+    path = backward_route(n, p, dtype)
+    k = backward_chunk(path, n, p, dtype)
+    nc = -(-s // k)
+    per_head = 2 * bt * s * h * n
+    if path == "chunked":
+        return 4 * (per_head + 2 * bt * nc * h * n * p + 2 * bt * nc * h)
+    return 4 * (per_head + bt * h * (nc + k) * n * p + bt * h)
+
+
+def ssd_scan_backward_plain(x, dt, A, B, C, dy, dfinal=None,
+                            chunk: int = 64):
+    """Gradients of :func:`ssd_scan`'s ``(y, final_state)`` with respect
+    to ``x, dt, A, B, C``, given ``dy`` and ``dfinal`` (the final state's
+    cotangent, or None for zero), by the kernel's chunked decomposition in
+    eager float32: each chunk's incoming state, the reverse walk over
+    chunks ``dS_{c-1} = exp(total_c) dS_c + C^T (exp(cum) * dy)_c`` seeded
+    by ``dfinal``, and the chunk pass.  Any ``S``: positions past the last
+    chunk multiple are padded with dt = 0 and zeros.  Returns ``dx`` in
+    ``x``'s type, ``ddt`` and ``dA`` in float32, ``dB`` and ``dC`` in
+    ``B``'s type."""
+    bt, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    l = chunk
+    nc = -(-s // l)
+    pad = nc * l - s
+
+    def chunked(t, width):
+        t = t.float()
+        if pad:
+            t = torch.cat([t, t.new_zeros((bt, pad, *t.shape[2:]))], dim=1)
+        return t.reshape(bt, nc, l, *t.shape[2:]) if width else \
+            t.reshape(bt, nc, l, h)
+
+    xc, dyc = chunked(x, True), chunked(dy, True)          # [b,c,l,h,p]
+    dtc = chunked(dt, False)                                # [b,c,l,h]
+    Bh = torch.repeat_interleave(chunked(B, True), rep, dim=3)  # [b,c,l,h,n]
+    Ch = torch.repeat_interleave(chunked(C, True), rep, dim=3)
+    Af = A.float()
+    cum = torch.cumsum(dtc * Af, dim=2)                     # [b,c,l,h]
+    total = cum[:, :, -1]                                   # [b,c,h]
+    e = torch.exp(total[:, :, None] - cum)                  # exp(total-cum)
+    ein = torch.exp(cum)
+
+    # each chunk's incoming state, and the cotangent of its outgoing state
+    contrib = torch.einsum("bclhn,bclh,bclhp->bchnp", Bh, e * dtc, xc)
+    dcontrib = torch.einsum("bclhn,bclh,bclhp->bchnp", Ch, ein, dyc)
+    decay = torch.exp(total)                                # [b,c,h]
+    state = x.new_zeros((bt, h, n, p), dtype=torch.float32)
+    prev = []
+    for c in range(nc):
+        prev.append(state)
+        state = state * decay[:, c, :, None, None] + contrib[:, c]
+    ds = (torch.zeros_like(state) if dfinal is None else dfinal.float())
+    nxt = [None] * nc
+    for c in reversed(range(nc)):
+        nxt[c] = ds
+        ds = ds * decay[:, c, :, None, None] + dcontrib[:, c]
+    s_prev = torch.stack(prev, dim=1)                       # [b,c,h,n,p]
+    ds_next = torch.stack(nxt, dim=1)
+
+    # the chunk pass: W[i, j] = exp(cum_i - cum_j) for i >= j
+    ch = cum.movedim(-1, 2)                                 # [b,c,h,l]
+    mask = torch.tril(torch.ones((l, l), dtype=torch.bool, device=x.device))
+    w = torch.exp(torch.where(mask, ch[..., :, None] - ch[..., None, :],
+                              torch.full_like(ch[..., None], -torch.inf)))
+    dtj = dtc.movedim(-1, 2)[..., None, :]                  # [b,c,h,1,l]
+    scores = torch.einsum("bcihn,bcjhn->bchij", Ch, Bh)
+    m = torch.einsum("bcihp,bcjhp->bchij", dyc, xc)
+    sw = scores * w
+    mwd = m * w * dtj
+    t = sw * dtj * m
+    dcum = (t.sum(-1) - t.sum(-2)).movedim(2, -1)           # [b,c,l,h]
+
+    bds = torch.einsum("bcjhn,bchnp->bcjhp", Bh, ds_next)
+    dxdt = e[..., None] * bds + torch.einsum("bchij,bcihp->bcjhp", sw, dyc)
+    dx = dtc[..., None] * dxdt
+    ddt = (xc * dxdt).sum(-1)
+    u = e * dtc * (bds * xc).sum(-1)
+    dcum = dcum - u
+    dtotal = u.sum(2) + decay * (s_prev * ds_next).sum((-2, -1))
+    dbh = (dtc * e)[..., None] * torch.einsum("bcjhp,bchnp->bcjhn", xc,
+                                              ds_next) \
+        + torch.einsum("bchij,bcihn->bcjhn", mwd, Ch)
+    dch = ein[..., None] * torch.einsum("bcihp,bchnp->bcihn", dyc, s_prev) \
+        + torch.einsum("bchij,bcjhn->bcihn", mwd, Bh)
+    cs = torch.einsum("bcihn,bchnp->bcihp", Ch, s_prev)
+    dcum = dcum + ein * (cs * dyc).sum(-1)
+    dcum[:, :, -1] += dtotal
+    d_da = torch.flip(torch.cumsum(torch.flip(dcum, [2]), dim=2), [2])
+    ddt = ddt + Af * d_da
+    dA = (dtc * d_da).sum((0, 1, 2))
+
+    def unchunk(t):
+        return t.reshape(bt, nc * l, *t.shape[3:])[:, :s]
+
+    dB = unchunk(dbh).reshape(bt, s, g, rep, n).sum(3)
+    dC = unchunk(dch).reshape(bt, s, g, rep, n).sum(3)
+    return (unchunk(dx).to(x.dtype), unchunk(ddt), dA, dB.to(B.dtype),
+            dC.to(C.dtype))
+
+
+def start_build_backward(verbose: bool = False) -> nvcc.Build:
+    """Start compiling ``csrc/ssd_scan_bwd.cu`` (as :func:`start_build`)."""
+    return nvcc.start("ssd_scan_bwd", NVCC_FLAGS, verbose)
+
+
+def _load_bwd():
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = nvcc.load("ssd_scan_bwd", NVCC_FLAGS)
+        fn = lib.ssd_scan_bwd_launch
+        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 9 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.ssd_scan_bwd_chunk.argtypes = [ctypes.c_int] * 4
+        lib.ssd_scan_bwd_chunk.restype = ctypes.c_int
+        _bwd_lib = lib
+    return _bwd_lib
+
+
+def ssd_scan_backward(x, dt, A, B, C, dy, dfinal=None):
+    """Gradients of :func:`ssd_scan` (see :func:`ssd_scan_backward_plain`);
+    returns ``(dx, ddt, dA, dB, dC)``.  A CUDA tensor launches the kernel
+    on the route :func:`backward_route` names; a CPU tensor takes the plain
+    version."""
+    global BWD_LAUNCHES
+    if x.device.type == "cpu":
+        return ssd_scan_backward_plain(x, dt, A, B, C, dy, dfinal)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan_backward: unsupported device {x.device}")
+    _check(x, dt, A, B, C)
+    bt, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    path = backward_route(n, p, x.dtype)
+    if dy.dtype != x.dtype or dy.shape != x.shape or not dy.is_contiguous():
+        raise ValueError(f"ssd_scan_backward needs a contiguous dy like x, "
+                         f"got {dy.dtype} {tuple(dy.shape)}")
+    if dfinal is not None and (dfinal.dtype != torch.float32 or tuple(
+            dfinal.shape) != (bt, h, n, p) or not dfinal.is_contiguous()):
+        raise ValueError(f"ssd_scan_backward needs a contiguous float32 "
+                         f"dfinal [Bt,H,N,P], got {dfinal.dtype} "
+                         f"{tuple(dfinal.shape)}")
+    if path == "chunked" and dy.data_ptr() % 16:
+        raise ValueError("ssd_scan_backward needs a 16-byte aligned dy")
+    lib = _load_bwd()
+    k = backward_chunk(path, n, p, x.dtype)
+    nc = -(-s // k)
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=x.device)
+
+    dx = torch.empty_like(x)
+    ddt, dA = f32(bt, s, h), f32(h)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    dbh, dch = f32(bt, s, h, n), f32(bt, s, h, n)
+    if path == "chunked":
+        states, dstates = f32(bt, nc, h, n, p), f32(bt, nc, h, n, p)
+        decay, da_part = f32(bt, nc, h), f32(bt, nc, h)
+    else:
+        # segment checkpoints and one segment's states per (batch, head)
+        states, dstates = f32(bt, h, nc, n, p), f32(bt, h, k, n, p)
+        decay, da_part = None, f32(bt, 1, h)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.ssd_scan_bwd_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), dy.data_ptr(),
+            None if dfinal is None else dfinal.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+            states.data_ptr(), dstates.data_ptr(),
+            None if decay is None else decay.data_ptr(), dbh.data_ptr(),
+            dch.data_ptr(), da_part.data_ptr(), bt, s, h, g, n, p,
+            _DTYPES[x.dtype], nc, ROUTES.index(path), stream)
+    nvcc.check_launch("ssd_scan_backward", err)
+    BWD_LAUNCHES += 1
+    BWD_ROUTE_LAUNCHES[path] += 1
+    return dx, ddt, dA, dB, dC

@@ -4,12 +4,13 @@ The SSD chunked algorithm (Dao & Gu, 2024): split the sequence into chunks,
 compute the intra-chunk part as a masked attention-like product and carry
 inter-chunk states with a sequential scan over chunks.  The prefill's scan
 goes through :func:`repro_torch.kernels.ops.local_ssd_scan`: the
-hand-written kernel K3 on CUDA, :func:`ssd_chunked` on the CPU.  The
-training forward, ``mamba_forward``, calls :func:`ssd_chunked` on every
-device, as the JAX package does, so that autograd differentiates it (K3
-has no backward).  On a mesh both run per rank on the local batch and
-heads (``ops.ssd_per_rank``), with the chunk padding and the ``D`` skip,
-and so does the decode's state update.
+hand-written kernel K3 on CUDA, :func:`ssd_chunked` on the CPU.  So does
+the training forward, ``mamba_forward``: on CUDA autograd differentiates
+K3 through its backward kernel (``ops.SSDScan``), on the CPU it
+differentiates :func:`ssd_chunked`, as the JAX package does.  On a mesh
+both run per rank on the local batch and heads (``ops.ssd_per_rank``),
+with the chunk padding and the ``D`` skip, and so does the decode's state
+update.
 
 Projections are kept separate (w_z, w_x, w_B, w_C, w_dt), as in the JAX
 package, so its parameters carry across unchanged.
@@ -177,10 +178,10 @@ def _gated_norm(y, z, scale, eps=1e-6):
 
 
 def _ssd_full(params, cfg: MambaConfig, x, conv_state=None,
-              want_state=False, scan=ops.local_ssd_scan):
-    """Shared forward core.  ``scan`` computes the SSD on (each rank's
-    local) tensors: ``ops.local_ssd_scan`` (K3 on CUDA) or
-    :func:`ssd_chunked`.  Returns (out, state_dict_or_None)."""
+              want_state=False):
+    """Shared forward core; the SSD runs on (each rank's local) tensors
+    through ``ops.local_ssd_scan`` (K3 on CUDA).  Returns (out,
+    state_dict_or_None)."""
     b, s, _ = x.shape
     di, g, n, h, p = (cfg.d_inner, cfg.n_groups, cfg.d_state, cfg.n_heads,
                       cfg.head_dim)
@@ -202,13 +203,14 @@ def _ssd_full(params, cfg: MambaConfig, x, conv_state=None,
         # stays exact
         pad = (-s) % chunk_size
         if pad:
-            y, final_state = scan(
+            y, final_state = ops.local_ssd_scan(
                 F.pad(xs, (0, 0, 0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad)),
                 A, F.pad(Bm, (0, 0, 0, 0, 0, pad)),
                 F.pad(Cm, (0, 0, 0, 0, 0, pad)), chunk_size=chunk_size)
             y = y[:, :s]
         else:
-            y, final_state = scan(xs, dt, A, Bm, Cm, chunk_size=chunk_size)
+            y, final_state = ops.local_ssd_scan(xs, dt, A, Bm, Cm,
+                                                chunk_size=chunk_size)
         return y + xs * D[None, None, :, None].to(xs.dtype), final_state
 
     # on a mesh, per rank: the local batch and heads
@@ -224,7 +226,7 @@ def _ssd_full(params, cfg: MambaConfig, x, conv_state=None,
 
 def mamba_forward(params, cfg: MambaConfig, x: torch.Tensor) -> torch.Tensor:
     """Training forward (no state I/O).  x: [B,S,D]."""
-    return _ssd_full(params, cfg, x, scan=ssd_chunked)[0]
+    return _ssd_full(params, cfg, x)[0]
 
 
 def mamba_prefill(params, cfg: MambaConfig, x: torch.Tensor):

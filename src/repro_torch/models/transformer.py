@@ -298,10 +298,13 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 def _remat_wrap(fn, cfg: ModelConfig):
     """``fn`` recomputed in the backward: nothing saved
-    (``"nothing_saveable"``) or the matmul outputs saved (``"dots"``)."""
+    (``"nothing_saveable"``) or the matmul outputs saved (``"dots"``).
+    The forward draws no random numbers, so the RNG state is neither saved
+    nor restored around the recompute (reading it would break a CUDA
+    graph's capture of the step)."""
     if cfg.remat == "none":
         return fn
-    kwargs = {"use_reentrant": False}
+    kwargs = {"use_reentrant": False, "preserve_rng_state": False}
     if cfg.remat == "dots":
         kwargs["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _save_dots)

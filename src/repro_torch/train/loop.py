@@ -11,7 +11,11 @@ clipping inside AdamW, and NaN-step skipping that needs no host sync.
 step), periodic async checkpointing and logging.  Its data iterator yields
 NumPy (or tensor) batches, which the loop moves to the device.  A resumed
 run restores the parameters and optimizer state, not the data position:
-the iterator starts from its beginning, as in the JAX package.
+the iterator starts from its beginning, as in the JAX package.  Without a
+mesh it steps through a :class:`TrainProgram`, the counterpart of the JAX
+package's ``jit_train_step``: on CUDA one step captured in a CUDA graph and
+replayed, the parameters and moments updated in place (``donate_argnums``);
+on the CPU the same step eagerly.
 
 With a mesh (``make_train_step(cfg, tcfg, mesh)``, ``train_loop(...,
 mesh=mesh)``) the parameters and AdamW moments are DTensors placed by
@@ -154,6 +158,78 @@ def batch_to_device(batch: dict, device) -> dict:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
+class TrainProgram:
+    """``step_fn`` (one device, no mesh) over fixed buffers: the
+    parameters and optimizer state it was given, which every step updates
+    in place (the JAX package donates them to its jitted step), and one
+    batch buffer per key of ``batch``.
+
+    A step copies the step's new parameters and moments into those
+    tensors; the NaN-skip stays on the device.  On CUDA the first
+    :meth:`step` runs eagerly on a side stream (the warm-up, a real step)
+    and then captures one step in a ``torch.cuda.CUDAGraph``, which every
+    later step replays; a capture that fails raises.  On the CPU every
+    step runs eagerly.  :attr:`metrics` holds the last step's metrics as
+    device tensors, valid until the next step."""
+
+    def __init__(self, step_fn, params, opt_state, batch: dict):
+        self.step_fn = step_fn
+        self.params, self.opt_state = params, opt_state
+        self.state = pytree.tree_leaves((params, opt_state))
+        self.device = self.state[0].device
+        self.batch = {k: torch.empty_like(v) for k, v in batch.items()}
+        self.metrics: dict | None = None
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.graph_metrics: dict | None = None    # the replay's outputs
+        self.capture_seconds: float | None = None
+        self.replays = 0
+
+    def load(self, batch: dict) -> None:
+        if batch.keys() != self.batch.keys() or any(
+                v.shape != self.batch[k].shape or v.dtype != self.batch[k].dtype
+                for k, v in batch.items()):
+            raise ValueError("TrainProgram: a batch of another layout than "
+                             "its buffers")
+        for k, v in batch.items():
+            self.batch[k].copy_(v)
+
+    def _step(self) -> dict:
+        new_params, new_opt, metrics = self.step_fn(
+            self.params, self.opt_state, self.batch)
+        for dst, src in zip(self.state,
+                            pytree.tree_leaves((new_params, new_opt)),
+                            strict=True):
+            dst.copy_(src)
+        return metrics
+
+    def _warm_up_and_capture(self) -> None:
+        t0 = time.perf_counter()
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            self.metrics = self._step()
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            self.graph_metrics = self._step()
+        torch.cuda.synchronize(self.device)
+        self.graph = graph
+        self.capture_seconds = time.perf_counter() - t0
+
+    def step(self, batch: dict) -> dict:
+        """One train step on ``batch``; returns its metrics."""
+        self.load(batch)
+        if self.device.type != "cuda":
+            self.metrics = self._step()
+        elif self.graph is None:
+            self._warm_up_and_capture()
+        else:
+            self.graph.replay()
+            self.replays += 1
+            self.metrics = self.graph_metrics
+        return self.metrics
+
+
 def train_loop(cfg: ModelConfig, tcfg: TrainConfig, data_iter, n_steps: int,
                checkpoint_dir: str | None = None,
                log_fn: Callable[[int, dict], None] | None = None,
@@ -161,7 +237,10 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, data_iter, n_steps: int,
     """Init (parameters from seed 0) or resume, step, checkpoint, log, on
     ``device`` (CUDA by default), placed on ``mesh`` when one is given
     (every rank draws the same parameters and reads the same global
-    batches; each keeps its shard)."""
+    batches; each keeps its shard).  Without a mesh the steps run through
+    a :class:`TrainProgram` (one CUDA graph on the card), which updates
+    the parameters and optimizer state in place; checkpoints snapshot them
+    to the host before the next step."""
     from repro_torch.distributed.checkpoint import CheckpointManager
 
     if isinstance(data_iter, DeviceMesh):
@@ -186,9 +265,14 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, data_iter, n_steps: int,
 
     batch = first
     history = []
+    program = None if mesh is not None else \
+        TrainProgram(step_fn, params, opt_state, first)
     for step in range(start_step, n_steps):
         t0 = time.time()
-        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        if program is None:
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+        else:
+            metrics = program.step(batch)
         try:
             batch = batch_to_device(next(data_iter), device)
         except StopIteration:

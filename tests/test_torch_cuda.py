@@ -1,10 +1,13 @@
 """Kernel tests that need the card: the ARIMA bank (K1: both paths, the
 segmented launch), flash attention (K2: fast and generic routes), SSD scan
-(K3: chunked and generic routes) and GRU fit (K4) kernels against their
-plain PyTorch versions on CUDA tensors, the port's device paths on
+(K3: chunked and generic routes, forward and backward) and GRU fit (K4)
+kernels against their plain PyTorch versions on CUDA tensors (K3's
+backward also bit for bit across two calls), the port's device paths on
 CUDA (MoE, MLA and the prefix and codebook stubs included, against the
-CPU), K2/K3's entry refusing an input that requires grad (the train
-step on the card against the CPU's is phase 18a of ``chip_smoke.py``), and
+CPU), K2's entry refusing an input that requires grad and K3's returning
+gradients through its backward kernel (the train step on the card
+against the CPU's is phase 18a of ``chip_smoke.py``), the train loop's
+step captured in a CUDA graph against eager steps, bit for bit, and
 the multi-device layer at mesh size 1 over NCCL (the train step,
 a prefill through K2/K3 on local shards, ``moe_apply_ep``, the compressed
 all-reduce and a checkpoint into placements; phases 22-24 at reduced
@@ -514,6 +517,79 @@ def test_ssd_scan_generic_route_matches_plain(cuda, bt, s, h, p, g, n, dtype,
     torch.testing.assert_close(state, ws, atol=tol, rtol=tol)
 
 
+# K3's backward against its plain version (the same chunked decomposition
+# in eager float32) on the forward's shapes, both routes, and mamba2-1.3b's
+# training shape (4 x 2048 tokens, 64 heads of 64, N = 128, bf16).
+# Relative L2 per gradient: float32 1e-4 (float32 sums in other orders;
+# the generic route runs the exact recurrence, not the chunked algebra);
+# bfloat16 5e-4 (the same float32 algebra on the widened inputs, dx, dB
+# and dC rounded to bfloat16 on both sides; the kernel reads <= 1.3e-4,
+# and a build whose float32 factors lose their lo bf16 terms 2.5e-3 on
+# dx, dB and dC: scripts/k3_bwd_lo_control.py).
+BWD_SSD_SHAPES = [s[:7] for s in SSD_SHAPES + GENERIC_SSD_SHAPES] + [
+    (4, 2048, 64, 64, 1, 128, torch.bfloat16)]
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-4}
+
+
+def _bwd_inputs(cuda, bt, s, h, p, g, n, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x, dt, A, B, C = _ssd_inputs(gen, bt, s, h, p, g, n, dtype, cuda)
+    dy = _randn(gen, (bt, s, h, p), dtype, cuda)
+    dfinal = torch.randn((bt, h, n, p), generator=gen, device=cuda)
+    return x, dt, A, B, C, dy, dfinal
+
+
+def _rel_l2(got, want) -> float:
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp(min=1e-30))
+
+
+@pytest.mark.parametrize("bt,s,h,p,g,n,dtype", BWD_SSD_SHAPES)
+def test_ssd_scan_backward_kernel_matches_plain(cuda, bt, s, h, p, g, n,
+                                                dtype):
+    args = _bwd_inputs(cuda, bt, s, h, p, g, n, dtype, s + h + n)
+    path = K3.backward_route(n, p, dtype)
+    K3.reset_counts()
+    got = K3.ssd_scan_backward(*args)
+    want = K3.ssd_scan_backward_plain(*args)
+    torch.cuda.synchronize()
+    assert K3.BWD_LAUNCHES == K3.BWD_ROUTE_LAUNCHES[path] == 1
+    assert K3.LAUNCHES == 0
+    for name, a, w, like in zip(("dx", "ddt", "dA", "dB", "dC"), got, want,
+                                args):
+        assert a.dtype == like.dtype and a.shape == like.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        err = _rel_l2(a, w)
+        assert err <= BWD_TOL[dtype], (name, err)
+
+
+@pytest.mark.parametrize("n,p,dtype", [(128, 64, torch.bfloat16),
+                                       (128, 128, torch.float32),
+                                       (16, 16, torch.bfloat16)])
+def test_ssd_scan_backward_is_bitwise_repeatable(cuda, n, p, dtype):
+    """Two calls on the same inputs give the same bits: the sums over a
+    group's heads and over batch and sequence run in a fixed order."""
+    args = _bwd_inputs(cuda, 2, 300, 8, p, 2, n, dtype, 5)
+    one = K3.ssd_scan_backward(*args)
+    two = K3.ssd_scan_backward(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
+
+
+def test_ssd_scan_backward_without_a_final_cotangent(cuda):
+    """``dfinal=None`` is a zero cotangent, on both routes."""
+    for n, p in ((64, 64), (16, 16)):
+        x, dt, A, B, C, dy, dfinal = _bwd_inputs(
+            cuda, 1, 200, 4, p, 1, n, torch.float32, 6)
+        got = K3.ssd_scan_backward(x, dt, A, B, C, dy, None)
+        want = K3.ssd_scan_backward(x, dt, A, B, C, dy,
+                                    torch.zeros_like(dfinal))
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
 def test_ssd_scan_raises_beyond_every_route(cuda):
     gen = torch.Generator(device=cuda).manual_seed(0)
     inputs = _ssd_inputs(gen, 1, 8, 2, 256, 1, 256, torch.float32, cuda)
@@ -683,8 +759,8 @@ def test_gru_fit_launch_refuses_what_it_does_not_take(cuda):
 
 
 # ---------------------------------------------------------------------------
-# training on the card: K2/K3 have no backward, so their entry refuses an
-# input that requires grad
+# training on the card: K2 has no backward, so its entry refuses an input
+# that requires grad; K3's returns gradients through its backward kernel
 # ---------------------------------------------------------------------------
 
 def _kernel_args(cuda, kernel: str):
@@ -701,7 +777,7 @@ def _kernel_args(cuda, kernel: str):
         -torch.rand(2).to(cuda), rand(1, 64, 1, 64), rand(1, 64, 1, 64)]
 
 
-@pytest.mark.parametrize("kernel", ["K2", "K3"])
+@pytest.mark.parametrize("kernel", ["K2"])
 @pytest.mark.parametrize("which", [0, -1])
 def test_kernel_entry_refuses_an_input_that_requires_grad(cuda, kernel,
                                                           which):
@@ -716,6 +792,27 @@ def test_kernel_entry_refuses_an_input_that_requires_grad(cuda, kernel,
     fn(*(a.detach() for a in args))
     torch.cuda.synchronize()
     assert mod.LAUNCHES == 2
+
+
+@pytest.mark.parametrize("which", [0, 1, 2, -1])
+def test_k3_entry_returns_gradients_through_its_backward(cuda, which):
+    """An input of ``ops.ssd_scan`` that requires grad gets its gradient
+    from K3's backward kernel (one forward and one backward launch), equal
+    to the plain backward's at float32's tolerance."""
+    fn, mod, args = _kernel_args(cuda, "K3")
+    args[which].requires_grad_()
+    mod.reset_counts()
+    y, final = fn(*args)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    dy = torch.randn(y.shape, generator=gen, device=cuda)
+    dfinal = torch.randn(final.shape, generator=gen, device=cuda)
+    (grad,) = torch.autograd.grad((y * dy).sum() + (final * dfinal).sum(),
+                                  args[which])
+    want = K3.ssd_scan_backward_plain(*(a.detach() for a in args), dy,
+                                      dfinal)[which]
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES == 1 and mod.BWD_LAUNCHES == 1
+    assert _rel_l2(grad, want) <= BWD_TOL[torch.float32]
 
 
 
@@ -815,6 +912,80 @@ def test_graph_capture_that_meets_a_host_sync_raises(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert engine.program.graph is None
     assert engine.program.capture_seconds is None
+
+
+# ---------------------------------------------------------------------------
+# the train loop's step captured in a CUDA graph
+# ---------------------------------------------------------------------------
+
+def _train_batches(cfg, n: int):
+    from repro_torch.data.pipeline import SyntheticLM
+    src = SyntheticLM(vocab=cfg.vocab, seq_len=64, batch=4, n_shards=8)
+    return [src.batch_from_shard(src.load_shard(i)) for i in range(n)]
+
+
+def _bits(tree):
+    return [t.view(torch.uint8) if t.dim() else t
+            for t in torch.utils._pytree.tree_leaves(tree)]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-1.5-large-398b",
+                                  "yi-6b"])
+def test_graph_train_steps_equal_eager_steps_bitwise(cuda, arch):
+    """``train_loop`` on the card (an eager warm-up step, then one captured
+    step replayed) against four eager ``make_train_step`` calls on the
+    same batches: every loss and grad norm, and the final parameters and
+    AdamW state, bit for bit; Mamba layers go through K3 forward and
+    backward."""
+    from repro_torch.train import loop as TL
+    from repro_torch.train.optimizer import adamw_init
+    cfg = get_reduced_config(arch)
+    tcfg = TL.TrainConfig(log_every=1)
+    batches = _train_batches(cfg, 4)
+    hist = []
+    K3.reset_counts()
+    params, opt, _ = TL.train_loop(cfg, tcfg, iter(batches), 4, device=cuda,
+                                   log_fn=lambda s, m: hist.append(m))
+    torch.cuda.synchronize()
+    mamba = any(m == "mamba" for m, _ in cfg.pattern)
+    assert (K3.BWD_LAUNCHES > 0) == mamba and (K3.LAUNCHES > 0) == mamba
+    p = TT.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                       cuda)
+    o = adamw_init(p, tcfg.optimizer)
+    step = TL.make_train_step(cfg, tcfg)
+    want = []
+    for b in batches:
+        p, o, m = step(p, o, TL.batch_to_device(b, cuda))
+        want.append({k: float(v) for k, v in m.items()})
+    for got, w in zip(hist, want):
+        assert got["loss"] == w["loss"] and got["grad_norm"] == w["grad_norm"]
+    assert int(opt["step"]) == 4
+    for a, b in zip(_bits((params, opt)), _bits((p, o))):
+        assert torch.equal(a, b)
+
+
+def test_train_capture_that_meets_a_host_sync_raises(cuda, monkeypatch):
+    """A train step that reads a value back to the host cannot be
+    captured: ``train_loop`` raises after the warm-up step, and no eager
+    step takes the graph's place."""
+    from repro_torch.train import loop as TL
+    inner = TL.make_train_step
+
+    def syncing(cfg, tcfg, mesh=None):
+        step = inner(cfg, tcfg, mesh)
+
+        def run(params, opt_state, batch):
+            out = step(params, opt_state, batch)
+            float(out[2]["loss"])                  # a host read-back
+            return out
+        return run
+
+    monkeypatch.setattr(TL, "make_train_step", syncing)
+    cfg = get_reduced_config("yi-6b")
+    with pytest.raises(RuntimeError):
+        TL.train_loop(cfg, TL.TrainConfig(), iter(_train_batches(cfg, 3)),
+                      3, device=cuda)
+    torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------

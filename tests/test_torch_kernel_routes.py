@@ -106,3 +106,28 @@ def test_cpu_tensors_take_the_plain_versions_at_any_shape():
     assert (K2.LAUNCHES, K3.LAUNCHES) == (0, 0)
     assert not any(K2.ROUTE_LAUNCHES.values())
     assert not any(K3.ROUTE_LAUNCHES.values())
+
+
+@pytest.mark.parametrize("n,p", [(64, 64), (128, 64), (16, 16), (256, 32)])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_k3_backward_takes_the_forwards_route(n, p, dtype):
+    assert K3.backward_route(n, p, dtype) == K3.route(n, p, dtype)
+
+
+def test_k3_backward_generic_route_fits_state_and_cotangent():
+    """The generic backward keeps the state and its cotangent in shared
+    memory: it refuses an N, P the forward's generic route still takes."""
+    n = p = 200
+    assert K3.route(n, p, F32) == "generic"
+    assert K3.generic_bwd_smem_bytes(n, p) > K3.MAX_BLOCK_SMEM
+    with pytest.raises(ValueError, match="cotangent"):
+        K3.backward_route(n, p, F32)
+    assert K3.generic_bwd_smem_bytes(96, 96) <= K3.MAX_BLOCK_SMEM
+    assert K3.backward_route(96, 96, BF16) == "generic"
+
+
+def test_k3_backward_beyond_every_route_raises():
+    with pytest.raises(ValueError, match="N, P"):
+        K3.backward_route(1024, 64, F32)
+    with pytest.raises(TypeError):
+        K3.backward_route(64, 64, torch.float16)
