@@ -45,11 +45,14 @@ non-zero):
    TFLOP/s, the share of the bf16 bound and the ratio to SDPA;
 9. K3 against its plain version (the exact recurrence) on ``SSD_SWEEP``
    and the mamba2-1.3b prefill shape: the share of the bytes bound, CUDA
-   kernels per call and scratch bytes; 9b. K3's backward against its plain
-   version (the same chunked decomposition in eager float32) on both
-   routes and at mamba2-1.3b's training shape (4 x 2048 tokens): the route
-   taken, relative L2 per gradient, two calls bitwise equal, kernel and
-   plain times, the bound, CUDA kernels per call and scratch bytes;
+   kernels per call and scratch bytes; 9b. K3's backward, given the
+   incoming chunk states K3's forward keeps, against its plain version
+   (the same chunked decomposition in eager float32, its states
+   recomputed) on both routes and at mamba2-1.3b's training shape (4 x
+   2048 tokens): the route taken, relative L2 per gradient, two calls
+   bitwise equal, kernel and plain times, the bound, the device time of
+   each CUDA kernel of a call, scratch bytes and the forward's saved
+   bytes;
 10. serve yi-6b at full width (random weights from a seed) with
     ``ServeEngine``: three jittered recurring clients, 2000-token prompts;
     every prefill's 32 attention layers go through K2, the scheduler's
@@ -175,11 +178,12 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 
     python3 chip_smoke.py
 
-``--only k2 k4`` (either or both) runs only phase 0, the named kernels'
-builds and their phases (7-8 for K2, 14 for K4), then prints their records
-as ``{"kernels": [...]}`` and no ``ok`` line: a quick way to time the
-kernels of two checkouts in one call, by copying this script (and
-``src/repro_torch/csrc/gru_latency_probe.cu``, for K4) into the other.
+``--only k2 k3 k4`` (any of them) runs only phase 0, the named kernels'
+builds and their phases (7-8 for K2, 9-9b for K3 and its backward, 14 for
+K4), then prints their records as ``{"kernels": [...]}`` and no ``ok``
+line: a quick way to time the kernels of two checkouts in one call, by
+copying this script (and ``src/repro_torch/csrc/gru_latency_probe.cu``,
+for K4) into the other.
 """
 from __future__ import annotations
 
@@ -1018,13 +1022,17 @@ def phase_k3(torch, K3, dev) -> dict:
 
 
 # bt, s, h, p, g, n, dtype name: K3's backward on the chunked route (N = P
-# = 128 in float32, two groups in bf16), on the generic route (phase 16's
-# reduced shape, and phase 18a's float32 training batch of reduced
-# mamba2-1.3b), then mamba2-1.3b's training shape (4 x 2048 tokens, the
-# main path's, last)
+# = 128 in float32, two groups in bf16; 12 heads, not a multiple of the
+# gradient pass's slab of 8, over S shorter than one chunk; float32 at N =
+# P = 128 with 10 heads a group, whose 32-position chunks are halves of
+# the forward's), on the generic route (phase 16's reduced shape, and
+# phase 18a's float32 training batch of reduced mamba2-1.3b), then
+# mamba2-1.3b's training shape (4 x 2048 tokens, the main path's, last)
 SSD_BWD_SHAPES = [
     (1, 256, 2, 128, 1, 128, "float32"),
     (2, 300, 4, 64, 2, 128, "bfloat16"),
+    (2, 40, 12, 64, 1, 64, "bfloat16"),
+    (1, 300, 20, 128, 2, 128, "float32"),
     (1, 2048, 8, 16, 1, 16, "bfloat16"),
     (4, 128, 8, 16, 1, 16, "float32"),
     (4, 2048, 64, 64, 1, 128, "bfloat16"),
@@ -1061,17 +1069,22 @@ def ssd_inputs(torch, gen, dev, bt, s, h, p, g, n, dtype):
 
 
 def k3_bwd_case(torch, K3, dev, gen, shape) -> dict:
-    """One shape of K3's backward: the kernel against its plain version
-    (relative L2 per gradient), bitwise across two calls, its time and the
-    plain version's (CUDA events), the bound, CUDA kernels per call and
-    scratch bytes; logs one line and returns the numbers."""
+    """One shape of K3's backward, given the incoming chunk states K3's
+    forward keeps (chunked route): the kernel against its plain version
+    (which recomputes the states; relative L2 per gradient), bitwise
+    across two calls, its time and the plain version's (CUDA events), the
+    bound, the device time of each CUDA kernel of a call, scratch bytes
+    and the forward's saved bytes; logs two lines and returns the
+    numbers."""
     bt, s, h, p, g, n, dname = shape
     dtype = getattr(torch, dname)
     tol = SSD_BWD_TOL[dname]
     x, dt, A, B, C = ssd_inputs(torch, gen, dev, bt, s, h, p, g, n, dtype)
     dy = torch.randn((bt, s, h, p), generator=gen, device=dev).to(dtype)
     dfinal = torch.randn((bt, h, n, p), generator=gen, device=dev)
-    args = (x, dt, A, B, C, dy, dfinal)
+    _, _, states = K3.ssd_scan(x, dt, A, B, C, keep_states=True)
+    saved = 0 if states is None else states.numel() * 4
+    args = (x, dt, A, B, C, dy, dfinal, states)
     path = K3.backward_route(n, p, dtype)
     before = dict(K3.BWD_ROUTE_LAUNCHES)
     got = K3.ssd_scan_backward(*args)
@@ -1083,7 +1096,7 @@ def k3_bwd_case(torch, K3, dev, gen, shape) -> dict:
     out = {}
 
     def plain():
-        out["want"] = K3.ssd_scan_backward_plain(*args)
+        out["want"] = K3.ssd_scan_backward_plain(*args[:7])
 
     plain_ms = cuda_ms(plain, reps=1, warmup=False)
     errs = {}
@@ -1100,8 +1113,9 @@ def k3_bwd_case(torch, K3, dev, gen, shape) -> dict:
     ms = cuda_ms(lambda: K3.ssd_scan_backward(*args), reps=5)
     nbytes, flops = ssd_bwd_work(bt, s, h, p, g, n, x.element_size())
     bound, by = roofline(nbytes, flops, dtype)
-    per_call, _ = device_kernels(
-        torch, lambda: K3.ssd_scan_backward(*args), "::bwd_")
+    split = kernel_split(torch, lambda: K3.ssd_scan_backward(*args),
+                         "::bwd_")
+    per_call = None if split is None else sum(c for c, _ in split.values())
     err = max(e[1] for e in errs.values())
     log(f"K3 backward bt={bt} s={s} h={h} p={p} g={g} n={n} {dname} "
         f"route={path}: rel_l2=" + ",".join(
@@ -1111,12 +1125,23 @@ def k3_bwd_case(torch, K3, dev, gen, shape) -> dict:
         f"bound_ms={bound:.5f} ({by}) share_of_bound={bound / ms:.4f} "
         f"cuda_kernels_per_call="
         f"{'not measured' if per_call is None else per_call} "
-        f"scratch_bytes={K3.backward_scratch_bytes(bt, s, h, n, p, dtype)}")
+        f"scratch_bytes="
+        f"{K3.backward_scratch_bytes(bt, s, h, n, p, dtype, g)} "
+        f"forward_states_bytes={saved}")
+    log(f"K3 backward split bt={bt} s={s} h={h} p={p} g={g} n={n} {dname}"
+        f" (device ms of one call by CUDA kernel, torch.profiler): " + (
+            "not measured" if split is None else " ".join(
+                f"{k}={v[1]:.4f}({v[0]})" for k, v in split.items())))
     return {"shape": f"Bt={bt} S={s} H={h} P={p} G={g} N={n} {dname}",
             "route": path, "max_abs_err": err,
             "rel_l2": {k: v[0] for k, v in errs.items()}, "ms": ms,
             "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound,
-            "bound_by": by, "cuda_kernels_per_call": per_call}
+            "bound_by": by, "cuda_kernels_per_call": per_call,
+            "scratch_bytes": K3.backward_scratch_bytes(bt, s, h, n, p, dtype,
+                                                       g),
+            "forward_states_bytes": saved,
+            "split_ms": None if split is None else {
+                k: v[1] for k, v in split.items()}}
 
 
 def ssd_autograd_ms(torch, K3, dev, shape) -> dict:
@@ -1173,7 +1198,9 @@ def phase_k3_backward(torch, K3, dev) -> dict:
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             **{key: main[key] for key in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms",
-                                          "cuda_kernels_per_call")},
+                                          "cuda_kernels_per_call",
+                                          "split_ms", "scratch_bytes",
+                                          "forward_states_bytes")},
             "shape": "Bt=4 S=2048 H=64 P=64 G=1 N=128 bf16",
             "generic": [c for c in cases if c["route"] == "generic"]}
 
@@ -1451,12 +1478,14 @@ def prefill_phase(torch, cfg, label: str, K2, dev, phase: str,
     return launches
 
 
-def device_kernels(torch, fn, key: str) -> tuple[int | None, float]:
-    """CUDA kernels whose name holds ``key`` that one call of ``fn`` ran,
-    and their device milliseconds, as ``torch.profiler`` traced them.  A
-    profiling run on the card now and then records no kernel at all (seen
-    for K3 calls that ran and were right): such a run is repeated, and
-    after three empty ones the count is ``None``, not measured."""
+def kernel_split(torch, fn, key: str) -> dict[str, tuple[int, float]] | None:
+    """By CUDA kernel whose name holds ``key``: how many times one call of
+    ``fn`` ran it and its device milliseconds, as ``torch.profiler``
+    traced them (names cut to the function's own and its template
+    arguments).  A profiling run on the card now
+    and then records no kernel at all (seen for K3 calls that ran and
+    were right): such a run is repeated, and after three empty ones the
+    split is ``None``, not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -1465,12 +1494,29 @@ def device_kernels(torch, fn, key: str) -> tuple[int | None, float]:
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        ours = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and key in e.key]
-        if ours:
-            return (sum(e.count for e in ours),
-                    sum(e.self_device_time_total for e in ours) / 1e3)
-    return None, 0.0
+        split: dict[str, tuple[int, float]] = {}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA or key not in e.key:
+                continue
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = re.sub(r"^void |\(.*$| ", "", name).split("::")[-1]
+            count, ms = split.get(name, (0, 0.0))
+            split[name] = (count + e.count,
+                           ms + e.self_device_time_total / 1e3)
+        if split:
+            return split
+    return None
+
+
+def device_kernels(torch, fn, key: str) -> tuple[int | None, float]:
+    """CUDA kernels whose name holds ``key`` that one call of ``fn`` ran,
+    and their device milliseconds (:func:`kernel_split` summed); the
+    count is ``None`` where the profiler recorded none."""
+    split = kernel_split(torch, fn, key)
+    if split is None:
+        return None, 0.0
+    return (sum(c for c, _ in split.values()),
+            sum(ms for _, ms in split.values()))
 
 
 def eager_decode(params, cfg, logits, caches, n: int, steps: int):
@@ -3131,8 +3177,10 @@ def mesh_phases(torch, counts: dict, dev, trained: dict) -> dict:
     return out
 
 
-def run_only(torch, np, only, built, K2, K4, T_rnn, nvcc, dev) -> int:
-    """``--only``: the named kernels' phases (7-8 for K2, 14 for K4) and
+def run_only(torch, np, only, built, K2, K3, K4, T_rnn, nvcc,
+             dev) -> int:
+    """``--only``: the named kernels' phases (7-8 for K2, 9-9b for K3 and
+    its backward, 14 for K4) and
     their records as one ``{"kernels": [...]}`` line."""
     records = []
     if "k2" in only:
@@ -3140,6 +3188,12 @@ def run_only(torch, np, only, built, K2, K4, T_rnn, nvcc, dev) -> int:
         spills = log_build("K2", *built["K2"])
         records.append(phase_k2(torch, K2, dev))
         check_wgmma_256(spills)
+    if "k3" in only:
+        log("== phase 7: build K3 and K3's backward")
+        log_build("K3", *built["K3"])
+        log_build("K3 backward", *built["K3 backward"])
+        records += [phase_k3(torch, K3, dev), phase_k3_backward(torch, K3,
+                                                                dev)]
     if "k4" in only:
         log_build("K4", *built["K4"])
         log_build("K4 probe", *built["K4 probe"])
@@ -3153,9 +3207,10 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Smoke run of the PyTorch port on one CUDA card.")
     parser.add_argument(
-        "--only", nargs="+", choices=("k2", "k4"),
-        help="run only these kernels' builds and phases (7-8: K2, 14: K4) "
-             "and print their records; no ok line")
+        "--only", nargs="+", choices=("k2", "k3", "k4"),
+        help="run only these kernels' builds and phases (7-8: K2, 9-9b: "
+             "K3 and its backward, 14: K4) and print their records; no ok "
+             "line")
     args = parser.parse_args(argv)
     try:
         import torch
@@ -3215,8 +3270,8 @@ def main(argv=None) -> int:
              for name, b in builds.items()}
     dev = torch.device("cuda")
     if args.only:
-        return run_only(torch, np, args.only, built, K2, K4, T_rnn, nvcc,
-                        dev)
+        return run_only(torch, np, args.only, built, K2, K3, K4, T_rnn,
+                        nvcc, dev)
     spills = log_build("K1", *built["K1"])
     reg_spills = {f: b for f, b in spills.items() if "fit_211" in f}
     if len(reg_spills) != 5 or any(reg_spills.values()):

@@ -2,7 +2,8 @@
 """How far K3's backward on bfloat16 inputs lies from its plain version,
 and how far it would lie if its float32 operands lost their lo terms.
 
-The chunked route's tensor-core passes carry every float32 factor (chunk
+The chunked route's tensor-core passes (the reverse walk of the state's
+cotangent and the gradient pass) carry every float32 factor (chunk
 states and cotangents, the masked score products, the chunk weights) as
 two bfloat16 terms, hi = bf16(v) and lo = bf16(v - hi)
 (``csrc/ssd_scan_bwd.cu``, ``split``).  This script builds the backward
@@ -12,7 +13,8 @@ to bfloat16.  It holds both against ``ssd_scan_backward_plain`` (eager
 float32) on the bfloat16 shapes of the card tests and of
 ``chip_smoke.py`` phase 9b, inputs made as the card tests make them, and
 prints the relative L2 of each gradient, then one JSON line with the
-largest of each build.  A tolerance for the bfloat16 backward belongs
+largest of each build.  Both builds take the incoming chunk states of
+K3's forward (built as it is), as training does.  A tolerance for the bfloat16 backward belongs
 between the two.  Run from the repository root on a machine with the
 card:
 
@@ -37,6 +39,7 @@ from repro_torch.kernels import ssd_scan as K3  # noqa: E402
 # backward test and of chip_smoke.py phase 9b
 SHAPES = [(1, 256, 2, 128, 1, 128), (2, 300, 4, 64, 2, 128),
           (2, 256, 4, 128, 2, 64), (1, 200, 4, 64, 1, 64),
+          (2, 40, 12, 64, 1, 64), (1, 200, 20, 64, 2, 128),
           (2, 300, 8, 16, 2, 16), (1, 100, 2, 16, 1, 64),
           (1, 2048, 8, 16, 1, 16), (1, 2048, 8, 64, 1, 16),
           (4, 2048, 64, 64, 1, 128)]
@@ -45,7 +48,8 @@ LO = "lo = pack_bf16(v0 - h.x, v1 - h.y);"
 
 
 def inputs(dev, bt, s, h, p, g, n, seed):
-    """As tests/test_torch_cuda.py's ``_bwd_inputs``, in bfloat16."""
+    """As tests/test_torch_cuda.py's ``_bwd_inputs``, in bfloat16: the
+    backward's arguments, the forward's kept states last."""
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def randn(*shape):
@@ -57,7 +61,8 @@ def inputs(dev, bt, s, h, p, g, n, seed):
     C = randn(bt, s, g, n).to(torch.bfloat16)
     dy = randn(bt, s, h, p).to(torch.bfloat16)
     dfinal = randn(bt, h, n, p)
-    return x, dt, A, B, C, dy, dfinal
+    _, _, states = K3.ssd_scan(x, dt, A, B, C, keep_states=True)
+    return x, dt, A, B, C, dy, dfinal, states
 
 
 def control_source() -> pathlib.Path:
@@ -92,7 +97,7 @@ def main() -> int:
     print(card)
     cases = [(shape, inputs(dev, *shape, shape[1] + shape[2] + shape[5]))
              for shape in SHAPES]
-    wants = [K3.ssd_scan_backward_plain(*args) for _, args in cases]
+    wants = [K3.ssd_scan_backward_plain(*args[:7]) for _, args in cases]
     worst = {}
     for build in ("as built", "lo terms zero"):
         if build == "lo terms zero":

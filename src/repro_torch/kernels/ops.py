@@ -60,21 +60,25 @@ def _no_backward(kernel: str, *inputs) -> None:
 class SSDScan(torch.autograd.Function):
     """K3 under autograd: ``(y, final_state)`` by the forward kernel, the
     gradients of ``x, dt, A, B, C`` by the backward kernel from the
-    cotangents of both outputs (a missing one counts as zero)."""
+    cotangents of both outputs (a missing one counts as zero).  The
+    forward's incoming chunk states (its scratch, float32 [Bt, chunks, H,
+    N, P]; none on the generic route) are saved for the backward, which
+    then does not recompute them."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C):
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(x, dt, A, B, C)
-        return _k3.ssd_scan(x, dt, A, B, C)
+        y, final, states = _k3.ssd_scan(x, dt, A, B, C, keep_states=True)
+        ctx.save_for_backward(x, dt, A, B, C, states)
+        return y, final
 
     @staticmethod
     def backward(ctx, dy, dfinal):
-        x, dt, A, B, C = ctx.saved_tensors
+        x, dt, A, B, C, states = ctx.saved_tensors
         dy = torch.zeros_like(x) if dy is None else dy.contiguous()
         if dfinal is not None:
             dfinal = dfinal.contiguous()
-        return _k3.ssd_scan_backward(x, dt, A, B, C, dy, dfinal)
+        return _k3.ssd_scan_backward(x, dt, A, B, C, dy, dfinal, states)
 
 
 def model_size(x: DTensor) -> int:

@@ -34,11 +34,14 @@ def attention_ref(q, k, v, *, causal: bool = True,
     return out.reshape(b, s, hq, d).to(q.dtype)
 
 
-def ssd_ref(x, dt, A, B, C):
+def ssd_ref(x, dt, A, B, C, keep_every: int | None = None):
     """Exact sequential SSM recurrence (the definition SSD must match).
 
     x: [Bt,S,H,P]; dt: [Bt,S,H] (>0); A: [H] (<0); B,C: [Bt,S,G,N].
-    Returns (y [Bt,S,H,P], final_state [Bt,H,N,P]) in fp32.
+    Returns (y [Bt,S,H,P], final_state [Bt,H,N,P]) in fp32; with
+    ``keep_every``, also the state before every ``keep_every``-th position
+    (the state entering each chunk of that many positions)
+    [Bt, ceil(S / keep_every), H, N, P].
     """
     bt, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
@@ -49,9 +52,13 @@ def ssd_ref(x, dt, A, B, C):
     dtf = dt.float()
     dA = torch.exp(dtf * A[None, None, :])                 # [Bt,S,H]
     state = torch.zeros((bt, h, n, p), dtype=torch.float32, device=x.device)
-    ys = []
+    ys, kept = [], []
     for t in range(s):
+        if keep_every and t % keep_every == 0:
+            kept.append(state)
         state = state * dA[:, t, :, None, None] + torch.einsum(
             "bhn,bh,bhp->bhnp", Bh[:, t], dtf[:, t], xf[:, t])
         ys.append(torch.einsum("bhn,bhnp->bhp", Ch[:, t], state))
+    if keep_every:
+        return torch.stack(ys, dim=1), state, torch.stack(kept, dim=1)
     return torch.stack(ys, dim=1), state

@@ -29,16 +29,18 @@ takes exactly the route named.
 
 The backward, :func:`ssd_scan_backward` (``csrc/ssd_scan_bwd.cu``, its own
 library ``build/kernels/libssd_scan_bwd.so``), gives ``dx, ddt, dA, dB,
-dC`` from ``dy`` and the final state's cotangent, on the same two routes:
-the chunked route recomputes each chunk's incoming state, walks the
-chunks in reverse for the state's cotangent and runs one chunk pass for
-the gradients (bfloat16 inputs on the tensor cores, float32 inputs on
-float32 FMAs; chunks of :func:`backward_chunk` positions); the generic
-route runs the exact
+dC`` from ``dy`` and the final state's cotangent, on the same two routes.
+The chunked route takes the forward's incoming chunk states
+(``ssd_scan(..., keep_states=True)``; a backward chunk that is the second
+half of a forward chunk advances its saved state over the first half),
+walks the chunks in reverse for the state's cotangent and runs one pass
+for the gradients over slabs of a group's heads (bfloat16 inputs on the
+tensor cores, float32 inputs on float32 FMAs; chunks of
+:func:`backward_chunk` positions); the generic route runs the exact
 per-token recurrence in reverse, its states recomputed from per-segment
 checkpoints.  Sums over the heads of a group (``dB``, ``dC``) and over
-batch and sequence (``dA``) go through per-head partials and a
-fixed-order reduction, so two calls give the same bits.
+batch and sequence (``dA``) go through per-slab (generic: per-head)
+partials and a fixed-order reduction, so two calls give the same bits.
 :func:`ssd_scan_backward_plain` is the same chunked decomposition in eager
 float32 PyTorch: the oracle the kernel is held against, and the CPU's
 version.
@@ -135,9 +137,18 @@ def scratch_bytes(bt: int, s: int, h: int, n: int, p: int,
     return bt * n_chunks(s, dtype) * h * (n * p + 1) * 4
 
 
-def ssd_scan_plain(x, dt, A, B, C):
-    y, state = ssd_ref(x, dt, A, B, C)
-    return y.to(x.dtype), state
+def ssd_scan_plain(x, dt, A, B, C, keep_states: bool = False,
+                   chunk: int | None = None):
+    """The exact recurrence, called as :func:`ssd_scan`; with
+    ``keep_states`` a third item: the state entering each chunk of
+    ``chunk`` positions ``[Bt, ceil(S / chunk), H, N, P]`` float32 (what the
+    kernel's chunked route keeps for the backward), or None without a
+    ``chunk``."""
+    out = ssd_ref(x, dt, A, B, C, keep_every=chunk)
+    y, state = out[0].to(x.dtype), out[1]
+    if not keep_states:
+        return y, state
+    return y, state, out[2] if chunk else None
 
 
 def start_build(verbose: bool = False) -> nvcc.Build:
@@ -187,11 +198,16 @@ def _check(x, dt, A, B, C) -> str:
     return path
 
 
-def ssd_scan(x, dt, A, B, C):
-    """SSD scan; returns ``(y, final_state)``."""
+def ssd_scan(x, dt, A, B, C, keep_states: bool = False):
+    """SSD scan; returns ``(y, final_state)``, and with ``keep_states`` a
+    third item: on the chunked route the state entering each of the
+    kernel's chunks ``[Bt, n_chunks, H, N, P]`` float32 (the scratch the
+    kernel leaves them in, chunks of :func:`inner_chunk` positions), which
+    :func:`ssd_scan_backward` takes; None on the generic route and on the
+    CPU, whose backward recomputes them."""
     global LAUNCHES
     if x.device.type == "cpu":
-        return ssd_scan_plain(x, dt, A, B, C)
+        return ssd_scan_plain(x, dt, A, B, C, keep_states)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {x.device}")
     path = _check(x, dt, A, B, C)
@@ -218,7 +234,7 @@ def ssd_scan(x, dt, A, B, C):
     nvcc.check_launch("ssd_scan", err)
     LAUNCHES += 1
     ROUTE_LAUNCHES[path] += 1
-    return y, state
+    return (y, state, states) if keep_states else (y, state)
 
 
 # ---------------------------------------------------------------------------
@@ -251,34 +267,52 @@ def backward_chunk(path: str, n: int, p: int, dtype: torch.dtype) -> int:
                                           _DTYPES[dtype])
 
 
+def backward_parts(h: int, g: int) -> int:
+    """``dB``/``dC`` partials per position of the chunked backward: each
+    group's heads in slabs of ``ssd_scan_bwd_slab_heads()``, one part per
+    slab."""
+    slab = _load_bwd().ssd_scan_bwd_slab_heads()
+    return g * -(-(h // g) // slab)
+
+
 def backward_scratch_bytes(bt: int, s: int, h: int, n: int, p: int,
-                           dtype: torch.dtype) -> int:
-    """Bytes of the backward's float32 scratch for one call: per-head
-    ``dB``/``dC`` ``[Bt, S, H, N]`` each; on the chunked route each chunk's
-    incoming state and its cotangent ``[Bt, chunks, H, N, P]``, the chunk
-    decays and ``dA`` partials ``[Bt, chunks, H]``; on the generic route
-    the segment checkpoints ``[Bt, H, segments, N, P]``, one segment's
-    states ``[Bt, H, chunk, N, P]`` and ``dA`` partials ``[Bt, H]``."""
+                           dtype: torch.dtype, g: int = 1) -> int:
+    """Bytes of the backward's float32 scratch for one call.  Chunked
+    route: the cotangent of the state leaving each of the forward's chunks
+    ``[Bt, ceil(S / inner_chunk), H, N, P]``, per-slab ``dB``/``dC``
+    ``[Bt, S, parts, N]`` each (:func:`backward_parts`) and ``dA``
+    partials ``[Bt, chunks, H]``; the forward's incoming states, which it
+    reads too, are the forward's scratch, not counted here.  Generic
+    route: per-head ``dB``/``dC`` ``[Bt, S, H, N]`` each, the segment
+    checkpoints ``[Bt, H, segments, N, P]``, one segment's states
+    ``[Bt, H, chunk, N, P]`` and ``dA`` partials ``[Bt, H]``."""
     path = backward_route(n, p, dtype)
     k = backward_chunk(path, n, p, dtype)
     nc = -(-s // k)
-    per_head = 2 * bt * s * h * n
     if path == "chunked":
-        return 4 * (per_head + 2 * bt * nc * h * n * p + 2 * bt * nc * h)
-    return 4 * (per_head + bt * h * (nc + k) * n * p + bt * h)
+        ncf = n_chunks(s, dtype)
+        return 4 * (bt * ncf * h * n * p + 2 * bt * s * backward_parts(h, g)
+                    * n + bt * nc * h)
+    return 4 * (2 * bt * s * h * n + bt * h * (nc + k) * n * p + bt * h)
 
 
 def ssd_scan_backward_plain(x, dt, A, B, C, dy, dfinal=None,
-                            chunk: int = 64):
+                            chunk: int = 64, states=None,
+                            states_chunk: int | None = None):
     """Gradients of :func:`ssd_scan`'s ``(y, final_state)`` with respect
     to ``x, dt, A, B, C``, given ``dy`` and ``dfinal`` (the final state's
     cotangent, or None for zero), by the kernel's chunked decomposition in
     eager float32: each chunk's incoming state, the reverse walk over
     chunks ``dS_{c-1} = exp(total_c) dS_c + C^T (exp(cum) * dy)_c`` seeded
-    by ``dfinal``, and the chunk pass.  Any ``S``: positions past the last
-    chunk multiple are padded with dt = 0 and zeros.  Returns ``dx`` in
-    ``x``'s type, ``ddt`` and ``dA`` in float32, ``dB`` and ``dC`` in
-    ``B``'s type."""
+    by ``dfinal``, and the chunk pass.  The incoming states are recomputed
+    from zero, or, given ``states`` (the state entering each chunk of
+    ``states_chunk`` positions, a multiple of ``chunk``, as
+    ``ssd_scan_plain(..., True, states_chunk)`` or the kernel's forward
+    keeps them), taken from there and advanced over the chunks before
+    this one inside the same ``states_chunk``, as the kernel does.  Any
+    ``S``: positions past the last chunk multiple are padded with dt = 0
+    and zeros.  Returns ``dx`` in ``x``'s type, ``ddt`` and ``dA`` in
+    float32, ``dB`` and ``dC`` in ``B``'s type."""
     bt, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     rep = h // g
@@ -308,8 +342,19 @@ def ssd_scan_backward_plain(x, dt, A, B, C, dy, dfinal=None,
     dcontrib = torch.einsum("bclhn,bclh,bclhp->bchnp", Ch, ein, dyc)
     decay = torch.exp(total)                                # [b,c,h]
     state = x.new_zeros((bt, h, n, p), dtype=torch.float32)
+    per = nc                    # our chunks per saved state: none saved
+    if states is not None:
+        if not states_chunk or states_chunk % l or tuple(states.shape) != (
+                bt, -(-s // states_chunk), h, n, p):
+            raise ValueError(f"states [Bt, ceil(S / states_chunk), H, N, P] "
+                             f"at a multiple of chunk={l}, got "
+                             f"{tuple(states.shape)}, states_chunk="
+                             f"{states_chunk}")
+        per = states_chunk // l
     prev = []
     for c in range(nc):
+        if states is not None and c % per == 0:
+            state = states[:, c // per].float()
         prev.append(state)
         state = state * decay[:, c, :, None, None] + contrib[:, c]
     ds = (torch.zeros_like(state) if dfinal is None else dfinal.float())
@@ -371,20 +416,24 @@ def _load_bwd():
     if _bwd_lib is None:
         lib = nvcc.load("ssd_scan_bwd", NVCC_FLAGS)
         fn = lib.ssd_scan_bwd_launch
-        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 9 + [
+        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 10 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.ssd_scan_bwd_chunk.argtypes = [ctypes.c_int] * 4
         lib.ssd_scan_bwd_chunk.restype = ctypes.c_int
+        lib.ssd_scan_bwd_slab_heads.argtypes = []
+        lib.ssd_scan_bwd_slab_heads.restype = ctypes.c_int
         _bwd_lib = lib
     return _bwd_lib
 
 
-def ssd_scan_backward(x, dt, A, B, C, dy, dfinal=None):
+def ssd_scan_backward(x, dt, A, B, C, dy, dfinal=None, states=None):
     """Gradients of :func:`ssd_scan` (see :func:`ssd_scan_backward_plain`);
     returns ``(dx, ddt, dA, dB, dC)``.  A CUDA tensor launches the kernel
-    on the route :func:`backward_route` names; a CPU tensor takes the plain
-    version."""
+    on the route :func:`backward_route` names; the chunked route needs the
+    forward's incoming chunk states (``ssd_scan(..., keep_states=True)``),
+    the generic route takes none.  A CPU tensor takes the plain version,
+    which recomputes the states (the CPU's forward keeps none)."""
     global BWD_LAUNCHES
     if x.device.type == "cpu":
         return ssd_scan_backward_plain(x, dt, A, B, C, dy, dfinal)
@@ -402,8 +451,21 @@ def ssd_scan_backward(x, dt, A, B, C, dy, dfinal=None):
         raise ValueError(f"ssd_scan_backward needs a contiguous float32 "
                          f"dfinal [Bt,H,N,P], got {dfinal.dtype} "
                          f"{tuple(dfinal.shape)}")
-    if path == "chunked" and dy.data_ptr() % 16:
-        raise ValueError("ssd_scan_backward needs a 16-byte aligned dy")
+    fwd_chunk = 0
+    if path == "chunked":
+        fwd_chunk = inner_chunk(x.dtype)
+        want = (bt, -(-s // fwd_chunk), h, n, p)
+        if states is None or states.dtype != torch.float32 or tuple(
+                states.shape) != want or not states.is_contiguous():
+            raise ValueError(
+                f"ssd_scan_backward's chunked route needs the forward's "
+                f"contiguous float32 chunk states {want} "
+                f"(ssd_scan(..., keep_states=True)), got "
+                f"{None if states is None else tuple(states.shape)}")
+        if dy.data_ptr() % 16:
+            raise ValueError("ssd_scan_backward needs a 16-byte aligned dy")
+    elif states is not None:
+        raise ValueError("ssd_scan_backward's generic route takes no states")
     lib = _load_bwd()
     k = backward_chunk(path, n, p, x.dtype)
     nc = -(-s // k)
@@ -414,25 +476,33 @@ def ssd_scan_backward(x, dt, A, B, C, dy, dfinal=None):
     dx = torch.empty_like(x)
     ddt, dA = f32(bt, s, h), f32(h)
     dB, dC = torch.empty_like(B), torch.empty_like(C)
-    dbh, dch = f32(bt, s, h, n), f32(bt, s, h, n)
     if path == "chunked":
-        states, dstates = f32(bt, nc, h, n, p), f32(bt, nc, h, n, p)
-        decay, da_part = f32(bt, nc, h), f32(bt, nc, h)
+        # the cotangent of the state leaving each forward chunk; per-slab
+        # dB/dC parts
+        scratch_a, scratch_b = f32(*want), None
+        parts = backward_parts(h, g)
+        da_part = f32(bt, nc, h)
     else:
-        # segment checkpoints and one segment's states per (batch, head)
-        states, dstates = f32(bt, h, nc, n, p), f32(bt, h, k, n, p)
-        decay, da_part = None, f32(bt, 1, h)
+        # segment checkpoints and one segment's states per (batch, head);
+        # per-head dB/dC parts
+        scratch_a, scratch_b = f32(bt, h, nc, n, p), f32(bt, h, k, n, p)
+        parts = h
+        da_part = f32(bt, 1, h)
+    db_part, dc_part = f32(bt, s, parts, n), f32(bt, s, parts, n)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ssd_scan_bwd_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), dy.data_ptr(),
-            None if dfinal is None else dfinal.data_ptr(), dx.data_ptr(),
-            ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-            states.data_ptr(), dstates.data_ptr(),
-            None if decay is None else decay.data_ptr(), dbh.data_ptr(),
-            dch.data_ptr(), da_part.data_ptr(), bt, s, h, g, n, p,
-            _DTYPES[x.dtype], nc, ROUTES.index(path), stream)
+            C.data_ptr(), dy.data_ptr(), ptr(dfinal), ptr(states),
+            dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+            dC.data_ptr(), scratch_a.data_ptr(), ptr(scratch_b),
+            db_part.data_ptr(), dc_part.data_ptr(), da_part.data_ptr(), bt,
+            s, h, g, n, p, _DTYPES[x.dtype], nc, fwd_chunk,
+            ROUTES.index(path), stream)
     nvcc.check_launch("ssd_scan_backward", err)
     BWD_LAUNCHES += 1
     BWD_ROUTE_LAUNCHES[path] += 1

@@ -517,9 +517,12 @@ def test_ssd_scan_generic_route_matches_plain(cuda, bt, s, h, p, g, n, dtype,
     torch.testing.assert_close(state, ws, atol=tol, rtol=tol)
 
 
-# K3's backward against its plain version (the same chunked decomposition
-# in eager float32) on the forward's shapes, both routes, and mamba2-1.3b's
-# training shape (4 x 2048 tokens, 64 heads of 64, N = 128, bf16).
+# K3's backward, given the forward's incoming chunk states, against its
+# plain version (the same chunked decomposition in eager float32, its
+# states recomputed) on the forward's shapes, both routes, 12 and 10 heads
+# a group (not a multiple of the gradient pass's slab of 8; the first over
+# S shorter than one chunk), and mamba2-1.3b's training shape (4 x 2048
+# tokens, 64 heads of 64, N = 128, bf16).
 # Relative L2 per gradient: float32 1e-4 (float32 sums in other orders;
 # the generic route runs the exact recurrence, not the chunked algebra);
 # bfloat16 5e-4 (the same float32 algebra on the widened inputs, dx, dB
@@ -527,16 +530,22 @@ def test_ssd_scan_generic_route_matches_plain(cuda, bt, s, h, p, g, n, dtype,
 # and a build whose float32 factors lose their lo bf16 terms 2.5e-3 on
 # dx, dB and dC: scripts/k3_bwd_lo_control.py).
 BWD_SSD_SHAPES = [s[:7] for s in SSD_SHAPES + GENERIC_SSD_SHAPES] + [
+    (2, 40, 12, 64, 1, 64, torch.bfloat16),
+    (1, 300, 20, 128, 2, 128, torch.float32),
+    (1, 200, 20, 64, 2, 128, torch.bfloat16),
     (4, 2048, 64, 64, 1, 128, torch.bfloat16)]
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-4}
 
 
 def _bwd_inputs(cuda, bt, s, h, p, g, n, dtype, seed):
+    """x, dt, A, B, C, dy, dfinal and the incoming chunk states K3's
+    forward keeps for them (None on the generic route)."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
     x, dt, A, B, C = _ssd_inputs(gen, bt, s, h, p, g, n, dtype, cuda)
     dy = _randn(gen, (bt, s, h, p), dtype, cuda)
     dfinal = torch.randn((bt, h, n, p), generator=gen, device=cuda)
-    return x, dt, A, B, C, dy, dfinal
+    _, _, states = K3.ssd_scan(x, dt, A, B, C, keep_states=True)
+    return x, dt, A, B, C, dy, dfinal, states
 
 
 def _rel_l2(got, want) -> float:
@@ -551,7 +560,7 @@ def test_ssd_scan_backward_kernel_matches_plain(cuda, bt, s, h, p, g, n,
     path = K3.backward_route(n, p, dtype)
     K3.reset_counts()
     got = K3.ssd_scan_backward(*args)
-    want = K3.ssd_scan_backward_plain(*args)
+    want = K3.ssd_scan_backward_plain(*args[:7])
     torch.cuda.synchronize()
     assert K3.BWD_LAUNCHES == K3.BWD_ROUTE_LAUNCHES[path] == 1
     assert K3.LAUNCHES == 0
@@ -578,16 +587,57 @@ def test_ssd_scan_backward_is_bitwise_repeatable(cuda, n, p, dtype):
 
 
 def test_ssd_scan_backward_without_a_final_cotangent(cuda):
-    """``dfinal=None`` is a zero cotangent, on both routes."""
-    for n, p in ((64, 64), (16, 16)):
-        x, dt, A, B, C, dy, dfinal = _bwd_inputs(
-            cuda, 1, 200, 4, p, 1, n, torch.float32, 6)
-        got = K3.ssd_scan_backward(x, dt, A, B, C, dy, None)
+    """``dfinal=None`` is a zero cotangent, on both routes and types, and
+    against the plain version."""
+    for n, p, dtype in ((64, 64, torch.float32), (16, 16, torch.float32),
+                        (128, 64, torch.bfloat16)):
+        x, dt, A, B, C, dy, dfinal, states = _bwd_inputs(
+            cuda, 1, 200, 12, p, 1, n, dtype, 6)
+        got = K3.ssd_scan_backward(x, dt, A, B, C, dy, None, states)
         want = K3.ssd_scan_backward(x, dt, A, B, C, dy,
-                                    torch.zeros_like(dfinal))
+                                    torch.zeros_like(dfinal), states)
+        plain = K3.ssd_scan_backward_plain(x, dt, A, B, C, dy, None)
         torch.cuda.synchronize()
-        for a, b in zip(got, want):
+        for a, b, w in zip(got, want, plain):
             assert torch.equal(a, b)
+            assert _rel_l2(a, w) <= BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_scan_kept_states_are_the_forwards(cuda, dtype):
+    """The states ``ssd_scan(..., keep_states=True)`` hands the backward:
+    slot c is, bit for bit, the final state K3's forward computes over
+    the first c chunks, and y and the final state are the call's without
+    them; the generic route keeps none."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    ins = _ssd_inputs(gen, 2, 300, 4, 64, 2, 128, dtype, cuda)
+    y, final, states = K3.ssd_scan(*ins, keep_states=True)
+    wy, wfinal = K3.ssd_scan(*ins)
+    k = K3.inner_chunk(dtype)
+    assert states.shape == (2, -(-300 // k), 4, 128, 64)
+    assert torch.equal(y, wy) and torch.equal(final, wfinal)
+    assert not states[:, 0].any()
+    for c in range(1, states.shape[1]):
+        head = [t[:, :c * k].contiguous() if t.dim() > 1 else t
+                for t in ins]
+        assert torch.equal(states[:, c], K3.ssd_scan(*head)[1]), c
+    generic = _ssd_inputs(gen, 1, 50, 2, 16, 1, 16, dtype, cuda)
+    assert K3.ssd_scan(*generic, keep_states=True)[2] is None
+
+
+def test_ssd_scan_backward_needs_the_forwards_states(cuda):
+    """The chunked route takes the forward's states and nothing else in
+    their place; the generic route takes none."""
+    x, dt, A, B, C, dy, dfinal, states = _bwd_inputs(
+        cuda, 1, 200, 4, 64, 1, 128, torch.bfloat16, 8)
+    K3.reset_counts()
+    for bad in (None, states[:, :-1].contiguous(), states.double()):
+        with pytest.raises(ValueError, match="states"):
+            K3.ssd_scan_backward(x, dt, A, B, C, dy, dfinal, bad)
+    g_args = _bwd_inputs(cuda, 1, 50, 2, 16, 1, 16, torch.float32, 8)
+    with pytest.raises(ValueError, match="no states"):
+        K3.ssd_scan_backward(*g_args[:7], states)
+    assert K3.BWD_LAUNCHES == 0
 
 
 def test_ssd_scan_raises_beyond_every_route(cuda):

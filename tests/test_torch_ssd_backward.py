@@ -1,7 +1,9 @@
 """K3's backward on the CPU: ``ssd_scan_backward_plain`` (the oracle the
 backward kernel is held against on the card) against ``jax.vjp`` of the
 JAX package's ``ssd_chunked`` and against torch autograd of the port's
-``ssd_chunked``, and the train loop's ``TrainProgram`` on the CPU.
+``ssd_chunked``, on its own recomputed states and on the kernel's path
+(incoming states saved by the forward at its chunk, advanced inside it),
+and the train loop's ``TrainProgram`` on the CPU.
 
 Inputs are made with NumPy from a seed and handed to both packages.  The
 references run at chunk 32 on inputs padded to a chunk multiple with
@@ -123,6 +125,76 @@ def test_plain_backward_matches_jax_vjp_and_torch_autograd(dtype, g, n, p, s,
             assert err <= tol, (ref, name, err)
 
 
+def _plain_grads_from_states(a, dtype, with_final, chunk, states_chunk):
+    """The plain backward on the kernel's path: the incoming states taken
+    from ``ssd_scan_plain``'s at ``states_chunk`` (the forward's chunk),
+    each chunk inside one advanced from it."""
+    def t(k, typ=torch.float32):
+        return torch.from_numpy(a[k]).to(typ)
+    ins = (t("x", dtype), t("dt"), t("A"), t("B", dtype), t("C", dtype))
+    _, _, states = K3.ssd_scan_plain(*ins, keep_states=True,
+                                     chunk=states_chunk)
+    got = K3.ssd_scan_backward_plain(
+        *ins, t("dy", dtype), t("dfinal") if with_final else None,
+        chunk=chunk, states=states, states_chunk=states_chunk)
+    return [g.float().numpy() for g in got]
+
+
+# (backward chunk, forward chunk): bf16's 64 in 128 and float32's at
+# N = P = 128, 32 in 64 (a chunk that is a forward chunk's second half
+# advances the saved state), and equal chunks; S = 300 and 100 are
+# multiples of neither
+STATE_CHUNKS = [(64, 128), (32, 64), (64, 64)]
+
+
+@pytest.mark.parametrize("s,with_final", [(300, False), (100, True)])
+@pytest.mark.parametrize("chunk,states_chunk", STATE_CHUNKS)
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_plain_backward_from_saved_states_matches_jax_vjp_and_recompute(
+        dtype, g, chunk, states_chunk, s, with_final):
+    a = _inputs(s + 11 * g + chunk, 2, s, 4, 16, g, 16, dtype, with_final)
+    got = _plain_grads_from_states(a, dtype, with_final, chunk, states_chunk)
+    for ref, want in (("jax.vjp", _jax_grads(a, s)),
+                      ("recompute", _plain_grads(a, dtype, with_final))):
+        for name, x, w in zip(NAMES, got, want):
+            assert x.shape == w.shape, (ref, name)
+            err = _rel_l2(x, w)
+            tol = DA_TOL_F32 if (name == "dA" and dtype == torch.float32) \
+                else TOL[dtype]
+            assert err <= tol, (ref, name, err)
+
+
+def test_plain_scan_keeps_the_state_entering_each_chunk():
+    """``ssd_scan_plain(..., keep_states=True, chunk=k)``'s third output:
+    slot c is the final state of the scan over the first c k positions,
+    bit for bit (zero for c = 0), at an S that is no multiple of k."""
+    a = _inputs(8, 2, 90, 4, 16, 2, 16, torch.float32, False)
+    t = {k: torch.from_numpy(v) for k, v in a.items()}
+    ins = [t[k] for k in ("x", "dt", "A", "B", "C")]
+    y, final, states = K3.ssd_scan_plain(*ins, keep_states=True, chunk=32)
+    assert states.shape == (2, 3, 4, 16, 16)
+    assert torch.equal(states[:, 0], torch.zeros_like(final))
+    for c in (1, 2):
+        head = [v[:, :32 * c] if v.dim() > 1 else v for v in ins]
+        assert torch.equal(states[:, c], K3.ssd_scan_plain(*head)[1])
+    wy, wfinal = K3.ssd_scan_plain(*ins)
+    assert torch.equal(y, wy) and torch.equal(final, wfinal)
+
+
+def test_plain_backward_refuses_states_at_another_chunk():
+    a = _inputs(9, 1, 64, 2, 16, 1, 16, torch.float32, True)
+    t = {k: torch.from_numpy(v) for k, v in a.items()}
+    ins = [t[k] for k in ("x", "dt", "A", "B", "C")]
+    _, _, states = K3.ssd_scan_plain(*ins, keep_states=True, chunk=32)
+    for chunk, states_chunk in ((64, 32), (32, 48), (32, None)):
+        with pytest.raises(ValueError, match="states"):
+            K3.ssd_scan_backward_plain(*ins, t["dy"], t["dfinal"],
+                                       chunk=chunk, states=states,
+                                       states_chunk=states_chunk)
+
+
 @pytest.mark.parametrize("chunk", [16, 64])
 def test_plain_backward_does_not_depend_on_its_chunk(chunk):
     """Chunking is exact: the plain backward at another chunk length gives
@@ -145,6 +217,19 @@ def test_cpu_wrapper_is_the_plain_backward():
                     K3.ssd_scan_backward_plain(*args)):
         assert torch.equal(x, w)
     assert K3.BWD_LAUNCHES == 0
+
+
+def test_cpu_forward_keeps_no_states():
+    """On the CPU the forward keeps no chunk states (None: its backward
+    recomputes them), and y and the final state are the call's without
+    them."""
+    a = _inputs(10, 1, 70, 2, 16, 1, 16, torch.float32, True)
+    t = {k: torch.from_numpy(v) for k, v in a.items()}
+    ins = [t[k] for k in ("x", "dt", "A", "B", "C")]
+    y, final, kept = K3.ssd_scan(*ins, keep_states=True)
+    assert kept is None
+    assert all(torch.equal(u, v) for u, v in zip((y, final),
+                                                  K3.ssd_scan(*ins)))
 
 
 def test_cpu_ssd_scan_differentiates_ssd_chunked():
