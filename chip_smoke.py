@@ -52,7 +52,20 @@ non-zero):
    2048 tokens): the route taken, relative L2 per gradient, two calls
    bitwise equal, kernel and plain times, the bound, the device time of
    each CUDA kernel of a call, scratch bytes and the forward's saved
-   bytes;
+   bytes; 9c. the AdamW update (K5, built with the others in phase 1)
+   against its plain version on the card tests' tensor sets (every
+   combination of float32 and bf16 parameters, gradients and moments,
+   aligned and at element offsets): bit for bit where the norm is under
+   the clip, with clipping the norm within 1e-6, the moments and the
+   parameters within relative L2 1e-6, and bit for bit against the plain
+   per-tensor formula fed the kernel's own norm; then at
+   mamba2-1.3b's and yi-6b's full parameter sets once against its plain
+   version, tensor by tensor (the norm and the bits fed its own norm as
+   above; the distance from the plain formula at the plain norm printed),
+   and its time (CUDA events),
+   each CUDA kernel's device time, the bytes bound, the plain version's
+   and the library's (``torch._foreach_norm`` + ``torch._fused_adamw_``)
+   times;
 10. serve yi-6b at full width (random weights from a seed) with
     ``ServeEngine``: three jittered recurring clients, 2000-token prompts;
     every prefill's 32 attention layers go through K2, the scheduler's
@@ -116,18 +129,28 @@ non-zero):
     6 steps: losses and grad norms finite and no step skipped, K3's
     forward and backward wrappers called 96 and 48 times a step (in the
     eager warm-up step and in the captured one), and a profiled replay's
-    kernel table holding 96 and 48 K3 calls; the launches reported are
+    kernel table holding 96 and 48 K3 calls (a trace that lacks any is
+    taken again, up to 3, and the numbers reported are those of the trace
+    that passed); the launches reported are
     those executed (warm-up and replays); step time, tokens/s,
     6·N·T per step time as a share of 989 TFLOP/s, peak memory and the
     loader's stats; then in the same run eager steps and replays of a
     captured ``TrainProgram``, each with its wall time, tokens/s, 6·N·T
     share, peak memory and the busy share and kernels of one step profiled
-    tracing the card only; the graph step's device time by op (K3
-    forward, K3 backward, GEMMs, the largest other kernels by name, AdamW
-    timed alone) and one layer's SSD at the training shape forward and
-    backward through K3 and through autograd of the plain
-    ``ssd_chunked``; (c) the same for yi-6b at full width with its 32
-    layers cut to 4 (no K3 launch); (d) a checkpoint at step 2 resumed to
+    tracing the card only; the graph step's device time by op (K5, K3
+    forward, K3 backward, GEMMs, the largest other kernels by name, the
+    in-place AdamW update timed alone on a copy of the state) and one
+    layer's SSD at the training shape forward and backward through K3
+    and through autograd of the plain ``ssd_chunked``; every update runs
+    in place through K5 (three CUDA kernels a step, counted in the
+    replay), peak memory printed beside the state's bytes, and the loss
+    must fall; (c) the same for yi-6b at full width with its 32 layers
+    cut to 4 (no K3 launch); (e) yi-6b at full width and depth (6.06B
+    parameters) with bf16 moments, ``train_loop`` only (a functional
+    step would hold two copies of the state), then one profiled replay
+    of a captured program: step time, tokens/s, 6·N·T share, peak
+    allocated and reserved memory, busy share, and the update timed
+    alone on the state itself; (d) a checkpoint at step 2 resumed to
     step 4 on a reduced config, bitwise equal to restoring by hand, then
     ``python -m repro_torch.launch.train --arch yi-6b --reduced --steps
     3`` on the card by default;
@@ -178,10 +201,10 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 
     python3 chip_smoke.py
 
-``--only k2 k3 k4`` (any of them) runs only phase 0, the named kernels'
-builds and their phases (7-8 for K2, 9-9b for K3 and its backward, 14 for
-K4), then prints their records as ``{"kernels": [...]}`` and no ``ok``
-line: a quick way to time the kernels of two checkouts in one call, by
+``--only k2 k3 k4 k5`` (any of them) runs only phase 0, the named kernels'
+builds and their phases (7-8 for K2, 9-9b for K3 and its backward, 9c for
+K5, 14 for K4), then prints their records as ``{"kernels": [...]}`` and no
+``ok`` line: a quick way to time the kernels of two checkouts in one call, by
 copying this script (and ``src/repro_torch/csrc/gru_latency_probe.cu``,
 for K4) into the other.
 """
@@ -209,12 +232,24 @@ F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
 
 RTOL = 1e-3     # kernel vs plain: the Adam trajectory amplifies ulps
+# torch.profiler keeps only the kernel records that fall inside its trace
+# window, whose edges it places by the host clock; a trace now and then
+# lost the records of a step's first ~2.4 ms (scripts/trace_records.py) or
+# its last kernel.  Traces leave this much idle time at either end.
+TRACE_PAD_S = 0.05
 STEPS, LR = 200, 0.05
 ARIMA_USERS = 400   # users of the ooi_arima trace (phases 4-4c)
 REFINED_PAIRS = 1 << 30   # operand pairs of phase 2's division check
 
 
+_T0 = time.perf_counter()
+
+
 def log(*args) -> None:
+    """Print a line; a phase's header (``== ...``) also gets the seconds
+    since the script started."""
+    if args and str(args[0]).startswith("== "):
+        args = (*args, f"[t={time.perf_counter() - _T0:.0f}s]")
     print(*args, flush=True)
 
 
@@ -1205,6 +1240,325 @@ def phase_k3_backward(torch, K3, dev) -> dict:
             "generic": [c for c in cases if c["route"] == "generic"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 9c: the AdamW update (K5)
+# ---------------------------------------------------------------------------
+
+# the card tests' tensor set: ragged against 8-element vectors and the
+# kernel's 32768-element chunks; decay on every other tensor
+K5_SIZES = (1, 7, 8, 33, 1000, 32768, 32769, 100003)
+K5_HYPER = dict(lr=1e-2, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
+                grad_clip=1.0)
+
+
+def k5_ulps(torch, a, b) -> int:
+    it = torch.int32 if a.dtype == torch.float32 else torch.int16
+    return int((a.view(it).long() - b.view(it).long()).abs().max())
+
+
+def k5_test_case(torch, K5, dev, combo, grad_scale, offset) -> dict:
+    """One tensor set of ``combo`` (parameter, gradient, moment dtypes):
+    the kernel and the plain version in place from the same state; the
+    norm's relative error, the moments' relative L2 and the parameters'
+    largest distance in ulps, and whether everything is bit for bit."""
+    p_dt, g_dt, m_dt = combo
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def draw(n, dtype, off, scale=1.0, absolute=False):
+        a = torch.randn(n + off, generator=gen, device=dev) * scale
+        return (a.abs() if absolute else a).to(dtype)[off:]
+
+    sets = ([], [], [], [])
+    for i, n in enumerate(K5_SIZES):
+        offs = [(i + k) % 3 if offset else 0 for k in range(4)]
+        sets[0].append(draw(n, g_dt, offs[0], grad_scale))
+        sets[1].append(draw(n, p_dt, offs[1]))
+        sets[2].append(draw(n, m_dt, offs[2], 0.1))
+        sets[3].append(draw(n, m_dt, offs[3], 0.01, absolute=True))
+    decays = [i % 2 == 0 for i in range(len(K5_SIZES))]
+
+    def state():
+        out = []
+        for ts in sets[1:]:
+            copies = []
+            for t in ts:
+                base = torch.empty(t.storage_offset() + t.numel(),
+                                   dtype=t.dtype, device=dev)
+                copies.append(base[t.storage_offset():].copy_(t))
+            out.append(copies)
+        return (*out, torch.tensor(3, dtype=torch.int32, device=dev))
+
+    p0, m0, v0, s0 = state()
+    want = K5.adamw_step_plain_(sets[0], p0, m0, v0, s0, decays, **K5_HYPER)
+    p1, m1, v1, s1 = state()
+    got = K5.adamw_step_(sets[0], p1, m1, v1, s1, decays, **K5_HYPER)
+    torch.cuda.synchronize()
+
+    def rel_l2_of(a, b):
+        return math.sqrt(sum(float((x.double() - y.double()).norm()) ** 2
+                             for x, y in zip(a, b))
+                         / sum(float(y.double().norm()) ** 2 for y in b))
+    # the plain per-tensor formula fed the kernel's own norm
+    pi, mi, vi, si = state()
+    scale = K5.clip_scale(got, K5_HYPER["grad_clip"])
+    _, c1, c2 = K5.bias_corrections(si, K5_HYPER["b1"], K5_HYPER["b2"])
+    hyper = {k: x for k, x in K5_HYPER.items() if k != "grad_clip"}
+    own = all(k5_ulps(torch, a, b) == 0
+              for i in range(len(K5_SIZES))
+              for a, b in zip(K5.update_tensor(
+                  sets[0][i], mi[i], vi[i], pi[i], decays[i], scale, c1, c2,
+                  **hyper), (p1[i], m1[i], v1[i])))
+    return {"norm_rel": abs(float(got) / float(want) - 1),
+            "clipped": float(want) > K5_HYPER["grad_clip"],
+            "moment_rel_l2": max(rel_l2_of(m1, m0), rel_l2_of(v1, v0)),
+            "param_rel_l2": rel_l2_of(p1, p0),
+            "param_ulps": max(k5_ulps(torch, a, b) for a, b in zip(p1, p0)),
+            "max_abs_err": max(float((a.float() - b.float()).abs().max())
+                               for a, b in zip(p1, p0)),
+            "bitwise": all(k5_ulps(torch, a, b) == 0 for a, b in
+                           zip(p1 + m1 + v1, p0 + m0 + v0))
+            and int(s1) == int(s0) == 4,
+            "bitwise_given_own_norm": own}
+
+
+def k5_model_set(torch, cfg, moment_dtype, dev, grad_scale=1e-4):
+    """A model's parameter set on the card (``init_params`` from seed 0),
+    random gradients in the parameters' dtypes, random moments, the decay
+    flags, and ``moments(i)``, which draws tensor ``i``'s moments anew
+    (each from a seed of its own), so a check can read the inputs again
+    after an in-place call has overwritten them."""
+    import torch.utils._pytree as pytree
+
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.optimizer import _decays
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                         dev)
+    flat = pytree.tree_flatten_with_path(params)[0]
+    ps = [p for _, p in flat]
+    decays = [_decays(path, p) for path, p in flat]
+    del params, flat
+    gen = torch.Generator(device=dev).manual_seed(29)
+    gs = [(torch.randn(p.shape, generator=gen, device=dev) * grad_scale)
+          .to(p.dtype) for p in ps]
+
+    def moments(i):
+        g = torch.Generator(device=dev).manual_seed(1000 + i)
+        m = torch.randn(ps[i].shape, generator=g, device=dev) * 1e-3
+        v = torch.randn(ps[i].shape, generator=g, device=dev) * 1e-6
+        return m.to(moment_dtype), v.abs_().to(moment_dtype)
+    ms, vs = zip(*(moments(i) for i in range(len(ps))))
+    return gs, ps, list(ms), list(vs), decays, moments
+
+
+def k5_full_check(torch, K5, label: str, gs, ps, ms, vs, decays, moments,
+                  dev) -> dict:
+    """K5 in place once at a model's whole parameter set, held to its
+    plain version: the norm within 1e-6 of the plain one, every tensor's
+    parameters and moments bit for bit against the plain per-tensor
+    formula fed the kernel's own norm, and ``step`` advanced once; raises
+    on a miss.  Against the plain formula at the plain norm (the clip
+    scales an ulp or so apart) it reports, without a limit, each result's
+    relative L2, largest distance in ulps and elements that differ: that
+    distance is the formula's answer to the norm's rounding, not the
+    kernel's arithmetic (at full size a few hundred bf16 parameters sit on
+    a rounding edge, and where a step nearly cancels a parameter one ulp
+    of the scale is many of the result).  The inputs are read again after
+    the call: the parameters from a copy, the moments drawn anew."""
+    p_old = [p.clone() for p in ps]
+    step = torch.tensor(3, dtype=torch.int32, device=dev)
+    want = K5.grad_norm(gs)
+    got = K5.adamw_step_(gs, ps, ms, vs, step, decays, **K5_HYPER)
+    torch.cuda.synchronize()
+    hyper = {k: x for k, x in K5_HYPER.items() if k != "grad_clip"}
+    _, c1, c2 = K5.bias_corrections(
+        torch.tensor(3, dtype=torch.int32, device=dev), hyper["b1"],
+        hyper["b2"])
+    scales = [K5.clip_scale(x, K5_HYPER["grad_clip"]) for x in (got, want)]
+    own = True
+    # per result (parameters, first and second moments): squared distance
+    # and norm, largest distance in ulps, elements that differ, dtype
+    st = {k: {"sq": 0.0, "norm_sq": 0.0, "ulps": 0, "differ": 0,
+              "dtype": None} for k in ("p", "m", "v")}
+
+    def same_bits(a, b):
+        it = torch.int32 if a.dtype == torch.float32 else torch.int16
+        return torch.equal(a.view(it), b.view(it))
+    for i in range(len(ps)):
+        m0, v0 = moments(i)
+        new = (ps[i], ms[i], vs[i])
+        mine = K5.update_tensor(gs[i], m0, v0, p_old[i], decays[i],
+                                scales[0], c1, c2, **hyper)
+        own = own and all(same_bits(a, b) for a, b in zip(mine, new))
+        del mine
+        plain = K5.update_tensor(gs[i], m0, v0, p_old[i], decays[i],
+                                 scales[1], c1, c2, **hyper)
+        for key, a, b in zip(("p", "m", "v"), new, plain):
+            s = st[key]
+            it = torch.int32 if a.dtype == torch.float32 else torch.int16
+            s["differ"] += int((a.view(it) != b.view(it)).sum())
+            s["ulps"] = max(s["ulps"], k5_ulps(torch, a, b))
+            s["sq"] += float((a.double() - b.double()).norm()) ** 2
+            s["norm_sq"] += float(b.double().norm()) ** 2
+            s["dtype"] = str(a.dtype).split(".")[-1]
+        del plain, m0, v0
+    del p_old
+    results = {k: {"dtype": s["dtype"], "rel_l2": math.sqrt(
+        s["sq"] / s["norm_sq"]), "max_ulps": s["ulps"],
+        "elements_differ": s["differ"]} for k, s in st.items()}
+    out = {"norm_rel": abs(float(got) / float(want) - 1),
+           "clipped": float(want) > K5_HYPER["grad_clip"],
+           "bitwise_given_own_norm": own, "vs_plain": results,
+           "step": int(step)}
+    log(f"K5 at {label}'s parameters, once against the plain version: "
+        f"norm_rel={out['norm_rel']:.3g} clipped={out['clipped']} "
+        f"bitwise_given_own_norm={own} step={out['step']} vs the plain "
+        f"version at its own norm: " + " ".join(
+            f"{k}({r['dtype']}): rel_l2={r['rel_l2']:.3g} max_ulps="
+            f"{r['max_ulps']} elements_differ={r['elements_differ']}"
+            for k, r in results.items()))
+    if not (out["norm_rel"] <= 1e-6 and own and out["step"] == 4):
+        raise AssertionError(f"K5 at {label}'s parameters: outside its "
+                             f"limits {out}")
+    return out
+
+
+def k5_timing(torch, K5, label: str, cfg, moment_dtype, dev) -> dict:
+    """K5 in place at a model's parameter set: first once against its
+    plain version (:func:`k5_full_check`), then ms (CUDA events, 10
+    calls), the device ms of its CUDA kernels (one profiled call), the
+    bound, the plain version's ms (in place, 2 calls) and the library's
+    (``torch._foreach_norm`` + ``torch._fused_adamw_`` per dtype group, on
+    moments in the parameters' dtype where the set's differ: the fused
+    kernel takes one dtype; timed only, never on the path)."""
+    gs, ps, ms, vs, decays, moments = k5_model_set(torch, cfg, moment_dtype,
+                                                   dev)
+    check = k5_full_check(torch, K5, label, gs, ps, ms, vs, decays, moments,
+                          dev)
+    step = torch.tensor(3, dtype=torch.int32, device=dev)
+    n = sum(p.numel() for p in ps)
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+    once = nbytes(gs) + 2 * (nbytes(ps) + nbytes(ms) + nbytes(vs))
+    two_pass = once + nbytes(gs)
+    # float32 operations: the norm's multiply-add (2), the update's 15, 2
+    # more where a tensor decays
+    flops = 17 * n + 2 * sum(p.numel() for p, d in zip(ps, decays) if d)
+    bound, by = roofline(once, flops, torch.float32)
+
+    def k5():
+        return K5.adamw_step_(gs, ps, ms, vs, step, decays, **K5_HYPER)
+    gnorm = float(k5())
+    ms_k5 = cuda_ms(k5, reps=10)
+    split = kernel_split(torch, k5, "adamw_")
+    plain_ms = cuda_ms(lambda: K5.adamw_step_plain_(
+        gs, ps, ms, vs, step, decays, **K5_HYPER), reps=2)
+    lib_m = ms if moment_dtype == ps[0].dtype and all(
+        m.dtype == p.dtype for m, p in zip(ms, ps)) else None
+    note = "same tensors"
+    if lib_m is None:
+        lib_m = [m.to(p.dtype) for m, p in zip(ms, ps)]
+        lib_v = [v.to(p.dtype) for v, p in zip(vs, ps)]
+        note = "moments copied to the parameters' dtype"
+    else:
+        lib_v = vs
+    groups: dict = {}
+    for i, p in enumerate(ps):
+        groups.setdefault((p.dtype, gs[i].dtype), []).append(i)
+    steps_f = {k: torch.tensor(3.0, device=dev) for k in groups}
+
+    def library():
+        torch._foreach_norm(gs)
+        for k, idx in groups.items():
+            torch._fused_adamw_(
+                [ps[i] for i in idx], [gs[i] for i in idx],
+                [lib_m[i] for i in idx], [lib_v[i] for i in idx], [],
+                [steps_f[k]] * len(idx), lr=K5_HYPER["lr"],
+                beta1=K5_HYPER["b1"], beta2=K5_HYPER["b2"],
+                weight_decay=K5_HYPER["weight_decay"], eps=K5_HYPER["eps"],
+                amsgrad=False, maximize=False, grad_scale=None,
+                found_inf=None)
+    library_ms = cuda_ms(library, reps=10)
+    out = {"set": label, "tensors": len(ps), "elements": n,
+           "grad_norm": gnorm, "full_check": check, "ms": ms_k5,
+           "plain_ms": plain_ms,
+           "library_ms": library_ms, "library_note": note,
+           "bound_ms": bound, "bound_by": by,
+           "two_pass_bound_ms": two_pass / HBM_BYTES_PER_S * 1e3,
+           "bytes_once": once, "bytes_two_pass": two_pass,
+           "split_ms": None if split is None else {
+               k: v[1] for k, v in split.items()},
+           "cuda_kernels_per_call": None if split is None else sum(
+               c for c, _ in split.values())}
+    log(f"K5 at {label}'s parameters ({len(ps)} tensors, {n} elements, "
+        f"moments {str(moment_dtype).split('.')[-1]}): kernel_ms="
+        f"{ms_k5:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+        f"({note}) bound_ms={bound:.4f} ({by}; {once} bytes once) "
+        f"two_pass_bound_ms={out['two_pass_bound_ms']:.4f} share_of_bound="
+        f"{bound / ms_k5:.4f} grad_norm={gnorm:.5g} split (device ms by "
+        f"CUDA kernel): " + ("not measured" if split is None else " ".join(
+            f"{k}={v[1]:.4f}({v[0]})" for k, v in split.items())))
+    del gs, ps, ms, vs, lib_m, lib_v
+    free(torch)
+    return out
+
+
+def phase_k5(torch, K5, dev) -> dict:
+    """9c: K5 against its plain version on the card tests' tensor sets
+    (every dtype combination, aligned and at element offsets, under the
+    clip bit for bit, with clipping within limits), then at mamba2-1.3b's
+    and yi-6b's whole parameter sets: once against the plain version,
+    then its times."""
+    from repro_torch.configs import get_config
+    log("== phase 9c: K5 (AdamW) vs plain, then at mamba2-1.3b's and "
+        "yi-6b's parameter sets")
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+    for combo in [(p, g, m) for p in (f32, bf16) for g in (f32, bf16)
+                  for m in (f32, bf16)]:
+        name = "-".join("bf16" if d == bf16 else "f32" for d in combo)
+        for grad_scale, offset in ((1e-3, False), (1e-3, True),
+                                   (1e-1, True)):
+            c = k5_test_case(torch, K5, dev, combo, grad_scale, offset)
+            c["case"] = f"{name} {'clipped' if c['clipped'] else 'unclipped'}" \
+                f"{' offset' if offset else ''}"
+            log(f"K5 {c['case']}: bitwise={c['bitwise']} "
+                f"bitwise_given_own_norm={c['bitwise_given_own_norm']} "
+                f"norm_rel={c['norm_rel']:.3g} moment_rel_l2="
+                f"{c['moment_rel_l2']:.3g} param_rel_l2="
+                f"{c['param_rel_l2']:.3g} param_ulps={c['param_ulps']} "
+                f"max_abs_err={c['max_abs_err']:.3g}")
+            ok = c["norm_rel"] <= 1e-6 and c["bitwise_given_own_norm"] and (
+                c["bitwise"] if not c["clipped"] else
+                c["moment_rel_l2"] <= 1e-6 and c["param_rel_l2"] <= 1e-6)
+            if not ok or c["clipped"] != (grad_scale > 1e-2):
+                raise AssertionError(f"K5 {c['case']}: outside its limits")
+            cases.append(c)
+    sets = {"mamba2-1.3b": k5_timing(torch, K5, "mamba2-1.3b",
+                                     get_config("mamba2-1.3b"), f32, dev),
+            "yi-6b": k5_timing(torch, K5, "yi-6b", get_config("yi-6b"),
+                               bf16, dev)}
+    main = sets["mamba2-1.3b"]
+    return {"name": "adamw", "route": "cuda",
+            "source": "src/repro_torch/csrc/adamw.cu",
+            "replaces": "src/repro/train/optimizer.py:44 (adamw_update, "
+                        "fused into the jax.jit of src/repro/train/loop.py:"
+                        "108 with donate_argnums=(0, 1))",
+            "launches": 0,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "two_pass_bound_ms",
+                                    "split_ms", "cuda_kernels_per_call",
+                                    "full_check")},
+            "shape": "mamba2-1.3b's parameters: 818 tensors, bf16 "
+                     "parameters and gradients, float32 moments",
+            "yi_6b": sets["yi-6b"],
+            "cases": [{k: c[k] for k in (
+                "case", "bitwise", "bitwise_given_own_norm", "norm_rel",
+                "moment_rel_l2", "param_rel_l2", "param_ulps")}
+                for c in cases]}
+
+
 PROMPT_LEN, MAX_NEW, N_CLIENTS, ROUNDS = 2000, 16, 3, 5
 
 
@@ -1492,8 +1846,10 @@ def kernel_split(torch, fn, key: str) -> dict[str, tuple[int, float]] | None:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_PAD_S)
             fn()
             torch.cuda.synchronize()
+            time.sleep(TRACE_PAD_S)
         split: dict[str, tuple[int, float]] = {}
         for e in prof.key_averages():
             if e.device_type != DeviceType.CUDA or key not in e.key:
@@ -2265,30 +2621,37 @@ def train_card_vs_cpu(torch, dev) -> None:
 def profiled(torch, fn, host: bool) -> tuple[float, float, int, list]:
     """(wall ms, device busy ms, kernels, kernel table) of one call of
     ``fn`` under ``torch.profiler``, tracing the card only or the host's
-    operators too (whose own host cost inflates wall)."""
+    operators too (whose own host cost inflates wall); the trace opens
+    and closes ``TRACE_PAD_S`` away from the call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
+        time.sleep(TRACE_PAD_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(TRACE_PAD_S)
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     return wall_ms, busy_ms, sum(e.count for e in kernels), kernels
 
 
-def step_profile(torch, fn, label: str, reps: int = 3) -> dict:
+def step_profile(torch, fn, label: str, reps: int = 3, table_ok=None,
+                 traces: int = 3) -> dict:
     """One step ``fn`` on the card: the median wall ms of ``reps``
     unprofiled calls; device busy ms, busy share (busy over the wall of the
     same call) and kernels of one call profiled tracing the card only
     (CUPTI adds little host cost, unlike the host operator trace), with
     the card-only kernel table; then one call tracing the host too, whose
     largest kernels are logged.  The busy share is None where the
-    card-only trace shows no device time."""
+    card-only trace shows no device time.  With ``table_ok``, a card-only
+    trace whose kernel table it refuses (records missing) is taken again,
+    up to ``traces`` in all, and every number returned is the last
+    trace's; ``traces`` in the result counts them."""
     import statistics
     walls = []
     for _ in range(reps):
@@ -2298,12 +2661,17 @@ def step_profile(torch, fn, label: str, reps: int = 3) -> dict:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     plain_ms = statistics.median(walls)
-    wall, busy, n, table = profiled(torch, fn, host=False)
+    for taken in range(1, traces + 1):
+        wall, busy, n, table = profiled(torch, fn, host=False)
+        if table_ok is None or table_ok(table):
+            break
+        log(f"{label}: card-only trace {taken} refused (kernels={n})")
     share = busy / wall if busy > 0 else None
     log(f"{label}: unprofiled step wall_ms={plain_ms:.2f} (median of "
         f"{reps}); card-only profiled step wall_ms={wall:.2f} "
         f"device_busy_ms={busy:.2f} busy_share="
-        f"{'not measured' if share is None else f'{share:.3f}'} kernels={n}")
+        f"{'not measured' if share is None else f'{share:.3f}'} kernels={n}"
+        f" (trace {taken})")
     hwall, hbusy, hn, kernels = profiled(torch, fn, host=True)
     log(f"{label}: host-and-card profiled step wall_ms={hwall:.2f} "
         f"device_busy_ms={hbusy:.2f} busy_share={hbusy / hwall:.3f} "
@@ -2312,14 +2680,16 @@ def step_profile(torch, fn, label: str, reps: int = 3) -> dict:
         log(f"  profiled step kernel: ms={e.self_device_time_total / 1e3:.3f}"
             f" count={e.count} name={e.key[:90]}")
     return {"wall_ms": plain_ms, "busy_ms": busy, "busy_share": share,
-            "kernels": n, "table": table}
+            "kernels": n, "traces": taken, "table": table}
 
 
 # what the device time of a profiled train step is split into, by kernel
-# name: K3 forward, K3 backward, matrix products (cuBLAS); the rest are
-# the elementwise, reduction and copy kernels
+# name: K5 (AdamW), K3 forward, K3 backward, matrix products (cuBLAS); the
+# rest are the elementwise, reduction and copy kernels
 def op_class(name: str) -> str:
     low = name.lower()
+    if "adamw_" in name:
+        return "K5"
     if "::bwd_" in name:
         return "K3 backward"
     if "ssd_" in name:
@@ -2330,20 +2700,24 @@ def op_class(name: str) -> str:
 
 
 # kernels that each K3 call launches once, by route: its forward's output
-# pass or generic scan, its backward's gradient pass or generic backward
+# pass or generic scan, its backward's gradient pass or generic backward;
+# K5's three kernels, each once a call
 K3_ONCE_PER_CALL = {"K3": ("::ssd_output_", "::ssd_scan_generic"),
-                    "K3_backward": ("::bwd_grad_", "::bwd_generic")}
+                    "K3_backward": ("::bwd_grad_", "::bwd_generic"),
+                    "K5": ("adamw_norm", "adamw_finish", "adamw_apply")}
 
 
 def k3_calls(table) -> dict:
-    """K3 forward and backward calls a profiled kernel table holds."""
+    """K3 forward and backward calls, and K5's kernels, a profiled kernel
+    table holds."""
     return {k: sum(e.count for e in table if any(m in e.key for m in marks))
             for k, marks in K3_ONCE_PER_CALL.items()}
 
 
 def op_split(torch, label: str, table, adamw_ms: float) -> dict:
     """Device ms of a profiled step by op class (:func:`op_class`), the
-    eight largest other kernels by name, and AdamW timed alone."""
+    eight largest other kernels by name, and the in-place AdamW update
+    (``adamw_update_``, one K5 call) timed alone."""
     by = {}
     for e in table:
         key = op_class(e.key)
@@ -2366,22 +2740,27 @@ def mamba_layers(cfg) -> int:
         cfg.n_units * sum(m == "mamba" for m, _ in cfg.pattern)
 
 
-def train_cell(torch, cfg, dev, counts: dict, label: str) -> dict:
-    """18b/18c: ``train_loop`` (bf16, default ``TrainConfig``, remat per
-    unit) on ``SyntheticLM`` through ``PrefetchingLoader``, TRAIN_BATCH x
-    TRAIN_SEQ tokens a step for TRAIN_STEPS steps: an eager warm-up step,
-    then one step captured in a CUDA graph and replayed.  Gates: every loss
-    and grad norm finite, no step skipped, no K2 launch, and K3's forward
-    and backward wrappers called exactly the step's count twice (the
-    warm-up and the capture; replays call no wrapper).  Then, in the same
-    run, eager ``make_train_step`` steps and replays of a captured
-    ``TrainProgram``: wall, tokens/s, 6·N·T share, busy share, kernels and
-    peak memory of each, and (Mamba) the device time by op and one layer's
-    SSD through K3 and through autograd of the plain ``ssd_chunked``.  A
-    gate reads the profiled replay's kernel table: it ran K3's forward and
-    backward the step's count of times.  The launches reported are those
-    executed: the warm-up's and each replay's, TRAIN_STEPS steps of the
-    step's count."""
+def train_cell(torch, cfg, dev, counts: dict, label: str, tcfg=None,
+               eager: bool = True) -> dict:
+    """18b/18c/18e: ``train_loop`` (bf16, ``tcfg`` or the default
+    ``TrainConfig``, remat per unit) on ``SyntheticLM`` through
+    ``PrefetchingLoader``, TRAIN_BATCH x TRAIN_SEQ tokens a step for
+    TRAIN_STEPS steps: an eager warm-up step, then one step captured in a
+    CUDA graph and replayed.  Gates: every loss and grad norm finite, no
+    step skipped, the last loss below the first, no K2 launch, and K3's
+    forward and backward and K5's wrappers called exactly the step's count
+    twice (the warm-up and the capture; replays call no wrapper).  Then,
+    in the same run, eager ``make_train_step`` steps (with ``eager``; a
+    functional step holds a second copy of the state) and replays of a
+    captured ``TrainProgram``: wall, tokens/s, 6·N·T share, busy share,
+    kernels and peak memory of each, the device time by op with the
+    in-place update timed alone (on a copy of the state with ``eager``,
+    else on the state itself, last), and (Mamba) one layer's SSD through
+    K3 and through autograd of the plain ``ssd_chunked``.  A gate reads
+    the profiled replay's kernel table: it ran K3's forward and backward
+    and K5's three kernels the step's count of times.  The launches
+    reported are those executed: the warm-up's and each replay's,
+    TRAIN_STEPS steps of the step's count."""
     import gc
     import statistics
 
@@ -2392,10 +2771,10 @@ def train_cell(torch, cfg, dev, counts: dict, label: str) -> dict:
     from repro_torch.train.loop import (TrainConfig, TrainProgram,
                                         batch_to_device, make_train_step,
                                         train_loop)
-    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.train.optimizer import adamw_update_
 
-    K3 = counts["K3"]
-    tcfg = TrainConfig(log_every=1)
+    K3, K5 = counts["K3"], counts["K5"]
+    tcfg = dataclasses.replace(tcfg or TrainConfig(), log_every=1)
     loader = PrefetchingLoader(
         SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH,
                     n_shards=512), n_steps=TRAIN_STEPS + 2)
@@ -2412,23 +2791,28 @@ def train_cell(torch, cfg, dev, counts: dict, label: str) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
+        peak_reserved = torch.cuda.max_memory_reserved()
         stats = loader.stats
         batch = batch_to_device(next(loader), dev)
     finally:
         loader.close()
     wrapper_calls = {"K2": sum(counts["K2"].ROUTE_LAUNCHES.values()),
-                     "K3": K3.LAUNCHES, "K3_backward": K3.BWD_LAUNCHES}
+                     "K3": K3.LAUNCHES, "K3_backward": K3.BWD_LAUNCHES,
+                     "K5": K5.LAUNCHES}
     n_mamba = mamba_layers(cfg)
     per_step = {"K2": 0,
                 "K3": n_mamba * (1 if cfg.remat == "none" else 2),
-                "K3_backward": n_mamba}
+                "K3_backward": n_mamba, "K5": 3}
     n = param_count(params)
+    state_bytes = sum(x.numel() * x.element_size()
+                      for x in pytree.tree_leaves((params, opt)))
     tokens = TRAIN_BATCH * TRAIN_SEQ
     times = [m["step_time"] for m in history]
     med = statistics.median(times[1:])
     share = 6 * n * tokens / med / BF16_FLOP_PER_S
     total = torch.cuda.get_device_properties(0).total_memory
     log(f"{label}: params={n} dtype={cfg.dtype} remat={cfg.remat} "
+        f"n_layers={cfg.n_layers} moments={tcfg.optimizer.moment_dtype} "
         f"tokens_per_step={tokens} steps={len(history)} "
         f"seconds_with_init={seconds:.2f}")
     log(f"{label}: loss={[round(m['loss'], 5) for m in history]}")
@@ -2437,11 +2821,13 @@ def train_cell(torch, cfg, dev, counts: dict, label: str) -> dict:
         f"eager warm-up and capture) median_step_s_2_to_{TRAIN_STEPS}="
         f"{med:.4f} tokens_per_s={tokens / med:.1f} "
         f"six_n_t_share_of_989_tflops={share:.4f}")
-    log(f"{label}: peak_gib={peak / 2**30:.2f} card_gib={total / 2**30:.2f} "
-        f"peak_share={peak / total:.3f} pipeline_stats={stats} "
-        f"opt_step={int(opt['step'])} wrapper_calls={wrapper_calls} (per "
-        f"step {per_step}; in the warm-up and the capture, the "
-        f"{TRAIN_STEPS - 1} replays call no wrapper)")
+    log(f"{label}: peak_gib={peak / 2**30:.2f} state_gib="
+        f"{state_bytes / 2**30:.2f} (parameters and optimizer state) "
+        f"peak_reserved_gib={peak_reserved / 2**30:.2f} card_gib="
+        f"{total / 2**30:.2f} peak_share={peak / total:.3f} "
+        f"pipeline_stats={stats} opt_step={int(opt['step'])} wrapper_calls="
+        f"{wrapper_calls} (per step {per_step}; in the warm-up and the "
+        f"capture, the {TRAIN_STEPS - 1} replays call no wrapper)")
     bad = [m for m in history if not (math.isfinite(m["loss"])
                                       and math.isfinite(m["grad_norm"]))]
     if bad or len(history) != TRAIN_STEPS:
@@ -2449,6 +2835,8 @@ def train_cell(torch, cfg, dev, counts: dict, label: str) -> dict:
     if int(opt["step"]) != TRAIN_STEPS:
         raise AssertionError(f"{label}: {TRAIN_STEPS - int(opt['step'])} "
                              f"steps skipped")
+    if not history[-1]["loss"] < history[0]["loss"]:
+        raise AssertionError(f"{label}: the loss did not fall")
     if wrapper_calls != {k: 2 * v for k, v in per_step.items()}:
         raise AssertionError(f"{label}: wrapper calls {wrapper_calls}, "
                              f"want twice {per_step}")
@@ -2456,68 +2844,95 @@ def train_cell(torch, cfg, dev, counts: dict, label: str) -> dict:
     # eager steps in the same run, then replays of a captured program
     step = make_train_step(cfg, tcfg)
     state = {}
+    eager_res = None
+    if eager:
+        def eager_step():
+            state.pop("out", None)
+            state["out"] = step(params, opt, batch)
 
-    def eager_step():
-        state.pop("out", None)
-        state["out"] = step(params, opt, batch)
-
-    eager_step()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    eager_step()
-    torch.cuda.synchronize()
-    eager_peak = torch.cuda.max_memory_allocated()
-    eager = step_profile(torch, eager_step, f"{label} eager")
-    state.clear()
-    gc.collect()
+        eager_step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eager_step()
+        torch.cuda.synchronize()
+        eager_peak = torch.cuda.max_memory_allocated()
+        eager_res = step_profile(torch, eager_step, f"{label} eager")
+        state.clear()
+    gc.collect()                # train_loop's program and its graph pool
+    torch.cuda.empty_cache()
     program = TrainProgram(step, params, opt, batch)
     program.step(batch)                     # warm-up and capture
+    # a replay must show K3's and K5's kernels the step's count of times; a
+    # trace of ~10k kernels now and then misses records (its kernel count
+    # moves between traces of one graph), and is taken again
+    want = {k: per_step[k] for k in K3_ONCE_PER_CALL}
+
+    def all_there(table):
+        got = k3_calls(table)
+        if got != want:
+            log(f"{label}: a profiled replay shows {got}, want {want}")
+        return got == want
     graph = step_profile(torch, lambda: program.step(batch),
-                         f"{label} graph")
-    if program.graph is None or program.replays != 5:
+                         f"{label} graph", table_ok=all_there)
+    # 3 unprofiled calls, the card-only traces and one host trace
+    if program.graph is None or program.replays != 4 + graph["traces"]:
         raise AssertionError(f"{label}: the program did not replay its "
                              f"graph ({program.replays} replays)")
     replayed = k3_calls(graph["table"])
     launches = {k: v * TRAIN_STEPS for k, v in per_step.items()}
-    log(f"{label}: one profiled replay ran K3 {replayed} times (kernels "
-        f"launched once a call); executed launches over the "
-        f"{TRAIN_STEPS} steps (warm-up and {TRAIN_STEPS - 1} replays) "
-        f"{launches}")
-    if replayed != {k: per_step[k] for k in replayed}:
-        raise AssertionError(f"{label}: a replay ran K3 {replayed} times, "
-                             f"want {per_step}")
-    for name, r, pk in (("graph", graph, peak), ("eager", eager, eager_peak)):
+    log(f"{label}: one profiled replay ran {replayed} (K3: kernels "
+        f"launched once a call; K5: its three kernels; trace "
+        f"{graph['traces']}); executed launches over the {TRAIN_STEPS} steps"
+        f" (warm-up and {TRAIN_STEPS - 1} replays) {launches}")
+    if replayed != want:
+        raise AssertionError(f"{label}: a replay ran {replayed}, want "
+                             f"{want} ({graph['traces']} traces)")
+    compared = [("graph", graph, peak)] + (
+        [("eager", eager_res, eager_peak)] if eager else [])
+    for name, r, pk in compared:
         r["peak_gib"] = pk / 2**30
         r["tokens_per_s"] = tokens / (r["wall_ms"] / 1e3)
         r["share_of_989"] = 6 * n * tokens / (r["wall_ms"] / 1e3) \
             / BF16_FLOP_PER_S
-    log(f"{label}: graph vs eager in one run: " + "; ".join(
-        f"{name} step_s={r['wall_ms'] / 1e3:.4f} tokens_per_s="
-        f"{r['tokens_per_s']:.1f} six_n_t_share={r['share_of_989']:.4f} "
-        f"busy_share={r['busy_share']} kernels={r['kernels']} "
-        f"peak_gib={r['peak_gib']:.2f}" for name, r in
-        (("graph", graph), ("eager", eager))) + f" capture_seconds="
-        f"{program.capture_seconds:.3f}")
+    log(f"{label}: graph{' vs eager' if eager else ''} in one run: "
+        + "; ".join(
+            f"{name} step_s={r['wall_ms'] / 1e3:.4f} tokens_per_s="
+            f"{r['tokens_per_s']:.1f} six_n_t_share={r['share_of_989']:.4f} "
+            f"busy_share={r['busy_share']} kernels={r['kernels']} "
+            f"peak_gib={r['peak_gib']:.2f}" for name, r, _ in compared)
+        + f" capture_seconds={program.capture_seconds:.3f}")
     out = {"params": n, "median_step_s": med, "tokens_per_s": tokens / med,
            "share_of_989": share, "peak_gib": peak / 2**30,
+           "peak_reserved_gib": peak_reserved / 2**30,
+           "state_gib": state_bytes / 2**30,
            "busy_share": graph["busy_share"],
            "loss": [m["loss"] for m in history], "launches": launches,
            "wrapper_calls": wrapper_calls, "launches_per_step": per_step,
            "graph": {k: v for k, v in graph.items() if k != "table"},
-           "eager": {k: v for k, v in eager.items() if k != "table"},
            "capture_seconds": program.capture_seconds, "pipeline": stats}
+    if eager:
+        out["eager"] = {k: v for k, v in eager_res.items() if k != "table"}
+    del program
+    gc.collect()
+    # the in-place update alone: on a copy of the state where there is room
+    # for one, else on the state itself (its last use)
+    if eager:
+        p_upd, o_upd = (pytree.tree_map(torch.clone, x) for x in (params,
+                                                                    opt))
+    else:
+        p_upd, o_upd = params, opt
+    grads = pytree.tree_map(torch.zeros_like, p_upd)
+    adamw = cuda_ms(lambda: adamw_update_(grads, o_upd, p_upd,
+                                          tcfg.optimizer), reps=3)
+    del grads, p_upd, o_upd
+    out["op_split"] = op_split(torch, f"{label} graph step", graph["table"],
+                               adamw)
     if n_mamba:
-        grads = pytree.tree_map(torch.zeros_like, params)
-        adamw = cuda_ms(lambda: adamw_update(grads, opt, params,
-                                             tcfg.optimizer), reps=3)
-        del grads
-        out["op_split"] = op_split(torch, f"{label} graph step", graph[
-            "table"], adamw)
         m = cfg.mamba
         out["ssd_layer"] = ssd_autograd_ms(torch, K3, dev, (
             TRAIN_BATCH, TRAIN_SEQ, m.n_heads, m.head_dim, m.n_groups,
             m.d_state, "bfloat16"))
-    del params, opt, state, batch, program, graph, eager
+    del params, opt, state, batch, graph, eager_res
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -2592,10 +3007,12 @@ def train_resume(torch, dev) -> None:
 
 
 def train_phase(torch, counts: dict, dev) -> dict:
-    """Phase 18: training on the card.  ``counts``: the K2 and K3 modules
-    (K2's launches must stay at zero, K3's must match each step's Mamba
-    layers)."""
+    """Phase 18: training on the card.  ``counts``: the K2, K3 and K5
+    modules (K2's launches must stay at zero, K3's must match each step's
+    Mamba layers, K5's three kernels a step)."""
     from repro_torch.configs import get_config
+    from repro_torch.train.loop import TrainConfig
+    from repro_torch.train.optimizer import AdamWConfig
 
     train_card_vs_cpu(torch, dev)
     log("== phase 18b: train mamba2-1.3b at full width and depth")
@@ -2606,6 +3023,12 @@ def train_phase(torch, counts: dict, dev) -> dict:
     log(f"== phase 18c: train yi-6b at full width, n_layers cut from "
         f"{yi.n_layers} to {cut.n_layers}")
     out["yi-6b-4l"] = train_cell(torch, cut, dev, counts, "yi-6b-4l")
+    log(f"== phase 18e: train yi-6b at full width and depth ({yi.n_layers} "
+        f"layers), bf16 moments, train_loop only")
+    out["yi-6b"] = train_cell(
+        torch, yi, dev, counts, "yi-6b",
+        TrainConfig(optimizer=AdamWConfig(moment_dtype=torch.bfloat16)),
+        eager=False)
     train_resume(torch, dev)
     return out
 
@@ -3177,10 +3600,10 @@ def mesh_phases(torch, counts: dict, dev, trained: dict) -> dict:
     return out
 
 
-def run_only(torch, np, only, built, K2, K3, K4, T_rnn, nvcc,
+def run_only(torch, np, only, built, K2, K3, K4, K5, T_rnn, nvcc,
              dev) -> int:
     """``--only``: the named kernels' phases (7-8 for K2, 9-9b for K3 and
-    its backward, 14 for K4) and
+    its backward, 9c for K5, 14 for K4) and
     their records as one ``{"kernels": [...]}`` line."""
     records = []
     if "k2" in only:
@@ -3194,6 +3617,9 @@ def run_only(torch, np, only, built, K2, K3, K4, T_rnn, nvcc,
         log_build("K3 backward", *built["K3 backward"])
         records += [phase_k3(torch, K3, dev), phase_k3_backward(torch, K3,
                                                                 dev)]
+    if "k5" in only:
+        log_build("K5", *built["K5"])
+        records.append(phase_k5(torch, K5, dev))
     if "k4" in only:
         log_build("K4", *built["K4"])
         log_build("K4 probe", *built["K4 probe"])
@@ -3207,10 +3633,10 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Smoke run of the PyTorch port on one CUDA card.")
     parser.add_argument(
-        "--only", nargs="+", choices=("k2", "k3", "k4"),
+        "--only", nargs="+", choices=("k2", "k3", "k4", "k5"),
         help="run only these kernels' builds and phases (7-8: K2, 9-9b: "
-             "K3 and its backward, 14: K4) and print their records; no ok "
-             "line")
+             "K3 and its backward, 9c: K5, 14: K4) and print their records; "
+             "no ok line")
     args = parser.parse_args(argv)
     try:
         import torch
@@ -3223,7 +3649,8 @@ def main(argv=None) -> int:
         return 2
     if not all((SRC / "repro_torch" / "csrc" / f"{name}.cu").is_file()
                for name in ("arima_bank", "flash_attention", "ssd_scan",
-                            "ssd_scan_bwd", "gru_fit", "gru_latency_probe")):
+                            "ssd_scan_bwd", "gru_fit", "gru_latency_probe",
+                            "adamw")):
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
@@ -3234,6 +3661,7 @@ def main(argv=None) -> int:
     import repro_torch.core.arima as T_arima
     import repro_torch.core.rnn_predictor as T_rnn
     from repro_torch.configs import get_config
+    from repro_torch.kernels import adamw as K5
     from repro_torch.kernels import arima_bank as K
     from repro_torch.kernels import flash_attention as K2
     from repro_torch.kernels import gru_fit as K4
@@ -3252,7 +3680,7 @@ def main(argv=None) -> int:
 
     starts = {"K1": K.start_build, "K2": K2.start_build,
               "K3": K3.start_build, "K3 backward": K3.start_build_backward,
-              "K4": K4.start_build,
+              "K4": K4.start_build, "K5": K5.start_build,
               "K4 probe": lambda verbose: nvcc.start(
                   "gru_latency_probe", K4.NVCC_FLAGS, verbose)}
     if args.only:
@@ -3260,8 +3688,8 @@ def main(argv=None) -> int:
         starts = {name: start for name, start in starts.items()
                   if name.split()[0].lower() in args.only}
     else:
-        log("== phase 1: build K1 (K2, K3, K3's backward, K4 and K4's "
-            "latency probe build alongside, one nvcc each)")
+        log("== phase 1: build K1 (K2, K3, K3's backward, K4, K4's "
+            "latency probe and K5 build alongside, one nvcc each)")
     t_build = time.perf_counter()
     builds = {name: start(verbose=True) for name, start in starts.items()}
     # collected in turn: each time is from the common start to the moment
@@ -3270,7 +3698,7 @@ def main(argv=None) -> int:
              for name, b in builds.items()}
     dev = torch.device("cuda")
     if args.only:
-        return run_only(torch, np, args.only, built, K2, K3, K4, T_rnn,
+        return run_only(torch, np, args.only, built, K2, K3, K4, K5, T_rnn,
                         nvcc, dev)
     spills = log_build("K1", *built["K1"])
     reg_spills = {f: b for f, b in spills.items() if "fit_211" in f}
@@ -3280,14 +3708,16 @@ def main(argv=None) -> int:
 
     kernels, reuse = drive(torch, np, T, T_arima, K, dev)
 
-    log("== phase 7: build K2, K3 and K3's backward")
+    log("== phase 7: build K2, K3, K3's backward and K5")
     wg_spills = log_build("K2", *built["K2"])
     log_build("K3", *built["K3"])
     log_build("K3 backward", *built["K3 backward"])
+    log_build("K5", *built["K5"])
     k2 = phase_k2(torch, K2, dev)
     check_wgmma_256(wg_spills)
     k3 = phase_k3(torch, K3, dev)
     k3b = phase_k3_backward(torch, K3, dev)
+    k5 = phase_k5(torch, K5, dev)
     counters_lm = {"K1": K, "K2": K2, "K3": K3}
     k2["launches"] = full_serve(torch, "yi-6b", "K2", counters_lm, dev,
                                 "phase 10")
@@ -3308,7 +3738,7 @@ def main(argv=None) -> int:
     for key, rec in (("K2", k2), ("K3", k3)):
         rec["launches_reduced_serve"] = {a: n[key] for a, n in served.items()
                                          if n[key]}
-    trained = train_phase(torch, {"K2": K2, "K3": K3}, dev)
+    trained = train_phase(torch, {"K2": K2, "K3": K3, "K5": K5}, dev)
     log("phase 18 summary: " + json.dumps(trained))
     mamba = trained["mamba2-1.3b"]
     k3["launches_train_mamba2_1_3b"] = mamba["launches"]["K3"]
@@ -3318,6 +3748,13 @@ def main(argv=None) -> int:
     k3b["launches_per_step"] = mamba["launches_per_step"]["K3_backward"]
     k3b["graph_replays_train_mamba2_1_3b"] = TRAIN_STEPS - 1
     k3b["plain_autograd_ssd_chunked"] = mamba["ssd_layer"]
+    k5["launches"] = mamba["launches"]["K5"]
+    k5["wrapper_launches"] = mamba["wrapper_calls"]["K5"]
+    k5["launches_per_step"] = mamba["launches_per_step"]["K5"]
+    k5["launches_yi_6b_full_depth"] = trained["yi-6b"]["launches"]["K5"]
+    k5["train_step_device_ms"] = {
+        cell: trained[cell]["op_split"].get("K5")
+        for cell in ("mamba2-1.3b", "yi-6b-4l", "yi-6b")}
     big = {"deepseek-v3-671b-4l": deepseek_phase(torch, counters_lm, dev)}
     big.update(multimodal_phases(torch, counters_lm, K2, dev))
     log("phases 19-21 summary: " + json.dumps(big))
@@ -3330,7 +3767,7 @@ def main(argv=None) -> int:
     k2["launches_paligemma_3b"] = big["paligemma-3b"]["launches"]["K2"]
     k2["launches_arctic_480b_1l"] = big["arctic-480b-1l"]
     k2["launches_musicgen_large"] = big["musicgen-large"]
-    kernels += [k2, k3, k3b, {
+    kernels += [k2, k3, k3b, k5, {
         "name": "gru_fit",
         "route": "cuda",
         "source": "src/repro_torch/csrc/gru_fit.cu",

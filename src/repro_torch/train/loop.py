@@ -13,9 +13,11 @@ NumPy (or tensor) batches, which the loop moves to the device.  A resumed
 run restores the parameters and optimizer state, not the data position:
 the iterator starts from its beginning, as in the JAX package.  Without a
 mesh it steps through a :class:`TrainProgram`, the counterpart of the JAX
-package's ``jit_train_step``: on CUDA one step captured in a CUDA graph and
-replayed, the parameters and moments updated in place (``donate_argnums``);
-on the CPU the same step eagerly.
+package's ``jit_train_step``: the step's in-place form
+(``step_fn.in_place``: the gradients, then ``adamw_update_``, which writes
+the parameters and moments over the old ones, as ``donate_argnums`` lets
+XLA do), on CUDA captured in a CUDA graph and replayed, on the CPU run
+eagerly.
 
 With a mesh (``make_train_step(cfg, tcfg, mesh)``, ``train_loop(...,
 mesh=mesh)``) the parameters and AdamW moments are DTensors placed by
@@ -39,11 +41,13 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels import adamw as K5
 from repro_torch.launch.shardings import (batch_sharding, distribute,
                                           param_shardings)
 from repro_torch.models.transformer import (ModelConfig, init_params, loss_fn,
                                           mesh_scope)
-from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
+from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
+                                         adamw_update, adamw_update_)
 
 
 @dataclasses.dataclass
@@ -99,10 +103,14 @@ def place_state(cfg: ModelConfig, params, opt_state, mesh, mode="train"):
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
     """The train step: one device without a mesh; with one, on DTensor
     parameters and state (:func:`place_state`), plain batches placed by
-    :func:`place_batch`."""
+    :func:`place_batch`.  ``step_fn(params, opt_state, batch) -> (params,
+    opt_state, metrics)`` is functional, as the JAX package's; without a
+    mesh, ``step_fn.in_place(params, opt_state, batch) -> metrics`` takes
+    the same step and writes it over ``params`` and ``opt_state``."""
     ocfg = tcfg.optimizer
 
-    def step_fn(params, opt_state, batch):
+    def gradients(params, batch):
+        """(loss, metrics, gradient tree) at ``params``."""
         if mesh is not None:
             batch = place_batch(batch, mesh)
         leaves, spec = pytree.tree_flatten(params)
@@ -131,18 +139,14 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
             grads = [g if g.placements == p.placements else
                      g.redistribute(p.device_mesh, p.placements)
                      for g, p in zip(grads, leaves)]
+        return loss, dict(metrics), pytree.tree_unflatten(grads, spec)
 
-        new_params, new_opt, gnorm = adamw_update(
-            pytree.tree_unflatten(grads, spec), opt_state, params, ocfg)
-        # keep the old values where the step is not finite, on the device
-        # (no host sync), in place in the new tensors
-        ok = torch.isfinite(loss) & torch.isfinite(gnorm)
-
-        def keep(new, old):
-            return torch.where(ok, new, old, out=new)
-        new_params = pytree.tree_map(keep, new_params, params)
-        new_opt = pytree.tree_map(keep, new_opt, opt_state)
-        metrics = dict(metrics)
+    def step_fn(params, opt_state, batch):
+        loss, metrics, grads = gradients(params, batch)
+        # a step whose loss or gradient norm is not finite keeps the old
+        # values, on the device (no host sync)
+        new_params, new_opt, gnorm = adamw_update(grads, opt_state, params,
+                                                  ocfg, loss=loss)
         metrics["grad_norm"] = gnorm
         if mesh is not None:
             # the whole values (a loss over a data-sharded batch is a
@@ -151,6 +155,14 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
                        for k, v in metrics.items()}
         return new_params, new_opt, metrics
 
+    def in_place(params, opt_state, batch):
+        loss, metrics, grads = gradients(params, batch)
+        metrics["grad_norm"] = adamw_update_(grads, opt_state, params, ocfg,
+                                             loss=loss)
+        return metrics
+
+    if mesh is None:
+        step_fn.in_place = in_place
     return step_fn
 
 
@@ -159,28 +171,35 @@ def batch_to_device(batch: dict, device) -> dict:
 
 
 class TrainProgram:
-    """``step_fn`` (one device, no mesh) over fixed buffers: the
+    """One train step (one device, no mesh) over fixed buffers: the
     parameters and optimizer state it was given, which every step updates
-    in place (the JAX package donates them to its jitted step), and one
-    batch buffer per key of ``batch``.
+    in place, and one batch buffer per key of ``batch``.
 
-    A step copies the step's new parameters and moments into those
-    tensors; the NaN-skip stays on the device.  On CUDA the first
-    :meth:`step` runs eagerly on a side stream (the warm-up, a real step)
-    and then captures one step in a ``torch.cuda.CUDAGraph``, which every
-    later step replays; a capture that fails raises.  On the CPU every
-    step runs eagerly.  :attr:`metrics` holds the last step's metrics as
-    device tensors, valid until the next step."""
+    The step is ``step_fn.in_place`` (:func:`make_train_step`): the
+    gradients, then one ``adamw_update_`` that writes the new parameters
+    and moments over the old ones (on the card one K5 call), so the step
+    holds one copy of its state, as the JAX package's donated step does;
+    the NaN-skip stays on the device.  On CUDA the first :meth:`step` runs
+    eagerly on a side stream (the warm-up, a real step) and then captures
+    one step in a ``torch.cuda.CUDAGraph`` (whose entry empties the
+    allocator's cache of the warm-up's freed blocks), which every later
+    step replays; a capture that fails raises.  The program keeps the K5
+    tables its graph reads (:attr:`tables`).  On the CPU every step runs
+    eagerly.  :attr:`metrics` holds the last step's metrics as device
+    tensors, valid until the next step."""
 
     def __init__(self, step_fn, params, opt_state, batch: dict):
+        if not hasattr(step_fn, "in_place"):
+            raise TypeError("TrainProgram: step_fn has no in_place form "
+                            "(make_train_step without a mesh gives one)")
         self.step_fn = step_fn
         self.params, self.opt_state = params, opt_state
-        self.state = pytree.tree_leaves((params, opt_state))
-        self.device = self.state[0].device
+        self.device = pytree.tree_leaves(params)[0].device
         self.batch = {k: torch.empty_like(v) for k, v in batch.items()}
         self.metrics: dict | None = None
         self.graph: torch.cuda.CUDAGraph | None = None
         self.graph_metrics: dict | None = None    # the replay's outputs
+        self.tables: list = []           # the K5 tables the graph reads
         self.capture_seconds: float | None = None
         self.replays = 0
 
@@ -194,13 +213,7 @@ class TrainProgram:
             self.batch[k].copy_(v)
 
     def _step(self) -> dict:
-        new_params, new_opt, metrics = self.step_fn(
-            self.params, self.opt_state, self.batch)
-        for dst, src in zip(self.state,
-                            pytree.tree_leaves((new_params, new_opt)),
-                            strict=True):
-            dst.copy_(src)
-        return metrics
+        return self.step_fn.in_place(self.params, self.opt_state, self.batch)
 
     def _warm_up_and_capture(self) -> None:
         t0 = time.perf_counter()
@@ -210,10 +223,11 @@ class TrainProgram:
             self.metrics = self._step()
         torch.cuda.current_stream(self.device).wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream):
+        with K5.holding_tables() as tables, \
+                torch.cuda.graph(graph, stream=stream):
             self.graph_metrics = self._step()
         torch.cuda.synchronize(self.device)
-        self.graph = graph
+        self.graph, self.tables = graph, tables
         self.capture_seconds = time.perf_counter() - t0
 
     def step(self, batch: dict) -> dict:

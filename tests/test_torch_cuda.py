@@ -11,8 +11,11 @@ step captured in a CUDA graph against eager steps, bit for bit, and
 the multi-device layer at mesh size 1 over NCCL (the train step,
 a prefill through K2/K3 on local shards, ``moe_apply_ep``, the compressed
 all-reduce and a checkpoint into placements; phases 22-24 at reduced
-size), and the serving engine's decode step captured in a CUDA graph
-against the eager loop.
+size), the serving engine's decode step captured in a CUDA graph
+against the eager loop, and the AdamW update (K5) against its plain
+version: bit for bit where the norm is under the clip, within stated
+limits where it clips, in place and out of place, captured in a graph,
+the NaN-skip, the memory of one in-place call and the inputs it refuses.
 
 Marked ``cuda``; every test skips where ``torch.cuda.is_available()`` is
 false.  On the card:
@@ -33,6 +36,7 @@ from repro_torch.configs import get_reduced_config
 from repro_torch.core.arima import ARIMA, pack_bank
 from repro_torch.core.kmeans import kmeans
 from repro_torch.core.rnn_predictor import GRUPredictor, init_params
+from repro_torch.kernels import adamw as K5
 from repro_torch.kernels import arima_bank as K
 from repro_torch.kernels import flash_attention as K2
 from repro_torch.kernels import gru_fit as K4
@@ -1028,6 +1032,12 @@ def test_train_capture_that_meets_a_host_sync_raises(cuda, monkeypatch):
             out = step(params, opt_state, batch)
             float(out[2]["loss"])                  # a host read-back
             return out
+
+        def in_place(params, opt_state, batch):
+            metrics = step.in_place(params, opt_state, batch)
+            float(metrics["loss"])                 # a host read-back
+            return metrics
+        run.in_place = in_place
         return run
 
     monkeypatch.setattr(TL, "make_train_step", syncing)
@@ -1177,3 +1187,345 @@ def test_compressed_all_reduce_and_checkpoint_on_card(cuda, mesh, tmp_path):
     for a, b in zip(pytree.tree_leaves(back), pytree.tree_leaves(state)):
         assert a.placements == b.placements
         assert torch.equal(a.to_local(), b.to_local())
+
+
+# ---------------------------------------------------------------------------
+# K5: the AdamW update against its plain version
+# ---------------------------------------------------------------------------
+
+_F32, _BF16 = torch.float32, torch.bfloat16
+K5_COMBOS = [(p, g, m) for p in (_F32, _BF16) for g in (_F32, _BF16)
+             for m in (_F32, _BF16)]
+# ragged against the 8-element vectors and the 32768-element chunks
+K5_SIZES = (1, 7, 8, 33, 1000, 32768, 32769, 100003)
+K5_HYPER = dict(lr=1e-2, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
+                grad_clip=1.0)
+
+
+def _combo_id(combo):
+    return "-".join({_F32: "f32", _BF16: "bf16"}[d] for d in combo)
+
+
+def _k5_inputs(cuda, combo, seed, grad_scale, offset=False):
+    """(grads, params, ms, vs, step, decays) over ``K5_SIZES``; decay on
+    every other tensor.  With ``offset``, tensor ``i``'s parameter,
+    gradient and moments start 0, 1 or 2 elements into their storage (in
+    turn, so their alignments differ): a bf16 view at a 2-byte offset."""
+    p_dt, g_dt, m_dt = combo
+    rng = np.random.default_rng(seed)
+
+    def draw(n, dtype, off, f=lambda a: a):
+        a = np.asarray(f(rng.normal(size=n + off).astype(np.float32)),
+                       np.float32)
+        return torch.from_numpy(a).to(dtype).to(cuda)[off:]
+
+    out = ([], [], [], [])
+    for i, n in enumerate(K5_SIZES):
+        offs = [(i + k) % 3 if offset else 0 for k in range(4)]
+        out[0].append(draw(n, g_dt, offs[0], lambda a: grad_scale * a))
+        out[1].append(draw(n, p_dt, offs[1]))
+        out[2].append(draw(n, m_dt, offs[2], lambda a: 0.1 * a))
+        out[3].append(draw(n, m_dt, offs[3], lambda a: 0.01 * np.abs(a)))
+    step = torch.tensor(3, dtype=torch.int32, device=cuda)
+    return (*out, step, [i % 2 == 0 for i in range(len(K5_SIZES))])
+
+
+def _copies(ts):
+    """Copies at the same storage offsets (clone would realign)."""
+    out = []
+    for t in ts:
+        base = torch.empty(t.storage_offset() + t.numel(), dtype=t.dtype,
+                           device=t.device)
+        view = base[t.storage_offset():]
+        view.copy_(t)
+        out.append(view)
+    return out
+
+
+def _k5_state(inputs):
+    g, p, m, v, step, decays = inputs
+    return g, _copies(p), _copies(m), _copies(v), step.clone(), decays
+
+
+def _ulps(a, b):
+    """Largest distance in units in the last place of ``a``'s dtype."""
+    it = torch.int32 if a.dtype == _F32 else torch.int16
+    return int((a.view(it).long() - b.view(it).long()).abs().max())
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+@pytest.mark.parametrize("combo", K5_COMBOS, ids=_combo_id)
+def test_adamw_kernel_matches_plain_bitwise_under_the_clip(cuda, combo,
+                                                           offset):
+    """The norm under ``grad_clip`` makes both scales exactly 1: every
+    parameter, moment and the step bit for bit, decay on and off, ragged
+    and misaligned sizes; the norm within 1e-6."""
+    inputs = _k5_inputs(cuda, combo, 0, 1e-3, offset)
+    g, p, m, v, step, d = _k5_state(inputs)
+    want = K5.adamw_step_plain_(g, p, m, v, step, d, **K5_HYPER)
+    g2, p2, m2, v2, step2, _ = _k5_state(inputs)
+    launches = K5.LAUNCHES
+    got = K5.adamw_step_(g2, p2, m2, v2, step2, d, **K5_HYPER)
+    torch.cuda.synchronize()
+    assert K5.LAUNCHES == launches + 3
+    assert float(want) < 1.0
+    assert abs(float(got) / float(want) - 1) <= 1e-6
+    assert int(step2) == int(step) == 4
+    for a, b in zip(p2 + m2 + v2, p + m + v):
+        assert _ulps(a, b) == 0
+
+
+@pytest.mark.parametrize("combo", K5_COMBOS, ids=_combo_id)
+def test_adamw_kernel_clipped_within_limits(cuda, combo):
+    """With clipping the kernel's norm sums in another order, so its clip
+    scale may differ from the plain version's by an ulp: the norm within
+    1e-6 relative, the moments and the parameters within relative L2 1e-6
+    of the plain version's.  Fed the kernel's own norm, the plain per-tensor
+    formula gives the kernel's parameters and moments bit for bit.  (An
+    ulp of the scale moves a parameter by a few ulps of its larger operand
+    where the step nearly cancels it, and by many more of the result, so
+    the limit on parameters is the L2 one.)"""
+    inputs = _k5_inputs(cuda, combo, 1, 1e-1, offset=True)
+    g, p, m, v, step, d = _k5_state(inputs)
+    want = K5.adamw_step_plain_(g, p, m, v, step, d, **K5_HYPER)
+    g2, p2, m2, v2, step2, _ = _k5_state(inputs)
+    got = K5.adamw_step_(g2, p2, m2, v2, step2, d, **K5_HYPER)
+    torch.cuda.synchronize()
+    assert float(want) > 10.0
+    assert abs(float(got) / float(want) - 1) <= 1e-6
+    for a, b in ((p2, p), (m2, m), (v2, v)):
+        num = sum(float((x.double() - y.double()).norm()) ** 2
+                  for x, y in zip(a, b))
+        den = sum(float(y.double().norm()) ** 2 for y in b)
+        assert (num / den) ** 0.5 <= 1e-6
+    _, p0, m0, v0, step0, _ = _k5_state(inputs)
+    scale = K5.clip_scale(got, K5_HYPER["grad_clip"])
+    _, c1, c2 = K5.bias_corrections(step0, K5_HYPER["b1"], K5_HYPER["b2"])
+    hyper = {k: x for k, x in K5_HYPER.items() if k != "grad_clip"}
+    for i in range(len(K5_SIZES)):
+        new = K5.update_tensor(g[i], m0[i], v0[i], p0[i], d[i], scale, c1,
+                               c2, **hyper)
+        for a, b in zip(new, (p2[i], m2[i], v2[i])):
+            assert _ulps(a, b) == 0
+
+
+def test_adamw_kernel_repeatable_and_in_place_equals_out_of_place(cuda):
+    """Two in-place calls from the same state give the same bits, and so
+    does an out-of-place call, which leaves its inputs as they were."""
+    combo = (_BF16, _BF16, _F32)
+    inputs = _k5_inputs(cuda, combo, 2, 1e-1)
+    runs = []
+    for _ in range(2):
+        g, p, m, v, step, d = _k5_state(inputs)
+        runs.append((K5.adamw_step_(g, p, m, v, step, d, **K5_HYPER),
+                     p + m + v + [step]))
+    g, p, m, v, step, d = _k5_state(inputs)
+    before = [t.clone() for t in p + m + v + [step]]
+    out = ([torch.empty_like(t) for t in p], [torch.empty_like(t) for t in m],
+           [torch.empty_like(t) for t in v], torch.empty_like(step))
+    gnorm = K5.adamw_step_(g, p, m, v, step, d, out=out, **K5_HYPER)
+    torch.cuda.synchronize()
+    for a, b in zip(p + m + v + [step], before):
+        assert torch.equal(a, b)
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][0],
+                                                               gnorm)
+    for a, b, c in zip(runs[0][1], runs[1][1],
+                       out[0] + out[1] + out[2] + [out[3]]):
+        assert _ulps(a, b) == 0 if a.dim() else torch.equal(a, b)
+        assert _ulps(a, c) == 0 if a.dim() else torch.equal(a, c)
+
+
+@pytest.mark.parametrize("bad", ["nan_grad", "inf_loss"])
+def test_adamw_kernel_skips_a_non_finite_step(cuda, bad):
+    """A NaN gradient or an infinite loss: in place nothing is written and
+    ``step`` stays; out of place the outputs equal the inputs."""
+    inputs = _k5_inputs(cuda, (_BF16, _BF16, _F32), 3, 1e-3)
+    g, p, m, v, step, d = _k5_state(inputs)
+    loss = torch.tensor(float("inf") if bad == "inf_loss" else 1.0,
+                        device=cuda)
+    if bad == "nan_grad":
+        g = [t.clone() for t in g]
+        g[6][77] = float("nan")
+    before = [t.clone() for t in p + m + v + [step]]
+    gnorm = K5.adamw_step_(g, p, m, v, step, d, loss=loss, **K5_HYPER)
+    out = ([torch.empty_like(t) for t in p], [torch.empty_like(t) for t in m],
+           [torch.empty_like(t) for t in v], torch.empty_like(step))
+    K5.adamw_step_(g, p, m, v, step, d, loss=loss, out=out, **K5_HYPER)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(gnorm)) == (bad == "inf_loss")
+    for a, o, b in zip(p + m + v + [step], out[0] + out[1] + out[2] +
+                       [out[3]], before):
+        assert torch.equal(a, b) and torch.equal(o, b)
+
+
+def test_adamw_kernel_graph_replays_equal_eager_calls(cuda):
+    """K5 captured in a CUDA graph (after an eager call that builds its
+    table): three replays take the same steps, bit for bit, as three more
+    eager calls on a copy of the state; the capture copies nothing from
+    the host."""
+    inputs = _k5_inputs(cuda, (_BF16, _F32, _BF16), 4, 1e-1)
+    runs = []
+    for graphed in (True, False):
+        g, p, m, v, step, d = _k5_state(inputs)
+        K5.adamw_step_(g, p, m, v, step, d, **K5_HYPER)
+        if graphed:
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                norm = K5.adamw_step_(g, p, m, v, step, d, **K5_HYPER)
+            norms = []
+            for _ in range(3):
+                graph.replay()
+                norms.append(norm.clone())
+        else:
+            norms = [K5.adamw_step_(g, p, m, v, step, d, **K5_HYPER)
+                     for _ in range(3)]
+        torch.cuda.synchronize()
+        runs.append((norms, p + m + v + [step]))
+    assert int(runs[0][1][-1]) == int(runs[1][1][-1]) == 7
+    for a, b in zip(runs[0][0], runs[1][0]):
+        assert torch.equal(a, b)
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(a.view(torch.uint8) if a.dim() else a,
+                           b.view(torch.uint8) if b.dim() else b)
+
+
+def test_adamw_update_in_place_holds_no_second_copy(cuda):
+    """One ``adamw_update_`` call on a reduced model's state allocates no
+    more than K5's scratch (the norm's slots, its results, the bias
+    corrections' 0-d tensors); the functional ``adamw_update`` allocates
+    at least the parameters and moments again."""
+    import torch.utils._pytree as pytree
+
+    from repro_torch.train import optimizer as TO
+    cfg = get_reduced_config("yi-6b")
+    ocfg = TO.AdamWConfig()
+    params = TT.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                            cuda)
+    state = TO.adamw_init(params, ocfg)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    grads = pytree.tree_map(lambda p: 1e-3 * torch.randn(
+        p.shape, generator=gen, device=cuda).to(p.dtype), params)
+    loss = torch.tensor(1.0, device=cuda)
+    TO.adamw_update_(grads, state, params, ocfg, loss=loss)  # its table
+    leaves = pytree.tree_leaves(params)
+    decays = [TO._decays(k, x)
+              for k, x in pytree.tree_flatten_with_path(params)[0]]
+    table = K5.table_for(pytree.tree_leaves(grads), leaves,
+                         pytree.tree_leaves(state["m"]),
+                         pytree.tree_leaves(state["v"]), decays)
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      pytree.tree_leaves((params, state["m"], state["v"])))
+    extra = {}
+    for form in ("in_place", "functional"):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        if form == "in_place":
+            out = TO.adamw_update_(grads, state, params, ocfg, loss=loss)
+        else:
+            out = TO.adamw_update(grads, state, params, ocfg, loss=loss)
+        torch.cuda.synchronize()
+        extra[form] = torch.cuda.max_memory_allocated() - before
+        del out
+    assert extra["in_place"] <= K5.scratch_bytes(table)
+    assert extra["functional"] >= state_bytes
+
+
+def test_adamw_kernel_refuses_inputs_it_does_not_take(cuda, mesh):
+    """DTensors, float16, a strided tensor and mixed devices raise; no
+    call falls back to the plain version or launches."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.train import optimizer as TO
+    g, p, m, v, step, d = _k5_state(_k5_inputs(cuda, (_F32,) * 3, 5, 1e-3))
+    launches = K5.LAUNCHES
+    dt = [distribute_tensor(t, mesh, [Replicate(), Replicate()])
+          for t in p[:2]]
+    with pytest.raises(TypeError):
+        K5.adamw_step_(dt, dt, dt, dt, step, d[:2], **K5_HYPER)
+    with pytest.raises(TypeError):
+        TO.adamw_update_({"a": dt[0]}, {"m": {"a": dt[0]}, "v": {"a": dt[0]},
+                                        "step": step}, {"a": dt[0]},
+                         TO.AdamWConfig())
+    half = [t.half() for t in p]
+    with pytest.raises(TypeError):
+        K5.adamw_step_(half, half, m, v, step, d, **K5_HYPER)
+    strided = [torch.zeros(2 * t.numel(), device=cuda)[::2] for t in p]
+    with pytest.raises(ValueError):
+        K5.adamw_step_(g, strided, m, v, step, d, **K5_HYPER)
+    with pytest.raises(ValueError):
+        K5.adamw_step_([t.cpu() for t in g], p, m, v, step, d, **K5_HYPER)
+    torch.cuda.synchronize()
+    assert K5.LAUNCHES == launches
+
+
+def test_train_program_on_card_runs_k5_and_no_copy_back(cuda):
+    """``train_loop`` on the card: the warm-up and the capture each call
+    K5 once (three CUDA kernels); a profiled replay runs K5's three
+    kernels once each and calls no wrapper."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train import loop as TL
+    from repro_torch.train.optimizer import adamw_init
+    cfg = get_reduced_config("yi-6b")
+    tcfg = TL.TrainConfig()
+    batches = _train_batches(cfg, 1)
+    params = TT.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                            cuda)
+    opt = adamw_init(params, tcfg.optimizer)
+    batch = TL.batch_to_device(batches[0], cuda)
+    program = TL.TrainProgram(TL.make_train_step(cfg, tcfg), params, opt,
+                              batch)
+    K5.reset_counts()
+    program.step(batch)
+    assert K5.LAUNCHES == 6
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        program.step(batch)
+        torch.cuda.synchronize()
+    names = {e.key: e.count for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA}
+    for k in ("adamw_norm", "adamw_finish", "adamw_apply"):
+        assert sum(c for n, c in names.items() if k in n) == 1, names
+    assert K5.LAUNCHES == 6
+    assert int(opt["step"]) == 2
+
+
+def test_train_program_keeps_its_k5_table_past_the_cache(cuda):
+    """A captured ``TrainProgram`` keeps the K5 table its graph reads by
+    pointer: after more in-place sets than K5's table cache holds have
+    gone through ``adamw_update_`` (the program's table dropped from the
+    cache) and new tensors have taken the freed memory, a replay still
+    equals an eager in-place step on a copy of the state, bit for bit."""
+    import torch.utils._pytree as pytree
+
+    from repro_torch.train import loop as TL
+    from repro_torch.train import optimizer as TO
+    cfg = get_reduced_config("yi-6b")
+    tcfg = TL.TrainConfig()
+    batches = [TL.batch_to_device(b, cuda) for b in _train_batches(cfg, 2)]
+    params = TT.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                            cuda)
+    opt = TO.adamw_init(params, tcfg.optimizer)
+    step = TL.make_train_step(cfg, tcfg)
+    program = TL.TrainProgram(step, params, opt, batches[0])
+    program.step(batches[0])                  # warm-up and capture
+    assert len(program.tables) == 1
+    held = program.tables[0]
+    p, o = (pytree.tree_map(torch.clone, x) for x in (params, opt))
+    want = {k: float(v) for k, v in step.in_place(p, o, batches[1]).items()}
+    for i in range(K5._TABLE_CACHE + 1):
+        w = {"w": torch.randn(100 + i, device=cuda)}
+        TO.adamw_update_({"w": torch.randn(100 + i, device=cuda)},
+                         TO.adamw_init(w, tcfg.optimizer), w,
+                         tcfg.optimizer)
+    assert all(t is not held for t in K5._TABLES.values())
+    junk = [torch.full_like(held.tab, -1) for _ in range(64)]
+    got = {k: float(v) for k, v in program.step(batches[1]).items()}
+    torch.cuda.synchronize()
+    del junk
+    assert program.replays == 1 and got == want
+    for a, b in zip(_bits((params, opt)), _bits((p, o))):
+        assert torch.equal(a, b)
