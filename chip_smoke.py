@@ -65,7 +65,15 @@ non-zero):
    and its time (CUDA events),
    each CUDA kernel's device time, the bytes bound, the plain version's
    and the library's (``torch._foreach_norm`` + ``torch._fused_adamw_``)
-   times;
+   times; 9d. K5 on the local shards of two ranks of the one card, each a
+   spawned process in one gloo group (one card cannot hold two NCCL
+   ranks): mamba2-1.3b's parameter set split between them (row blocks;
+   vectors and every eighth matrix replicated, counted in the norm on
+   rank 0 only), the norm's total all-reduced over gloo with CUDA
+   tensors between K5's sum and its finish, held to single-rank K5 on
+   the whole set: the norm within 1e-7 relative, every result bit for
+   bit (the norm under the clip), each replicated tensor bit for bit with
+   rank 0's copy, four launches a rank;
 10. serve yi-6b at full width (random weights from a seed) with
     ``ServeEngine``: three jittered recurring clients, 2000-token prompts;
     every prefill's 32 attention layers go through K2, the scheduler's
@@ -175,10 +183,17 @@ non-zero):
 22. the multi-device layer on a 1 x 1 (data, model) mesh over NCCL at
     world size 1: yi-6b at full width, 4 of 32 layers, trained through
     ``train_loop(..., mesh=mesh)`` on phase 18c's traffic (4 x 2048 tokens)
-    for 3 steps, its losses against the no-mesh loop's on the same
-    batches; the step time beside phase 18c's, the busy share and the
-    peak memory; then a checkpoint of the mesh's state restored into its
-    placements, bitwise;
+    for 3 steps, each an eager in-place step with K5 on the local shards
+    (four kernels: norm, sum, then after the all-reduce finish and
+    update); its losses and grad norms bit for bit equal to the no-mesh
+    loop's on the same batches, K5 launched 12 times, a profiled step
+    running K5's four kernels once each; the step time beside phase
+    18c's, the busy share and the peak memory; then a checkpoint of the
+    mesh's state restored into its placements, bitwise; 22b. yi-6b at
+    full width and depth with bf16 moments through ``train_loop(...,
+    mesh=mesh)`` for 3 steps (one copy of its state, as 18e): losses and
+    grad norms bit for bit equal to 18e's first three, every parameter a
+    DTensor, the peak beside 18e's;
 23. serve placements on the same mesh: yi-6b and mamba2-1.3b at full width
     and depth prefill a 2000-token prompt as DTensors under the decode
     cache hints, then decode 4 tokens: one K2 (K3) launch per layer on the
@@ -202,11 +217,12 @@ The line before the last is ``{"kernels": [...]}``; the last line is
     python3 chip_smoke.py
 
 ``--only k2 k3 k4 k5`` (any of them) runs only phase 0, the named kernels'
-builds and their phases (7-8 for K2, 9-9b for K3 and its backward, 9c for
-K5, 14 for K4), then prints their records as ``{"kernels": [...]}`` and no
-``ok`` line: a quick way to time the kernels of two checkouts in one call, by
-copying this script (and ``src/repro_torch/csrc/gru_latency_probe.cu``,
-for K4) into the other.
+builds and their phases (7-8 for K2, 9-9b for K3 and its backward, 9c-9d
+for K5, 14 for K4), then prints their records as ``{"kernels": [...]}`` and
+no ``ok`` line: a quick way to time the kernels of two checkouts in one call,
+by copying this script (and ``src/repro_torch/csrc/gru_latency_probe.cu``,
+for K4) into the other.  ``--only mesh`` builds K5 and runs phases 18c and
+18e (what the mesh phases are held to), then 22 and 22b.
 """
 from __future__ import annotations
 
@@ -1559,6 +1575,156 @@ def phase_k5(torch, K5, dev) -> dict:
                 for c in cases]}
 
 
+# ---------------------------------------------------------------------------
+# phase 9d: K5 on the local shards of two ranks of one card (gloo)
+# ---------------------------------------------------------------------------
+
+K5_MESH_RANKS = 2
+# mamba2-1.3b's gradients at this scale: norm ~0.116, under the clip
+K5_MESH_GRAD_SCALE = 1e-5
+
+
+def k5_mesh_split(ps) -> list[bool]:
+    """Which of a parameter set's tensors the ranks replicate: vectors and
+    every eighth matrix; the rest are cut into row blocks, one a rank
+    (uneven where the rows do not divide)."""
+    return [p.dim() < 2 or i % 8 == 0 for i, p in enumerate(ps)]
+
+
+def k5_mesh_rank(rank: int, store: str, conn, cfg, device: str) -> None:
+    """Spawned child, rank ``rank`` of a gloo group on the one card: K5 on
+    this rank's local shards of mamba2-1.3b's parameter set (the norm's
+    total all-reduced over the group with CUDA tensors), then single-rank
+    K5 on the whole set; this rank's results against the whole set's,
+    and every replicated tensor against rank 0's copy.  (``cfg``,
+    ``device``: another parameter set, or the CPU, where K5 is its plain
+    version, to rehearse the phase.)"""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import adamw as K5
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=K5_MESH_RANKS)
+    try:
+        dev = torch.device(device)
+        gs, ps, ms, vs, decays, _ = k5_model_set(
+            torch, cfg, torch.float32, dev, grad_scale=K5_MESH_GRAD_SCALE)
+        replicated = k5_mesh_split(ps)
+
+        def local(t, rep):
+            return (t if rep else torch.tensor_split(
+                t, K5_MESH_RANKS)[rank]).clone()
+        lg, lp, lm, lv = ([local(t, r) for t, r in zip(ts, replicated)]
+                          for ts in (gs, ps, ms, vs))
+        counted = [not r or rank == 0 for r in replicated]
+        step = torch.tensor(3, dtype=torch.int32, device=dev)
+        K5.reset_counts()
+        norm = K5.adamw_step_(lg, lp, lm, lv, step, decays, counted=counted,
+                              groups=[None], **K5_HYPER)
+        mesh_launches = K5.LAUNCHES
+        ref_step = torch.tensor(3, dtype=torch.int32, device=dev)
+        ref = K5.adamw_step_(gs, ps, ms, vs, ref_step, decays, **K5_HYPER)
+        same = all(
+            bitwise(torch, a, local(b, r))
+            for ls, whole in ((lp, ps), (lm, ms), (lv, vs))
+            for a, b, r in zip(ls, whole, replicated))
+        same_as_rank0 = True
+        for ls in (lp, lm, lv):
+            for t, r in zip(ls, replicated):
+                if r:
+                    copy = t.clone()
+                    dist.broadcast(copy, src=0)
+                    same_as_rank0 = same_as_rank0 and bitwise(torch, copy,
+                                                              t)
+        conn.send({"rank": rank, "norm": float(norm), "ref_norm": float(ref),
+                   "bitwise": same, "step": int(step),
+                   "replicated_equal_rank0": same_as_rank0,
+                   "mesh_launches": mesh_launches,
+                   "tensors": len(ps), "replicated": sum(replicated),
+                   "local_elements": sum(t.numel() for t in lp),
+                   "counted_elements": sum(t.numel() for t, c in
+                                           zip(lp, counted) if c),
+                   "elements": sum(t.numel() for t in ps)})
+    except Exception as e:
+        conn.send({"rank": rank, "error": repr(e)})
+        raise
+    finally:
+        conn.close()
+        dist.destroy_process_group()
+
+
+def phase_k5_mesh(torch, cfg=None, device: str = "cuda") -> dict:
+    """9d: K5's local-shard update on two ranks of the one card over gloo
+    (one card cannot hold two NCCL ranks), each rank a spawned process:
+    mamba2-1.3b's parameter set split between them (row blocks, vectors
+    and every eighth matrix replicated), held to single-rank K5 on the
+    whole set: the norm within 1e-7 relative, every result bit for bit
+    (the norm is under the clip), each replicated tensor bit for bit with
+    rank 0's, four launches a rank (none on the CPU, where ``device``
+    rehearses the phase on ``cfg``'s set with K5's plain version)."""
+    import multiprocessing
+    import shutil
+
+    from repro_torch.configs import get_config
+    cfg = cfg or get_config("mamba2-1.3b")
+
+    log(f"== phase 9d: K5 on the local shards of {K5_MESH_RANKS} ranks of "
+        f"one card (gloo), {cfg.name}'s parameter set")
+    store = ROOT / "build" / "k5_mesh_store"
+    shutil.rmtree(store, ignore_errors=True)
+    store.mkdir(parents=True)
+    ctx = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    procs, pipes = [], []
+    try:
+        for rank in range(K5_MESH_RANKS):
+            recv, send = ctx.Pipe(duplex=False)
+            proc = ctx.Process(target=k5_mesh_rank,
+                               args=(rank, str(store / "store"), send, cfg,
+                                     device))
+            proc.start()
+            send.close()
+            procs.append(proc)
+            pipes.append(recv)
+        rows = []
+        for recv in pipes:
+            if not recv.poll(600):
+                raise RuntimeError("phase 9d: a rank sent nothing in 600 s")
+            rows.append(recv.recv())
+        for proc in procs:
+            proc.join(60)
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+        shutil.rmtree(store, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    errors = [r for r in rows if "error" in r]
+    if errors or any(p.exitcode != 0 for p in procs):
+        raise RuntimeError(f"phase 9d: {errors} exit codes "
+                           f"{[p.exitcode for p in procs]}")
+    for r in rows:
+        r["norm_rel"] = abs(r["norm"] / r["ref_norm"] - 1)
+        log(f"K5 mesh rank {r['rank']}/{K5_MESH_RANKS}: norm={r['norm']!r} "
+            f"single_rank_norm={r['ref_norm']!r} norm_rel={r['norm_rel']:.3g}"
+            f" bitwise={r['bitwise']} replicated_equal_rank0="
+            f"{r['replicated_equal_rank0']} step={r['step']} launches="
+            f"{r['mesh_launches']} tensors={r['tensors']} replicated="
+            f"{r['replicated']} local_elements={r['local_elements']} "
+            f"counted_elements={r['counted_elements']} of {r['elements']}")
+    counted = sum(r["counted_elements"] for r in rows)
+    log(f"K5 mesh: counted elements over the ranks {counted} (each element "
+        f"once: {counted == rows[0]['elements']}) seconds={seconds:.1f}")
+    if counted != rows[0]["elements"] or not all(
+            r["norm_rel"] <= 1e-7 and r["bitwise"] and r["step"] == 4
+            and r["replicated_equal_rank0"]
+            and r["mesh_launches"] == (4 if device == "cuda" else 0)
+            and r["norm"] < K5_HYPER["grad_clip"] for r in rows):
+        raise AssertionError(f"phase 9d: K5 on local shards disagrees "
+                             f"with single-rank K5: {rows}")
+    return {"ranks": rows, "seconds": seconds}
+
+
 PROMPT_LEN, MAX_NEW, N_CLIENTS, ROUNDS = 2000, 16, 3, 5
 
 
@@ -2906,7 +3072,9 @@ def train_cell(torch, cfg, dev, counts: dict, label: str, tcfg=None,
            "peak_reserved_gib": peak_reserved / 2**30,
            "state_gib": state_bytes / 2**30,
            "busy_share": graph["busy_share"],
-           "loss": [m["loss"] for m in history], "launches": launches,
+           "loss": [m["loss"] for m in history],
+           "grad_norm": [m["grad_norm"] for m in history],
+           "launches": launches,
            "wrapper_calls": wrapper_calls, "launches_per_step": per_step,
            "graph": {k: v for k, v in graph.items() if k != "table"},
            "capture_seconds": program.capture_seconds, "pipeline": stats}
@@ -3220,11 +3388,26 @@ def bitwise(torch, a, b) -> bool:
                     b.reshape(-1).view(torch.uint8)))
 
 
-def mesh_train_phase(torch, dev, phase18c: dict) -> dict:
+# K5's four kernels on a mesh, each once a call
+K5_MESH_KERNELS = ("adamw_norm", "adamw_sum", "adamw_finish_total",
+                   "adamw_apply")
+
+
+def k5_mesh_kernels(table) -> dict:
+    """How many times a profiled kernel table ran each of K5's mesh
+    kernels (names matched whole: ``adamw_finish`` is not one)."""
+    return {k: sum(e.count for e in table if e.key.split("(")[0].strip()
+                   .split()[-1] == k) for k in K5_MESH_KERNELS}
+
+
+def mesh_train_phase(torch, K5, dev, phase18c: dict) -> dict:
     """Phase 22: yi-6b, full width, 4 layers, on a 1 x 1 mesh through
-    ``train_loop(..., mesh=mesh)``; gates: every loss within 1e-4
-    (relative) of the no-mesh loop's on the same batches, no K2/K3
-    launch, the checkpoint restored bitwise into the mesh's placements.
+    ``train_loop(..., mesh=mesh)`` (eager steps through
+    ``step_fn.in_place``: K5 on the local shards, four kernels a step);
+    gates: every loss and grad norm bit for bit equal to the no-mesh
+    loop's on the same batches, K5 launched four times a step, no K2/K3
+    launch, a profiled in-place mesh step running K5's four kernels once
+    each, the checkpoint restored bitwise into the mesh's placements.
     The no-mesh loop runs twice, so that a difference can be told from
     the card's run-to-run noise."""
     import shutil
@@ -3257,42 +3440,51 @@ def mesh_train_phase(torch, dev, phase18c: dict) -> dict:
         free(torch)
     hist = []
     torch.cuda.reset_peak_memory_stats()
+    K5.reset_counts()
     params, opt, _ = train_loop(cfg, tcfg, iter(batches), MESH_TRAIN_STEPS,
                                 device=dev, mesh=mesh,
                                 log_fn=lambda s, m: hist.append(m))
     torch.cuda.synchronize()
+    launches = K5.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     losses = [m["loss"] for m in hist]
+    norms = [m["grad_norm"] for m in hist]
     want = [m["loss"] for m in plain]
+    want_norms = [m["grad_norm"] for m in plain]
     same = [a == b for a, b in zip(losses, want)]
+    same_norms = [a == b for a, b in zip(norms, want_norms)]
     times = [m["step_time"] for m in hist]
     med = statistics.median(times[1:])
     log(f"{label}: loss={losses} no_mesh_loss={want} bitwise={same} "
         f"no_mesh_run_to_run_bitwise="
         f"{[m['loss'] for m in again] == want}")
-    log(f"{label}: grad_norm={[m['grad_norm'] for m in hist]} no_mesh="
-        f"{[m['grad_norm'] for m in plain]}")
+    log(f"{label}: grad_norm={norms} no_mesh={want_norms} "
+        f"bitwise={same_norms}")
     log(f"{label}: step_s={[round(t, 4) for t in times]} median_step_s_2_to_"
         f"{MESH_TRAIN_STEPS}={med:.4f} phase_18c_median_step_s="
         f"{phase18c['median_step_s']:.4f} ratio="
         f"{med / phase18c['median_step_s']:.3f} peak_gib="
-        f"{peak / 2**30:.2f} phase_18c_peak_gib={phase18c['peak_gib']:.2f}")
-    if len(hist) != MESH_TRAIN_STEPS or not all(
-            abs(a - b) <= 1e-4 * abs(b) for a, b in zip(losses, want)):
-        raise AssertionError(f"{label}: the mesh step's losses disagree")
+        f"{peak / 2**30:.2f} phase_18c_peak_gib={phase18c['peak_gib']:.2f} "
+        f"K5_launches={launches} (4 a step: norm, sum, all-reduce, finish, "
+        f"apply)")
+    if len(hist) != MESH_TRAIN_STEPS or not all(same + same_norms):
+        raise AssertionError(f"{label}: the mesh step's losses or grad "
+                             f"norms differ from the no-mesh loop's")
+    if launches != 4 * MESH_TRAIN_STEPS:
+        raise AssertionError(f"{label}: K5 launched {launches} kernels, "
+                             f"want {4 * MESH_TRAIN_STEPS}")
     if not all(isinstance(t, DTensor) for t in pytree.tree_leaves(params)):
         raise AssertionError(f"{label}: a parameter left the mesh")
 
     step = make_train_step(cfg, tcfg, mesh)
     batch = batch_to_device(batches[0], dev)
-    state = {}
-
-    def one_step():
-        state.pop("out", None)
-        state["out"] = step(params, opt, batch)
-
-    share = step_profile(torch, one_step, label, reps=1)["busy_share"]
-    state.clear()
+    prof = step_profile(
+        torch, lambda: step.in_place(params, opt, batch), label, reps=1,
+        table_ok=lambda t: set(k5_mesh_kernels(t).values()) == {1})
+    ran = k5_mesh_kernels(prof["table"])
+    log(f"{label}: one profiled in-place mesh step ran K5's kernels {ran}")
+    if set(ran.values()) != {1}:
+        raise AssertionError(f"{label}: a mesh step ran K5's kernels {ran}")
 
     ckpt = ROOT / "build" / "chip_smoke_mesh_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
@@ -3313,15 +3505,107 @@ def mesh_train_phase(torch, dev, phase18c: dict) -> dict:
     if n_same != len(pairs):
         raise AssertionError(f"{label}: the restored state differs")
     out = {"loss": losses, "no_mesh_loss": want, "bitwise": all(same),
+           "grad_norm": norms, "grad_norm_bitwise": all(same_norms),
            "no_mesh_run_to_run_bitwise":
                [m["loss"] for m in again] == want,
            "median_step_s": med,
            "phase_18c_median_step_s": phase18c["median_step_s"],
-           "peak_gib": peak / 2**30, "busy_share": share,
+           "ratio": med / phase18c["median_step_s"],
+           "peak_gib": peak / 2**30, "busy_share": prof["busy_share"],
+           "k5_launches": launches, "k5_kernels_profiled": ran,
            "restored_bitwise": n_same}
-    del params, opt, got, template, pairs
+    del params, opt, got, template, pairs, prof
     free(torch)
     return out
+
+
+def mesh_full_depth_phase(torch, K5, dev, phase18e: dict) -> dict:
+    """Phase 22b: yi-6b at full width and depth, bf16 moments, three
+    steps through ``train_loop(..., mesh=1 x 1)``: the in-place mesh step
+    holds one copy of its state, as 18e's does (a functional step's
+    second copy would not fit).  Gates: losses and grad norms bit for bit
+    equal to the first three of 18e's, every parameter a DTensor, K5
+    launched four times a step.  The peak is read after the first step
+    (which includes ``place_state``'s copy of the state) and over steps
+    2-3, reset between."""
+    import statistics
+
+    import torch.utils._pytree as pytree
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train.loop import TrainConfig, train_loop
+    from repro_torch.train.optimizer import AdamWConfig
+
+    cfg = get_config("yi-6b")
+    label = "yi-6b-mesh"
+    log(f"== phase 22b: train yi-6b at full width and depth "
+        f"({cfg.n_layers} layers), bf16 moments, on a 1 x 1 mesh over "
+        f"NCCL, {MESH_TRAIN_STEPS} steps")
+    mesh = card_mesh((1, 1), ("data", "model"))
+    src = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH,
+                      n_shards=512)
+    batches = [src.batch_from_shard(src.load_shard(i))
+               for i in range(MESH_TRAIN_STEPS)]
+    tcfg = TrainConfig(optimizer=AdamWConfig(moment_dtype=torch.bfloat16),
+                       log_every=1)
+    hist, peaks = [], []
+
+    def log_fn(s, m):
+        hist.append(m)
+        peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    K5.reset_counts()
+    params, opt, _ = train_loop(cfg, tcfg, iter(batches), MESH_TRAIN_STEPS,
+                                device=dev, mesh=mesh, log_fn=log_fn)
+    torch.cuda.synchronize()
+    launches = K5.LAUNCHES
+    reserved = torch.cuda.max_memory_reserved()
+    placed = all(isinstance(t, DTensor) for t in pytree.tree_leaves(params))
+    state_gib = sum(x.numel() * x.element_size() for x in
+                    pytree.tree_leaves((params, opt))) / 2**30
+    del params, opt
+    free(torch)
+    losses = [m["loss"] for m in hist]
+    norms = [m["grad_norm"] for m in hist]
+    want = phase18e["loss"][:MESH_TRAIN_STEPS]
+    want_norms = phase18e["grad_norm"][:MESH_TRAIN_STEPS]
+    same = [a == b for a, b in zip(losses, want)]
+    same_norms = [a == b for a, b in zip(norms, want_norms)]
+    times = [m["step_time"] for m in hist]
+    med = statistics.median(times[1:])
+    steady = max(peaks[1:]) / 2**30
+    log(f"{label}: loss={losses} phase_18e_loss={want} bitwise={same}")
+    log(f"{label}: grad_norm={norms} phase_18e={want_norms} "
+        f"bitwise={same_norms}")
+    log(f"{label}: step_s={[round(t, 4) for t in times]} median_step_s_2_to_"
+        f"{MESH_TRAIN_STEPS}={med:.4f} phase_18e_median_step_s="
+        f"{phase18e['median_step_s']:.4f} ratio="
+        f"{med / phase18e['median_step_s']:.3f}")
+    log(f"{label}: peak_gib steps 2-{MESH_TRAIN_STEPS}={steady:.2f} "
+        f"(first step, with place_state's copy: {peaks[0] / 2**30:.2f}) "
+        f"phase_18e_peak_gib={phase18e['peak_gib']:.2f} state_gib="
+        f"{state_gib:.2f} peak_reserved_gib={reserved / 2**30:.2f} "
+        f"all_dtensor={placed} K5_launches={launches}")
+    if len(hist) != MESH_TRAIN_STEPS or not all(same + same_norms):
+        raise AssertionError(f"{label}: losses or grad norms differ from "
+                             f"phase 18e's")
+    if not placed:
+        raise AssertionError(f"{label}: a parameter left the mesh")
+    if launches != 4 * MESH_TRAIN_STEPS:
+        raise AssertionError(f"{label}: K5 launched {launches} kernels, "
+                             f"want {4 * MESH_TRAIN_STEPS}")
+    return {"loss": losses, "phase_18e_loss": want, "grad_norm": norms,
+            "median_step_s": med,
+            "phase_18e_median_step_s": phase18e["median_step_s"],
+            "peak_gib": steady, "first_step_peak_gib": peaks[0] / 2**30,
+            "phase_18e_peak_gib": phase18e["peak_gib"],
+            "peak_reserved_gib": reserved / 2**30, "state_gib": state_gib,
+            "k5_launches": launches}
 
 
 def _prefill_and_decode(torch, params, cfg, tokens, pe, max_len: int,
@@ -3563,7 +3847,7 @@ def compression_roofline_phase(torch, dev, cells: dict) -> dict:
             "roofline": rows}
 
 
-def mesh_phases(torch, counts: dict, dev, trained: dict) -> dict:
+def mesh_phases(torch, counts: dict, K5, dev, trained: dict) -> dict:
     """Phases 22-24; ``trained``: phase 18's summary."""
     import torch.distributed as dist
 
@@ -3573,7 +3857,10 @@ def mesh_phases(torch, counts: dict, dev, trained: dict) -> dict:
     train_shape = ShapeSpec("train_card", TRAIN_SEQ, TRAIN_BATCH, "train")
     prefill_shape = ShapeSpec("prefill_card", PROMPT_LEN, 1, "prefill")
     try:
-        out = {"phase22": mesh_train_phase(torch, dev, trained["yi-6b-4l"])}
+        out = {"phase22": mesh_train_phase(torch, K5, dev,
+                                           trained["yi-6b-4l"])}
+        out["phase22b"] = mesh_full_depth_phase(torch, K5, dev,
+                                                trained["yi-6b"])
         out["phase23"] = mesh_serve_phase(torch, counts, dev)
         yi4 = dataclasses.replace(get_config("yi-6b"), n_layers=4)
         cells = {}
@@ -3600,11 +3887,43 @@ def mesh_phases(torch, counts: dict, dev, trained: dict) -> dict:
     return out
 
 
+def mesh_train_only(torch, K2, K3, K5, dev) -> dict:
+    """``--only mesh``: phases 18c and 18e (the no-mesh yi-6b cells the
+    mesh phases are held to), then 22 and 22b; their summary line."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.train.loop import TrainConfig
+    from repro_torch.train.optimizer import AdamWConfig
+    counts = {"K2": K2, "K3": K3, "K5": K5}
+    yi = get_config("yi-6b")
+    log("== phase 18c: train yi-6b at full width, n_layers cut to 4")
+    trained = {"yi-6b-4l": train_cell(
+        torch, dataclasses.replace(yi, n_layers=4), dev, counts, "yi-6b-4l")}
+    log("== phase 18e: train yi-6b at full width and depth, bf16 moments")
+    trained["yi-6b"] = train_cell(
+        torch, yi, dev, counts, "yi-6b",
+        TrainConfig(optimizer=AdamWConfig(moment_dtype=torch.bfloat16)),
+        eager=False)
+    try:
+        out = {"phase22": mesh_train_phase(torch, K5, dev,
+                                           trained["yi-6b-4l"]),
+               "phase22b": mesh_full_depth_phase(torch, K5, dev,
+                                                 trained["yi-6b"])}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    log("phases 22-22b summary: " + json.dumps(out))
+    return {"name": "adamw", "launches_mesh": {
+        "yi-6b-4l (phase 22)": out["phase22"]["k5_launches"],
+        "yi-6b (phase 22b)": out["phase22b"]["k5_launches"]}}
+
+
 def run_only(torch, np, only, built, K2, K3, K4, K5, T_rnn, nvcc,
              dev) -> int:
     """``--only``: the named kernels' phases (7-8 for K2, 9-9b for K3 and
-    its backward, 9c for K5, 14 for K4) and
-    their records as one ``{"kernels": [...]}`` line."""
+    its backward, 9c-9d for K5, 14 for K4; ``mesh``: 18c, 18e, 22, 22b)
+    and their records as one ``{"kernels": [...]}`` line."""
     records = []
     if "k2" in only:
         log("== phase 7: build K2")
@@ -3620,6 +3939,11 @@ def run_only(torch, np, only, built, K2, K3, K4, K5, T_rnn, nvcc,
     if "k5" in only:
         log_build("K5", *built["K5"])
         records.append(phase_k5(torch, K5, dev))
+        records[-1]["mesh_two_ranks"] = phase_k5_mesh(torch)
+    if "mesh" in only:
+        if "k5" not in only:
+            log_build("K5", *built["K5"])
+        records.append(mesh_train_only(torch, K2, K3, K5, dev))
     if "k4" in only:
         log_build("K4", *built["K4"])
         log_build("K4 probe", *built["K4 probe"])
@@ -3633,10 +3957,10 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Smoke run of the PyTorch port on one CUDA card.")
     parser.add_argument(
-        "--only", nargs="+", choices=("k2", "k3", "k4", "k5"),
+        "--only", nargs="+", choices=("k2", "k3", "k4", "k5", "mesh"),
         help="run only these kernels' builds and phases (7-8: K2, 9-9b: "
-             "K3 and its backward, 9c: K5, 14: K4) and print their records; "
-             "no ok line")
+             "K3 and its backward, 9c-9d: K5, 14: K4; mesh: K5's build, "
+             "18c, 18e, 22 and 22b) and print their records; no ok line")
     args = parser.parse_args(argv)
     try:
         import torch
@@ -3685,8 +4009,9 @@ def main(argv=None) -> int:
                   "gru_latency_probe", K4.NVCC_FLAGS, verbose)}
     if args.only:
         log(f"== phase 1: build {' and '.join(args.only)}")
+        wanted = set(args.only) | ({"k5"} if "mesh" in args.only else set())
         starts = {name: start for name, start in starts.items()
-                  if name.split()[0].lower() in args.only}
+                  if name.split()[0].lower() in wanted}
     else:
         log("== phase 1: build K1 (K2, K3, K3's backward, K4, K4's "
             "latency probe and K5 build alongside, one nvcc each)")
@@ -3718,6 +4043,7 @@ def main(argv=None) -> int:
     k3 = phase_k3(torch, K3, dev)
     k3b = phase_k3_backward(torch, K3, dev)
     k5 = phase_k5(torch, K5, dev)
+    k5["mesh_two_ranks"] = phase_k5_mesh(torch)
     counters_lm = {"K1": K, "K2": K2, "K3": K3}
     k2["launches"] = full_serve(torch, "yi-6b", "K2", counters_lm, dev,
                                 "phase 10")
@@ -3758,12 +4084,16 @@ def main(argv=None) -> int:
     big = {"deepseek-v3-671b-4l": deepseek_phase(torch, counters_lm, dev)}
     big.update(multimodal_phases(torch, counters_lm, K2, dev))
     log("phases 19-21 summary: " + json.dumps(big))
-    meshed = mesh_phases(torch, counters_lm, dev, trained)
+    meshed = mesh_phases(torch, counters_lm, K5, dev, trained)
     log("phases 22-24 summary: " + json.dumps(meshed))
     k2["launches_mesh_prefill_yi_6b"] = \
         meshed["phase23"]["yi-6b"]["launches"]["K2"]
     k3["launches_mesh_prefill_mamba2_1_3b"] = \
         meshed["phase23"]["mamba2-1.3b"]["launches"]["K3"]
+    k5["launches_mesh"] = {
+        "yi-6b-4l (phase 22)": meshed["phase22"]["k5_launches"],
+        "yi-6b (phase 22b)": meshed["phase22b"]["k5_launches"],
+        "per_step": 4}
     k2["launches_paligemma_3b"] = big["paligemma-3b"]["launches"]["K2"]
     k2["launches_arctic_480b_1l"] = big["arctic-480b-1l"]
     k2["launches_musicgen_large"] = big["musicgen-large"]

@@ -33,6 +33,19 @@
 //   flag ok = isfinite(loss) && isfinite(norm) and the step count (+1 only
 //   when ok).  No float atomics: two calls give the same bits, and so do a
 //   graph's replay and an eager call.
+// - On a mesh each rank updates its local shards, and the norm is the
+//   whole gradient's: adamw_finish splits at its reduction into adamw_sum
+//   (the same fixed-order sum of this rank's slots, into one double in
+//   device memory) and adamw_finish_total (the rest, from a given double).
+//   Between the two the caller all-reduces that double over the mesh, so
+//   K5's finish is one device function fed either total: where nothing is
+//   reduced the split reads the fused kernel's bits.  A row flagged
+//   NO_NORM (a shard replicated over a mesh dimension, on the ranks past
+//   coordinate 0 of it) writes 0 into its slots, so every element of the
+//   gradient enters the global sum once.  Its blocks still read it: a
+//   branch out before the loop made ptxas spill in adamw_norm and cost a
+//   tenth of the norm pass on every row.  A row of 0 elements has no
+//   chunk, and a rank whose rows are all empty still sums (to 0).
 // - Pass 2, adamw_apply: p, m, v <- AdamW(g * scale) for every element;
 //   when !ok it writes nothing in place (out of place it copies the
 //   inputs).  The scale, ok and the bias corrections c1, c2 are read from
@@ -68,12 +81,14 @@
 
 // A table row: pointers p, m, v, p_out, m_out, v_out, then numel and a
 // code (bit 0: parameters bf16, bit 1: gradients bf16, bit 2: moments
-// bf16, bit 8: decay).  The n + 1 chunk prefixes follow the n rows.
+// bf16, bit 8: decay, bit 9: left out of the norm on this rank).  The
+// n + 1 chunk prefixes follow the n rows.
 #define ROW 8
 #define P_BF16 1
 #define G_BF16 2
 #define M_BF16 4
 #define DECAY 256
+#define NO_NORM 512
 
 struct GradPtrs {
   const void* g[GRAD_CAP];
@@ -220,17 +235,14 @@ adamw_norm(const long long* __restrict__ tab, int n_rows, GradPtrs gp,
   if (threadIdx.x == 0) {
     float s = warp_sum[0];
     for (int w = 1; w < ADAMW_THREADS / 32; ++w) s = __fadd_rn(s, warp_sum[w]);
-    slots[c] = s;
+    slots[c] = code & NO_NORM ? 0.f : s;     // counted on another rank
   }
 }
 
-// scal[0] = the gradient norm, scal[1] = the clip scale, scal[2] = ok (1 or
-// 0); step_out = step_in + ok.
-__global__ void __launch_bounds__(ADAMW_FINISH_THREADS)
-adamw_finish(const float* __restrict__ slots, long long n_slots,
-             const float* __restrict__ loss, float clip, float tiny,
-             const int* step_in, int* step_out, float* __restrict__ scal) {
-  __shared__ double part[ADAMW_FINISH_THREADS];
+// The slots' sum in double, in a fixed order: a strided sum per thread,
+// then a tree over the block's threads; every thread returns it.
+__device__ double slot_sum(const float* __restrict__ slots, long long n_slots,
+                           double* part) {
   double acc = 0.0;
   for (long long i = threadIdx.x; i < n_slots; i += ADAMW_FINISH_THREADS)
     acc += (double)slots[i];
@@ -240,17 +252,50 @@ adamw_finish(const float* __restrict__ slots, long long n_slots,
     if (threadIdx.x < s) part[threadIdx.x] += part[threadIdx.x + s];
     __syncthreads();
   }
-  if (threadIdx.x == 0) {
-    const float norm = (float)sqrt(part[0]);
-    // the plain version: clamp(grad_clip / (norm + 1e-9), max=1), where
-    // torch divides a number by a tensor as reciprocal(tensor) * number
-    const float r = __fmul_rn(__fdiv_rn(1.0f, __fadd_rn(norm, tiny)), clip);
-    const bool ok = isfinite(norm) && (loss == nullptr || isfinite(*loss));
-    scal[0] = norm;
-    scal[1] = r > 1.0f ? 1.0f : r;
-    scal[2] = ok ? 1.0f : 0.0f;
-    step_out[0] = step_in[0] + (ok ? 1 : 0);
-  }
+  return part[0];
+}
+
+// From the gradient's sum of squares: scal[0] = the gradient norm, scal[1]
+// = the clip scale, scal[2] = ok (1 or 0); step_out = step_in + ok.
+__device__ void finish_from(double total, const float* __restrict__ loss,
+                            float clip, float tiny, const int* step_in,
+                            int* step_out, float* __restrict__ scal) {
+  const float norm = (float)sqrt(total);
+  // the plain version: clamp(grad_clip / (norm + 1e-9), max=1), where
+  // torch divides a number by a tensor as reciprocal(tensor) * number
+  const float r = __fmul_rn(__fdiv_rn(1.0f, __fadd_rn(norm, tiny)), clip);
+  const bool ok = isfinite(norm) && (loss == nullptr || isfinite(*loss));
+  scal[0] = norm;
+  scal[1] = r > 1.0f ? 1.0f : r;
+  scal[2] = ok ? 1.0f : 0.0f;
+  step_out[0] = step_in[0] + (ok ? 1 : 0);
+}
+
+__global__ void __launch_bounds__(ADAMW_FINISH_THREADS)
+adamw_finish(const float* __restrict__ slots, long long n_slots,
+             const float* __restrict__ loss, float clip, float tiny,
+             const int* step_in, int* step_out, float* __restrict__ scal) {
+  __shared__ double part[ADAMW_FINISH_THREADS];
+  const double total = slot_sum(slots, n_slots, part);
+  if (threadIdx.x == 0)
+    finish_from(total, loss, clip, tiny, step_in, step_out, scal);
+}
+
+// The mesh's split finish: this rank's sum, then (after the all-reduce)
+// the rest from the whole gradient's.
+__global__ void __launch_bounds__(ADAMW_FINISH_THREADS)
+adamw_sum(const float* __restrict__ slots, long long n_slots,
+          double* __restrict__ total) {
+  __shared__ double part[ADAMW_FINISH_THREADS];
+  const double t = slot_sum(slots, n_slots, part);
+  if (threadIdx.x == 0) total[0] = t;
+}
+
+__global__ void adamw_finish_total(const double* __restrict__ total,
+                                   const float* __restrict__ loss, float clip,
+                                   float tiny, const int* step_in,
+                                   int* step_out, float* __restrict__ scal) {
+  finish_from(total[0], loss, clip, tiny, step_in, step_out, scal);
 }
 
 // One element, as adamw_step_plain_ computes it tensor by tensor.
@@ -372,6 +417,23 @@ extern "C" int adamw_finish_launch(const float* slots, long long n_slots,
                                    float* scal, void* stream) {
   adamw_finish<<<1, ADAMW_FINISH_THREADS, 0, (cudaStream_t)stream>>>(
       slots, n_slots, loss, clip, tiny, step_in, step_out, scal);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int adamw_sum_launch(const float* slots, long long n_slots,
+                                double* total, void* stream) {
+  adamw_sum<<<1, ADAMW_FINISH_THREADS, 0, (cudaStream_t)stream>>>(
+      slots, n_slots, total);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int adamw_finish_total_launch(const double* total,
+                                         const float* loss, float clip,
+                                         float tiny, const int* step_in,
+                                         int* step_out, float* scal,
+                                         void* stream) {
+  adamw_finish_total<<<1, 1, 0, (cudaStream_t)stream>>>(
+      total, loss, clip, tiny, step_in, step_out, scal);
   return (int)cudaGetLastError();
 }
 

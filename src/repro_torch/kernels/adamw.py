@@ -17,6 +17,16 @@ Two versions of one function live here:
   written back through ``torch.where(ok, new, old)``: the oracle the
   kernel is held against, and the CPU's version.
 
+Both take a mesh rank's local shards (``groups``: the process groups
+whose ranks hold the other shards; ``counted``: which of this rank's
+tensors enter the norm, so that a shard replicated over ranks counts
+once).  The norm is then split at its reduction: this rank's partial sum
+of squares, its all-reduce (sum, float64) over ``groups`` in turn, and
+the rest from the total.  On the card that is four CUDA kernels, the
+fused total's block run as two (``adamw_sum``, ``adamw_finish_total``)
+around the all-reduce; with one rank the total is the fused kernel's, bit
+for bit.
+
 Per element, in float32, each operation rounded on its own::
 
     g' = g * scale;  m' = m * b1 + g' * (1 - b1)
@@ -52,6 +62,7 @@ import ctypes
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import nvcc
 
@@ -60,11 +71,12 @@ CHUNK = 32768
 NVCC_FLAGS = (f"-DADAMW_CHUNK={CHUNK}",)
 ROW = 8                       # int64 words a table row holds
 P_BF16, G_BF16, M_BF16, DECAY = 1, 2, 4, 256
+NO_NORM = 512                 # this rank leaves the row out of the norm
 _TYPES = (torch.float32, torch.bfloat16)
 NORM_EPS = 1e-9               # the plain version's gnorm + 1e-9
 
 # Kernel launches (never the plain version's calls): CUDA kernels, three a
-# call.
+# call, four with ``groups``.
 LAUNCHES = 0
 
 _lib = None
@@ -83,10 +95,37 @@ def reset_counts() -> None:
 # ---------------------------------------------------------------------------
 
 
+def norm_partial(grads, counted=None):
+    """The sum of squares of the gradients ``counted`` (all by default),
+    float32 0-d: a sum of per-tensor float32 sums, in their order."""
+    sq = [torch.sum(torch.square(g.float())) for i, g in enumerate(grads)
+          if counted is None or counted[i]]
+    if not sq:
+        return torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    return sum(sq)
+
+
+def all_reduce_sum(total, groups):
+    """``total`` summed in place over the ranks of each of ``groups`` in
+    turn (``None``: the default group)."""
+    for group in groups:
+        dist.all_reduce(total, group=group)
+    return total
+
+
+def global_sum(partial, groups):
+    """A rank's float32 ``partial`` summed over ``groups`` in float64
+    (:func:`all_reduce_sum`), back in float32; without groups ``partial``
+    itself."""
+    if not groups:
+        return partial
+    return all_reduce_sum(partial.double(), groups).float()
+
+
 def grad_norm(grads):
     """The global norm of a list of gradients, float32 0-d, as the plain
     version computes it (a sum of per-tensor float32 sums)."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+    return torch.sqrt(norm_partial(grads))
 
 
 def clip_scale(gnorm, grad_clip: float):
@@ -117,14 +156,17 @@ def update_tensor(g, m, v, p, decay: bool, scale, c1, c2, *, lr, b1, b2,
 
 
 def adamw_step_plain_(grads, params, ms, vs, step, decays, *, lr, b1, b2,
-                      eps, weight_decay, grad_clip, loss=None, out=None):
+                      eps, weight_decay, grad_clip, loss=None, out=None,
+                      counted=None, groups=None):
     """The update over lists ``grads``, ``params``, ``ms``, ``vs`` (one
     entry per tensor) and the int32 0-d ``step``; ``decays[i]`` turns on
     weight decay for tensor ``i``.  With ``out=None`` it writes the
     parameters, moments and ``step`` in place; with ``out=(params_out,
     ms_out, vs_out, step_out)`` it writes those instead and leaves the
-    inputs as they were.  Returns the global norm (float32, 0-d)."""
-    gnorm = grad_norm(grads)
+    inputs as they were.  On a mesh rank's local shards, the norm sums the
+    tensors ``counted`` and is all-reduced over ``groups``
+    (:func:`global_sum`).  Returns the global norm (float32, 0-d)."""
+    gnorm = torch.sqrt(global_sum(norm_partial(grads, counted), groups))
     scale = clip_scale(gnorm, grad_clip)
     new_step, c1, c2 = bias_corrections(step, b1, b2)
     ok = torch.isfinite(gnorm)
@@ -146,12 +188,13 @@ def adamw_step_plain_(grads, params, ms, vs, step, decays, *, lr, b1, b2,
 # ---------------------------------------------------------------------------
 
 
-def code(p_dtype, g_dtype, m_dtype, decay: bool) -> int:
-    """A row's dtype and decay code, as the source reads it."""
+def code(p_dtype, g_dtype, m_dtype, decay: bool, counted: bool = True) -> int:
+    """A row's dtype, decay and norm code, as the source reads it."""
     return ((P_BF16 if p_dtype == torch.bfloat16 else 0)
             | (G_BF16 if g_dtype == torch.bfloat16 else 0)
             | (M_BF16 if m_dtype == torch.bfloat16 else 0)
-            | (DECAY if decay else 0))
+            | (DECAY if decay else 0)
+            | (0 if counted else NO_NORM))
 
 
 def plan(numels, codes) -> tuple[list[int], list[int]]:
@@ -199,10 +242,12 @@ def _check(name: str, ts, dev) -> None:
             raise ValueError(f"adamw kernel: {name} is not contiguous")
 
 
-def build_table(grads, params, ms, vs, decays, outs=None) -> Table:
+def build_table(grads, params, ms, vs, decays, outs=None,
+                counted=None) -> Table:
     """The table of ``params``, ``ms``, ``vs`` (written to ``outs =
     (params_out, ms_out, vs_out)``, or in place) for gradients of the
-    dtypes of ``grads``, copied to the device."""
+    dtypes of ``grads``, the norm summing the rows ``counted`` (all by
+    default), copied to the device."""
     dev = params[0].device
     capacity = _load().adamw_grad_capacity()
     if len(params) > capacity:
@@ -210,8 +255,9 @@ def build_table(grads, params, ms, vs, decays, outs=None) -> Table:
                          f"carries the gradient pointers of {capacity}")
     po, mo, vo = outs if outs is not None else (params, ms, vs)
     numels = [p.numel() for p in params]
-    codes = [code(p.dtype, g.dtype, m.dtype, d)
-             for p, g, m, d in zip(params, grads, ms, decays)]
+    counted = counted or [True] * len(params)
+    codes = [code(p.dtype, g.dtype, m.dtype, d, c)
+             for p, g, m, d, c in zip(params, grads, ms, decays, counted)]
     order, prefix = plan(numels, codes)
     rows = []
     for i in order:
@@ -222,20 +268,21 @@ def build_table(grads, params, ms, vs, decays, outs=None) -> Table:
     return Table(order, prefix, tab)
 
 
-def _key(grads, params, ms, vs, decays) -> tuple:
+def _key(grads, params, ms, vs, decays, counted=None) -> tuple:
     """What an in-place table's contents depend on."""
     return (params[0].device, tuple(g.dtype for g in grads), tuple(decays),
+            None if counted is None else tuple(counted),
             tuple((t.data_ptr(), t.numel(), t.dtype) for ls in (params, ms, vs)
                   for t in ls))
 
 
-def table_for(grads, params, ms, vs, decays) -> Table:
+def table_for(grads, params, ms, vs, decays, counted=None) -> Table:
     """The in-place table of these tensors, from the cache or built (and
     cached: the pointers stay those of the tensors updated in place)."""
-    key = _key(grads, params, ms, vs, decays)
+    key = _key(grads, params, ms, vs, decays, counted)
     table = _TABLES.get(key)
     if table is None:
-        table = build_table(grads, params, ms, vs, decays)
+        table = build_table(grads, params, ms, vs, decays, counted=counted)
         _TABLES[key] = table
         while len(_TABLES) > _TABLE_CACHE:
             _TABLES.popitem(last=False)
@@ -289,9 +336,12 @@ def _load():
                        ctypes.c_float)
         lib.adamw_norm_launch.argtypes = [p, i, ll, p, p, p]
         lib.adamw_finish_launch.argtypes = [p, ll, p, f, f, p, p, p, p]
+        lib.adamw_sum_launch.argtypes = [p, ll, p, p]
+        lib.adamw_finish_total_launch.argtypes = [p, p, f, f, p, p, p, p]
         lib.adamw_apply_launch.argtypes = [p, i, ll, p, p, p, p] + [f] * 7 \
             + [p]
         for fn in (lib.adamw_norm_launch, lib.adamw_finish_launch,
+                   lib.adamw_sum_launch, lib.adamw_finish_total_launch,
                    lib.adamw_apply_launch, lib.adamw_grad_capacity,
                    lib.adamw_chunk):
             fn.restype = ctypes.c_int
@@ -303,16 +353,24 @@ def _load():
 
 
 def adamw_step_(grads, params, ms, vs, step, decays, *, lr, b1, b2, eps,
-                weight_decay, grad_clip, loss=None, out=None):
+                weight_decay, grad_clip, loss=None, out=None, counted=None,
+                groups=None):
     """The update (as :func:`adamw_step_plain_`, same arguments and
     result).  CUDA tensors launch the kernel: in place (``out=None``) from
     the cached :func:`table_for` these tensors, out of place from a table
-    built for the call.  CPU tensors take the plain version."""
+    built for the call; with ``groups`` the norm's total is all-reduced
+    between ``adamw_sum`` and ``adamw_finish_total``.  CPU tensors take
+    the plain version."""
     global LAUNCHES
     n = len(params)
     if not (len(grads) == len(ms) == len(vs) == len(decays) == n) or n == 0:
         raise ValueError("adamw: grads, params, moments and decay flags "
                          "differ in count, or are empty")
+    if counted is not None:
+        counted = [bool(c) for c in counted]
+        if len(counted) != n:
+            raise ValueError("adamw: one norm flag per tensor")
+    groups = list(groups or [])
     from torch.distributed.tensor import DTensor
     if any(isinstance(t, DTensor) for ls in (grads, params, ms, vs)
            for t in ls):
@@ -324,7 +382,8 @@ def adamw_step_(grads, params, ms, vs, step, decays, *, lr, b1, b2, eps,
         return adamw_step_plain_(grads, params, ms, vs, step, decays, lr=lr,
                                  b1=b1, b2=b2, eps=eps,
                                  weight_decay=weight_decay,
-                                 grad_clip=grad_clip, loss=loss, out=out)
+                                 grad_clip=grad_clip, loss=loss, out=out,
+                                 counted=counted, groups=groups)
     if dev.type != "cuda":
         raise ValueError(f"adamw: unsupported device {dev}")
     for name, ls in (("a gradient", grads), ("a parameter", params),
@@ -354,8 +413,9 @@ def adamw_step_(grads, params, ms, vs, step, decays, *, lr, b1, b2, eps,
         if loss.dim() != 0 or loss.device != dev:
             raise ValueError("adamw kernel: loss must be 0-d on the card")
         loss = loss.float()
-    table = table_for(grads, params, ms, vs, decays) if out is None else \
-        build_table(grads, params, ms, vs, decays, out[:3])
+    table = table_for(grads, params, ms, vs, decays, counted) \
+        if out is None else \
+        build_table(grads, params, ms, vs, decays, out[:3], counted)
     for held in _HOLDERS:
         held.append(table)
 
@@ -372,13 +432,23 @@ def adamw_step_(grads, params, ms, vs, step, decays, *, lr, b1, b2, eps,
         stream = torch.cuda.current_stream(dev).cuda_stream
         nvcc.check_launch("adamw_norm", lib.adamw_norm_launch(
             tab, n, table.n_chunks, gptr, slots.data_ptr(), stream))
-        nvcc.check_launch("adamw_finish", lib.adamw_finish_launch(
-            slots.data_ptr(), table.n_chunks,
-            None if loss is None else loss.data_ptr(), grad_clip, NORM_EPS,
-            step.data_ptr(), step_out.data_ptr(), scal.data_ptr(), stream))
+        finish = (None if loss is None else loss.data_ptr(), grad_clip,
+                  NORM_EPS, step.data_ptr(), step_out.data_ptr(),
+                  scal.data_ptr(), stream)
+        if groups:
+            total = torch.empty((), dtype=torch.float64, device=dev)
+            nvcc.check_launch("adamw_sum", lib.adamw_sum_launch(
+                slots.data_ptr(), table.n_chunks, total.data_ptr(), stream))
+            all_reduce_sum(total, groups)
+            nvcc.check_launch("adamw_finish_total",
+                              lib.adamw_finish_total_launch(
+                                  total.data_ptr(), *finish))
+        else:
+            nvcc.check_launch("adamw_finish", lib.adamw_finish_launch(
+                slots.data_ptr(), table.n_chunks, *finish))
         nvcc.check_launch("adamw_apply", lib.adamw_apply_launch(
             tab, n, table.n_chunks, gptr, scal.data_ptr(), c1.data_ptr(),
             c2.data_ptr(), b1, 1 - b1, b2, 1 - b2, lr, weight_decay, eps,
             stream))
-    LAUNCHES += 3
+    LAUNCHES += 4 if groups else 3
     return scal[0]

@@ -22,11 +22,17 @@ eagerly.
 With a mesh (``make_train_step(cfg, tcfg, mesh)``, ``train_loop(...,
 mesh=mesh)``) the parameters and AdamW moments are DTensors placed by
 ``param_shardings(mode="train")`` (TP over ``model``, FSDP over the data
-axes), batches by ``batch_spec``; the step is the same code on DTensors,
-and its gradient norm is a global reduction.  ``mesh=None`` keeps the
-single-device step as it was.  ``train_loop`` takes the mesh as a keyword
-(the JAX package passes it third, before the data iterator) and raises
-``TypeError`` on a mesh in the data iterator's place.
+axes), batches by ``batch_spec``; the gradients are the same code on
+DTensors, and the update runs K5 on each rank's local shards with the
+gradient norm summed across ranks (``train/optimizer.py``).
+``train_loop`` steps a mesh eagerly through ``step_fn.in_place``, which
+writes each rank's shards over the old ones, as the JAX package's
+``jit_train_step`` does under ``in_shardings`` with ``donate_argnums``;
+no CUDA graph captures a mesh step (``TrainProgram`` refuses one).
+``mesh=None`` keeps the single-device step as it was.  ``train_loop``
+takes the mesh as a keyword (the JAX package passes it third, before the
+data iterator) and raises ``TypeError`` on a mesh in the data iterator's
+place.
 """
 from __future__ import annotations
 
@@ -93,7 +99,10 @@ def place_batch(batch: dict, mesh) -> dict:
 
 
 def place_state(cfg: ModelConfig, params, opt_state, mesh, mode="train"):
-    """Parameters and optimizer state placed by ``param_shardings``."""
+    """Parameters and optimizer state placed by ``param_shardings``.  A
+    leaf replicated over the whole mesh keeps its input's storage
+    (``distribute_tensor`` does not copy it), so an in-place step writes
+    that input too."""
     return (distribute(params, mesh,
                        param_shardings(params, mesh, mode, cfg)),
             distribute(opt_state, mesh,
@@ -104,9 +113,12 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
     """The train step: one device without a mesh; with one, on DTensor
     parameters and state (:func:`place_state`), plain batches placed by
     :func:`place_batch`.  ``step_fn(params, opt_state, batch) -> (params,
-    opt_state, metrics)`` is functional, as the JAX package's; without a
-    mesh, ``step_fn.in_place(params, opt_state, batch) -> metrics`` takes
-    the same step and writes it over ``params`` and ``opt_state``."""
+    opt_state, metrics)`` is functional, as the JAX package's;
+    ``step_fn.in_place(params, opt_state, batch) -> metrics`` takes the
+    same step and writes it over ``params`` and ``opt_state`` (on a mesh,
+    over each rank's local shards); ``step_fn.gradients(params, batch) ->
+    (loss, metrics, grads)`` is the step before its update, each gradient
+    on its parameter's placements."""
     ocfg = tcfg.optimizer
 
     def gradients(params, batch):
@@ -141,6 +153,12 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
                      for g, p in zip(grads, leaves)]
         return loss, dict(metrics), pytree.tree_unflatten(grads, spec)
 
+    def whole(metrics):
+        # the whole values (a loss over a data-sharded batch is a partial
+        # mean on each rank until it is reduced)
+        return {k: v.full_tensor() if isinstance(v, DTensor) else v
+                for k, v in metrics.items()}
+
     def step_fn(params, opt_state, batch):
         loss, metrics, grads = gradients(params, batch)
         # a step whose loss or gradient norm is not finite keeps the old
@@ -148,21 +166,16 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
         new_params, new_opt, gnorm = adamw_update(grads, opt_state, params,
                                                   ocfg, loss=loss)
         metrics["grad_norm"] = gnorm
-        if mesh is not None:
-            # the whole values (a loss over a data-sharded batch is a
-            # partial mean on each rank until it is reduced)
-            metrics = {k: v.full_tensor() if isinstance(v, DTensor) else v
-                       for k, v in metrics.items()}
-        return new_params, new_opt, metrics
+        return new_params, new_opt, whole(metrics)
 
     def in_place(params, opt_state, batch):
         loss, metrics, grads = gradients(params, batch)
         metrics["grad_norm"] = adamw_update_(grads, opt_state, params, ocfg,
                                              loss=loss)
-        return metrics
+        return whole(metrics)
 
-    if mesh is None:
-        step_fn.in_place = in_place
+    step_fn.in_place = in_place
+    step_fn.gradients = gradients
     return step_fn
 
 
@@ -186,12 +199,17 @@ class TrainProgram:
     step replays; a capture that fails raises.  The program keeps the K5
     tables its graph reads (:attr:`tables`).  On the CPU every step runs
     eagerly.  :attr:`metrics` holds the last step's metrics as device
-    tensors, valid until the next step."""
+    tensors, valid until the next step.  A mesh step is refused: it runs
+    eagerly (``train_loop(..., mesh=)``)."""
 
     def __init__(self, step_fn, params, opt_state, batch: dict):
         if not hasattr(step_fn, "in_place"):
             raise TypeError("TrainProgram: step_fn has no in_place form "
-                            "(make_train_step without a mesh gives one)")
+                            "(make_train_step gives one)")
+        if any(isinstance(t, DTensor) for t in pytree.tree_leaves(params)):
+            raise TypeError("TrainProgram: no CUDA graph captures a mesh "
+                            "step; train_loop(..., mesh=) steps it eagerly "
+                            "through step_fn.in_place")
         self.step_fn = step_fn
         self.params, self.opt_state = params, opt_state
         self.device = pytree.tree_leaves(params)[0].device
@@ -252,9 +270,10 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, data_iter, n_steps: int,
     ``device`` (CUDA by default), placed on ``mesh`` when one is given
     (every rank draws the same parameters and reads the same global
     batches; each keeps its shard).  Without a mesh the steps run through
-    a :class:`TrainProgram` (one CUDA graph on the card), which updates
-    the parameters and optimizer state in place; checkpoints snapshot them
-    to the host before the next step."""
+    a :class:`TrainProgram` (one CUDA graph on the card); with one,
+    eagerly through ``step_fn.in_place``.  Both update the parameters and
+    optimizer state in place; checkpoints snapshot them to the host
+    before the next step."""
     from repro_torch.distributed.checkpoint import CheckpointManager
 
     if isinstance(data_iter, DeviceMesh):
@@ -284,7 +303,7 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, data_iter, n_steps: int,
     for step in range(start_step, n_steps):
         t0 = time.time()
         if program is None:
-            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            metrics = step_fn.in_place(params, opt_state, batch)
         else:
             metrics = program.step(batch)
         try:

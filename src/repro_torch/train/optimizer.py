@@ -24,16 +24,26 @@ ones, so a train step holds one copy of its state (what the JAX package's
 ``donate_argnums`` buys); ``adamw_update`` keeps the JAX package's
 functional signature and returns new tensors.
 
-On a mesh every tensor is a DTensor and ``adamw_update`` runs K5's plain
-version on them, shard by shard; the global norm is a sum over every
-shard of every tensor.  The kernel takes no DTensor, and
-``adamw_update_`` refuses one.
+On a mesh every tensor is a DTensor, and both updates run K5 on each
+rank's local shards (``to_local()``): ``adamw_update_`` writes them in
+place, so a mesh step too holds one copy of its state (the JAX package's
+``donate_argnums`` under ``in_shardings``); ``adamw_update`` writes new
+shards and returns them as DTensors of the same placements.  The norm is
+the whole gradient's: each rank sums the squares of its shards, a shard
+replicated over a mesh dimension only on the ranks at coordinate 0 of
+that dimension (so every element counts once), and K5 all-reduces that
+sum between its norm pass and its finish.  The skip decision reads the
+whole loss (``full_tensor()``) and the global norm, so every rank takes
+the same one.  A gradient of another placement than its parameter's
+(``Partial`` among them) raises.  K5's plain version on DTensors
+(``adamw_step_plain_`` given them whole) stays an oracle for tests.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.distributed as dist
 import torch.utils._pytree as pytree
 from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 
@@ -92,31 +102,86 @@ def _hyper(cfg: AdamWConfig) -> dict:
             "weight_decay": cfg.weight_decay, "grad_clip": cfg.grad_clip}
 
 
+def _norm_groups(mesh) -> list:
+    """The process groups over which a rank's norm partial is summed: the
+    default group where the mesh spans the world (one all-reduce), else
+    each mesh dimension's in turn."""
+    if mesh.size() == dist.get_world_size():
+        return [None]
+    return [mesh.get_group(d) for d in range(mesh.ndim)]
+
+
+def _local_shards(gs, ps, ms, vs, step, loss):
+    """What K5 takes: plain tensors as they are; for DTensors their local
+    shards, the local step, the whole loss, and K5's mesh arguments (each
+    local tensor's norm flag and the norm's groups, :func:`_norm_groups`)."""
+    if not isinstance(ps[0], DTensor):
+        return gs, ps, ms, vs, step, loss, {}
+    mesh = ps[0].device_mesh
+    counted = []
+    for i, p in enumerate(ps):
+        for name, t in (("gradient", gs[i]), ("first moment", ms[i]),
+                        ("second moment", vs[i])):
+            if not isinstance(t, DTensor) or t.device_mesh != mesh \
+                    or t.placements != p.placements:
+                raise ValueError(
+                    f"adamw on a mesh: tensor {i}'s {name} is not placed as "
+                    f"its parameter ({p.placements})")
+        if any(pl.is_partial() for pl in p.placements):
+            raise ValueError(f"adamw on a mesh: tensor {i} is Partial; "
+                             f"reduce its gradient first")
+        counted.append(all(mesh.get_local_rank(d) == 0
+                           for d, pl in enumerate(p.placements)
+                           if pl.is_replicate()))
+    if isinstance(loss, DTensor):
+        loss = loss.full_tensor()
+    return ([g.to_local().contiguous() for g in gs],
+            [t.to_local() for t in ps], [t.to_local() for t in ms],
+            [t.to_local() for t in vs], step.to_local(), loss,
+            {"counted": counted, "groups": _norm_groups(mesh)})
+
+
+def _update(ps):
+    """K5's wrapper, or for meta tensors (the dry run: shapes without data,
+    where no kernel runs) K5's plain version, which the wrapper refuses."""
+    return K5.adamw_step_plain_ if ps[0].device.type == "meta" \
+        else K5.adamw_step_
+
+
 def adamw_update_(grads, state, params, cfg: AdamWConfig, loss=None):
     """Update ``params`` and ``state`` (``m``, ``v``, ``step``) in place
-    from ``grads``; returns the global gradient norm.  Plain tensors only:
-    on the card one K5 call, on the CPU its plain version."""
+    from ``grads``; returns the global gradient norm.  On the card one K5
+    call (on a mesh over each rank's local shards), on the CPU its plain
+    version."""
     gs, ps, ms, vs, decays, _ = _flat(grads, state, params)
-    if isinstance(ps[0], DTensor):
-        raise TypeError("adamw_update_ takes plain tensors; a mesh step "
-                        "uses adamw_update")
-    return K5.adamw_step_(gs, ps, ms, vs, state["step"], decays, loss=loss,
-                          **_hyper(cfg))
+    gs, ps, ms, vs, step, loss, mesh = _local_shards(gs, ps, ms, vs,
+                                                     state["step"], loss)
+    return _update(ps)(gs, ps, ms, vs, step, decays, loss=loss, **mesh,
+                       **_hyper(cfg))
 
 
 def adamw_update(grads, state, params, cfg: AdamWConfig, loss=None):
-    """``(new_params, new_state, gnorm)``, the inputs left as they were.
-    Plain tensors go through K5 out of place (its plain version on the
-    CPU); DTensors through the plain version, shard by shard."""
+    """``(new_params, new_state, gnorm)``, the inputs left as they were:
+    K5 out of place (its plain version on the CPU), on a mesh over each
+    rank's local shards into new DTensors of the same placements."""
     gs, ps, ms, vs, decays, spec = _flat(grads, state, params)
+    like = (ps, ms, vs, state["step"])
+    gs, ps, ms, vs, step, loss, mesh = _local_shards(gs, ps, ms, vs,
+                                                     state["step"], loss)
     out = ([torch.empty_like(p) for p in ps],
            [torch.empty_like(m) for m in ms],
            [torch.empty_like(v) for v in vs],
-           torch.empty_like(state["step"]))
-    update = K5.adamw_step_plain_ if isinstance(ps[0], DTensor) \
-        else K5.adamw_step_
-    gnorm = update(gs, ps, ms, vs, state["step"], decays, loss=loss, out=out,
-                   **_hyper(cfg))
+           torch.empty_like(step))
+    gnorm = _update(ps)(gs, ps, ms, vs, step, decays, loss=loss, out=out,
+                        **mesh, **_hyper(cfg))
+    if mesh:
+        def wrap(local, d):
+            return DTensor.from_local(local, d.device_mesh, d.placements,
+                                      run_check=False, shape=d.shape,
+                                      stride=d.stride())
+        out = tuple([wrap(t, d) for t, d in zip(o, ds)]
+                    for o, ds in zip(out[:3], like[:3])) \
+            + (wrap(out[3], like[3]),)
     return (pytree.tree_unflatten(out[0], spec),
             {"m": pytree.tree_unflatten(out[1], spec),
              "v": pytree.tree_unflatten(out[2], spec), "step": out[3]},

@@ -1,7 +1,9 @@
 """The port's AdamW update on the CPU: the in-place ``adamw_update_``
 against the functional ``adamw_update`` (bit for bit), both against the
 JAX package's ``adamw_update``, the NaN-skip, ``TrainProgram``'s in-place
-step, and the table that K5 (``kernels/adamw.py``) launches over.
+step, the table that K5 (``kernels/adamw.py``) launches over, and K5's
+plain version split at its norm's reduction for a mesh (with no group, the
+unsplit version bit for bit; rows left out of the norm).
 
 On the CPU both updates run K5's plain version, so the in-place and
 functional forms must agree bit for bit.  Against ``repro`` the
@@ -116,6 +118,87 @@ def test_in_place_equals_functional_bitwise(p_dtype, g_dtype, m_dtype, clip):
     assert same == [False, True, True, False]
 
 
+def _unsplit_plain_(grads, params, ms, vs, step, decays, *, lr, b1, b2, eps,
+                    weight_decay, grad_clip, loss):
+    """K5's plain version as it was before its norm was split at the
+    reduction (one sum of per-tensor sums, no partial, no group)."""
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+    scale = K5.clip_scale(gnorm, grad_clip)
+    new_step, c1, c2 = K5.bias_corrections(step, b1, b2)
+    ok = torch.isfinite(gnorm) & torch.isfinite(loss)
+    for i, (g, p, m, v) in enumerate(zip(grads, params, ms, vs)):
+        new = K5.update_tensor(g, m, v, p, decays[i], scale, c1, c2, lr=lr,
+                               b1=b1, b2=b2, eps=eps,
+                               weight_decay=weight_decay)
+        for d, n in zip((p, m, v), new):
+            d.copy_(torch.where(ok, n, d))
+    step.copy_(torch.where(ok, new_step, step))
+    return gnorm
+
+
+@pytest.mark.parametrize("form", ["defaults", "every_row_no_group"])
+@pytest.mark.parametrize("clip", ["clipped", "unclipped"])
+@pytest.mark.parametrize("p_dtype,g_dtype,m_dtype", [
+    (torch.float32, torch.float32, torch.float32),
+    (torch.float32, torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32, torch.float32),
+    (torch.bfloat16, torch.float32, torch.bfloat16)],
+    ids=["f32-f32-f32", "f32-f32-bf16m", "bf16-bf16-f32m", "bf16-bf16-bf16m",
+         "bf16-f32g-f32m", "bf16-f32g-bf16m"])
+def test_split_plain_without_a_group_equals_unsplit_bitwise(
+        p_dtype, g_dtype, m_dtype, clip, form):
+    """The plain version split at the norm's reduction (this rank's
+    partial, the group's sum, the rest), given no group and every tensor
+    counted, is the unsplit version bit for bit: norm, parameters,
+    moments and step."""
+    scale = 1e-2 if clip == "clipped" else 1e-4
+    grads, state, params = _inputs(0, p_dtype, g_dtype, m_dtype, scale)
+    gs, ps, ms, vs, decays, _ = TO._flat(grads, state, params)
+    hyper = TO._hyper(TO.AdamWConfig(lr=1e-2))
+    loss = torch.tensor(2.5)
+    want_state = _clone((ps, ms, vs, state["step"]))
+    want = _unsplit_plain_(gs, *want_state, decays, loss=loss, **hyper)
+    extra = {} if form == "defaults" else {"counted": [True] * len(ps),
+                                           "groups": []}
+    got = K5.adamw_step_plain_(gs, ps, ms, vs, state["step"], decays,
+                               loss=loss, **extra, **hyper)
+    assert (float(want) > 1.0) == (clip == "clipped")
+    assert torch.equal(got, want)
+    _assert_bitwise((ps, ms, vs, state["step"]), want_state)
+
+
+def test_norm_flags_leave_rows_out_of_the_norm():
+    """A tensor flagged not counted (a replicated shard on a rank past
+    coordinate 0) leaves the norm: it is the counted tensors' norm, and
+    the uncounted tensor is still updated.  The flag is its own bit of the
+    row code, does not move the row in the table, and keys the table
+    cache."""
+    grads, state, params = _inputs(3, torch.float32, torch.float32,
+                                   torch.float32, 1e-3)
+    gs, ps, ms, vs, decays, _ = TO._flat(grads, state, params)
+    hyper = TO._hyper(TO.AdamWConfig(lr=1e-2))
+    counted = [True, False, True, True]
+    before = _clone(ps)
+    got = K5.adamw_step_plain_(gs, ps, ms, vs, state["step"], decays,
+                               counted=counted, **hyper)
+    want = K5.grad_norm([g for g, c in zip(gs, counted) if c])
+    assert torch.equal(got, want) and float(got) < float(K5.grad_norm(gs))
+    assert not torch.equal(ps[1], before[1])
+    none = K5.adamw_step_plain_(gs, _clone(ps), _clone(ms), _clone(vs),
+                                state["step"].clone(), decays,
+                                counted=[False] * 4, **hyper)
+    assert float(none) == 0.0
+    f32 = torch.float32
+    assert K5.code(f32, f32, f32, True, counted=False) == \
+        K5.DECAY | K5.NO_NORM
+    assert K5.plan([5, 5, 5], [K5.NO_NORM | K5.P_BF16, 0, K5.NO_NORM]) == \
+        K5.plan([5, 5, 5], [K5.P_BF16, 0, 0])
+    assert K5._key(gs, ps, ms, vs, decays, counted) != \
+        K5._key(gs, ps, ms, vs, decays)
+
+
 @pytest.mark.parametrize("clip", [1.0, 1e9], ids=["clipped", "unclipped"])
 def test_in_place_matches_repro(clip):
     """In place, float32, against the JAX package's functional update at
@@ -130,7 +213,9 @@ def test_in_place_matches_repro(clip):
         lambda a: 0.01 * np.abs(a)))
 
     def j(tree):
-        return {k: jnp.asarray(a.numpy()) for k, a in tree.items()}
+        # copies: JAX on the CPU may alias a NumPy buffer, and computes
+        # after this returns, when the in-place update below has written it
+        return {k: jnp.array(a.numpy()) for k, a in tree.items()}
     jout = JO.adamw_update(j(grads), {"m": j(m), "v": j(v),
                                       "step": jnp.int32(4)}, j(params),
                            JO.AdamWConfig(lr=1e-2, grad_clip=clip))

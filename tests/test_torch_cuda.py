@@ -15,7 +15,9 @@ size), the serving engine's decode step captured in a CUDA graph
 against the eager loop, and the AdamW update (K5) against its plain
 version: bit for bit where the norm is under the clip, within stated
 limits where it clips, in place and out of place, captured in a graph,
-the NaN-skip, the memory of one in-place call and the inputs it refuses.
+the NaN-skip, the memory of one in-place call and the inputs it refuses;
+on DTensors at mesh size 1 (local shards, four kernels) bit for bit with
+the same update without a mesh, and so is a mesh ``train_loop``.
 
 Marked ``cuda``; every test skips where ``torch.cuda.is_available()`` is
 false.  On the card:
@@ -1433,21 +1435,27 @@ def test_adamw_update_in_place_holds_no_second_copy(cuda):
 
 
 def test_adamw_kernel_refuses_inputs_it_does_not_take(cuda, mesh):
-    """DTensors, float16, a strided tensor and mixed devices raise; no
-    call falls back to the plain version or launches."""
-    from torch.distributed.tensor import Replicate, distribute_tensor
+    """DTensors given to the kernel's wrapper itself (the optimizer hands
+    it their local shards), a ``Partial`` gradient given to the
+    optimizer, float16, a strided tensor and mixed devices raise; no call
+    falls back to the plain version or launches."""
+    from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                          distribute_tensor)
 
     from repro_torch.train import optimizer as TO
     g, p, m, v, step, d = _k5_state(_k5_inputs(cuda, (_F32,) * 3, 5, 1e-3))
     launches = K5.LAUNCHES
-    dt = [distribute_tensor(t, mesh, [Replicate(), Replicate()])
+    dt = [distribute_tensor(t.clone(), mesh, [Replicate(), Replicate()])
           for t in p[:2]]
     with pytest.raises(TypeError):
         K5.adamw_step_(dt, dt, dt, dt, step, d[:2], **K5_HYPER)
-    with pytest.raises(TypeError):
-        TO.adamw_update_({"a": dt[0]}, {"m": {"a": dt[0]}, "v": {"a": dt[0]},
-                                        "step": step}, {"a": dt[0]},
-                         TO.AdamWConfig())
+    partial = DTensor.from_local(g[0].clone(), mesh, [Partial(), Partial()])
+    rep = [Replicate(), Replicate()]
+    with pytest.raises(ValueError):
+        TO.adamw_update_({"a": partial}, {
+            "m": {"a": dt[0]}, "v": {"a": dt[1]},
+            "step": distribute_tensor(step.clone(), mesh, rep)}, {"a": dt[0]},
+            TO.AdamWConfig())
     half = [t.half() for t in p]
     with pytest.raises(TypeError):
         K5.adamw_step_(half, half, m, v, step, d, **K5_HYPER)
@@ -1528,4 +1536,92 @@ def test_train_program_keeps_its_k5_table_past_the_cache(cuda):
     del junk
     assert program.replays == 1 and got == want
     for a, b in zip(_bits((params, opt)), _bits((p, o))):
+        assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# K5 on a mesh: local shards, the norm's total all-reduced between passes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("grad_scale", [1e-4, 1e-1],
+                         ids=["unclipped", "clipped"])
+def test_adamw_update_on_dtensors_equals_their_local_tensors(cuda, mesh,
+                                                             grad_scale):
+    """At mesh size 1, ``adamw_update_`` on DTensors (K5 on the local
+    shards: norm, sum, the all-reduce, finish, apply: four kernels) is bit
+    for bit ``adamw_update_`` on the same tensors without a mesh (three
+    kernels): the norm, parameters, moments and step, clipped or not; so
+    is ``adamw_update`` on the DTensors, whose inputs stay as they were."""
+    import torch.utils._pytree as pytree
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.train import loop as TL
+    from repro_torch.train import optimizer as TO
+    cfg = get_reduced_config("yi-6b")
+    ocfg = TO.AdamWConfig()
+    params = TT.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                            cuda)
+    state = TO.adamw_init(params, ocfg)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+
+    def draw(t, scale):
+        return (scale * torch.randn(t.shape, generator=gen, device=cuda)
+                ).to(t.dtype)
+    state["m"] = pytree.tree_map(lambda t: draw(t, 1e-3), state["m"])
+    state["v"] = pytree.tree_map(lambda t: draw(t, 1e-3).abs(), state["v"])
+    grads = pytree.tree_map(lambda t: draw(t, grad_scale), params)
+    loss = torch.tensor(1.0, device=cuda)
+
+    def clone(tree):
+        return pytree.tree_map(torch.clone, tree)
+    pd, sd = TL.place_state(cfg, clone(params), clone(state), mesh)
+    gd = pytree.tree_map(lambda g, p: distribute_tensor(
+        g.clone(), mesh, p.placements), grads, pd)
+    pf, sf = TL.place_state(cfg, clone(params), clone(state), mesh)
+    K5.reset_counts()
+    want = TO.adamw_update_(grads, state, params, ocfg, loss=loss)
+    torch.cuda.synchronize()
+    assert K5.LAUNCHES == 3
+    got = TO.adamw_update_(gd, sd, pd, ocfg, loss=loss)
+    torch.cuda.synchronize()
+    assert K5.LAUNCHES == 3 + 4
+    new_p, new_s, got_f = TO.adamw_update(gd, sf, pf, ocfg, loss=loss)
+    torch.cuda.synchronize()
+    assert (float(want) > ocfg.grad_clip) == (grad_scale > 1e-2)
+    assert torch.equal(got, want) and torch.equal(got_f, want)
+
+    def local(tree):
+        return [t.to_local() for t in pytree.tree_leaves(tree)]
+    for a, b in zip(_bits(local((pd, sd))), _bits((params, state))):
+        assert torch.equal(a, b)
+    for a, b in zip(_bits(local((new_p, new_s))), _bits((params, state))):
+        assert torch.equal(a, b)
+    assert int(sf["step"].to_local()) == 0
+
+
+def test_mesh_train_loop_on_card_equals_no_mesh_bitwise(cuda, mesh):
+    """``train_loop(..., mesh=)`` at mesh size 1 (eager in-place steps, K5
+    on the local shards, four kernels a step) against the no-mesh loop
+    (the captured program, three a step): every loss and grad norm and
+    the final parameters and AdamW state, bit for bit."""
+    from repro_torch.train import loop as TL
+    cfg = get_reduced_config("yi-6b")
+    tcfg = TL.TrainConfig(log_every=1)
+    batches = _train_batches(cfg, 3)
+    runs = {}
+    for on in (None, mesh):
+        hist = []
+        K5.reset_counts()
+        p, o, _ = TL.train_loop(cfg, tcfg, iter(batches), 3, device=cuda,
+                                mesh=on, log_fn=lambda s, m: hist.append(m))
+        torch.cuda.synchronize()
+        runs[on is None] = (hist, K5.LAUNCHES, p, o)
+    (plain, n_plain, p0, o0), (meshed, n_mesh, p1, o1) = runs[True], \
+        runs[False]
+    assert n_plain == 6 and n_mesh == 12      # warm-up + capture; 3 steps
+    for a, b in zip(meshed, plain):
+        assert a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
+    import torch.utils._pytree as pytree
+    local = [t.to_local() for t in pytree.tree_leaves((p1, o1))]
+    for a, b in zip(_bits(local), _bits((p0, o0))):
         assert torch.equal(a, b)

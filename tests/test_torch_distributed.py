@@ -34,7 +34,25 @@ paths against the port's single-device ones:
 - a checkpoint saved at world size 2 and restored at 4 and at 1, bitwise;
 - a float32 reduced prefill under ``serve`` placements at (1, 2), through
   ``kernels/ops.py``'s ``local_map`` path on the plain versions, against
-  the unsharded prefill at atol 1e-5, rtol 1e-4.
+  the unsharded prefill at atol 1e-5, rtol 1e-4;
+- the in-place sharded step (``make_train_step(...).in_place``: AdamW on
+  each rank's local shards, the norm's sum all-reduced across ranks)
+  against the functional step of K5's plain version on the DTensors
+  themselves, from non-zero moments: bit for bit where the norm is under
+  the clip, within relative L2 1e-6 where it clips (the two norms sum in
+  other orders); its norm within 1e-6 of the norm of the same gradients
+  gathered onto one device; with 2 microbatches too;
+- ``adamw_update_`` on a hand-placed set (sharded, replicated, uneven and
+  empty shards, a bf16 tensor) against ``adamw_update_`` on the whole
+  tensors on one device: the norm within 1e-6 (a replicated tensor counts
+  once), bit for bit unclipped, relative L2 1e-6 clipped; ``adamw_update``
+  on DTensors bit for bit with it; every copy of a replicated shard equal
+  across ranks; a NaN partial loss on one rank, or a NaN in one rank's
+  shard, skips the step on every rank; a ``Partial`` gradient raises;
+- a checkpoint saved before an in-place step restores the values it
+  saved; ``TrainProgram`` refuses a mesh; ``train_loop(..., mesh=)``
+  steps through ``in_place`` (the functional update is never called),
+  bit for bit with the functional step.
 
 Each group is one set of processes on a ``FileStore`` of its own under
 the test's temporary directory, with its own timeout; the groups at world
@@ -377,6 +395,260 @@ def prefill_case(arch):
         "caches_ok": cache_ok, "per_rank_calls": calls["n"]}
 
 
+def bits_equal(a, b):
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def sets_rel_l2(got, want):
+    num = sum(float((a.double() - b.double()).norm()) ** 2
+              for a, b in zip(got, want))
+    den = sum(float(b.double().norm()) ** 2 for b in want)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def placed(cfg, p, o, mesh):
+    # a replicated placement shares its input's storage, which an in-place
+    # step would write: place copies
+    return place_state(cfg, *pytree.tree_map(torch.clone, (p, o)), mesh)
+
+
+def inplace_case(arch, shape, micro):
+    # in place on local shards against K5's plain version on DTensors
+    from repro_torch.kernels import adamw as K5
+    from repro_torch.train import optimizer as TO
+    cfg = dataclasses.replace(get_reduced_config(arch), dtype=torch.float32)
+    p = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    tok = torch.randint(0, cfg.vocab, (4, 32),
+                        generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": tok, "labels": torch.roll(tok, -1, 1)}
+    mesh = make_mesh(shape, AXES2, "cpu")
+    for clip, name in ((1e9, "unclipped"), (1e-3, "clipped")):
+        tcfg = TrainConfig(microbatches=micro,
+                           optimizer=TO.AdamWConfig(grad_clip=clip))
+        o = adamw_init(p, tcfg.optimizer)
+        o["step"] = o["step"] + 7
+        o["m"] = pytree.tree_map(lambda t: t + 1e-3, o["m"])
+        o["v"] = pytree.tree_map(lambda t: t + 1e-6, o["v"])
+        step = make_train_step(cfg, tcfg, mesh)
+        # the functional step of K5's plain version on the DTensors
+        pd, od = placed(cfg, p, o, mesh)
+        loss, _, grads = step.gradients(pd, batch)
+        gs, ps, ms, vs, decays, _ = TO._flat(grads, od, pd)
+        dst = ([torch.empty_like(t) for t in ps],
+               [torch.empty_like(t) for t in ms],
+               [torch.empty_like(t) for t in vs],
+               torch.empty_like(od["step"]))
+        K5.adamw_step_plain_(gs, ps, ms, vs, od["step"], decays, loss=loss,
+                             out=dst, **TO._hyper(tcfg.optimizer))
+        want = [[full(t) for t in ls] for ls in dst[:3]]
+        want_step = int(full(dst[3]))
+        one_device = float(K5.grad_norm([full(g) for g in gs]))
+        del grads, gs, dst
+        # in place on each rank's local shards
+        pd, od = placed(cfg, p, o, mesh)
+        ptrs = [t.to_local().data_ptr() for t in pytree.tree_leaves((pd, od))]
+        m = step.in_place(pd, od, batch)
+        kept = ptrs == [t.to_local().data_ptr()
+                        for t in pytree.tree_leaves((pd, od))]
+        got = [[full(t) for t in pytree.tree_leaves(x)]
+               for x in (pd, od["m"], od["v"])]
+        res = {"bitwise": all(bits_equal(a, b) for ga, wa in zip(got, want)
+                              for a, b in zip(ga, wa)),
+               "rel_l2": {k: sets_rel_l2(ga, wa)
+                          for k, ga, wa in zip("pmv", got, want)},
+               "step": int(full(od["step"])), "want_step": want_step,
+               "norm": float(m["grad_norm"]), "one_device_norm": one_device,
+               "clipped": one_device > clip, "pointers_kept": kept,
+               "all_dtensor": all(isinstance(t, DTensor)
+                                  for t in pytree.tree_leaves((pd, od)))}
+        if micro > 1:
+            # the functional step (K5 on local shards, out of place)
+            pf, of = placed(cfg, p, o, mesh)
+            fp, fo, fm = step(pf, of, batch)
+            res["functional_bitwise"] = all(
+                bits_equal(full(a), b) for a, b in zip(
+                    pytree.tree_leaves((fp, fo["m"], fo["v"])),
+                    [t for ls in got for t in ls])) and torch.equal(
+                fm["grad_norm"], m["grad_norm"])
+        out[f"inplace|{arch}|{shape}|{micro}|{name}"] = res
+
+
+def shards_case():
+    # adamw_update_ on a hand-placed set against the whole tensors
+    import numpy as np
+    from torch.distributed.tensor import Partial, Shard
+    from repro_torch.train import optimizer as TO
+    mesh = make_mesh((2, world // 2), AXES2, "cpu")
+    S0, S1, R = Shard(0), Shard(1), Replicate()
+    # uneven over data; over model only at (2, 2); replicated; a bf16
+    # tensor over both axes; dim 0 of 3 over both axes (an empty shard)
+    spec = {"a": ((5, 3), [S0, R], torch.float32),
+            "b": ((3,), [R, S0], torch.float32),
+            "c": ((4, 6), [R, R], torch.float32),
+            "d": ((7,), [R, R], torch.float32),
+            "e": ((8, 4), [S0, S1], torch.bfloat16),
+            "f": ((3, 5), [S0, S0], torch.float32)}
+    rng = np.random.default_rng(5)
+
+    def draw(scale, f=lambda a: a, dtype=None):
+        return {k: torch.from_numpy(np.asarray(
+            f(rng.normal(size=sh)) * scale, np.float32)).to(dtype or dt)
+            for k, (sh, _, dt) in spec.items()}
+
+    def place(tree):
+        # copies: a replicated placement shares its input's storage
+        return {k: distribute_tensor(t.clone(), mesh, spec[k][1])
+                for k, t in tree.items()}
+
+    def placed_state(st):
+        return {"m": place(st["m"]), "v": place(st["v"]),
+                "step": distribute_tensor(st["step"].clone(), mesh,
+                                          [R, R])}
+
+    def clone(tree):
+        return pytree.tree_map(torch.clone, tree)
+
+    cfg = TO.AdamWConfig(lr=1e-2)
+    params = draw(1.0)
+    state = {"m": draw(0.1, dtype=torch.float32),
+             "v": draw(0.01, np.abs, dtype=torch.float32),
+             "step": torch.tensor(3, dtype=torch.int32)}
+    loss = torch.tensor(1.5)
+    coord = mesh.get_coordinate()
+    for name, scale in (("unclipped", 1e-2), ("clipped", 1.0)):
+        grads = draw(scale)
+        p1, s1 = clone(params), clone(state)
+        want = TO.adamw_update_(grads, s1, p1, cfg, loss=loss)
+        pd, sd = place(params), placed_state(state)
+        gd = place(grads)
+        got = TO.adamw_update_(gd, sd, pd, cfg, loss=loss)
+        pf, sf = place(params), placed_state(state)
+        np_, ns, got_f = TO.adamw_update(gd, sf, pf, cfg, loss=loss)
+        mine = [full(pd[k]) for k in spec] + [full(sd[x][k]) for x in "mv"
+                                             for k in spec]
+        one = [p1[k] for k in spec] + [s1[x][k] for x in "mv" for k in spec]
+        funct = [np_[k] for k in spec] + [ns[x][k] for x in "mv"
+                                         for k in spec]
+        # the shards a rank holds, keyed by its coordinates on the mesh
+        # dimensions that shard the tensor: equal keys, equal bits
+        local = {k: (tuple(c for c, pl in zip(coord, spec[k][1])
+                           if pl.is_shard()), pd[k].to_local())
+                 for k in spec}
+        every = [None] * world
+        dist.all_gather_object(every, local)
+        copies_equal = all(
+            bits_equal(a[k][1], b[k][1]) for a in every for b in every
+            for k in spec if a[k][0] == b[k][0])
+        copies = sum(a[k][0] == b[k][0] for a in every for b in every
+                     for k in spec if a is not b)
+        out[f"shards|{world}|{name}"] = {
+            "norm": float(got), "one_device_norm": float(want),
+            "clipped": float(want) > cfg.grad_clip,
+            "bitwise": all(bits_equal(a, b) for a, b in zip(mine, one)),
+            "rel_l2": sets_rel_l2(mine, one),
+            "step": int(full(sd["step"])), "one_device_step": int(s1["step"]),
+            "functional_bitwise": all(bits_equal(full(a), b) for a, b in
+                                      zip(funct, mine))
+            and torch.equal(got_f, got) and int(full(ns["step"])) == 4,
+            "functional_placed": all(
+                isinstance(np_[k], DTensor) and np_[k].placements ==
+                pd[k].placements for k in spec),
+            "functional_inputs_kept": all(bits_equal(full(pf[k]), params[k])
+                                          for k in spec),
+            "replicated_copies_equal": copies_equal,
+            "replicated_copies": copies,
+            "empty_shards": sum(a[k][1].numel() == 0 for a in every
+                                for k in spec)}
+    # a NaN partial loss on the last rank, or a NaN in its shard of "e":
+    # no rank steps
+    grads = draw(1e-2)
+    for bad in ("loss", "grad"):
+        pd, sd, gd = place(params), placed_state(state), place(grads)
+        bad_loss = loss
+        if bad == "loss":
+            bad_loss = DTensor.from_local(torch.tensor(
+                float("nan") if rank == world - 1 else 0.5), mesh,
+                [Partial(), Partial()])
+        elif rank == world - 1:
+            gd["e"].to_local()[0, 0] = float("nan")
+        TO.adamw_update_(gd, sd, pd, cfg, loss=bad_loss)
+        out[f"skip|{world}|{bad}|rank{rank}"] = {
+            "kept": all(bits_equal(pd[k].to_local(), place(params)[k]
+                                   .to_local()) for k in spec),
+            "step": int(sd["step"].to_local())}
+    pd, sd, gd = place(params), placed_state(state), place(grads)
+    gd["c"] = DTensor.from_local(gd["c"].to_local(), mesh,
+                                 [Partial(), Replicate()], run_check=False)
+    try:
+        TO.adamw_update_(gd, sd, pd, cfg, loss=loss)
+        raised = False
+    except ValueError:
+        raised = True
+    out[f"partial_raises|{world}"] = raised
+
+
+def ckpt_inplace_case(shape):
+    # a checkpoint saved before an in-place step keeps what it saved; a
+    # TrainProgram refuses the mesh; train_loop steps through in_place
+    import repro_torch.train.loop as TL
+    from repro_torch.data.pipeline import SyntheticLM
+    cfg = get_reduced_config("yi-6b")
+    tcfg = TrainConfig()
+    src = SyntheticLM(vocab=cfg.vocab, seq_len=32, batch=4, n_shards=4)
+    batches = [src.batch_from_shard(src.load_shard(i)) for i in range(2)]
+    p = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    o = adamw_init(p, tcfg.optimizer)
+    mesh = make_mesh(shape, AXES2, "cpu")
+    step = make_train_step(cfg, tcfg, mesh)
+    pd, od = placed(cfg, p, o, mesh)
+    batch = TL.batch_to_device(batches[0], "cpu")
+    step.in_place(pd, od, batch)
+    saved = [full(t).clone() for t in pytree.tree_leaves((pd, od))]
+    mgr = CheckpointManager(f"{tmp}/ckpt_inplace_{world}")
+    mgr.save((pd, od), 1)              # written in the background
+    step.in_place(pd, od, batch)
+    mgr.wait()
+    moved = sum(not bits_equal(full(t), b) for t, b in zip(
+        pytree.tree_leaves((pd, od)), saved))
+    zeros = pytree.tree_map(
+        lambda t: t * 0 if t.is_floating_point() else t, (pd, od))
+    got = mgr.restore(zeros, 1)
+    restored = all(bits_equal(full(a), b) for a, b in zip(
+        pytree.tree_leaves(got), saved))
+    try:
+        TL.TrainProgram(step, pd, od, batch)
+        refused = False
+    except TypeError:
+        refused = True
+    res = {"moved": moved, "restored_bitwise": restored,
+           "program_refused": refused}
+    if world == 2:
+        # train_loop on the mesh never calls the functional update, and
+        # equals functional steps bit for bit
+        def functional_only(*a, **kw):
+            raise AssertionError("the functional update was called")
+        hist = []
+        orig, TL.adamw_update = TL.adamw_update, functional_only
+        try:
+            lp, lo, _ = TL.train_loop(cfg, dataclasses.replace(
+                tcfg, log_every=1), iter(batches), 2,
+                                      device="cpu", mesh=mesh,
+                                      log_fn=lambda s, m: hist.append(m))
+        finally:
+            TL.adamw_update = orig
+        pf, of = placed(cfg, p, o, mesh)
+        losses = []
+        for b in batches:
+            pf, of, m = step(pf, of, TL.batch_to_device(b, "cpu"))
+            losses.append(float(m["loss"]))
+        res["train_loop_losses_equal"] = [m["loss"] for m in hist] == losses
+        res["train_loop_bitwise"] = all(bits_equal(full(a), full(b)) for a, b
+                                        in zip(pytree.tree_leaves((lp, lo)),
+                                               pytree.tree_leaves((pf, of))))
+    out[f"ckpt_inplace|{shape}"] = res
+
+
 cases = sys.argv[1:]
 for case in cases:
     kind, *arg = case.split(":")
@@ -396,6 +668,13 @@ for case in cases:
         checkpoint_restore(tuple(int(x) for x in arg[0].split(",")))
     elif kind == "prefill":
         prefill_case(arg[0])
+    elif kind == "inplace":
+        inplace_case(arg[0], tuple(int(x) for x in arg[1].split(",")),
+                     int(arg[2]))
+    elif kind == "shards":
+        shards_case()
+    elif kind == "ckpt_inplace":
+        ckpt_inplace_case(tuple(int(x) for x in arg[0].split(",")))
     elif kind == "remesh":
         from repro_torch.distributed.elastic import remesh
         m = remesh(model_parallel=2, device_type="cpu")
@@ -452,10 +731,13 @@ def runs(tmp_path_factory):
                   for a in TRAIN_ARCHS]
                  + ["grad:deepseek-v3-671b:1,2", "grad:mamba2-1.3b:2,1",
                     "prefill:yi-6b", "prefill:mamba2-1.3b", "save",
-                    "remesh"])
+                    "remesh", "inplace:yi-6b:2,1:1", "inplace:yi-6b:1,2:1",
+                    "inplace:yi-6b:2,1:2", "shards", "ckpt_inplace:2,1"])
     four = _start(tmp, "four", 4,
                   [f"train:{a}:2,2" for a in TRAIN_ARCHS]
-                  + ["grad:yi-6b:2,2", "moe", "moe_fallback", "compress"])
+                  + ["grad:yi-6b:2,2", "moe", "moe_fallback", "compress",
+                     "inplace:mamba2-1.3b:2,2:1", "shards",
+                     "ckpt_inplace:2,2"])
     out = {}
     for started in (two, four):
         out.update(_finish(tmp, started))
@@ -540,3 +822,101 @@ def test_sharded_prefill_matches_unsharded(runs, arch):
     r = runs[f"prefill|{arch}"]
     assert r["ok"] and r["caches_ok"], r
     assert r["per_rank_calls"] > 0
+
+
+INPLACE_CASES = [("yi-6b", (2, 1), 1), ("yi-6b", (1, 2), 1),
+                 ("yi-6b", (2, 1), 2), ("mamba2-1.3b", (2, 2), 1)]
+
+
+@pytest.mark.parametrize("clip", ["unclipped", "clipped"])
+@pytest.mark.parametrize("arch,mesh,micro", INPLACE_CASES)
+def test_in_place_sharded_step_matches_plain_dtensor_step(runs, arch, mesh,
+                                                          micro, clip):
+    """The in-place mesh step (K5's path on local shards) against the
+    functional step of K5's plain version on the DTensors: bit for bit
+    under the clip, relative L2 1e-6 clipped; the norm within 1e-6 of the
+    same gradients' norm on one device; storage kept; with microbatches
+    the functional mesh step gives the same bits."""
+    r = runs[f"inplace|{arch}|{mesh}|{micro}|{clip}"]
+    assert r["clipped"] == (clip == "clipped"), r
+    assert r["all_dtensor"] and r["pointers_kept"], r
+    assert r["step"] == r["want_step"] == 8, r
+    assert r["norm"] == pytest.approx(r["one_device_norm"], rel=1e-6)
+    if clip == "unclipped":
+        assert r["bitwise"], r
+    else:
+        assert max(r["rel_l2"].values()) <= 1e-6, r
+    if micro > 1:
+        assert r["functional_bitwise"], r
+
+
+@pytest.mark.parametrize("clip", ["unclipped", "clipped"])
+@pytest.mark.parametrize("world", [2, 4])
+def test_local_shard_update_matches_one_device(runs, world, clip):
+    """Sharded, replicated, uneven and empty shards: the norm within 1e-6
+    of the whole tensors' (a replicated tensor counted once), bit for bit
+    unclipped, relative L2 1e-6 clipped; the functional form equal bit for
+    bit, placed as its inputs, the inputs kept."""
+    r = runs[f"shards|{world}|{clip}"]
+    assert r["clipped"] == (clip == "clipped"), r
+    assert r["norm"] == pytest.approx(r["one_device_norm"], rel=1e-6)
+    assert r["step"] == r["one_device_step"] == 4
+    if clip == "unclipped":
+        assert r["bitwise"], r
+    else:
+        assert r["rel_l2"] <= 1e-6, r
+    assert r["functional_bitwise"] and r["functional_placed"], r
+    assert r["functional_inputs_kept"], r
+    assert r["empty_shards"] == (1 if world == 4 else 0), r
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_replicated_shards_stay_equal_across_ranks(runs, world):
+    for clip in ("unclipped", "clipped"):
+        r = runs[f"shards|{world}|{clip}"]
+        assert r["replicated_copies"] > 0 and r["replicated_copies_equal"]
+
+
+@pytest.mark.parametrize("bad", ["loss", "grad"])
+@pytest.mark.parametrize("world", [2, 4])
+def test_non_finite_on_one_rank_skips_every_rank(runs, world, bad):
+    """A NaN partial loss on the last rank only (the whole loss is NaN),
+    or a NaN in its shard of one gradient: every rank keeps its shards
+    and its step."""
+    rows = [runs[f"skip|{world}|{bad}|rank{r}"] for r in range(world)]
+    assert all(r["kept"] and r["step"] == 3 for r in rows), rows
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_partial_gradient_is_refused(runs, world):
+    assert runs[f"partial_raises|{world}"]
+
+
+@pytest.mark.parametrize("mesh", [(2, 1), (2, 2)])
+def test_checkpoint_before_an_in_place_step_keeps_its_values(runs, mesh):
+    r = runs[f"ckpt_inplace|{mesh}"]
+    assert r["moved"] > 0 and r["restored_bitwise"], r
+    assert r["program_refused"], r
+
+
+def test_train_loop_on_a_mesh_steps_in_place(runs):
+    r = runs["ckpt_inplace|(2, 1)"]
+    assert r["train_loop_losses_equal"] and r["train_loop_bitwise"], r
+
+
+def test_chip_smoke_phase_9d_runs_on_cpu_ranks():
+    """``chip_smoke.py`` phase 9d's two ranks (spawned processes in one
+    gloo group, K5 on the local shards of a split parameter set, held to
+    one rank's update on the whole set) at reduced mamba2-1.3b on the
+    CPU, where K5 is its plain version: the phase's own gates pass, and
+    every element is counted in the norm once."""
+    sys.path.insert(0, str(SRC.parent))
+    import chip_smoke
+    from repro_torch.configs import get_reduced_config
+    out = chip_smoke.phase_k5_mesh(torch, get_reduced_config("mamba2-1.3b"),
+                                   "cpu")
+    rows = out["ranks"]
+    assert [r["rank"] for r in rows] == [0, 1]
+    assert all(r["bitwise"] and r["norm_rel"] == 0.0 for r in rows), rows
+    assert sum(r["counted_elements"] for r in rows) == rows[0]["elements"]
+    assert 0 < rows[0]["replicated"] < rows[0]["tensors"]
