@@ -34,7 +34,8 @@ import dataclasses
 import math
 
 import torch.utils._pytree as pytree
-from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
 
 # leaves whose LAST dim is TP-sharded (column parallel)
 _COL_TP = {"w_q", "w_k", "w_v", "w_gate", "w_up", "w_uq", "w_dq", "w_uv",
@@ -250,6 +251,22 @@ def distribute(tree, mesh, placements):
     return pytree.tree_unflatten(
         [distribute_tensor(t, mesh, list(p)) for t, p in zip(leaves, pls)],
         spec)
+
+
+def place_local(t, mesh, placements):
+    """``t``, the same whole value on every rank, as a DTensor on
+    ``placements`` with no communication: each rank keeps its own shard of
+    its own copy.  A shard that is a view into ``t`` is copied out, so
+    every shard owns its storage and dropping ``t`` frees the whole value
+    (a fully replicated ``t`` is its own shard)."""
+    d = distribute_tensor(t, mesh, list(placements), src_data_rank=None)
+    local = d.to_local()
+    if local.untyped_storage().nbytes() == local.numel() * \
+            local.element_size():
+        return d
+    return DTensor.from_local(local.clone(), mesh, d.placements,
+                              run_check=False, shape=d.shape,
+                              stride=d.stride())
 
 
 def batch_spec(mesh, ndim: int = 2) -> tuple:

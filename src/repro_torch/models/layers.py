@@ -19,6 +19,7 @@ from torch.distributed.tensor import DTensor, Replicate
 DEFAULT_DTYPE = torch.bfloat16
 
 _META_INIT = contextvars.ContextVar("meta_init", default=False)
+_ON_LEAF = contextvars.ContextVar("on_leaf", default=None)
 
 
 @contextlib.contextmanager
@@ -29,6 +30,25 @@ def meta_init():
         yield
     finally:
         _META_INIT.reset(token)
+
+
+@contextlib.contextmanager
+def on_leaf(fn):
+    """Every parameter leaf the initialisers make passes through ``fn``,
+    in the order they make them, and what ``fn`` returns takes its place
+    (the sharded init places each leaf as soon as it is drawn)."""
+    token = _ON_LEAF.set(fn)
+    try:
+        yield
+    finally:
+        _ON_LEAF.reset(token)
+
+
+def made(leaf: torch.Tensor) -> torch.Tensor:
+    """A parameter leaf as an initialiser returns it: through the
+    :func:`on_leaf` hook where one is set."""
+    fn = _ON_LEAF.get()
+    return leaf if fn is None else fn(leaf)
 
 
 def init_device(gen: torch.Generator) -> torch.device:
@@ -47,7 +67,9 @@ def normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
     deepseek-v3's stacked expert weights)."""
     x = torch.randn(shape, generator=gen, device=init_device(gen),
                     dtype=torch.float32)
-    return x.mul_(scale).to(dtype)
+    leaf = x.mul_(scale).to(dtype)
+    del x
+    return made(leaf)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
@@ -64,7 +86,7 @@ def embed_init(gen: torch.Generator, vocab: int, d: int,
 
 def norm_init(d: int, device, dtype=torch.float32) -> torch.Tensor:
     # norm scales kept in fp32 (tiny, numerically sensitive)
-    return torch.ones(d, dtype=dtype, device=device)
+    return made(torch.ones(d, dtype=dtype, device=device))
 
 
 # ---------------------------------------------------------------------------

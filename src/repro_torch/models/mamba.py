@@ -25,7 +25,7 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (DEFAULT_DTYPE, dense_init, init_device,
-                                       normal)
+                                       made, normal)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,11 +52,11 @@ def make_mamba_params(gen: torch.Generator, cfg: MambaConfig,
     di, n, g, h = cfg.d_inner, cfg.d_state, cfg.n_groups, cfg.n_heads
     dev = init_device(gen)
 
-    def zeros(d):
-        return torch.zeros(d, dtype=dtype, device=dev)
+    def zeros(d, zdtype=dtype):
+        return made(torch.zeros(d, dtype=zdtype, device=dev))
 
     def ones(d):
-        return torch.ones(d, dtype=torch.float32, device=dev)
+        return made(torch.ones(d, dtype=torch.float32, device=dev))
 
     return {
         "w_z": dense_init(gen, cfg.d_model, di, dtype),
@@ -70,9 +70,10 @@ def make_mamba_params(gen: torch.Generator, cfg: MambaConfig,
         "conv_B_b": zeros(g * n),
         "conv_C_w": normal(gen, (cfg.d_conv, g * n), 0.1, dtype),
         "conv_C_b": zeros(g * n),
-        "A_log": torch.log(torch.linspace(1.0, 16.0, h, dtype=torch.float32,
-                                          device=dev)),
-        "dt_bias": torch.zeros(h, dtype=torch.float32, device=dev),
+        "A_log": made(torch.log(torch.linspace(1.0, 16.0, h,
+                                               dtype=torch.float32,
+                                               device=dev))),
+        "dt_bias": zeros(h, torch.float32),
         "D": ones(h),
         "norm_scale": ones(di),
         "out_proj": dense_init(gen, di, cfg.d_model, dtype),

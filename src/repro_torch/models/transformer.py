@@ -46,10 +46,12 @@ from repro_torch.models.attention import (AttentionConfig, gqa_decode,
                                           gqa_forward, gqa_prefill,
                                           make_attention_params, mla_decode,
                                           mla_forward, mla_prefill)
+from repro_torch.launch.shardings import param_shardings, place_local
 from repro_torch.models.layers import (DEFAULT_DTYPE, cross_entropy_loss,
                                        embed_init, init_device,
                                        make_mlp_params, meta_init, mlp_apply,
-                                       norm_init, rmsnorm, split_last)
+                                       norm_init, on_leaf, rmsnorm,
+                                       split_last)
 from repro_torch.models.mamba import (MambaConfig, make_mamba_params,
                                       mamba_decode, mamba_forward,
                                       mamba_prefill)
@@ -119,10 +121,19 @@ def _make_layer_params(gen: torch.Generator, cfg: ModelConfig,
     return p
 
 
-def init_params(generator: torch.Generator, cfg: ModelConfig, device=None):
+def init_params(generator: torch.Generator, cfg: ModelConfig, device=None,
+                mesh=None):
     """Random parameters drawn from ``generator`` (on its device), placed on
-    ``device`` (CUDA by default)."""
+    ``device`` (CUDA by default).  With ``mesh`` (the JAX package's
+    ``jax.jit(init, out_shardings=...)``): every leaf is placed on its
+    ``param_shardings(mode="train")`` placements as soon as it is drawn,
+    and the whole leaf dropped, so a rank holds its shards and one whole
+    leaf at most; the values are those drawn without a mesh, bit for
+    bit (every rank draws every leaf from the same generator state, and
+    keeps its shard)."""
     device = resolve_device(device)
+    if mesh is not None:
+        return _init_placed(generator, cfg, device, mesh)
     gen = generator
     vocab = cfg.vocab * cfg.codebooks
     params: dict[str, Any] = {
@@ -145,6 +156,32 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, device=None):
     return _to(params, device)
 
 
+def _init_placed(generator: torch.Generator, cfg: ModelConfig, device,
+                 mesh):
+    """:func:`init_params` on ``mesh``: a meta run gives the tree, its
+    placements and the order the initialisers make its leaves in (each
+    leaf known by identity); the real run places each leaf as it is
+    made."""
+    if generator.device.type != mesh.device_type or \
+            device.type != mesh.device_type:
+        raise ValueError(f"init_params: a {mesh.device_type} mesh, a "
+                         f"generator on {generator.device} and device "
+                         f"{device}")
+    order: list[torch.Tensor] = []
+    with meta_init(), on_leaf(lambda t: order.append(t) or t):
+        shapes = init_params(torch.Generator(), cfg, "meta")
+    leaves = pytree.tree_leaves(shapes)
+    where = {id(t): i for i, t in enumerate(leaves)}
+    if len(order) != len(leaves) or {id(t) for t in order} != set(where):
+        raise RuntimeError(f"init_params: {len(leaves)} leaves, "
+                           f"{len(order)} made by the initialisers")
+    pls = pytree.tree_leaves(param_shardings(shapes, mesh, "train", cfg),
+                             is_leaf=lambda x: isinstance(x, tuple))
+    queue = iter([pls[where[id(t)]] for t in order])
+    with on_leaf(lambda t: place_local(t, mesh, next(queue))):
+        return init_params(generator, cfg, device)
+
+
 def param_shapes(cfg: ModelConfig):
     """The parameter tree of ``cfg`` as meta tensors: every shape and dtype
     ``init_params`` makes, nothing allocated (deepseek-v3-671b's 1.3 TB
@@ -158,7 +195,7 @@ def _to(tree, device):
         return {k: _to(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
-    return tree.to(device)
+    return tree if isinstance(tree, DTensor) else tree.to(device)
 
 
 _IN_MESH_SCOPE = contextvars.ContextVar("in_mesh_scope", default=False)

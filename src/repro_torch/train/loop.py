@@ -11,8 +11,8 @@ clipping inside AdamW, and NaN-step skipping that needs no host sync.
 step), periodic async checkpointing and logging.  Its data iterator yields
 NumPy (or tensor) batches, which the loop moves to the device.  A resumed
 run restores the parameters and optimizer state, not the data position:
-the iterator starts from its beginning, as in the JAX package.  Without a
-mesh it steps through a :class:`TrainProgram`, the counterpart of the JAX
+the iterator starts from its beginning, as in the JAX package.  It steps
+through a :class:`TrainProgram`, the counterpart of the JAX
 package's ``jit_train_step``: the step's in-place form
 (``step_fn.in_place``: the gradients, then ``adamw_update_``, which writes
 the parameters and moments over the old ones, as ``donate_argnums`` lets
@@ -25,10 +25,15 @@ mesh=mesh)``) the parameters and AdamW moments are DTensors placed by
 axes), batches by ``batch_spec``; the gradients are the same code on
 DTensors, and the update runs K5 on each rank's local shards with the
 gradient norm summed across ranks (``train/optimizer.py``).
-``train_loop`` steps a mesh eagerly through ``step_fn.in_place``, which
-writes each rank's shards over the old ones, as the JAX package's
-``jit_train_step`` does under ``in_shardings`` with ``donate_argnums``;
-no CUDA graph captures a mesh step (``TrainProgram`` refuses one).
+``train_loop`` draws the parameters leaf by leaf onto their placements
+(``init_params(..., mesh=)``, the JAX package's init under
+``out_shardings``) and makes the moments on them, so no rank holds a
+whole copy of the state, and steps the mesh through a
+:class:`TrainProgram` too: ``step_fn.in_place`` writes each rank's shards
+over the old ones, as the JAX package's ``jit_train_step`` does under
+``in_shardings`` with ``donate_argnums``, and on CUDA over NCCL the whole
+step (DTensor's redistributions, K5 on the local shards, the norm's
+all-reduce, the metrics' reads) is captured in one CUDA graph.
 ``mesh=None`` keeps the single-device step as it was.  ``train_loop``
 takes the mesh as a keyword (the JAX package passes it third, before the
 data iterator) and raises ``TypeError`` on a mesh in the data iterator's
@@ -41,6 +46,7 @@ import time
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 import torch.utils._pytree as pytree
 
 from torch.distributed.device_mesh import DeviceMesh
@@ -49,11 +55,12 @@ from torch.distributed.tensor import DTensor, distribute_tensor
 from repro_torch.device import resolve_device
 from repro_torch.kernels import adamw as K5
 from repro_torch.launch.shardings import (batch_sharding, distribute,
-                                          param_shardings)
+                                          param_shardings, place_local)
 from repro_torch.models.transformer import (ModelConfig, init_params, loss_fn,
                                           mesh_scope)
 from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
-                                         adamw_update, adamw_update_)
+                                         adamw_update, adamw_update_,
+                                         norm_groups)
 
 
 @dataclasses.dataclass
@@ -183,43 +190,82 @@ def batch_to_device(batch: dict, device) -> dict:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
+def _backend(group, device_type: str) -> str:
+    """The backend that runs ``device_type``'s tensors in ``group``
+    (``None``: the default group)."""
+    name = str(dist.get_backend(group))
+    if ":" not in name:
+        return name
+    return dict(part.split(":") for part in name.split(",")).get(
+        device_type, "none")
+
+
+def _check_capturable(mesh) -> None:
+    """Raise unless every group a CUDA mesh step communicates over (each
+    mesh dimension's, for DTensor's redistributions, and the norm's, for
+    K5's all-reduce) runs CUDA tensors on NCCL, whose collectives a CUDA
+    graph captures."""
+    dims = [mesh.get_group(d) for d in range(mesh.ndim)]
+    for group in dims + norm_groups(mesh):
+        name = _backend(group, "cuda")
+        if name != "nccl":
+            raise ValueError(
+                f"TrainProgram: a mesh step on CUDA tensors communicates "
+                f"over a {name} group, which a CUDA graph cannot capture; "
+                f"a mesh on the card runs on NCCL")
+
+
 class TrainProgram:
-    """One train step (one device, no mesh) over fixed buffers: the
-    parameters and optimizer state it was given, which every step updates
-    in place, and one batch buffer per key of ``batch``.
+    """One train step over fixed buffers: the parameters and optimizer
+    state it was given, which every step updates in place, and one batch
+    buffer per key of ``batch``.
 
     The step is ``step_fn.in_place`` (:func:`make_train_step`): the
     gradients, then one ``adamw_update_`` that writes the new parameters
     and moments over the old ones (on the card one K5 call), so the step
     holds one copy of its state, as the JAX package's donated step does;
     the NaN-skip stays on the device.  On CUDA the first :meth:`step` runs
-    eagerly on a side stream (the warm-up, a real step) and then captures
-    one step in a ``torch.cuda.CUDAGraph`` (whose entry empties the
-    allocator's cache of the warm-up's freed blocks), which every later
-    step replays; a capture that fails raises.  The program keeps the K5
-    tables its graph reads (:attr:`tables`).  On the CPU every step runs
-    eagerly.  :attr:`metrics` holds the last step's metrics as device
-    tensors, valid until the next step.  A mesh step is refused: it runs
-    eagerly (``train_loop(..., mesh=)``)."""
+    eagerly on a side stream (the warm-up, a real step; on a mesh it also
+    starts the NCCL communicators) and then captures one step in a
+    ``torch.cuda.CUDAGraph`` (whose entry empties the allocator's cache of
+    the warm-up's freed blocks), which every later step replays; a capture
+    that fails raises.  The program keeps the K5 tables its graph reads
+    (:attr:`tables`).  On the CPU every step runs eagerly.
+    :attr:`metrics` holds the last step's metrics as device tensors,
+    valid until the next step.
+
+    On a mesh (DTensor parameters) the batch buffers are DTensors placed
+    once by ``batch_sharding``; :meth:`load` copies each rank's rows of
+    the whole batch into its local shard, so no scatter runs inside the
+    step.  A CUDA mesh must run on NCCL (:func:`_check_capturable`): any
+    other group raises here, and no step falls back to eager."""
 
     def __init__(self, step_fn, params, opt_state, batch: dict):
         if not hasattr(step_fn, "in_place"):
             raise TypeError("TrainProgram: step_fn has no in_place form "
                             "(make_train_step gives one)")
-        if any(isinstance(t, DTensor) for t in pytree.tree_leaves(params)):
-            raise TypeError("TrainProgram: no CUDA graph captures a mesh "
-                            "step; train_loop(..., mesh=) steps it eagerly "
-                            "through step_fn.in_place")
+        first = pytree.tree_leaves(params)[0]
+        self.mesh = first.device_mesh if isinstance(first, DTensor) \
+            else None
+        self.device = first.to_local().device if self.mesh is not None \
+            else first.device
+        if self.mesh is not None and self.device.type == "cuda":
+            _check_capturable(self.mesh)
         self.step_fn = step_fn
         self.params, self.opt_state = params, opt_state
-        self.device = pytree.tree_leaves(params)[0].device
-        self.batch = {k: torch.empty_like(v) for k, v in batch.items()}
+        self.batch = {k: self._buffer(v) for k, v in batch.items()}
         self.metrics: dict | None = None
         self.graph: torch.cuda.CUDAGraph | None = None
         self.graph_metrics: dict | None = None    # the replay's outputs
         self.tables: list = []           # the K5 tables the graph reads
         self.capture_seconds: float | None = None
         self.replays = 0
+
+    def _buffer(self, v):
+        if self.mesh is None:
+            return torch.empty_like(v)
+        return place_local(torch.empty_like(v), self.mesh,
+                           batch_sharding(self.mesh, v.dim()))
 
     def load(self, batch: dict) -> None:
         if batch.keys() != self.batch.keys() or any(
@@ -228,7 +274,13 @@ class TrainProgram:
             raise ValueError("TrainProgram: a batch of another layout than "
                              "its buffers")
         for k, v in batch.items():
-            self.batch[k].copy_(v)
+            if self.mesh is None:
+                self.batch[k].copy_(v)
+            else:
+                rows = distribute_tensor(
+                    v.to(self.device), self.mesh, self.batch[k].placements,
+                    src_data_rank=None).to_local()
+                self.batch[k].to_local().copy_(rows)
 
     def _step(self) -> dict:
         return self.step_fn.in_place(self.params, self.opt_state, self.batch)
@@ -249,7 +301,8 @@ class TrainProgram:
         self.capture_seconds = time.perf_counter() - t0
 
     def step(self, batch: dict) -> dict:
-        """One train step on ``batch``; returns its metrics."""
+        """One train step on ``batch`` (whole tensors, on a mesh the
+        global batch on every rank); returns its metrics."""
         self.load(batch)
         if self.device.type != "cuda":
             self.metrics = self._step()
@@ -268,10 +321,10 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, data_iter, n_steps: int,
                device=None, mesh=None):
     """Init (parameters from seed 0) or resume, step, checkpoint, log, on
     ``device`` (CUDA by default), placed on ``mesh`` when one is given
-    (every rank draws the same parameters and reads the same global
-    batches; each keeps its shard).  Without a mesh the steps run through
-    a :class:`TrainProgram` (one CUDA graph on the card); with one,
-    eagerly through ``step_fn.in_place``.  Both update the parameters and
+    (every rank draws the same parameters leaf by leaf and keeps its
+    shards, and reads the same global batches).  The steps run through a
+    :class:`TrainProgram`: one CUDA graph on the card, with or without a
+    mesh; eager steps on the CPU.  They update the parameters and
     optimizer state in place; checkpoints snapshot them to the host
     before the next step."""
     from repro_torch.distributed.checkpoint import CheckpointManager
@@ -284,10 +337,8 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, data_iter, n_steps: int,
     step_fn = make_train_step(cfg, tcfg, mesh)
     first = batch_to_device(next(data_iter), device)
     params = init_params(torch.Generator(device=device).manual_seed(0), cfg,
-                         device)
+                         device, mesh=mesh)
     opt_state = adamw_init(params, tcfg.optimizer)
-    if mesh is not None:
-        params, opt_state = place_state(cfg, params, opt_state, mesh)
     start_step = 0
     ckpt = None
     if checkpoint_dir:
@@ -298,14 +349,10 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, data_iter, n_steps: int,
 
     batch = first
     history = []
-    program = None if mesh is not None else \
-        TrainProgram(step_fn, params, opt_state, first)
+    program = TrainProgram(step_fn, params, opt_state, first)
     for step in range(start_step, n_steps):
         t0 = time.time()
-        if program is None:
-            metrics = step_fn.in_place(params, opt_state, batch)
-        else:
-            metrics = program.step(batch)
+        metrics = program.step(batch)
         try:
             batch = batch_to_device(next(data_iter), device)
         except StopIteration:

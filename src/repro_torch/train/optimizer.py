@@ -62,8 +62,9 @@ class AdamWConfig:
 
 
 def adamw_init(params, cfg: AdamWConfig):
-    """Zero moments placed like the parameters (DTensors on a mesh); the
-    step count replicated beside them."""
+    """Zero moments placed like the parameters (DTensors on a mesh, made
+    shard by shard: no rank holds a whole moment); the step count
+    replicated beside them."""
     def zeros_like(p):
         return torch.zeros_like(p, dtype=cfg.moment_dtype)
     first = pytree.tree_leaves(params)[0]
@@ -102,7 +103,7 @@ def _hyper(cfg: AdamWConfig) -> dict:
             "weight_decay": cfg.weight_decay, "grad_clip": cfg.grad_clip}
 
 
-def _norm_groups(mesh) -> list:
+def norm_groups(mesh) -> list:
     """The process groups over which a rank's norm partial is summed: the
     default group where the mesh spans the world (one all-reduce), else
     each mesh dimension's in turn."""
@@ -114,7 +115,7 @@ def _norm_groups(mesh) -> list:
 def _local_shards(gs, ps, ms, vs, step, loss):
     """What K5 takes: plain tensors as they are; for DTensors their local
     shards, the local step, the whole loss, and K5's mesh arguments (each
-    local tensor's norm flag and the norm's groups, :func:`_norm_groups`)."""
+    local tensor's norm flag and the norm's groups, :func:`norm_groups`)."""
     if not isinstance(ps[0], DTensor):
         return gs, ps, ms, vs, step, loss, {}
     mesh = ps[0].device_mesh
@@ -138,7 +139,7 @@ def _local_shards(gs, ps, ms, vs, step, loss):
     return ([g.to_local().contiguous() for g in gs],
             [t.to_local() for t in ps], [t.to_local() for t in ms],
             [t.to_local() for t in vs], step.to_local(), loss,
-            {"counted": counted, "groups": _norm_groups(mesh)})
+            {"counted": counted, "groups": norm_groups(mesh)})
 
 
 def _update(ps):

@@ -17,7 +17,9 @@ version: bit for bit where the norm is under the clip, within stated
 limits where it clips, in place and out of place, captured in a graph,
 the NaN-skip, the memory of one in-place call and the inputs it refuses;
 on DTensors at mesh size 1 (local shards, four kernels) bit for bit with
-the same update without a mesh, and so is a mesh ``train_loop``.
+the same update without a mesh, and so is a mesh ``train_loop``; the mesh
+step captured in a CUDA graph (``TrainProgram`` on the 1 x 1 NCCL mesh)
+bit for bit eager mesh steps, and refused on a gloo group.
 
 Marked ``cuda``; every test skips where ``torch.cuda.is_available()`` is
 false.  On the card:
@@ -1024,6 +1026,10 @@ def test_train_capture_that_meets_a_host_sync_raises(cuda, monkeypatch):
     """A train step that reads a value back to the host cannot be
     captured: ``train_loop`` raises after the warm-up step, and no eager
     step takes the graph's place."""
+    _capture_meets_a_host_sync(cuda, monkeypatch, None)
+
+
+def _capture_meets_a_host_sync(cuda, monkeypatch, mesh):
     from repro_torch.train import loop as TL
     inner = TL.make_train_step
 
@@ -1046,7 +1052,7 @@ def test_train_capture_that_meets_a_host_sync_raises(cuda, monkeypatch):
     cfg = get_reduced_config("yi-6b")
     with pytest.raises(RuntimeError):
         TL.train_loop(cfg, TL.TrainConfig(), iter(_train_batches(cfg, 3)),
-                      3, device=cuda)
+                      3, device=cuda, mesh=mesh)
     torch.cuda.synchronize()
 
 
@@ -1600,10 +1606,12 @@ def test_adamw_update_on_dtensors_equals_their_local_tensors(cuda, mesh,
 
 
 def test_mesh_train_loop_on_card_equals_no_mesh_bitwise(cuda, mesh):
-    """``train_loop(..., mesh=)`` at mesh size 1 (eager in-place steps, K5
-    on the local shards, four kernels a step) against the no-mesh loop
-    (the captured program, three a step): every loss and grad norm and
-    the final parameters and AdamW state, bit for bit."""
+    """``train_loop(..., mesh=)`` at mesh size 1 (the captured mesh
+    program: K5 on the local shards, four kernels a call) against the
+    no-mesh loop (the captured program, three a call): every loss and grad
+    norm and the final parameters and AdamW state, bit for bit.  Each
+    loop calls K5's wrapper twice, in the warm-up and the capture; the
+    replays call none."""
     from repro_torch.train import loop as TL
     cfg = get_reduced_config("yi-6b")
     tcfg = TL.TrainConfig(log_every=1)
@@ -1618,10 +1626,83 @@ def test_mesh_train_loop_on_card_equals_no_mesh_bitwise(cuda, mesh):
         runs[on is None] = (hist, K5.LAUNCHES, p, o)
     (plain, n_plain, p0, o0), (meshed, n_mesh, p1, o1) = runs[True], \
         runs[False]
-    assert n_plain == 6 and n_mesh == 12      # warm-up + capture; 3 steps
+    assert n_plain == 6 and n_mesh == 8       # warm-up + capture
     for a, b in zip(meshed, plain):
         assert a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
     import torch.utils._pytree as pytree
     local = [t.to_local() for t in pytree.tree_leaves((p1, o1))]
     for a, b in zip(_bits(local), _bits((p0, o0))):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "mamba2-1.3b"])
+def test_mesh_program_replays_equal_eager_mesh_steps_bitwise(cuda, mesh,
+                                                             arch):
+    """A ``TrainProgram`` on the 1 x 1 NCCL mesh (the sharded init, an
+    eager warm-up, then one captured step replayed: DTensor's
+    redistributions, K5's four kernels and the norm's all-reduce in the
+    graph) against eager ``step_fn.in_place`` mesh steps from the same
+    init on the same batches: every loss and grad norm and the final
+    shards bit for bit; Mamba layers run K3 forward and backward."""
+    import torch.utils._pytree as pytree
+
+    from repro_torch.train import loop as TL
+    from repro_torch.train.optimizer import adamw_init
+    cfg = get_reduced_config(arch)
+    tcfg = TL.TrainConfig()
+    step = TL.make_train_step(cfg, tcfg, mesh)
+    batches = [TL.batch_to_device(b, cuda) for b in _train_batches(cfg, 4)]
+
+    def state():
+        p = TT.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                           cuda, mesh=mesh)
+        return p, adamw_init(p, tcfg.optimizer)
+    (pa, oa), (pb, ob) = state(), state()
+    program = TL.TrainProgram(step, pa, oa, batches[0])
+    K3.reset_counts()
+    for b in batches:
+        got = {k: float(v) for k, v in program.step(b).items()}
+        want = {k: float(v) for k, v in step.in_place(pb, ob, b).items()}
+        assert got == want
+    torch.cuda.synchronize()
+    assert program.graph is not None and program.replays == 3
+    mamba = any(m == "mamba" for m, _ in cfg.pattern)
+    assert (K3.BWD_LAUNCHES > 0) == mamba
+    local = [[t.to_local() for t in pytree.tree_leaves(x)]
+             for x in ((pa, oa), (pb, ob))]
+    for a, b in zip(_bits(local[0]), _bits(local[1])):
+        assert torch.equal(a, b)
+
+
+def test_train_program_refuses_a_gloo_mesh_on_the_card(cuda, mesh):
+    """A mesh of CUDA tensors over a gloo group (as in ``chip_smoke.py``
+    phase 9d) cannot be captured: ``TrainProgram`` and ``train_loop``
+    raise, saying why, and take no eager step instead."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.train import loop as TL
+    from repro_torch.train.optimizer import adamw_init
+    group = dist.new_group(ranks=[0], backend="gloo")
+    gloo = DeviceMesh.from_group([group, group], "cuda", mesh=[[0]],
+                                 mesh_dim_names=("data", "model"))
+    cfg = get_reduced_config("yi-6b")
+    tcfg = TL.TrainConfig()
+    batches = _train_batches(cfg, 2)
+    params = TT.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                            cuda, mesh=gloo)
+    opt = adamw_init(params, tcfg.optimizer)
+    K5.reset_counts()
+    with pytest.raises(ValueError, match="gloo"):
+        TL.TrainProgram(TL.make_train_step(cfg, tcfg, gloo), params, opt,
+                        TL.batch_to_device(batches[0], cuda))
+    with pytest.raises(ValueError, match="gloo"):
+        TL.train_loop(cfg, tcfg, iter(batches), 2, device=cuda, mesh=gloo)
+    assert K5.LAUNCHES == 0
+
+
+def test_mesh_train_capture_that_meets_a_host_sync_raises(cuda, mesh,
+                                                          monkeypatch):
+    """On the 1 x 1 NCCL mesh too, a step that reads a value back to the
+    host cannot be captured, and ``train_loop`` raises."""
+    _capture_meets_a_host_sync(cuda, monkeypatch, mesh)

@@ -50,9 +50,15 @@ paths against the port's single-device ones:
   across ranks; a NaN partial loss on one rank, or a NaN in one rank's
   shard, skips the step on every rank; a ``Partial`` gradient raises;
 - a checkpoint saved before an in-place step restores the values it
-  saved; ``TrainProgram`` refuses a mesh; ``train_loop(..., mesh=)``
+  saved; ``TrainProgram`` takes a mesh; ``train_loop(..., mesh=)``
   steps through ``in_place`` (the functional update is never called),
-  bit for bit with the functional step.
+  bit for bit with the functional step;
+- at world sizes 1 and 2, ``train_loop(..., mesh=)``'s initial state bit
+  for bit the whole seed-0 init placed, every local tensor owning its
+  storage, no whole sharded leaf alive past its placement; the sharded
+  init of every reduced config bit for bit its whole init placed;
+  ``TrainProgram`` on the gloo mesh bit for bit ``step_fn.in_place``
+  with 1 and 2 microbatches; a resume bit for bit.
 
 Each group is one set of processes on a ``FileStore`` of its own under
 the test's temporary directory, with its own timeout; the groups at world
@@ -590,7 +596,7 @@ def shards_case():
 
 def ckpt_inplace_case(shape):
     # a checkpoint saved before an in-place step keeps what it saved; a
-    # TrainProgram refuses the mesh; train_loop steps through in_place
+    # TrainProgram takes the mesh; train_loop steps through in_place
     import repro_torch.train.loop as TL
     from repro_torch.data.pipeline import SyntheticLM
     cfg = get_reduced_config("yi-6b")
@@ -616,13 +622,10 @@ def ckpt_inplace_case(shape):
     got = mgr.restore(zeros, 1)
     restored = all(bits_equal(full(a), b) for a, b in zip(
         pytree.tree_leaves(got), saved))
-    try:
-        TL.TrainProgram(step, pd, od, batch)
-        refused = False
-    except TypeError:
-        refused = True
+    program = TL.TrainProgram(step, pd, od, batch)
     res = {"moved": moved, "restored_bitwise": restored,
-           "program_refused": refused}
+           "program_on_mesh": all(isinstance(v, DTensor)
+                                  for v in program.batch.values())}
     if world == 2:
         # train_loop on the mesh never calls the functional update, and
         # equals functional steps bit for bit
@@ -647,6 +650,126 @@ def ckpt_inplace_case(shape):
                                         in zip(pytree.tree_leaves((lp, lo)),
                                                pytree.tree_leaves((pf, of))))
     out[f"ckpt_inplace|{shape}"] = res
+
+
+def storage_owned(t):
+    # the local tensor's storage holds its own bytes and no more: no view
+    # into a whole leaf is kept
+    loc = t.to_local()
+    return loc.untyped_storage().nbytes() == loc.numel() * loc.element_size()
+
+
+def gathered(res):
+    rows = [None] * world
+    dist.all_gather_object(rows, res)
+    return rows
+
+
+def init_all_case():
+    # init_params(mesh=) of every reduced config against the whole init
+    # placed, bit for bit, placements too
+    from repro_torch.configs import list_archs
+    mesh = make_mesh((world, 1), AXES2, "cpu")
+    for arch in list_archs():
+        cfg = get_reduced_config(arch)
+        got = init_params(torch.Generator().manual_seed(0), cfg, "cpu",
+                          mesh=mesh)
+        whole = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+        want = distribute(whole, mesh, param_shardings(whole, mesh, "train",
+                                                       cfg))
+        pairs = list(zip(pytree.tree_leaves(got), pytree.tree_leaves(want)))
+        out[f"init_all|{world}|{arch}"] = gathered({
+            "leaves": len(pairs), "all_dtensor": all(
+                isinstance(a, DTensor) for a, _ in pairs),
+            "bitwise": sum(a.placements == b.placements and bits_equal(
+                a.to_local(), b.to_local()) for a, b in pairs),
+            "owned": sum(storage_owned(a) for a, _ in pairs)})
+
+
+def program_case(shape):
+    # train_loop's initial state on the mesh is the whole init placed; the
+    # sharded init holds no whole sharded leaf past its placement;
+    # TrainProgram on the gloo mesh steps as step_fn.in_place does; a
+    # resume is bitwise
+    import weakref
+    import repro_torch.models.transformer as TT
+    import repro_torch.train.loop as TL
+    from repro_torch.data.pipeline import SyntheticLM
+    cfg = get_reduced_config("yi-6b")
+    src = SyntheticLM(vocab=cfg.vocab, seq_len=32, batch=4, n_shards=4)
+    batches = [src.batch_from_shard(src.load_shard(i)) for i in range(3)]
+    mesh = make_mesh(shape, AXES2, "cpu")
+    res = {}
+    whole, max_alive = [], [0]
+    inner = TT.place_local
+
+    def watched(t, m, pls):
+        max_alive[0] = max(max_alive[0], sum(r() is not None for r in whole))
+        d = inner(t, m, pls)
+        if d.to_local().untyped_storage().data_ptr() != \
+                t.untyped_storage().data_ptr():
+            whole.append(weakref.ref(t))     # a shard copied out of t
+        return d
+    TT.place_local = watched
+    try:
+        lp, lo, _ = TL.train_loop(cfg, TrainConfig(), iter(batches), 0,
+                                  device="cpu", mesh=mesh)
+    finally:
+        TT.place_local = inner
+    p = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    o = adamw_init(p, TrainConfig().optimizer)
+    pw, ow = placed(cfg, p, o, mesh)
+    pairs = list(zip(pytree.tree_leaves((lp, lo)), pytree.tree_leaves(
+        (pw, ow))))
+    res["init_bitwise"] = all(
+        a.placements == b.placements and bits_equal(a.to_local(),
+                                                    b.to_local())
+        for a, b in pairs)
+    res["leaves"] = len(pairs)
+    res["owned"] = sum(storage_owned(a) for a, _ in pairs)
+    res["sharded"] = sum(any(pl.is_shard() for pl in a.placements)
+                         and a.to_local().numel() < a.numel()
+                         for a, _ in pairs)
+    res["copied_out"] = len(whole)
+    res["max_whole_alive"] = max_alive[0]
+    res["whole_alive_after"] = sum(r() is not None for r in whole)
+    for micro in (1, 2):
+        tcfg = TrainConfig(microbatches=micro)
+        step = make_train_step(cfg, tcfg, mesh)
+        pa, oa = placed(cfg, p, o, mesh)
+        pb, ob = placed(cfg, p, o, mesh)
+        program = TL.TrainProgram(step, pa, oa, TL.batch_to_device(
+            batches[0], "cpu"))
+        same = []
+        for b in batches:
+            b = TL.batch_to_device(b, "cpu")
+            got = program.step(b)
+            want = step.in_place(pb, ob, b)
+            same += [bits_equal(got[k], want[k])
+                     for k in ("loss", "grad_norm")]
+        res[f"program_metrics_bitwise|{micro}"] = all(same)
+        res[f"program_state_bitwise|{micro}"] = all(
+            bits_equal(a.to_local(), b.to_local()) for a, b in zip(
+                pytree.tree_leaves((pa, oa)), pytree.tree_leaves((pb, ob))))
+        res[f"program_buffers_dtensor|{micro}"] = all(
+            isinstance(v, DTensor) for v in program.batch.values())
+    ckpt = f"{tmp}/ckpt_program_{world}"
+    tcfg = TrainConfig(checkpoint_every=2)
+    TL.train_loop(cfg, tcfg, iter(batches), 2, checkpoint_dir=ckpt,
+                  device="cpu", mesh=mesh)
+    rp, ro, _ = TL.train_loop(cfg, tcfg, iter(batches), 4,
+                              checkpoint_dir=ckpt, device="cpu", mesh=mesh)
+    step = make_train_step(cfg, tcfg, mesh)
+    pb, ob = placed(cfg, p, o, mesh)
+    for b in batches[:2] * 2:        # the resumed run restarts its batches
+        step.in_place(pb, ob, TL.batch_to_device(b, "cpu"))
+    res["resume_step"] = int(full(ro["step"]))
+    res["resume_bitwise"] = all(
+        a.placements == b.placements and bits_equal(a.to_local(),
+                                                    b.to_local())
+        for a, b in zip(pytree.tree_leaves((rp, ro)),
+                        pytree.tree_leaves((pb, ob))))
+    out[f"program|{shape}"] = gathered(res)
 
 
 cases = sys.argv[1:]
@@ -675,6 +798,10 @@ for case in cases:
         shards_case()
     elif kind == "ckpt_inplace":
         ckpt_inplace_case(tuple(int(x) for x in arg[0].split(",")))
+    elif kind == "program":
+        program_case(tuple(int(x) for x in arg[0].split(",")))
+    elif kind == "init_all":
+        init_all_case()
     elif kind == "remesh":
         from repro_torch.distributed.elastic import remesh
         m = remesh(model_parallel=2, device_type="cpu")
@@ -732,14 +859,16 @@ def runs(tmp_path_factory):
                  + ["grad:deepseek-v3-671b:1,2", "grad:mamba2-1.3b:2,1",
                     "prefill:yi-6b", "prefill:mamba2-1.3b", "save",
                     "remesh", "inplace:yi-6b:2,1:1", "inplace:yi-6b:1,2:1",
-                    "inplace:yi-6b:2,1:2", "shards", "ckpt_inplace:2,1"])
+                    "inplace:yi-6b:2,1:2", "shards", "ckpt_inplace:2,1",
+                    "program:2,1", "init_all"])
     four = _start(tmp, "four", 4,
                   [f"train:{a}:2,2" for a in TRAIN_ARCHS]
                   + ["grad:yi-6b:2,2", "moe", "moe_fallback", "compress",
                      "inplace:mamba2-1.3b:2,2:1", "shards",
                      "ckpt_inplace:2,2"])
+    one = _start(tmp, "one", 1, ["program:1,1", "init_all"])
     out = {}
-    for started in (two, four):
+    for started in (two, four, one):
         out.update(_finish(tmp, started))
     for started in (_start(tmp, "restore4", 4, ["restore:2,2"]),
                     _start(tmp, "restore1", 1, ["restore:1,1"])):
@@ -896,12 +1025,72 @@ def test_partial_gradient_is_refused(runs, world):
 def test_checkpoint_before_an_in_place_step_keeps_its_values(runs, mesh):
     r = runs[f"ckpt_inplace|{mesh}"]
     assert r["moved"] > 0 and r["restored_bitwise"], r
-    assert r["program_refused"], r
+    assert r["program_on_mesh"], r
 
 
 def test_train_loop_on_a_mesh_steps_in_place(runs):
     r = runs["ckpt_inplace|(2, 1)"]
     assert r["train_loop_losses_equal"] and r["train_loop_bitwise"], r
+
+
+@pytest.mark.parametrize("world", [1, 2])
+def test_train_loop_initial_state_is_the_placed_init(runs, world):
+    """``train_loop(..., mesh=)``'s parameters and moments before a step
+    are bit for bit the whole seed-0 init and ``adamw_init`` placed by
+    ``place_state``, placements too, and every local tensor owns its
+    storage (its bytes are the shard's: no view into a whole leaf)."""
+    mesh = (world, 1)
+    for r in runs[f"program|{mesh}"]:
+        assert r["init_bitwise"], r
+        assert r["owned"] == r["leaves"], r
+        assert (r["sharded"] > 0) == (world > 1), r
+
+
+@pytest.mark.parametrize("world", [1, 2])
+def test_sharded_init_holds_one_whole_leaf_at_a_time(runs, world):
+    """When the sharded init places a leaf, no earlier leaf whose shard was
+    copied out of it is alive: a rank holds its shards and one whole
+    leaf."""
+    for r in runs[f"program|{(world, 1)}"]:
+        assert r["max_whole_alive"] == 0 and r["whole_alive_after"] == 0, r
+        assert r["copied_out"] > 0, r
+
+
+@pytest.mark.parametrize("micro", [1, 2])
+@pytest.mark.parametrize("world", [1, 2])
+def test_train_program_on_a_mesh_equals_in_place_steps(runs, world, micro):
+    """``TrainProgram`` on a gloo mesh (DTensor batch buffers loaded rank
+    by rank, eager steps) against ``step_fn.in_place`` on the same placed
+    state and batches: every loss and grad norm and the final shards bit
+    for bit, with 1 and 2 microbatches."""
+    for r in runs[f"program|{(world, 1)}"]:
+        assert r[f"program_metrics_bitwise|{micro}"], r
+        assert r[f"program_state_bitwise|{micro}"], r
+        assert r[f"program_buffers_dtensor|{micro}"], r
+
+
+@pytest.mark.parametrize("world", [1, 2])
+def test_train_loop_on_a_mesh_resumes_bitwise(runs, world):
+    """``train_loop(..., mesh=)`` to step 2 with a checkpoint, then resumed
+    to step 4 (its batches restarted), against four in-place steps from
+    the placed init: every shard bit for bit."""
+    for r in runs[f"program|{(world, 1)}"]:
+        assert r["resume_step"] == 4 and r["resume_bitwise"], r
+
+
+@pytest.mark.parametrize("world", [1, 2])
+@pytest.mark.parametrize("arch", ["yi-6b", "gemma3-27b", "starcoder2-7b",
+                                  "stablelm-12b", "mamba2-1.3b",
+                                  "jamba-1.5-large-398b", "deepseek-v3-671b",
+                                  "arctic-480b", "musicgen-large",
+                                  "paligemma-3b"])
+def test_sharded_init_of_every_config_is_the_placed_init(runs, arch, world):
+    """``init_params(..., mesh=)`` of each reduced config: every leaf a
+    DTensor, bit for bit the whole init placed by ``param_shardings``, and
+    every local tensor owning its storage."""
+    for r in runs[f"init_all|{world}|{arch}"]:
+        assert r["all_dtensor"] and r["leaves"] > 0, r
+        assert r["bitwise"] == r["owned"] == r["leaves"], r
 
 
 def test_chip_smoke_phase_9d_runs_on_cpu_ranks():
