@@ -73,7 +73,17 @@ non-zero):
    tensors between K5's sum and its finish, held to single-rank K5 on
    the whole set: the norm within 1e-7 relative, every result bit for
    bit (the norm under the clip), each replicated tensor bit for bit with
-   rank 0's copy, four launches a rank;
+   rank 0's copy, four launches a rank; 9e. the Mamba block's kernels (K6,
+   the causal conv with its SiLU over xs, B and C in one launch; K7, the D
+   skip with the gated norm; K8, the decode's state step; built with the
+   others in phase 1) against their plain versions at mamba2-1.3b's
+   training (K6 and K7 forward and backward), prefill (K6 keeping its
+   states) and decode (K6 from its states, K8, K7 without the skip)
+   shapes, one jamba layer's widths and the reduced widths in float32 and
+   bf16: K6's forward and K8's state within one ulp, the rest within
+   relative L2 1e-5 (float32) / 4e-3 (bf16), two calls bitwise, device
+   ms (calls captured in a CUDA graph) beside the bytes bound and the
+   plain version's, and the plain ops' autograd forward and backward;
 10. serve yi-6b at full width (random weights from a seed) with
     ``ServeEngine``: three jittered recurring clients, 2000-token prompts;
     every prefill's 32 attention layers go through K2, the scheduler's
@@ -87,7 +97,11 @@ non-zero):
     (prefill and both decodes: device busy share and device time by
     kernel); the graph's tokens equal the eager loop's, and the last
     step's logits are compared bit for bit;
-11. serve mamba2-1.3b the same way; every prefill's 48 layers go through K3;
+11. serve mamba2-1.3b the same way; every prefill's 48 layers go through K3,
+    K6 and K7, the decode graph's through K6, K8 and K7 (their wrappers
+    counted: once a layer in each prefill and in the graph's warm-up and
+    capture; one profiled replay runs each 48 times), kernels and device
+    ms of one decode token;
 12. one stablelm-12b prefill (head dim 160) of a 2000-token prompt at full
     width: 40 K2 launches, finite logits, and the 256-token prefill through
     K2 against the same prefill through its plain version;
@@ -134,10 +148,11 @@ non-zero):
     the CPU (loss within rtol 1e-4, the first moment within 1e-3 relative
     L2); (b) ``train_loop`` on mamba2-1.3b at full width and depth, bf16,
     ``SyntheticLM`` through ``PrefetchingLoader``, 4 x 2048 tokens a step,
-    6 steps: losses and grad norms finite and no step skipped, K3's
-    forward and backward wrappers called 96 and 48 times a step (in the
-    eager warm-up step and in the captured one), and a profiled replay's
-    kernel table holding 96 and 48 K3 calls (a trace that lacks any is
+    6 steps: losses and grad norms finite and no step skipped, K3's, K6's
+    and K7's forward and backward wrappers called 96 and 48 times a step
+    (in the eager warm-up step and in the captured one), and a profiled
+    replay's kernel table holding 96 and 48 calls of each (a trace that
+    lacks any is
     taken again, up to 3, and the numbers reported are those of the trace
     that passed); the launches reported are
     those executed (warm-up and replays); step time, tokens/s,
@@ -145,8 +160,9 @@ non-zero):
     loader's stats; then in the same run eager steps and replays of a
     captured ``TrainProgram``, each with its wall time, tokens/s, 6·N·T
     share, peak memory and the busy share and kernels of one step profiled
-    tracing the card only; the graph step's device time by op (K5, K3
-    forward, K3 backward, GEMMs, the largest other kernels by name, the
+    tracing the card only; the graph step's device time by op (K5, K3,
+    K6 and K7 forward and backward, GEMMs, the largest other kernels by
+    name, the
     in-place AdamW update timed alone on a copy of the state) and one
     layer's SSD at the training shape forward and backward through K3
     and through autograd of the plain ``ssd_chunked``; every update runs
@@ -202,14 +218,15 @@ non-zero):
     call timed; 22c. mamba2-1.3b at full width and depth through
     ``train_loop(..., mesh=mesh)`` for 3 steps on 18b's batches: losses
     and grad norms bit for bit equal to 18b's first three, a profiled
-    replay running K3 forward 96 and backward 48 times and K5's four
-    kernels once each, one eager mesh step beside it;
+    replay running K3, K6 and K7 forward 96 and backward 48 times and
+    K5's four kernels once each, one eager mesh step beside it;
 23. serve placements on the same mesh: yi-6b and mamba2-1.3b at full width
     and depth prefill a 2000-token prompt as DTensors under the decode
-    cache hints, then decode 4 tokens: one K2 (K3) launch per layer on the
-    fast route through ``local_map`` (``kernels.ops.per_rank``; 32 K2 and
-    144 = 48 x 3 K3 CUDA kernels in a traced prefill; a trace that
-    holds another count is taken again, up to three), logits
+    cache hints, then decode 4 tokens: one K2 (K3, K6 and K7) launch per
+    layer on the fast route through ``local_map`` (``kernels.ops.per_rank``:
+    once an attention layer, three times a Mamba layer; 32 K2 and 144 =
+    48 x 3 K3 CUDA kernels in a traced prefill; a trace that holds another
+    count is taken again, up to three), logits
     against the no-mesh prefill and decode; then one MoE layer of
     deepseek-v3-671b at full width (256 experts of 7168 x 2048, top-8,
     ~22.5 GB of bf16 weights) through ``moe_apply_ep`` in train and serve
@@ -228,13 +245,15 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 
     python3 chip_smoke.py
 
-``--only k2 k3 k4 k5`` (any of them) runs only phase 0, the named kernels'
-builds and their phases (7-8 for K2, 9-9b for K3 and its backward, 9c-9d
-for K5, 14 for K4), then prints their records as ``{"kernels": [...]}`` and
+``--only k2 k3 k4 k5 mamba`` (any of them) runs only phase 0, the named
+kernels' builds and their phases (7-8 for K2, 9-9b for K3 and its
+backward, 9c-9d for K5, 9e for K6, K7 and K8, 14 for K4), then prints
+their records as ``{"kernels": [...]}`` and
 no ``ok`` line: a quick way to time the kernels of two checkouts in one call,
 by copying this script (and ``src/repro_torch/csrc/gru_latency_probe.cu``,
-for K4) into the other.  ``--only mesh`` builds K3 and K5 and runs phases
-18b, 18c and 18e (what the mesh phases are held to), then 22, 22b and 22c.
+for K4) into the other.  ``--only mesh`` builds K3, K5, K6 and K7 and runs
+phases 18b, 18c and 18e (what the mesh phases are held to), then 22, 22b
+and 22c.
 """
 from __future__ import annotations
 
@@ -1588,6 +1607,323 @@ def phase_k5(torch, K5, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 9e: the Mamba block's kernels (K6 conv, K7 gated norm, K8 decode)
+# ---------------------------------------------------------------------------
+
+# name, Bt, S, d_inner, heads, N, groups, dtype, what runs ("train": K6 and
+# K7 forward and backward; "prefill": K6 keeping its new states, K7
+# forward; "decode": K6 from a state, K8, K7 without the skip).  d_conv is
+# 4 in every config.  mamba2-1.3b's shapes are the main path's: 4 x 2048
+# training tokens, a 2000-token prompt, one token; jamba-1.5-large-398b's
+# layer widths (d_inner 16384, 128 heads of 128); mamba2-1.3b-reduced's
+# (d_inner 128, 8 heads of 16, N 16) in both types.
+MAMBA_CASES = (
+    ("mamba2-1.3b train", 4, 2048, 4096, 64, 128, 1, "bfloat16", "train"),
+    ("mamba2-1.3b prefill", 1, 2000, 4096, 64, 128, 1, "bfloat16",
+     "prefill"),
+    ("mamba2-1.3b decode", 1, 1, 4096, 64, 128, 1, "bfloat16", "decode"),
+    ("jamba layer train", 1, 2048, 16384, 128, 128, 1, "bfloat16", "train"),
+    ("jamba layer decode", 1, 1, 16384, 128, 128, 1, "bfloat16", "decode"),
+    ("reduced train", 2, 64, 128, 8, 16, 1, "float32", "train"),
+    ("reduced train", 2, 64, 128, 8, 16, 1, "bfloat16", "train"),
+    ("reduced decode", 2, 1, 128, 8, 16, 1, "float32", "decode"),
+    ("reduced decode", 2, 1, 128, 8, 16, 1, "bfloat16", "decode"),
+)
+CONV_K = 4
+# relative L2 limits against the plain versions where sums run in other
+# orders: float32 outputs; bf16 outputs (one bf16 ulp is 2^-8 relative);
+# forwards whose every op is the plain version's (K6's outputs and new
+# states, K8's state) must be within one ulp of it, element by element
+MAMBA_REL = {"float32": 1e-5, "bfloat16": 4e-3}
+MAMBA_MAX_ULPS = 1
+
+
+def ordered_bits(torch, t):
+    """``t``'s floats as integers in the floats' order (bf16 or float32)."""
+    if t.dtype == torch.bfloat16:
+        i = t.view(torch.int16).to(torch.int64)
+        return torch.where(i < 0, -(i + (1 << 15)), i)
+    i = t.float().contiguous().view(torch.int32).to(torch.int64)
+    return torch.where(i < 0, -(i + (1 << 31)), i)
+
+
+def ulps(torch, got, want) -> int:
+    """The largest distance in ulps between two tensors of one type."""
+    if got.numel() == 0:
+        return 0
+    return int((ordered_bits(torch, got) - ordered_bits(torch, want))
+               .abs().max())
+
+
+def held(torch, label: str, got, want, dtype: str,
+         max_ulps: int | None = None) -> dict:
+    """Kernel vs plain outputs (lists): relative L2, largest abs error,
+    largest ulps and bitwise share; raises outside the limits (``max_ulps``
+    where every op is the plain version's, else ``MAMBA_REL``)."""
+    rel = rel_l2(torch, got, want)
+    err = max(float((g.float() - w.float()).abs().max()) for g, w in
+              zip(got, want))
+    u = max(ulps(torch, g, w) for g, w in zip(got, want))
+    same = sum(int((g == w).sum()) for g, w in zip(got, want))
+    total = sum(w.numel() for w in want)
+    out = {"rel_l2": rel, "max_abs_err": err, "ulps": u,
+           "bitwise_share": same / total}
+    ok = u <= max_ulps if max_ulps is not None else \
+        rel <= MAMBA_REL[dtype] or same == total
+    log(f"  {label}: rel_l2={rel:.3g} max_abs_err={err:.3g} ulps_max={u} "
+        f"bitwise_share={same / total:.6f}"
+        + ("" if ok else "  <-- outside the limit"))
+    if not ok:
+        raise AssertionError(f"{label}: outside its limit")
+    return out
+
+
+def graph_ms(torch, fn, reps: int = 20) -> float:
+    """Device ms of one call of ``fn``: ``reps`` calls captured in one CUDA
+    graph, the replay timed with CUDA events (after one eager call and one
+    replay), so a small kernel's time is not its host launch's."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    ms = cuda_ms(graph.replay, 3, warmup=False) / reps
+    del graph
+    return ms
+
+
+def same_bits(torch, a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def tensor_bytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def mamba_case(torch, K6, K7, K8, dev, case, reps: int = 20) -> dict:
+    """One shape of :data:`MAMBA_CASES`: each kernel against its plain
+    version, two calls bitwise, kernel and plain device ms (calls captured
+    in a CUDA graph, :func:`graph_ms`) beside the kernel's bytes bound, and
+    (training) the plain ops' autograd forward and backward (CUDA events
+    around eager calls: the train graph's eager warm-up runs them so)."""
+    name, bt, s, di, h, n, g, dname, kind = case
+    dtype = getattr(torch, dname)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    label = f"{name} {dname} (Bt={bt}, S={s}, d_inner={di}, H={h}, N={n})"
+    log(f"Mamba kernels, {label}:")
+
+    def rnd(*shape, scale=1.0, shift=0.0, dt=dtype):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale
+                + shift).to(dt)
+
+    p = di // h
+    widths = (di, g * n, g * n)
+    xs = [rnd(bt, s, c) for c in widths]
+    ws = [rnd(CONV_K, c, scale=0.3) for c in widths]
+    bs = [rnd(c, scale=0.1) for c in widths]
+    states = [rnd(bt, CONV_K - 1, c) for c in widths] if kind == "decode" \
+        else None
+    want_state = kind != "train"
+    rec = {"case": name, "dtype": dname, "bt": bt, "s": s, "d_inner": di,
+           "heads": h, "n": n}
+
+    def k6():
+        return K6.causal_conv(xs, ws, bs, states, want_state)
+
+    ys, new = k6()
+    ys2, new2 = k6()
+    plain = [K6.causal_conv_plain(x, w, b, None if states is None
+                                  else states[j])
+             for j, (x, w, b) in enumerate(zip(xs, ws, bs))]
+    got = ys + (new or [])
+    want = [y for y, _ in plain] + ([st for _, st in plain]
+                                    if want_state else [])
+    rec["K6"] = held(torch, "K6 forward vs plain", got, want, dname,
+                     MAMBA_MAX_ULPS)
+    rec["K6"]["bitwise_two_calls"] = same_bits(torch, got, ys2 + (new2 or []))
+    rec["K6"]["ms"] = graph_ms(torch, k6, reps)
+    rec["K6"]["plain_ms"] = graph_ms(torch, lambda: [
+        K6.causal_conv_plain(x, w, b, None if states is None else states[j])
+        for j, (x, w, b) in enumerate(zip(xs, ws, bs))], 3)
+    nbytes = tensor_bytes(xs + ws + bs + (states or []) + got)
+    rec["K6"]["bytes"] = nbytes
+    # per output element K multiplies and adds, the bias and the SiLU (~6)
+    ops = sum(y.numel() for y in ys) * (2 * CONV_K + 8)
+    f32 = torch.float32        # the kernels' arithmetic: float32, no MMA
+    rec["K6"]["bound_ms"], rec["K6"]["bound_by"] = roofline(nbytes, ops,
+                                                            f32)
+    if kind == "train":
+        gs = [rnd(bt, s, c, scale=1e-2) for c in widths]
+
+        def k6b():
+            return K6.causal_conv_backward(xs, ws, bs, gs)
+
+        d1, d2 = k6b(), k6b()
+        flat1, flat2 = [t for ls in d1 for t in ls], [t for ls in d2 for t in
+                                                       ls]
+        pb = [K6.causal_conv_backward_plain(x, w, b, gg)
+              for x, w, b, gg in zip(xs, ws, bs, gs)]
+        rec["K6_backward"] = held(
+            torch, "K6 backward dx vs plain", d1[0], [t[0] for t in pb],
+            dname)
+        rec["K6_backward"]["dw_db"] = held(
+            torch, "K6 backward dw, db vs plain", d1[1] + d1[2],
+            [t[1] for t in pb] + [t[2] for t in pb], dname)
+        rec["K6_backward"]["bitwise_two_calls"] = same_bits(torch, flat1,
+                                                            flat2)
+        rec["K6_backward"]["ms"] = graph_ms(torch, k6b, reps)
+        rec["K6_backward"]["plain_ms"] = graph_ms(torch, lambda: [
+            K6.causal_conv_backward_plain(x, w, b, gg)
+            for x, w, b, gg in zip(xs, ws, bs, gs)], 3)
+        nb = tensor_bytes(xs + ws + bs + gs + flat1)
+        rec["K6_backward"]["bytes"] = nb
+        rec["K6_backward"]["bound_ms"], rec["K6_backward"]["bound_by"] = \
+            roofline(nb, sum(x.numel() for x in xs) * (4 * CONV_K + 16),
+                     f32)
+        leaves = [t.clone().requires_grad_() for t in xs + ws + bs]
+
+        def plain_autograd():
+            outs = [K6.causal_conv_plain(leaves[j], leaves[3 + j],
+                                         leaves[6 + j])[0] for j in range(3)]
+            torch.autograd.backward(outs, gs)
+            for t in leaves:
+                t.grad = None
+        rec["K6_backward"]["plain_autograd_ms"] = cuda_ms(plain_autograd, 3)
+
+    # K7 and K8
+    D = rnd(h, scale=0.1, shift=1.0, dt=torch.float32)
+    scale = rnd(di, scale=0.1, shift=1.0, dt=torch.float32)
+    z = rnd(bt, s, di)
+    if kind == "decode":
+        ssm = rnd(bt, h, n, p, dt=torch.float32)
+        dt_raw = rnd(bt, 1, h)
+        dt_bias = rnd(h, scale=0.5, dt=torch.float32)
+        A_log = torch.log(torch.linspace(1.0, 16.0, h, device=dev))
+        xd = rnd(bt, h, p)
+        Bm, Cm = rnd(bt, g, n), rnd(bt, g, n)
+        args8 = (xd, ssm, dt_raw, dt_bias, A_log, Bm, Cm, D)
+        s1, y1 = K8.decode_step(*args8)
+        s2, y2 = K8.decode_step(*args8)
+        ps, py = K8.decode_step_plain(*args8)
+        rec["K8"] = held(torch, "K8 state vs plain", [s1], [ps], "float32")
+        rec["K8"]["y"] = held(torch, "K8 output vs plain", [y1], [py], dname)
+        rec["K8"]["bitwise_two_calls"] = same_bits(torch, [s1, y1], [s2, y2])
+        rec["K8"]["ms"] = graph_ms(torch, lambda: K8.decode_step(*args8),
+                                  reps)
+        rec["K8"]["plain_ms"] = graph_ms(
+            torch, lambda: K8.decode_step_plain(*args8), reps)
+        nb = tensor_bytes(list(args8) + [s1, y1])
+        rec["K8"]["bytes"] = nb
+        rec["K8"]["bound_ms"], rec["K8"]["bound_by"] = roofline(
+            nb, ssm.numel() * 6, torch.float32)
+        y, xsk, Dk = y1.reshape(bt, 1, di), None, None
+    else:
+        y, xsk, Dk = rnd(bt, s, di), xs[0], D
+
+    def k7():
+        return K7.gated_norm(y, xsk, z, Dk, scale)
+
+    (o1, r1), (o2, r2) = k7(), k7()
+    po = K7.gated_norm_plain(y, xsk, z, Dk, scale)
+    rec["K7"] = held(torch, "K7 forward vs plain", [o1], [po], dname)
+    rec["K7"]["bitwise_two_calls"] = same_bits(torch, [o1, r1], [o2, r2])
+    rec["K7"]["ms"] = graph_ms(torch, k7, reps)
+    rec["K7"]["plain_ms"] = graph_ms(
+        torch, lambda: K7.gated_norm_plain(y, xsk, z, Dk, scale), 3)
+    nb = tensor_bytes([y, xsk, z, Dk, scale, o1])
+    rec["K7"]["bytes"] = nb
+    rec["K7"]["bound_ms"], rec["K7"]["bound_by"] = roofline(
+        nb, o1.numel() * 20, f32)
+    if kind == "train":
+        dout = rnd(bt, s, di, scale=1e-2)
+
+        def k7b():
+            return K7.gated_norm_backward(dout, y, xsk, z, Dk, scale, r1)
+
+        b1, b2 = k7b(), k7b()
+        pb = K7.gated_norm_backward_plain(dout, y, xsk, z, Dk, scale)
+        rec["K7_backward"] = held(torch, "K7 backward dy, dxs, dz vs plain",
+                                  list(b1[:3]), list(pb[:3]), dname)
+        rec["K7_backward"]["dD_dscale"] = held(
+            torch, "K7 backward dD, dscale vs plain", list(b1[3:]),
+            list(pb[3:]), "float32" if dname == "float32" else dname)
+        rec["K7_backward"]["bitwise_two_calls"] = same_bits(torch, b1, b2)
+        rec["K7_backward"]["ms"] = graph_ms(torch, k7b, reps)
+        rec["K7_backward"]["plain_ms"] = graph_ms(
+            torch, lambda: K7.gated_norm_backward_plain(dout, y, xsk, z, Dk,
+                                                        scale), 3)
+        nb = tensor_bytes([dout, y, xsk, z, Dk, scale, r1, *b1])
+        rec["K7_backward"]["bytes"] = nb
+        rec["K7_backward"]["bound_ms"], rec["K7_backward"]["bound_by"] = \
+            roofline(nb, o1.numel() * 40, f32)
+        leaves = [t.clone().requires_grad_() for t in (y, xsk, z, Dk,
+                                                         scale)]
+
+        def plain_autograd():
+            out = K7.gated_norm_plain(*leaves)
+            out.backward(dout)
+            for t in leaves:
+                t.grad = None
+        rec["K7_backward"]["plain_autograd_ms"] = cuda_ms(plain_autograd, 3)
+    for k in ("K6", "K6_backward", "K7", "K7_backward", "K8"):
+        if k in rec:
+            r = rec[k]
+            log(f"  {k}: ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+                f"({r['bound_by']}; {r['bytes'] / 1e9:.4f} GB at 3.35 TB/s) "
+                f"share_of_bound={r['bound_ms'] / r['ms']:.3f} plain_ms="
+                f"{r['plain_ms']:.4f}"
+                + (f" plain_autograd_forward_backward_ms="
+                   f"{r['plain_autograd_ms']:.4f}"
+                   if "plain_autograd_ms" in r else "")
+                + f" bitwise_two_calls={r['bitwise_two_calls']}")
+            if not r["bitwise_two_calls"]:
+                raise AssertionError(f"{label}: {k} differs between two "
+                                     f"calls")
+    return rec
+
+
+def phase_mamba_kernels(torch, K6, K7, K8, dev) -> dict:
+    """9e: K6, K7 (forward and backward) and K8 against their plain
+    versions at :data:`MAMBA_CASES`; the records of K6, K7 and K8 at
+    mamba2-1.3b's shapes (training for K6 and K7, decode for K8)."""
+    log("== phase 9e: the Mamba block's kernels (K6 conv + SiLU, K7 D skip "
+        "+ gated norm, K8 decode state step) vs plain")
+    cases = [mamba_case(torch, K6, K7, K8, dev, c) for c in MAMBA_CASES]
+    train, decode = cases[0], cases[2]
+    prefill = cases[1]
+
+    fused = ("; no Pallas kernel: XLA fuses it inside the jax.jit of "
+             "src/repro/train/loop.py:108 and src/repro/serve/engine.py:74")
+
+    def record(name, key, site, main, extra):
+        r = main[key]
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/csrc/{name}.cu",
+                "replaces": site + fused, "launches": 0,
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": None, **extra}
+    k6 = record("mamba_conv", "K6", "src/repro/models/mamba.py:147 "
+                "(_causal_conv with its SiLU)", train,
+                {"shape": "mamba2-1.3b training: xs, B, C of 4 x 2048 "
+                 "tokens (4096 + 128 + 128 channels), K=4, bf16",
+                 "backward": train["K6_backward"], "prefill": prefill["K6"],
+                 "decode": decode["K6"]})
+    k7 = record("gated_norm", "K7", "src/repro/models/mamba.py:173 "
+                "(_gated_norm) and the D skip at :210", train,
+                {"shape": "mamba2-1.3b training: 4 x 2048 rows of 4096, 64 "
+                 "heads, bf16", "backward": train["K7_backward"],
+                 "prefill": prefill["K7"], "decode": decode["K7"]})
+    k8 = record("mamba_decode", "K8", "src/repro/models/mamba.py:246-257 "
+                "(mamba_decode's dt, decay, state update and D skip)",
+                decode, {"shape": "mamba2-1.3b decode: batch 1, 64 heads, "
+                         "N=128, P=64, float32 state, bf16"})
+    return {"K6": k6, "K7": k7, "K8": k8, "cases": cases}
+
+
+# ---------------------------------------------------------------------------
 # phase 9d: K5 on the local shards of two ranks of one card (gloo)
 # ---------------------------------------------------------------------------
 
@@ -1854,7 +2190,8 @@ def serve_phase(torch, cfg, params, label: str, per_prefill: dict,
             f"tokens={c.tokens[:4]}...")
     cold = [c.ttft * 1e3 for c in comps if not c.prefetched]
     warm = [c.ttft * 1e3 for c in comps if c.prefetched]
-    summary = {"requests": len(comps), "seconds": seconds,
+    summary = {"requests": len(comps), "prefills": prefills[0],
+               "seconds": seconds,
                "ttft_cold_ms_median": statistics.median(cold),
                "ttft_prewarmed_ms_median": (statistics.median(warm)
                                             if warm else None),
@@ -2027,6 +2364,7 @@ def kernel_split(torch, fn, key: str,
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             time.sleep(TRACE_PAD_S)
+            lead_in(torch)
             fn()
             torch.cuda.synchronize()
             time.sleep(TRACE_PAD_S)
@@ -2136,15 +2474,18 @@ def profile_request(torch, arch: str, cfg, params, program) -> dict:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            lead_in(torch)
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
+                   if e.device_type == DeviceType.CUDA
+                   and "spin_kernel" not in e.key]
         busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
         ours = [e for e in kernels if any(
-            k in e.key for k in ("flash_attention_", "ssd_", "arima_bank"))]
+            k in e.key for k in ("flash_attention_", "ssd_", "arima_bank",
+                                 "conv_fwd<", "gn_fwd<", "decode_step<"))]
         ours_ms = sum(e.self_device_time_total for e in ours) / 1e3
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
         shares[part] = busy_ms / wall_ms
@@ -2166,9 +2507,29 @@ def profile_request(torch, arch: str, cfg, params, program) -> dict:
     run_prefill()                  # caches the eager loop has not written
     check = graph_vs_eager(torch, arch, params, cfg, program, state["out"],
                            MAX_NEW)
+    # one token: one replay of the captured step traced on the card alone;
+    # a Mamba layer runs K6, K8 and K7 once in it (a trace that lost
+    # records is taken again, up to three in all)
+    logits, caches, n = state["out"]
+    program.load(caches, logits[0].argmax(-1), n)
+    want = mamba_layers(cfg)
+    for taken in range(1, 4):
+        _, busy, kernels, table = profiled(torch, program.advance,
+                                           host=False)
+        calls = {k: v for k, v in port_calls(table).items()
+                 if k in ("K2", "K3", "K6", "K7", "K8")}
+        if all(calls[k] == want for k in ("K6", "K7", "K8")):
+            break
+        log(f"{arch}: a profiled decode replay shows {calls} (trace "
+            f"{taken})")
+    log(f"{arch} one decode token (one graph replay, card-only trace "
+        f"{taken}): kernels={kernels} device_ms={busy:.3f} port_calls="
+        f"{calls} tokens_per_s_graph={rates['decode_graph']:.2f}")
     return {"busy_share": shares,
             "decode_tokens_per_s_graph": rates["decode_graph"],
-            "decode_tokens_per_s_eager": rates["decode_eager"], **check}
+            "decode_tokens_per_s_eager": rates["decode_eager"],
+            "token_kernels": kernels, "token_device_ms": busy,
+            "token_calls": calls, **check}
 
 
 def _leaves(tree):
@@ -2798,24 +3159,43 @@ def train_card_vs_cpu(torch, dev) -> None:
                                  f"with the CPU's")
 
 
+# In a long run a card-only trace has lost the records of its first ~25
+# kernels, in every trace of one train step (phase 18b, chip run 3 of PR
+# 27; alone, the same step traced whole).  A trace opens with spin kernels
+# that take such a loss; they are left out of its table.
+LEAD_IN_SPINS = 64
+
+
+def lead_in(torch) -> None:
+    """Spin kernels (``torch.cuda._sleep``: one of ~1 ms, then
+    ``LEAD_IN_SPINS`` short ones), waited for."""
+    torch.cuda._sleep(2_000_000)
+    for _ in range(LEAD_IN_SPINS):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
 def profiled(torch, fn, host: bool) -> tuple[float, float, int, list]:
     """(wall ms, device busy ms, kernels, kernel table) of one call of
     ``fn`` under ``torch.profiler``, tracing the card only or the host's
     operators too (whose own host cost inflates wall); the trace opens
-    and closes ``TRACE_PAD_S`` away from the call."""
+    and closes ``TRACE_PAD_S`` away from the call, after :func:`lead_in`,
+    whose kernels the table leaves out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         time.sleep(TRACE_PAD_S)
+        lead_in(torch)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         time.sleep(TRACE_PAD_S)
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA
+               and "spin_kernel" not in e.key]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     return wall_ms, busy_ms, sum(e.count for e in kernels), kernels
 
@@ -2864,8 +3244,10 @@ def step_profile(torch, fn, label: str, reps: int = 3, table_ok=None,
 
 
 # what the device time of a profiled train step is split into, by kernel
-# name: K5 (AdamW), K3 forward, K3 backward, matrix products (cuBLAS); the
-# rest are the elementwise, reduction and copy kernels
+# name: K5 (AdamW), K3 forward, K3 backward, the Mamba block's K6 (conv)
+# and K7 (gated norm) forward and backward and K8 (decode step), matrix
+# products (cuBLAS); the rest are the elementwise, reduction and copy
+# kernels
 def op_class(name: str) -> str:
     low = name.lower()
     if "adamw_" in name:
@@ -2874,24 +3256,35 @@ def op_class(name: str) -> str:
         return "K3 backward"
     if "ssd_" in name:
         return "K3 forward"
+    for marks, cls in ((("conv_fwd<",), "K6 forward"),
+                       (("conv_bwd<", "conv_reduce<"), "K6 backward"),
+                       (("gn_fwd<",), "K7 forward"),
+                       (("gn_bwd<", "gn_reduce("), "K7 backward"),
+                       (("decode_step<",), "K8")):
+        if any(m in name for m in marks):
+            return cls
     if any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet", "cublas")):
         return "GEMMs"
     return "other"
 
 
-# kernels that each K3 call launches once, by route: its forward's output
-# pass or generic scan, its backward's gradient pass or generic backward;
-# K5's three kernels, each once a call
-K3_ONCE_PER_CALL = {"K3": ("::ssd_output_", "::ssd_scan_generic"),
-                    "K3_backward": ("::bwd_grad_", "::bwd_generic"),
-                    "K5": ("adamw_norm", "adamw_finish", "adamw_apply")}
+# kernels that each call of a wrapper launches once: K3's, by route (its
+# forward's output pass or generic scan, its backward's gradient pass or
+# generic backward); K5's three kernels, each once a call; K6's and K7's
+# forward and backward (one call without a mesh group); K8
+ONCE_PER_CALL = {"K3": ("::ssd_output_", "::ssd_scan_generic"),
+                 "K3_backward": ("::bwd_grad_", "::bwd_generic"),
+                 "K5": ("adamw_norm", "adamw_finish", "adamw_apply"),
+                 "K6": ("conv_fwd<",), "K6_backward": ("conv_bwd<",),
+                 "K7": ("gn_fwd<",), "K7_backward": ("gn_bwd<",),
+                 "K8": ("decode_step<",)}
 
 
-def k3_calls(table) -> dict:
-    """K3 forward and backward calls, and K5's kernels, a profiled kernel
-    table holds."""
+def port_calls(table) -> dict:
+    """K3, K6 and K7 forward and backward calls, K8 calls, and K5's
+    kernels, a profiled kernel table holds."""
     return {k: sum(e.count for e in table if any(m in e.key for m in marks))
-            for k, marks in K3_ONCE_PER_CALL.items()}
+            for k, marks in ONCE_PER_CALL.items()}
 
 
 def op_split(torch, label: str, table, adamw_ms: float) -> dict:
@@ -2920,6 +3313,17 @@ def mamba_layers(cfg) -> int:
         cfg.n_units * sum(m == "mamba" for m, _ in cfg.pattern)
 
 
+def step_calls(cfg, mesh: bool = False) -> dict:
+    """Wrapper calls of one train step: K3, K6 and K7 forward once a Mamba
+    layer (twice with the remat recompute) and backward once, K5 once
+    (three kernels; four on a mesh), no K2 or K8."""
+    n = mamba_layers(cfg)
+    fwd = n * (1 if cfg.remat == "none" else 2)
+    return {"K2": 0, "K3": fwd, "K3_backward": n, "K5": 4 if mesh else 3,
+            "K6": fwd, "K6_backward": n, "K7": fwd, "K7_backward": n,
+            "K8": 0}
+
+
 def train_cell(torch, cfg, dev, counts: dict, label: str, tcfg=None,
                eager: bool = True) -> dict:
     """18b/18c/18e: ``train_loop`` (bf16, ``tcfg`` or the default
@@ -2927,18 +3331,21 @@ def train_cell(torch, cfg, dev, counts: dict, label: str, tcfg=None,
     ``PrefetchingLoader``, TRAIN_BATCH x TRAIN_SEQ tokens a step for
     TRAIN_STEPS steps: an eager warm-up step, then one step captured in a
     CUDA graph and replayed.  Gates: every loss and grad norm finite, no
-    step skipped, the last loss below the first, no K2 launch, and K3's
-    forward and backward and K5's wrappers called exactly the step's count
-    twice (the warm-up and the capture; replays call no wrapper).  Then,
-    in the same run, eager ``make_train_step`` steps (with ``eager``; a
-    functional step holds a second copy of the state) and replays of a
-    captured ``TrainProgram``: wall, tokens/s, 6·N·T share, busy share,
-    kernels and peak memory of each, the device time by op with the
+    step skipped, the last loss below the first, no K2 or K8 launch, and
+    K3's, K6's and K7's forward and backward and K5's wrappers called
+    exactly the step's count twice (the warm-up and the capture; replays
+    call no wrapper).  Then, in the same run, eager ``make_train_step``
+    steps (with ``eager``; a functional step holds a second copy of the
+    state) and replays of a captured ``TrainProgram``, the first replay
+    bit for bit (loss, grad norm, parameters and moments) the eager step
+    from the same state (with ``eager``): wall, tokens/s, 6·N·T share,
+    busy share, kernels and peak memory of each, the device time by op with the
     in-place update timed alone (on a copy of the state with ``eager``,
     else on the state itself, last), and (Mamba) one layer's SSD through
     K3 and through autograd of the plain ``ssd_chunked``.  A gate reads
-    the profiled replay's kernel table: it ran K3's forward and backward
-    and K5's three kernels the step's count of times.  The launches
+    the profiled replay's kernel table: it ran K3's, K6's and K7's forward
+    and backward and K5's three kernels the step's count of times.  The
+    launches
     reported are those executed: the warm-up's and each replay's,
     TRAIN_STEPS steps of the step's count."""
     import gc
@@ -2980,13 +3387,13 @@ def train_cell(torch, cfg, dev, counts: dict, label: str, tcfg=None,
         batch = batch_to_device(next(loader), dev)
     finally:
         loader.close()
+    K6, K7, K8 = counts["K6"], counts["K7"], counts["K8"]
     wrapper_calls = {"K2": sum(counts["K2"].ROUTE_LAUNCHES.values()),
                      "K3": K3.LAUNCHES, "K3_backward": K3.BWD_LAUNCHES,
-                     "K5": K5.LAUNCHES}
-    n_mamba = mamba_layers(cfg)
-    per_step = {"K2": 0,
-                "K3": n_mamba * (1 if cfg.remat == "none" else 2),
-                "K3_backward": n_mamba, "K5": 3}
+                     "K5": K5.LAUNCHES, "K6": K6.LAUNCHES,
+                     "K6_backward": K6.BWD_LAUNCHES, "K7": K7.LAUNCHES,
+                     "K7_backward": K7.BWD_LAUNCHES, "K8": K8.LAUNCHES}
+    per_step = step_calls(cfg)
     n = param_count(params)
     state_bytes = sum(x.numel() * x.element_size()
                       for x in pytree.tree_leaves((params, opt)))
@@ -3048,25 +3455,44 @@ def train_cell(torch, cfg, dev, counts: dict, label: str, tcfg=None,
     torch.cuda.empty_cache()
     program = TrainProgram(step, params, opt, batch)
     program.step(batch)                     # warm-up and capture
+    replay_vs_eager = None
+    if eager:
+        # one replay against the eager step from the same state: the
+        # functional step on the program's tensors, then the replay
+        ref = step(program.params, program.opt_state, batch)
+        got = program.step(batch)
+        replay_vs_eager = all(
+            float(ref[2][k]) == float(got[k]) for k in ("loss", "grad_norm")
+        ) and all(torch.equal(a, b) for a, b in zip(
+            pytree.tree_leaves((ref[0], ref[1])),
+            pytree.tree_leaves((program.params, program.opt_state))))
+        del ref
+        log(f"{label}: one graph replay against the eager step from the "
+            f"same state: loss, grad norm, parameters and moments "
+            f"bitwise={replay_vs_eager}")
+        if not replay_vs_eager:
+            raise AssertionError(f"{label}: a graph replay differs from the "
+                                 f"eager step")
     # a replay must show K3's and K5's kernels the step's count of times; a
     # trace of ~10k kernels now and then misses records (its kernel count
     # moves between traces of one graph), and is taken again
-    want = {k: per_step[k] for k in K3_ONCE_PER_CALL}
+    want = {k: per_step[k] for k in ONCE_PER_CALL}
 
     def all_there(table):
-        got = k3_calls(table)
+        got = port_calls(table)
         if got != want:
             log(f"{label}: a profiled replay shows {got}, want {want}")
         return got == want
     graph = step_profile(torch, lambda: program.step(batch),
                          f"{label} graph", table_ok=all_there)
     # 3 unprofiled calls, the card-only traces and one host trace
-    if program.graph is None or program.replays != 4 + graph["traces"]:
+    if program.graph is None or program.replays != \
+            4 + graph["traces"] + (replay_vs_eager is not None):
         raise AssertionError(f"{label}: the program did not replay its "
                              f"graph ({program.replays} replays)")
-    replayed = k3_calls(graph["table"])
+    replayed = port_calls(graph["table"])
     launches = {k: v * TRAIN_STEPS for k, v in per_step.items()}
-    log(f"{label}: one profiled replay ran {replayed} (K3: kernels "
+    log(f"{label}: one profiled replay ran {replayed} (K3, K6, K7: kernels "
         f"launched once a call; K5: its three kernels; trace "
         f"{graph['traces']}); executed launches over the {TRAIN_STEPS} steps"
         f" (warm-up and {TRAIN_STEPS - 1} replays) {launches}")
@@ -3097,7 +3523,8 @@ def train_cell(torch, cfg, dev, counts: dict, label: str, tcfg=None,
            "launches": launches,
            "wrapper_calls": wrapper_calls, "launches_per_step": per_step,
            "graph": {k: v for k, v in graph.items() if k != "table"},
-           "capture_seconds": program.capture_seconds, "pipeline": stats}
+           "capture_seconds": program.capture_seconds, "pipeline": stats,
+           "replay_bitwise_eager": replay_vs_eager}
     if eager:
         out["eager"] = {k: v for k, v in eager_res.items() if k != "table"}
     del program
@@ -3115,7 +3542,10 @@ def train_cell(torch, cfg, dev, counts: dict, label: str, tcfg=None,
     del grads, p_upd, o_upd
     out["op_split"] = op_split(torch, f"{label} graph step", graph["table"],
                                adamw)
-    if n_mamba:
+    if mamba_layers(cfg):
+        log(f"{label}: graph step kernels={graph['kernels']} device_busy_ms="
+            f"{graph['busy_ms']:.1f} (mamba2-1.3b at PR 24's final run: "
+            f"17,944 kernels, 713.4 ms)")
         m = cfg.mamba
         out["ssd_layer"] = ssd_autograd_ms(torch, K3, dev, (
             TRAIN_BATCH, TRAIN_SEQ, m.n_heads, m.head_dim, m.n_groups,
@@ -3221,11 +3651,17 @@ def train_phase(torch, counts: dict, dev) -> dict:
     return out
 
 
+# phases 10-11's serve summaries, by arch
+SERVED: dict = {}
+
+
 def full_serve(torch, arch: str, kernel: str, counts: dict, dev,
                phase: str) -> int:
     """Phases 10-11: ``arch`` at full width and depth served, ``kernel``
-    launched once per layer and prefill on its fast route; returns its
-    launches."""
+    launched once per layer and prefill on its fast route; a Mamba model's
+    K6 and K7 once a layer in every prefill and in the decode graph's
+    warm-up and capture, K8 in those two, and each once a layer in one
+    profiled replay of the decode graph.  Returns ``kernel``'s launches."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
     params = init_model(torch, cfg, arch, dev)
@@ -3234,6 +3670,23 @@ def full_serve(torch, arch: str, kernel: str, counts: dict, dev,
                       route={"K2": "wgmma", "K3": "chunked"}[kernel])
     del params
     free(torch)
+    n = mamba_layers(cfg)
+    if n:
+        # K6 and K7 once a layer in every prefill and in the decode's
+        # warm-up and capture, K8 in those two; a replay calls no wrapper
+        want = {"K6": n * (out["prefills"] + 2), "K7": n * (out["prefills"]
+                                                             + 2),
+                "K8": 2 * n}
+        got = {k: out["launches"][k] for k in want}
+        calls = out["token_calls"]
+        log(f"{arch}: block kernel wrapper launches {got} (want {want}); "
+            f"one decode replay ran {calls}; kernels a token "
+            f"{out['token_kernels']} (PR 21: ~4,250), graph tokens/s "
+            f"{out['decode_tokens_per_s_graph']:.2f} (PR 21: 104.98)")
+        if got != want or any(calls[k] != n for k in ("K6", "K7", "K8")):
+            raise AssertionError(f"{arch}: the Mamba block's kernels ran "
+                                 f"{got} / {calls} times")
+    SERVED[arch] = out
     return out["launches"][kernel]
 
 
@@ -3776,17 +4229,17 @@ def mesh_full_depth_phase(torch, K5, dev, phase18e: dict) -> dict:
             "k5_mesh_call": k5, "k5_wrapper_calls": wrapper_calls}
 
 
-def mesh_mamba_phase(torch, K3, K5, dev, phase18b: dict) -> dict:
+def mesh_mamba_phase(torch, counts: dict, dev, phase18b: dict) -> dict:
     """Phase 22c: mamba2-1.3b at full width and depth through
     ``train_loop(..., mesh=1 x 1)`` for three steps on 18b's batches: the
-    sharded init and the captured mesh program, K3 forward and backward
-    on the local shards under ``local_map`` inside the graph.  Gates:
-    losses and grad norms bit for bit equal to 18b's first three, K3's
-    and K5's wrappers called the step's count in the warm-up and the
-    capture only, and a profiled replay of a captured mesh program
-    running K3 forward 96 and backward 48 times and K5's four kernels
-    once each.  One eager mesh step (``step_fn.in_place``) is timed
-    beside it."""
+    sharded init and the captured mesh program, K3, K6 and K7 forward and
+    backward on the local shards under ``local_map`` inside the graph
+    (``counts``: the K3, K5, K6, K7 and K8 modules).  Gates: losses and
+    grad norms bit for bit equal to 18b's first three, the wrappers called
+    the step's count in the warm-up and the capture only, and a profiled
+    replay of a captured mesh program running K3, K6 and K7 forward 96
+    and backward 48 times and K5's four kernels once each.  One eager mesh
+    step (``step_fn.in_place``) is timed beside it."""
     import statistics
 
     from repro_torch.configs import get_config
@@ -3802,19 +4255,23 @@ def mesh_mamba_phase(torch, K3, K5, dev, phase18b: dict) -> dict:
     mesh = card_mesh((1, 1), ("data", "model"))
     batches = mesh_batches(cfg, MESH_TRAIN_STEPS)
     tcfg = TrainConfig(log_every=1)
-    n_mamba = mamba_layers(cfg)
-    per_step = {"K3": n_mamba * (1 if cfg.remat == "none" else 2),
-                "K3_backward": n_mamba, "K5": 4}
+    per_step = {k: v for k, v in step_calls(cfg, mesh=True).items()
+                if k != "K2"}
     hist = []
     free(torch)
-    K3.reset_counts()
-    K5.reset_counts()
+    for mod in counts.values():
+        mod.reset_counts()
     params, opt, _ = train_loop(cfg, tcfg, iter(batches), MESH_TRAIN_STEPS,
                                 device=dev, mesh=mesh,
                                 log_fn=lambda s, m: hist.append(m))
     torch.cuda.synchronize()
-    wrapper_calls = {"K3": K3.LAUNCHES, "K3_backward": K3.BWD_LAUNCHES,
-                     "K5": K5.LAUNCHES}
+    wrapper_calls = {"K3": counts["K3"].LAUNCHES,
+                     "K3_backward": counts["K3"].BWD_LAUNCHES,
+                     "K5": counts["K5"].LAUNCHES}
+    for k in ("K6", "K7"):
+        wrapper_calls[k] = counts[k].LAUNCHES
+        wrapper_calls[f"{k}_backward"] = counts[k].BWD_LAUNCHES
+    wrapper_calls["K8"] = counts["K8"].LAUNCHES
     free(torch)
     losses = [m["loss"] for m in hist]
     norms = [m["grad_norm"] for m in hist]
@@ -3846,13 +4303,12 @@ def mesh_mamba_phase(torch, K3, K5, dev, phase18b: dict) -> dict:
     program.step(batch)                     # warm-up and capture
 
     def all_there(table):
-        got = k3_calls(table)
-        return got["K3"] == per_step["K3"] and \
-            got["K3_backward"] == per_step["K3_backward"] and \
-            set(k5_mesh_kernels(table).values()) == {1}
+        got = port_calls(table)
+        return all(got[k] == v for k, v in per_step.items() if k != "K5") \
+            and set(k5_mesh_kernels(table).values()) == {1}
     graph = step_profile(torch, lambda: program.step(batch),
                          f"{label} graph", table_ok=all_there)
-    ran = {**{k: v for k, v in k3_calls(graph["table"]).items()
+    ran = {**{k: v for k, v in port_calls(graph["table"]).items()
               if k != "K5"}, "K5": k5_mesh_kernels(graph["table"])}
     log(f"{label}: one profiled replay of the mesh program ran {ran} "
         f"(trace {graph['traces']}) capture_seconds="
@@ -3951,6 +4407,7 @@ def mesh_serve_phase(torch, counts: dict, dev) -> dict:
                 torch.cuda.synchronize()
                 launches = counts[kernel].LAUNCHES
                 on_route = counts[kernel].ROUTE_LAUNCHES[route]
+                block = {k: counts[k].LAUNCHES for k in ("K6", "K7")}
                 prefill_calls = calls["n"]
                 got, _ = _prefill_and_decode(torch, placed, cfg, tokens, pe,
                                              max_len, feed=fed)
@@ -3984,7 +4441,8 @@ def mesh_serve_phase(torch, counts: dict, dev) -> dict:
             rows.append((i, bitwise(torch, g, w), float(
                 (g.float() - w.float()).norm() / w.float().norm())))
         log(f"{arch} mesh: {kernel}_launches={launches} on_{route}="
-            f"{on_route} per_rank_calls={prefill_calls} traced_cuda_kernels="
+            f"{on_route} K6_K7_launches={block} per_rank_calls="
+            f"{prefill_calls} traced_cuda_kernels="
             f"{'not measured' if traced is None else traced} (one prefill, "
             f"trace {taken}; {per_call} a launch); "
             f"logits prefill+decode vs no mesh (step, bitwise, rel_l2)="
@@ -4000,15 +4458,21 @@ def mesh_serve_phase(torch, counts: dict, dev) -> dict:
             raise AssertionError(f"{arch}: the trace holds {traced} "
                                  f"{kernel} kernels for {cfg.n_layers} "
                                  f"layers")
-        if prefill_calls != cfg.n_layers:
+        # a Mamba layer maps its conv (K6), its SSD (K3) and its gated
+        # norm (K7) over the mesh, an attention layer its attention (K2)
+        mamba = mamba_layers(cfg)
+        if prefill_calls != cfg.n_layers + 2 * mamba or \
+                block != {"K6": mamba, "K7": mamba}:
             raise AssertionError(f"{arch}: {prefill_calls} per-rank calls "
-                                 f"for {cfg.n_layers} layers")
+                                 f"and K6/K7 launches {block} for "
+                                 f"{cfg.n_layers} layers")
         if not all(r < 1e-3 for _, _, r in rows):
             raise AssertionError(f"{arch}: mesh logits disagree")
         out[arch] = {"launches": {kernel: launches},
                      "traced_cuda_kernels": traced,
                      "traces": taken,
                      "per_rank_calls": prefill_calls,
+                     "block_launches": block,
                      "bitwise": [b for _, b, _ in rows],
                      "max_rel_l2": max(r for _, _, r in rows),
                      "prefill_wall_ms": mesh_wall,
@@ -4143,8 +4607,10 @@ def mesh_phases(torch, counts: dict, K5, dev, trained: dict) -> dict:
                                            trained["yi-6b-4l"])}
         out["phase22b"] = mesh_full_depth_phase(torch, K5, dev,
                                                 trained["yi-6b"])
-        out["phase22c"] = mesh_mamba_phase(torch, counts["K3"], K5, dev,
-                                           trained["mamba2-1.3b"])
+        out["phase22c"] = mesh_mamba_phase(
+            torch, {"K5": K5, **{k: counts[k] for k in ("K3", "K6", "K7",
+                                                        "K8")}},
+            dev, trained["mamba2-1.3b"])
         out["phase23"] = mesh_serve_phase(torch, counts, dev)
         yi4 = dataclasses.replace(get_config("yi-6b"), n_layers=4)
         cells = {}
@@ -4201,7 +4667,7 @@ def mesh_launches(out: dict) -> dict:
             "replay_launches_mesh": ran["K3_backward"]}}
 
 
-def mesh_train_only(torch, K2, K3, K5, dev) -> dict:
+def mesh_train_only(torch, K2, K3, K5, mamba, dev) -> dict:
     """``--only mesh``: phases 18b, 18c and 18e (the no-mesh cells the
     mesh phases are held to), then 22, 22b and 22c; their summary line."""
     import torch.distributed as dist
@@ -4209,7 +4675,8 @@ def mesh_train_only(torch, K2, K3, K5, dev) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.train.loop import TrainConfig
     from repro_torch.train.optimizer import AdamWConfig
-    counts = {"K2": K2, "K3": K3, "K5": K5}
+    counts = {"K2": K2, "K3": K3, "K5": K5, **dict(zip(("K6", "K7", "K8"),
+                                                       mamba))}
     yi = get_config("yi-6b")
     log("== phase 18b: train mamba2-1.3b at full width and depth")
     trained = {"mamba2-1.3b": train_cell(torch, get_config("mamba2-1.3b"),
@@ -4227,8 +4694,10 @@ def mesh_train_only(torch, K2, K3, K5, dev) -> dict:
                                            trained["yi-6b-4l"]),
                "phase22b": mesh_full_depth_phase(torch, K5, dev,
                                                  trained["yi-6b"]),
-               "phase22c": mesh_mamba_phase(torch, K3, K5, dev,
-                                            trained["mamba2-1.3b"])}
+               "phase22c": mesh_mamba_phase(
+                   torch, {k: counts[k] for k in ("K3", "K5", "K6", "K7",
+                                                  "K8")},
+                   dev, trained["mamba2-1.3b"])}
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -4239,12 +4708,12 @@ def mesh_train_only(torch, K2, K3, K5, dev) -> dict:
             {"name": "ssd_scan_backward", **counted["K3_backward"]}]
 
 
-def run_only(torch, np, only, built, K2, K3, K4, K5, T_rnn, nvcc,
+def run_only(torch, np, only, built, K2, K3, K4, K5, mamba, T_rnn, nvcc,
              dev) -> int:
     """``--only``: the named kernels' phases (7-8 for K2, 9-9b for K3 and
-    its backward, 9c-9d for K5, 14 for K4; ``mesh``: 18b, 18c, 18e, 22,
-    22b, 22c)
-    and their records as one ``{"kernels": [...]}`` line."""
+    its backward, 9c-9d for K5, 9e for K6, K7 and K8 (``mamba``), 14 for
+    K4; ``mesh``: 18b, 18c, 18e, 22, 22b, 22c) and their records as one
+    ``{"kernels": [...]}`` line."""
     records = []
     if "k2" in only:
         log("== phase 7: build K2")
@@ -4261,13 +4730,21 @@ def run_only(torch, np, only, built, K2, K3, K4, K5, T_rnn, nvcc,
         log_build("K5", *built["K5"])
         records.append(phase_k5(torch, K5, dev))
         records[-1]["mesh_two_ranks"] = phase_k5_mesh(torch)
+    if "mamba" in only:
+        for name in ("K6", "K7", "K8"):
+            log_build(name, *built[name])
+        got = phase_mamba_kernels(torch, *mamba, dev)
+        records += [got["K6"], got["K7"], got["K8"]]
     if "mesh" in only:
         if "k3" not in only:
             log_build("K3", *built["K3"])
             log_build("K3 backward", *built["K3 backward"])
         if "k5" not in only:
             log_build("K5", *built["K5"])
-        records += mesh_train_only(torch, K2, K3, K5, dev)
+        if "mamba" not in only:
+            for name in ("K6", "K7"):
+                log_build(name, *built[name])
+        records += mesh_train_only(torch, K2, K3, K5, mamba, dev)
     if "k4" in only:
         log_build("K4", *built["K4"])
         log_build("K4 probe", *built["K4 probe"])
@@ -4281,11 +4758,13 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Smoke run of the PyTorch port on one CUDA card.")
     parser.add_argument(
-        "--only", nargs="+", choices=("k2", "k3", "k4", "k5", "mesh"),
+        "--only", nargs="+",
+        choices=("k2", "k3", "k4", "k5", "mamba", "mesh"),
         help="run only these kernels' builds and phases (7-8: K2, 9-9b: "
-             "K3 and its backward, 9c-9d: K5, 14: K4; mesh: K3's and K5's "
-             "builds, 18b, 18c, 18e, 22, 22b and 22c) and print their "
-             "records; no ok line")
+             "K3 and its backward, 9c-9d: K5, 9e: the Mamba block's K6, K7 "
+             "and K8, 14: K4; mesh: K3's, K5's, K6's and K7's builds, 18b, "
+             "18c, 18e, 22, 22b and 22c) and print their records; no ok "
+             "line")
     args = parser.parse_args(argv)
     try:
         import torch
@@ -4299,7 +4778,8 @@ def main(argv=None) -> int:
     if not all((SRC / "repro_torch" / "csrc" / f"{name}.cu").is_file()
                for name in ("arima_bank", "flash_attention", "ssd_scan",
                             "ssd_scan_bwd", "gru_fit", "gru_latency_probe",
-                            "adamw")):
+                            "adamw", "mamba_conv", "gated_norm",
+                            "mamba_decode")):
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
@@ -4313,7 +4793,10 @@ def main(argv=None) -> int:
     from repro_torch.kernels import adamw as K5
     from repro_torch.kernels import arima_bank as K
     from repro_torch.kernels import flash_attention as K2
+    from repro_torch.kernels import gated_norm as K7
     from repro_torch.kernels import gru_fit as K4
+    from repro_torch.kernels import mamba_conv as K6
+    from repro_torch.kernels import mamba_decode as K8
     from repro_torch.kernels import nvcc
     from repro_torch.kernels import ssd_scan as K3
 
@@ -4330,17 +4813,21 @@ def main(argv=None) -> int:
     starts = {"K1": K.start_build, "K2": K2.start_build,
               "K3": K3.start_build, "K3 backward": K3.start_build_backward,
               "K4": K4.start_build, "K5": K5.start_build,
+              "K6": K6.start_build, "K7": K7.start_build,
+              "K8": K8.start_build,
               "K4 probe": lambda verbose: nvcc.start(
                   "gru_latency_probe", K4.NVCC_FLAGS, verbose)}
     if args.only:
         log(f"== phase 1: build {' and '.join(args.only)}")
-        wanted = set(args.only) | ({"k3", "k5"} if "mesh" in args.only
-                                   else set())
+        wanted = set(args.only) | ({"k3", "k5", "k6", "k7"}
+                                   if "mesh" in args.only else set()) | (
+            {"k6", "k7", "k8"} if "mamba" in args.only else set())
         starts = {name: start for name, start in starts.items()
                   if name.split()[0].lower() in wanted}
     else:
         log("== phase 1: build K1 (K2, K3, K3's backward, K4, K4's "
-            "latency probe and K5 build alongside, one nvcc each)")
+            "latency probe, K5, K6, K7 and K8 build alongside, one nvcc "
+            "each)")
     t_build = time.perf_counter()
     builds = {name: start(verbose=True) for name, start in starts.items()}
     # collected in turn: each time is from the common start to the moment
@@ -4349,8 +4836,8 @@ def main(argv=None) -> int:
              for name, b in builds.items()}
     dev = torch.device("cuda")
     if args.only:
-        return run_only(torch, np, args.only, built, K2, K3, K4, K5, T_rnn,
-                        nvcc, dev)
+        return run_only(torch, np, args.only, built, K2, K3, K4, K5,
+                        (K6, K7, K8), T_rnn, nvcc, dev)
     spills = log_build("K1", *built["K1"])
     reg_spills = {f: b for f, b in spills.items() if "fit_211" in f}
     if len(reg_spills) != 5 or any(reg_spills.values()):
@@ -4359,18 +4846,19 @@ def main(argv=None) -> int:
 
     kernels, reuse = drive(torch, np, T, T_arima, K, dev)
 
-    log("== phase 7: build K2, K3, K3's backward and K5")
+    log("== phase 7: build K2, K3, K3's backward, K5, K6, K7 and K8")
     wg_spills = log_build("K2", *built["K2"])
-    log_build("K3", *built["K3"])
-    log_build("K3 backward", *built["K3 backward"])
-    log_build("K5", *built["K5"])
+    for name in ("K3", "K3 backward", "K5", "K6", "K7", "K8"):
+        log_build(name, *built[name])
     k2 = phase_k2(torch, K2, dev)
     check_wgmma_256(wg_spills)
     k3 = phase_k3(torch, K3, dev)
     k3b = phase_k3_backward(torch, K3, dev)
     k5 = phase_k5(torch, K5, dev)
     k5["mesh_two_ranks"] = phase_k5_mesh(torch)
-    counters_lm = {"K1": K, "K2": K2, "K3": K3}
+    block = phase_mamba_kernels(torch, K6, K7, K8, dev)
+    counters_lm = {"K1": K, "K2": K2, "K3": K3, "K6": K6, "K7": K7,
+                   "K8": K8}
     k2["launches"] = full_serve(torch, "yi-6b", "K2", counters_lm, dev,
                                 "phase 10")
     k3["launches"] = full_serve(torch, "mamba2-1.3b", "K3", counters_lm,
@@ -4390,7 +4878,8 @@ def main(argv=None) -> int:
     for key, rec in (("K2", k2), ("K3", k3)):
         rec["launches_reduced_serve"] = {a: n[key] for a, n in served.items()
                                          if n[key]}
-    trained = train_phase(torch, {"K2": K2, "K3": K3, "K5": K5}, dev)
+    trained = train_phase(torch, {"K2": K2, "K3": K3, "K5": K5, "K6": K6,
+                                  "K7": K7, "K8": K8}, dev)
     log("phase 18 summary: " + json.dumps(trained))
     mamba = trained["mamba2-1.3b"]
     k3["launches_train_mamba2_1_3b"] = mamba["launches"]["K3"]
@@ -4404,6 +4893,20 @@ def main(argv=None) -> int:
     k5["wrapper_launches"] = mamba["wrapper_calls"]["K5"]
     k5["launches_per_step"] = mamba["launches_per_step"]["K5"]
     k5["launches_yi_6b_full_depth"] = trained["yi-6b"]["launches"]["K5"]
+    served_mamba = SERVED["mamba2-1.3b"]
+    for key in ("K6", "K7"):
+        rec = block[key]
+        rec["launches"] = mamba["launches"][key]
+        rec["launches_backward"] = mamba["launches"][f"{key}_backward"]
+        rec["wrapper_calls_train_mamba2_1_3b"] = {
+            k: mamba["wrapper_calls"][k] for k in (key, f"{key}_backward")}
+        rec["launches_serve_mamba2_1_3b"] = served_mamba["launches"][key]
+        rec["train_step_device_ms"] = {
+            part: mamba["op_split"].get(f"{key} {part}")
+            for part in ("forward", "backward")}
+    block["K8"]["launches"] = served_mamba["launches"]["K8"]
+    block["K8"]["launches_per_decode_replay"] = \
+        served_mamba["token_calls"]["K8"]
     k5["train_step_device_ms"] = {
         cell: trained[cell]["op_split"].get("K5")
         for cell in ("mamba2-1.3b", "yi-6b-4l", "yi-6b")}
@@ -4423,7 +4926,7 @@ def main(argv=None) -> int:
     k2["launches_paligemma_3b"] = big["paligemma-3b"]["launches"]["K2"]
     k2["launches_arctic_480b_1l"] = big["arctic-480b-1l"]
     k2["launches_musicgen_large"] = big["musicgen-large"]
-    kernels += [k2, k3, k3b, k5, {
+    kernels += [k2, k3, k3b, k5, block["K6"], block["K7"], block["K8"], {
         "name": "gru_fit",
         "route": "cuda",
         "source": "src/repro_torch/csrc/gru_fit.cu",

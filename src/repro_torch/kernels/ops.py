@@ -20,9 +20,20 @@ detached silently, and the training forward calls the plain attention
 path directly, as the JAX package does.  On the CPU autograd
 differentiates both plain paths.
 
-On DTensors (a model placed on a mesh) both run per rank on the local
-batch and heads through ``local_map`` (:func:`attention_per_rank`,
-:func:`ssd_per_rank`, which the training forward's plain paths use too):
+The Mamba block's fused work goes through here too: the causal conv with
+its SiLU (K6, :mod:`repro_torch.kernels.mamba_conv`, under autograd
+:class:`CausalConv`), the D skip with the gated norm (K7,
+:mod:`repro_torch.kernels.gated_norm`, :class:`GatedNorm`) and the
+decode's state step (K8, :mod:`repro_torch.kernels.mamba_decode`): the
+kernels on CUDA, in both directions where training needs them; their
+plain versions on the CPU and the meta device, which autograd
+differentiates.
+
+On DTensors (a model placed on a mesh) all of them run per rank on the
+local batch and heads through ``local_map`` (:func:`attention_per_rank`,
+:func:`ssd_per_rank`, which the training forward's plain paths use too;
+the conv on each rank's channels, the gated norm on each rank's share of
+a row with its sums of squares all-reduced over ``model``):
 the inputs are first redistributed to batch over the data axes as they
 come and heads over ``model`` when the heads divide it, replicated
 otherwise.  On the meta device (the dry run) they
@@ -37,6 +48,9 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels import flash_attention as _k2
+from repro_torch.kernels import gated_norm as _k7
+from repro_torch.kernels import mamba_conv as _k6
+from repro_torch.kernels import mamba_decode as _k8
 from repro_torch.kernels import ssd_scan as _k3
 
 
@@ -79,6 +93,49 @@ class SSDScan(torch.autograd.Function):
         if dfinal is not None:
             dfinal = dfinal.contiguous()
         return _k3.ssd_scan_backward(x, dt, A, B, C, dy, dfinal, states)
+
+
+class CausalConv(torch.autograd.Function):
+    """K6 under autograd, without states: the outputs of ``n`` segments
+    (``xs``, then their weights, then their biases) by the forward kernel,
+    the gradients of all of them by the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, n, *ts):
+        ctx.n = n
+        ctx.save_for_backward(*ts)
+        ys, _ = _k6.causal_conv(list(ts[:n]), list(ts[n:2 * n]),
+                                list(ts[2 * n:]))
+        return tuple(ys)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        n, ts = ctx.n, ctx.saved_tensors
+        dxs, dws, dbs = _k6.causal_conv_backward(
+            list(ts[:n]), list(ts[n:2 * n]), list(ts[2 * n:]),
+            [g.contiguous() for g in gs])
+        return (None, *dxs, *dws, *dbs)
+
+
+class GatedNorm(torch.autograd.Function):
+    """K7 under autograd: the D skip and gated norm by the forward kernel,
+    the gradients of ``y, xs, z, D, scale`` by the backward kernel (from the
+    forward's per-row rstd); with ``group`` both split their row sums
+    around an all-reduce over it."""
+
+    @staticmethod
+    def forward(ctx, y, xs, z, D, scale, eps, group, width):
+        out, rstd = _k7.gated_norm(y, xs, z, D, scale, eps, group, width)
+        ctx.group, ctx.width = group, width
+        ctx.save_for_backward(y, xs, z, D, scale, rstd)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        y, xs, z, D, scale, rstd = ctx.saved_tensors
+        return (*_k7.gated_norm_backward(dout.contiguous(), y, xs, z, D,
+                                         scale, rstd, ctx.group, ctx.width),
+                None, None, None)
 
 
 def model_size(x: DTensor) -> int:
@@ -241,3 +298,127 @@ def _ssd_scan(x, dt, A, B, C, chunk_size, meta: bool = False):
     _cpu_only(x, meta)
     from repro_torch.models.mamba import ssd_chunked
     return ssd_chunked(x, dt, A, B, C, chunk_size)
+
+
+def _contiguous(ts):
+    return [None if t is None else t.contiguous() for t in ts]
+
+
+def _wants_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+def causal_conv(xs, ws, bs, states=None, want_state: bool = False):
+    """The Mamba block's causal conv with its SiLU over segments ``xs``
+    (lists of [Bt, S, C_j] with weights [K, C_j] and biases [C_j];
+    ``states``: [Bt, K-1, C_j] each, or None for zeros).  Returns the
+    outputs and, with ``states`` or ``want_state``, the new states (the
+    last K-1 rows of each padded input; else None), as lists.  On DTensors
+    it runs per rank on each rank's channels (all segments split over
+    ``model`` where each one's channels divide it, else replicated)."""
+    if not isinstance(xs[0], DTensor):
+        return local_causal_conv(xs, ws, bs, states, want_state)
+    n = len(xs)
+    with_state = states is not None or want_state
+    args = (*xs, *ws, *bs, *(states or ()))
+    dims = ((True, 2),) * n + ((False, 1),) * n + ((False, 0),) * n + \
+        ((True, 2),) * len(states or ())
+
+    def local(*a):
+        ys, new = local_causal_conv(
+            list(a[:n]), list(a[n:2 * n]), list(a[2 * n:3 * n]),
+            list(a[3 * n:]) if states is not None else None, want_state)
+        return tuple(ys) + (tuple(new) if with_state else ())
+
+    outs = per_rank(local, args, dims,
+                    ((True, 2),) * (2 * n if with_state else n),
+                    all(x.shape[-1] % model_size(xs[0]) == 0 for x in xs))
+    return list(outs[:n]), (list(outs[n:]) if with_state else None)
+
+
+def local_causal_conv(xs, ws, bs, states=None, want_state: bool = False):
+    """:func:`causal_conv` on one rank's local tensors (or a single
+    device's): K6 on CUDA (under :class:`CausalConv` where autograd needs
+    its gradient), the plain version on the CPU and the meta device."""
+    if xs[0].device.type != "cuda":
+        return _k6.causal_conv(xs, ws, bs, states, want_state)
+    xs, ws, bs = _contiguous(xs), _contiguous(ws), _contiguous(bs)
+    if states is None and not want_state and _wants_grad(*xs, *ws, *bs):
+        return list(CausalConv.apply(len(xs), *xs, *ws, *bs)), None
+    _no_backward("K6 (the causal conv) with a state", *xs, *ws, *bs)
+    return _k6.causal_conv(xs, ws, bs, None if states is None
+                           else _contiguous(states), want_state)
+
+
+def gated_norm(y, xs, z, D, scale, eps: float = _k7.EPS):
+    """The Mamba block's D skip (with ``D``; ``xs``, ``D`` None: none) and
+    gated norm over the last dimension (``y``, ``xs``, ``z`` [..., W]).  On
+    DTensors it runs per rank on each rank's share of a row (split over
+    ``model`` where the heads divide it; the rows' sums of squares, and the
+    backward's row dots, all-reduced over ``model``), else on whole rows."""
+    if not isinstance(z, DTensor):
+        return local_gated_norm(y, xs, z, D, scale, eps)
+    tp = model_size(z)
+    split = (D.shape[0] if D is not None else z.shape[-1]) % tp == 0
+    mesh = z.device_mesh
+    group = mesh.get_group("model") if split and tp > 1 else None
+    width = z.shape[-1]
+    if D is None:
+        return per_rank(
+            lambda z_, y_, s_: local_gated_norm(y_, None, z_, None, s_, eps,
+                                                group, width),
+            (z, y, scale), ((True, 2), (True, 2), (False, 0)), ((True, 2),),
+            split)
+    return per_rank(
+        lambda z_, y_, x_, d_, s_: local_gated_norm(y_, x_, z_, d_, s_, eps,
+                                                    group, width),
+        (z, y, xs, D, scale),
+        ((True, 2), (True, 2), (True, 2), (False, 0), (False, 0)),
+        ((True, 2),), split)
+
+
+def local_gated_norm(y, xs, z, D, scale, eps: float = _k7.EPS, group=None,
+                     width: int | None = None):
+    """:func:`gated_norm` on one rank's local tensors (or a single
+    device's), ``width`` the whole row's: K7 on CUDA (under
+    :class:`GatedNorm` where autograd needs its gradient), the plain
+    version on the CPU and the meta device."""
+    if z.device.type != "cuda":
+        return _k7.gated_norm(y, xs, z, D, scale, eps, group, width)[0]
+    y, xs, z = _contiguous((y, xs, z))
+    if _wants_grad(y, xs, z, D, scale):
+        if D is None:
+            raise RuntimeError("K7 without the D skip has no backward")
+        return GatedNorm.apply(y, xs, z, D, scale, eps, group, width)
+    return _k7.gated_norm(y, xs, z, D, scale, eps, group, width)[0]
+
+
+def decode_step(xs, ssm, dt, dt_bias, A_log, B, C, D):
+    """The Mamba decode's state step (K8's function): ``(s_new, y)`` from
+    ``xs`` [Bt, H, P], the state [Bt, H, N, P], the raw dt [Bt, 1, H],
+    ``B``/``C`` [Bt, G, N] and the layer's [H] vectors.  On DTensors it
+    runs per rank on the local batch and heads (heads over ``model`` when
+    they, and the groups or a single group, divide it)."""
+    args = (xs, ssm, dt, dt_bias, A_log, B, C, D)
+    if not isinstance(xs, DTensor):
+        return local_decode_step(*args)
+    tp = model_size(xs)
+    g = B.shape[1]
+    bc = (True, 1 if g > 1 else None)
+    return per_rank(local_decode_step, args,
+                    ((True, 1), (True, 1), (True, 2), (False, 0), (False, 0),
+                     bc, bc, (False, 0)),
+                    ((True, 1), (True, 1)),
+                    xs.shape[1] % tp == 0 and (g == 1 or g % tp == 0))
+
+
+def local_decode_step(xs, ssm, dt, dt_bias, A_log, B, C, D):
+    """:func:`decode_step` on one rank's local tensors (or a single
+    device's): K8 on CUDA, the plain version on the CPU and the meta
+    device."""
+    if xs.device.type == "cuda":
+        _no_backward("K8 (the decode's state step)", xs, ssm, dt, B, C)
+        return _k8.decode_step(*_contiguous(
+            (xs, ssm, dt, dt_bias, A_log, B, C, D)))
+    return _k8.decode_step(xs, ssm, dt, dt_bias, A_log, B, C, D)

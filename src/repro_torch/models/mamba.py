@@ -9,8 +9,16 @@ the training forward, ``mamba_forward``: on CUDA autograd differentiates
 K3 through its backward kernel (``ops.SSDScan``), on the CPU it
 differentiates :func:`ssd_chunked`, as the JAX package does.  On a mesh
 both run per rank on the local batch and heads (``ops.ssd_per_rank``),
-with the chunk padding and the ``D`` skip, and so does the decode's state
-update.
+with the chunk padding.
+
+The work around the scan that the JAX package's jitted steps leave to
+XLA's fusion runs as hand-written kernels on CUDA, through
+:mod:`repro_torch.kernels.ops`: the three causal convs with their SiLU in
+one launch (K6, ``ops.causal_conv``), the D skip with the gated norm (K7,
+``ops.gated_norm``), both under autograd in training, and the decode's dt,
+decay, state update and D skip (K8, ``ops.decode_step``).  On the CPU they
+are the JAX package's ops (:func:`_causal_conv`, :func:`_gated_norm`),
+which autograd differentiates.  On a mesh each runs per rank.
 
 Projections are kept separate (w_z, w_x, w_B, w_C, w_dt), as in the JAX
 package, so its parameters carry across unchanged.
@@ -21,9 +29,10 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.gated_norm import gated_norm_plain
+from repro_torch.kernels.mamba_conv import causal_conv_plain
 from repro_torch.models.layers import (DEFAULT_DTYPE, dense_init, init_device,
                                        made, normal)
 
@@ -146,23 +155,8 @@ def ssd_chunked(x, dt, A, B, C, chunk_size: int):
     return y, s_prev
 
 
-def _causal_conv(x, w, b, state=None):
-    """Depthwise causal conv1d.  x: [B,S,C]; w: [K,C]; returns (y, new_state)
-    where state is the last K-1 inputs for decode."""
-    k = w.shape[0]
-    if state is None:
-        pad = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
-                          device=x.device)
-    else:
-        pad = state
-    xp = torch.cat([pad, x], dim=1)                       # [B,S+K-1,C]
-    s = x.shape[1]
-    y = xp[:, 0:s, :] * w[0][None, None, :]
-    for i in range(1, k):
-        y = y + xp[:, i:i + s, :] * w[i][None, None, :]
-    y = y + b[None, None, :]
-    new_state = xp[:, -(k - 1):, :] if k > 1 else None
-    return F.silu(y.float()).to(x.dtype), new_state
+# the JAX package's _causal_conv, K6's plain version
+_causal_conv = causal_conv_plain
 
 
 def _project(params, x):
@@ -172,10 +166,14 @@ def _project(params, x):
 
 
 def _gated_norm(y, z, scale, eps=1e-6):
-    y = y * F.silu(z.float()).to(y.dtype)
-    yf = y.float()
-    var = torch.mean(yf * yf, dim=-1, keepdim=True)
-    return (yf * torch.rsqrt(var + eps) * scale).to(y.dtype)
+    """The JAX package's ``_gated_norm``: K7's plain version without the D
+    skip."""
+    return gated_norm_plain(y, None, z, None, scale, eps)
+
+
+def _conv_params(params):
+    return ([params["conv_x_w"], params["conv_B_w"], params["conv_C_w"]],
+            [params["conv_x_b"], params["conv_B_b"], params["conv_C_b"]])
 
 
 def _ssd_full(params, cfg: MambaConfig, x, conv_state=None,
@@ -187,18 +185,17 @@ def _ssd_full(params, cfg: MambaConfig, x, conv_state=None,
     di, g, n, h, p = (cfg.d_inner, cfg.n_groups, cfg.d_state, cfg.n_heads,
                       cfg.head_dim)
     z, xs, Bm, Cm, dt = _project(params, x)
-    xs, conv_x = _causal_conv(xs, params["conv_x_w"], params["conv_x_b"],
-                              conv_state["x"] if conv_state else None)
-    Bm, conv_B = _causal_conv(Bm, params["conv_B_w"], params["conv_B_b"],
-                              conv_state["B"] if conv_state else None)
-    Cm, conv_C = _causal_conv(Cm, params["conv_C_w"], params["conv_C_b"],
-                              conv_state["C"] if conv_state else None)
+    (xs, Bm, Cm), conv = ops.causal_conv(
+        [xs, Bm, Cm], *_conv_params(params),
+        [conv_state[k] for k in "xBC"] if conv_state else None,
+        want_state=want_state)
     xs = xs.reshape(b, s, h, p)
     Bm = Bm.reshape(b, s, g, n)
     Cm = Cm.reshape(b, s, g, n)
     dt = F.softplus(dt.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
-    def ssd(xs, dt, A, Bm, Cm, D, chunk_size):
+
+    def ssd(xs, dt, A, Bm, Cm, chunk_size):
         # pad to a chunk multiple with dt = 0: dA = 0 so the padded
         # positions leave the SSM state untouched and the final state
         # stays exact
@@ -208,21 +205,19 @@ def _ssd_full(params, cfg: MambaConfig, x, conv_state=None,
                 F.pad(xs, (0, 0, 0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad)),
                 A, F.pad(Bm, (0, 0, 0, 0, 0, pad)),
                 F.pad(Cm, (0, 0, 0, 0, 0, pad)), chunk_size=chunk_size)
-            y = y[:, :s]
-        else:
-            y, final_state = ops.local_ssd_scan(xs, dt, A, Bm, Cm,
-                                                chunk_size=chunk_size)
-        return y + xs * D[None, None, :, None].to(xs.dtype), final_state
+            return y[:, :s], final_state
+        return ops.local_ssd_scan(xs, dt, A, Bm, Cm, chunk_size=chunk_size)
 
     # on a mesh, per rank: the local batch and heads
-    y, final_state = ops.ssd_per_rank(ssd, xs, dt, A, Bm, Cm, params["D"],
+    y, final_state = ops.ssd_per_rank(ssd, xs, dt, A, Bm, Cm,
                                       chunk_size=cfg.chunk_size)
-    y = _gated_norm(y.reshape(b, s, di), z, params["norm_scale"])
+    # the D skip and the gated norm (K7 on CUDA)
+    y = ops.gated_norm(y.reshape(b, s, di), xs.reshape(b, s, di), z,
+                       params["D"], params["norm_scale"])
     out = y @ params["out_proj"]
     if not want_state:
         return out, None
-    return out, {"ssm": final_state,
-                 "conv": {"x": conv_x, "B": conv_B, "C": conv_C}}
+    return out, {"ssm": final_state, "conv": dict(zip("xBC", conv))}
 
 
 def mamba_forward(params, cfg: MambaConfig, x: torch.Tensor) -> torch.Tensor:
@@ -242,43 +237,18 @@ def mamba_decode(params, cfg: MambaConfig, x: torch.Tensor, state):
     di, g, n, h, p = (cfg.d_inner, cfg.n_groups, cfg.d_state, cfg.n_heads,
                       cfg.head_dim)
     z, xs, Bm, Cm, dt = _project(params, x)
-    xs, conv_x = _causal_conv(xs, params["conv_x_w"], params["conv_x_b"],
-                              state["conv"]["x"])
-    Bm, conv_B = _causal_conv(Bm, params["conv_B_w"], params["conv_B_b"],
-                              state["conv"]["B"])
-    Cm, conv_C = _causal_conv(Cm, params["conv_C_w"], params["conv_C_b"],
-                              state["conv"]["C"])
+    (xs, Bm, Cm), conv = ops.causal_conv(
+        [xs, Bm, Cm], *_conv_params(params),
+        [state["conv"][k] for k in "xBC"])
     xs = xs.reshape(b, 1, h, p)[:, 0]                           # [B,H,P]
     Bm = Bm.reshape(b, g, n)
     Cm = Cm.reshape(b, g, n)
-    dt = F.softplus(dt.float() + params["dt_bias"])[:, 0]
-    A = -torch.exp(params["A_log"])
-
-    def step(xs, ssm, dt, A, Bm, Cm, D):
-        dA = torch.exp(dt * A[None, :])                         # [B,H]
-        rep = xs.shape[1] // Bm.shape[1]
-        Bh = torch.repeat_interleave(Bm, rep, dim=1)            # [B,H,N]
-        Ch = torch.repeat_interleave(Cm, rep, dim=1)
-        s_new = (ssm * dA[..., None, None]
-                 + torch.einsum("bhn,bh,bhp->bhnp", Bh.float(), dt,
-                                xs.float()))
-        y = torch.einsum("bhn,bhnp->bhp", Ch, s_new.to(xs.dtype))
-        return s_new, y + xs * D[None, :, None].to(xs.dtype)
-
-    if isinstance(xs, DTensor):
-        # per rank: local batch, heads over model when they (and the
-        # groups, or a single group) divide it
-        tp = ops.model_size(xs)
-        bc = (True, 1 if g > 1 else None)
-        s_new, y = ops.per_rank(
-            step, (xs, state["ssm"], dt, A, Bm, Cm, params["D"]),
-            ((True, 1), (True, 1), (True, 1), (False, 0), bc, bc,
-             (False, 0)),
-            ((True, 1), (True, 1)),
-            h % tp == 0 and (g == 1 or g % tp == 0))
-    else:
-        s_new, y = step(xs, state["ssm"], dt, A, Bm, Cm, params["D"])
-    y = _gated_norm(y.reshape(b, 1, di).to(x.dtype), z, params["norm_scale"])
+    # dt's softplus, the decay, the state update and the D skip (K8 on
+    # CUDA; on a mesh per rank: local batch, heads over model when they,
+    # and the groups or a single group, divide it)
+    s_new, y = ops.decode_step(xs, state["ssm"], dt, params["dt_bias"],
+                               params["A_log"], Bm, Cm, params["D"])
+    y = ops.gated_norm(y.reshape(b, 1, di).to(x.dtype), None, z, None,
+                       params["norm_scale"])
     out = y @ params["out_proj"]
-    return out, {"ssm": s_new, "conv": {"x": conv_x, "B": conv_B,
-                                        "C": conv_C}}
+    return out, {"ssm": s_new, "conv": dict(zip("xBC", conv))}

@@ -19,7 +19,11 @@ the NaN-skip, the memory of one in-place call and the inputs it refuses;
 on DTensors at mesh size 1 (local shards, four kernels) bit for bit with
 the same update without a mesh, and so is a mesh ``train_loop``; the mesh
 step captured in a CUDA graph (``TrainProgram`` on the 1 x 1 NCCL mesh)
-bit for bit eager mesh steps, and refused on a gloo group.
+bit for bit eager mesh steps, and refused on a gloo group; the Mamba
+block's kernels (K6 conv, K7 gated norm, forward and backward, K8 decode
+step) against their plain versions, bitwise across calls, their entries'
+gradients, their launches in a reduced train loop and decode, and what
+they refuse.
 
 Marked ``cuda``; every test skips where ``torch.cuda.is_available()`` is
 false.  On the card:
@@ -43,7 +47,10 @@ from repro_torch.core.rnn_predictor import GRUPredictor, init_params
 from repro_torch.kernels import adamw as K5
 from repro_torch.kernels import arima_bank as K
 from repro_torch.kernels import flash_attention as K2
+from repro_torch.kernels import gated_norm as K7
 from repro_torch.kernels import gru_fit as K4
+from repro_torch.kernels import mamba_conv as K6
+from repro_torch.kernels import mamba_decode as K8
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as K3
 from repro_torch.models import transformer as TT
@@ -872,6 +879,272 @@ def test_k3_entry_returns_gradients_through_its_backward(cuda, which):
     assert mod.LAUNCHES == 1 and mod.BWD_LAUNCHES == 1
     assert _rel_l2(grad, want) <= BWD_TOL[torch.float32]
 
+
+
+# ---------------------------------------------------------------------------
+# the Mamba block's kernels: K6 (causal conv + SiLU), K7 (D skip + gated
+# norm), K8 (the decode's state step)
+# ---------------------------------------------------------------------------
+
+# bt, s, d_inner, heads, n, dtype: mamba2-1.3b's widths (a short sequence),
+# the reduced configs' (d_inner 128, 8 heads of 16, N 16), ragged lengths
+# and a d_inner that is not a multiple of a block of channels
+MAMBA_SHAPES = [(2, 300, 4096, 64, 128, torch.bfloat16),
+                (2, 64, 128, 8, 16, torch.float32),
+                (2, 64, 128, 8, 16, torch.bfloat16),
+                (3, 1, 128, 8, 16, torch.bfloat16),
+                (1, 131, 200, 5, 24, torch.float32)]
+# relative L2 where the kernel sums in another order than the plain
+# version (dw, db, K7's row sums and its backward): float32; bf16 outputs
+# (one bf16 ulp is 2^-8 relative)
+MAMBA_REL = {torch.float32: 1e-5, torch.bfloat16: 4e-3}
+
+
+def _ordered(t):
+    if t.dtype == torch.bfloat16:
+        i = t.view(torch.int16).to(torch.int64)
+        return torch.where(i < 0, -(i + (1 << 15)), i)
+    i = t.view(torch.int32).to(torch.int64)
+    return torch.where(i < 0, -(i + (1 << 31)), i)
+
+
+def _ulps_ordered(a, b) -> int:
+    return int((_ordered(a) - _ordered(b)).abs().max())
+
+
+def _conv_case(cuda, bt, s, di, n, dtype, seed, states=False):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=cuda) * scale
+                ).to(dtype)
+    widths = (di, n, n)
+    xs = [rnd(bt, s, c) for c in widths]
+    ws = [rnd(4, c, scale=0.3) for c in widths]
+    bs = [rnd(c, scale=0.1) for c in widths]
+    sts = [rnd(bt, 3, c) for c in widths] if states else None
+    gs = [rnd(bt, s, c, scale=1e-2) for c in widths]
+    return xs, ws, bs, sts, gs
+
+
+@pytest.mark.parametrize("bt,s,di,h,n,dtype", MAMBA_SHAPES)
+@pytest.mark.parametrize("states", [False, True])
+def test_conv_kernel_matches_plain(cuda, bt, s, di, h, n, dtype, states):
+    """K6's forward over three segments against the plain conv: within one
+    ulp (every op rounds as the plain version's), new states equal; two
+    calls bitwise."""
+    xs, ws, bs, sts, _ = _conv_case(cuda, bt, s, di, n, dtype, s + di,
+                                    states)
+    K6.reset_counts()
+    ys, new = K6.causal_conv(xs, ws, bs, sts, want_state=True)
+    ys2, new2 = K6.causal_conv(xs, ws, bs, sts, want_state=True)
+    torch.cuda.synchronize()
+    assert K6.LAUNCHES == 2
+    for j, (x, w, b) in enumerate(zip(xs, ws, bs)):
+        y, st = K6.causal_conv_plain(x, w, b, None if sts is None
+                                     else sts[j])
+        assert _ulps_ordered(ys[j], y) <= 1
+        assert torch.equal(new[j], st)
+        assert torch.equal(ys[j], ys2[j]) and torch.equal(new[j], new2[j])
+
+
+@pytest.mark.parametrize("bt,s,di,h,n,dtype", MAMBA_SHAPES)
+def test_conv_backward_kernel_matches_plain_bitwise_across_calls(
+        cuda, bt, s, di, h, n, dtype):
+    xs, ws, bs, _, gs = _conv_case(cuda, bt, s, di, n, dtype, 7 + s)
+    K6.reset_counts()
+    got = K6.causal_conv_backward(xs, ws, bs, gs)
+    again = K6.causal_conv_backward(xs, ws, bs, gs)
+    torch.cuda.synchronize()
+    assert K6.BWD_LAUNCHES == 2
+    for j, (x, w, b, g) in enumerate(zip(xs, ws, bs, gs)):
+        want = K6.causal_conv_backward_plain(x, w, b, g)
+        assert _ulps_ordered(got[0][j], want[0]) <= 1              # dx: same order
+        for k in (1, 2):                                   # dw, db
+            assert _rel_l2(got[k][j], want[k]) <= MAMBA_REL[dtype]
+        for k in range(3):
+            assert torch.equal(got[k][j], again[k][j])
+
+
+def _norm_case(cuda, bt, s, di, h, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape, dt=dtype, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=cuda) * scale
+                + shift).to(dt)
+    return (rnd(bt, s, di), rnd(bt, s, di), rnd(bt, s, di),
+            rnd(h, dt=torch.float32, scale=0.1, shift=1.0),
+            rnd(di, dt=torch.float32, scale=0.1, shift=1.0),
+            rnd(bt, s, di, scale=1e-2))
+
+
+@pytest.mark.parametrize("bt,s,di,h,n,dtype", MAMBA_SHAPES)
+@pytest.mark.parametrize("skip", [True, False])
+def test_norm_kernel_matches_plain(cuda, bt, s, di, h, n, dtype, skip):
+    y, xs, z, D, scale, _ = _norm_case(cuda, bt, s, di, h, dtype, di + s)
+    if not skip:
+        xs, D = None, None
+    K7.reset_counts()
+    out, rstd = K7.gated_norm(y, xs, z, D, scale)
+    out2, rstd2 = K7.gated_norm(y, xs, z, D, scale)
+    torch.cuda.synchronize()
+    assert K7.LAUNCHES == 2
+    want = K7.gated_norm_plain(y, xs, z, D, scale)
+    if dtype == torch.bfloat16:
+        assert _ulps_ordered(out, want) <= 1
+    else:
+        assert _rel_l2(out, want) <= MAMBA_REL[dtype]
+    torch.testing.assert_close(rstd, K7.rstd_plain(y, xs, z, D), rtol=1e-6,
+                               atol=0)
+    assert torch.equal(out, out2) and torch.equal(rstd, rstd2)
+
+
+@pytest.mark.parametrize("bt,s,di,h,n,dtype", MAMBA_SHAPES)
+def test_norm_backward_kernel_matches_plain_bitwise_across_calls(
+        cuda, bt, s, di, h, n, dtype):
+    y, xs, z, D, scale, dout = _norm_case(cuda, bt, s, di, h, dtype, 3 + s)
+    _, rstd = K7.gated_norm(y, xs, z, D, scale)
+    K7.reset_counts()
+    got = K7.gated_norm_backward(dout, y, xs, z, D, scale, rstd)
+    again = K7.gated_norm_backward(dout, y, xs, z, D, scale, rstd)
+    torch.cuda.synchronize()
+    assert K7.BWD_LAUNCHES == 2
+    want = K7.gated_norm_backward_plain(dout, y, xs, z, D, scale)
+    for g, w, a in zip(got, want, again):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert _rel_l2(g, w) <= MAMBA_REL[g.dtype]
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("bt,h,p,n,g,dtype", [
+    (1, 64, 64, 128, 1, torch.bfloat16), (2, 8, 16, 16, 1, torch.float32),
+    (2, 8, 16, 16, 2, torch.bfloat16), (1, 5, 40, 24, 1, torch.float32)])
+def test_decode_step_kernel_matches_plain(cuda, bt, h, p, n, g, dtype):
+    """K8 against the plain step: the state within one float32 ulp of its
+    product term (the kernel forms B (dt x); einsum picks its own order),
+    the output within the plain version's rounding; two calls bitwise."""
+    gen = torch.Generator(device=cuda).manual_seed(h + n)
+
+    def rnd(*shape, dt=dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=cuda) * scale
+                ).to(dt)
+    args = (rnd(bt, h, p), rnd(bt, h, n, p, dt=torch.float32),
+            rnd(bt, 1, h), rnd(h, dt=torch.float32, scale=0.5),
+            torch.log(torch.linspace(1.0, 16.0, h, device=cuda)),
+            rnd(bt, g, n), rnd(bt, g, n), rnd(h, dt=torch.float32))
+    K8.reset_counts()
+    s1, y1 = K8.decode_step(*args)
+    s2, y2 = K8.decode_step(*args)
+    torch.cuda.synchronize()
+    assert K8.LAUNCHES == 2
+    ps, py = K8.decode_step_plain(*args)
+    assert _rel_l2(s1, ps) <= 1e-6
+    assert _rel_l2(y1, py) <= MAMBA_REL[dtype]
+    assert torch.equal(s1, s2) and torch.equal(y1, y2)
+
+
+def test_conv_and_norm_entries_return_gradients_through_their_kernels(cuda):
+    """``ops.causal_conv`` and ``ops.gated_norm`` on inputs that require
+    grad run K6 and K7 forward and backward (one launch each way), and
+    autograd's gradients are the backward kernels' own."""
+    xs, ws, bs, _, gs = _conv_case(cuda, 2, 64, 128, 16, torch.float32, 5)
+    leaves = [t.clone().requires_grad_() for t in xs + ws + bs]
+    K6.reset_counts()
+    ys, new = ops.causal_conv(leaves[:3], leaves[3:6], leaves[6:])
+    assert new is None
+    torch.autograd.backward(ys, gs)
+    want = K6.causal_conv_backward(xs, ws, bs, gs)
+    torch.cuda.synchronize()
+    assert K6.LAUNCHES == 1 and K6.BWD_LAUNCHES == 2
+    for t, w in zip(leaves, [w for ls in want for w in ls]):
+        assert torch.equal(t.grad, w)
+    y, x, z, D, scale, dout = _norm_case(cuda, 2, 16, 128, 8, torch.float32,
+                                         6)
+    leaves = [t.clone().requires_grad_() for t in (y, x, z, D, scale)]
+    K7.reset_counts()
+    ops.gated_norm(*leaves).backward(dout)
+    _, rstd = K7.gated_norm(y, x, z, D, scale)
+    want = K7.gated_norm_backward(dout, y, x, z, D, scale, rstd)
+    torch.cuda.synchronize()
+    assert K7.LAUNCHES == 2 and K7.BWD_LAUNCHES == 2
+    for t, w in zip(leaves, want):
+        assert torch.equal(t.grad, w)
+
+
+def test_mamba_train_and_decode_run_the_block_kernels(cuda):
+    """Reduced mamba2 on the card: ``train_loop`` (the warm-up step, then
+    one captured step replayed) calls K6 and K7 forward once a layer (twice
+    with the remat recompute) and backward once, in the warm-up and the
+    capture only; a prefill calls each once a layer; a captured decode
+    calls K6, K8 and K7 once a layer, in its warm-up and its capture."""
+    from repro_torch.serve.engine import DecodeProgram
+    from repro_torch.train import loop as TL
+    cfg = get_reduced_config("mamba2-1.3b")
+    layers = cfg.n_layers
+    fwd = 2 * layers * (1 if cfg.remat == "none" else 2)
+    for mod in (K6, K7, K8):
+        mod.reset_counts()
+    TL.train_loop(cfg, TL.TrainConfig(), iter(_train_batches(cfg, 3)), 3,
+                  device=cuda)
+    torch.cuda.synchronize()
+    assert (K6.LAUNCHES, K6.BWD_LAUNCHES) == (fwd, 2 * layers)
+    assert (K7.LAUNCHES, K7.BWD_LAUNCHES) == (fwd, 2 * layers)
+    assert K8.LAUNCHES == 0
+    params = TT.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                            cuda)
+    toks = torch.arange(20, device=cuda)[None] % cfg.vocab
+    with torch.no_grad():
+        logits, caches, n = TT.prefill(params, cfg, toks, max_len=40)
+    assert K6.LAUNCHES == K7.LAUNCHES == fwd + layers
+    program = DecodeProgram(params, cfg, caches, logits[0].argmax(-1))
+    program.decode(caches, logits[0].argmax(-1), n, 8)
+    torch.cuda.synchronize()
+    assert K8.LAUNCHES == 2 * layers
+    assert K6.LAUNCHES == K7.LAUNCHES == fwd + 3 * layers
+
+
+def test_block_kernels_raise_on_what_they_do_not_take(cuda):
+    """No plain version stands in for a kernel: shapes, types and a launch
+    the kernels refuse raise, and so does a build that fails."""
+    from repro_torch.kernels import nvcc
+    xs, ws, bs, _, _ = _conv_case(cuda, 1, 8, 32, 8, torch.float32, 9)
+    with pytest.raises(ValueError, match="K <="):
+        K6.causal_conv(xs[:1], [torch.zeros(9, 32, device=cuda)], bs[:1])
+    with pytest.raises(TypeError):
+        K6.causal_conv([x.half() for x in xs], [w.half() for w in ws],
+                       [b.half() for b in bs])
+    with pytest.raises(ValueError, match="contiguous"):
+        K6.causal_conv([torch.zeros(1, 8, 64, device=cuda)[..., ::2]],
+                       ws[:1], bs[:1])
+    with pytest.raises(RuntimeError, match="launch failed"):
+        nvcc.check_launch("causal_conv", K6._load().conv_fwd_launch(
+            0, 0, 1, 8, 4, None, None, None, None, None, None, None,
+            torch.cuda.current_stream().cuda_stream))
+    y, x, z, D, scale, _ = _norm_case(cuda, 1, 4, 32, 3, torch.float32, 1)
+    with pytest.raises(ValueError, match="dividing"):
+        K7.gated_norm(y, x, z, D, scale)
+    with pytest.raises(ValueError, match="rstd"):
+        K7.gated_norm_backward(y, y, x, z, torch.ones(4, device=cuda), scale,
+                               None)
+    leaves = [t.requires_grad_() for t in (y, z)]
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.gated_norm(leaves[0], None, leaves[1], None, scale)
+    with pytest.raises(ValueError, match="must be a contiguous"):
+        K8.decode_step(torch.zeros(1, 4, 8, device=cuda),
+                       torch.zeros(1, 4, 16, 8, device=cuda),
+                       torch.zeros(1, 4, device=cuda),
+                       *(torch.zeros(4, device=cuda),) * 2,
+                       *(torch.zeros(1, 1, 16, device=cuda),) * 2,
+                       torch.zeros(4, device=cuda))
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        nvcc.start("mamba_decode", ("--no-such-nvcc-flag",)).wait()
+    assert K8.decode_step(torch.zeros(1, 4, 8, device=cuda),
+                          torch.zeros(1, 4, 16, 8, device=cuda),
+                          torch.zeros(1, 1, 4, device=cuda),
+                          *(torch.zeros(4, device=cuda),) * 2,
+                          *(torch.zeros(1, 1, 16, device=cuda),) * 2,
+                          torch.zeros(4, device=cuda))[0].shape == (1, 4, 16,
+                                                                   8)
 
 
 # ---------------------------------------------------------------------------

@@ -53,6 +53,12 @@ paths against the port's single-device ones:
   saved; ``TrainProgram`` takes a mesh; ``train_loop(..., mesh=)``
   steps through ``in_place`` (the functional update is never called),
   bit for bit with the functional step;
+- the Mamba block's conv (K6's plain version per rank, every segment's
+  channels split over ``model``) and gated norm (K7's, its row split over
+  ``model`` with the sums of squares all-reduced between its passes) at
+  (1, 2) and (2, 2): outputs and gradients within 1e-6 / 1e-5 relative L2
+  of the single-device plain versions, the split plain backward within
+  1e-6 on a rank's share of the rows;
 - at world sizes 1 and 2, ``train_loop(..., mesh=)``'s initial state bit
   for bit the whole seed-0 init placed, every local tensor owning its
   storage, no whole sharded leaf alive past its placement; the sharded
@@ -772,6 +778,79 @@ def program_case(shape):
     out[f"program|{shape}"] = gathered(res)
 
 
+def mamba_block_case(shape):
+    # K6's and K7's plain versions per rank on a mesh through
+    # ops.causal_conv and ops.gated_norm (the norm's row split over model,
+    # its sums all-reduced), forward and gradients, against the
+    # single-device plain versions; the split plain backward on this
+    # rank's share of the rows against the single-device one
+    from torch.distributed.tensor import Shard
+    from repro_torch.kernels import gated_norm as K7
+    from repro_torch.kernels import mamba_conv as K6
+    from repro_torch.kernels import ops
+    mesh = make_mesh(shape, AXES2, "cpu")
+    gen = torch.Generator().manual_seed(3)
+    b, s, di, h, n = 2, 12, 128, 8, 16
+
+    def rnd(*sh, scale=1.0, shift=0.0):
+        return torch.randn(*sh, generator=gen) * scale + shift
+    act, vec, mat = (Shard(0), Shard(2)), (Replicate(), Shard(0)), \
+        (Replicate(), Shard(1))
+
+    def leaf(t, pl):
+        return distribute_tensor(t.clone(), mesh, pl).requires_grad_()
+    res = {}
+    y, xs, z, dout = (rnd(b, s, di) for _ in range(4))
+    D, sc = rnd(h, scale=0.1, shift=1.0), rnd(di, scale=0.1, shift=1.0)
+    dl = [leaf(t, act) for t in (y, xs, z)] + [leaf(t, vec) for t in (D, sc)]
+    out_d = ops.gated_norm(*dl)
+    out_d.backward(distribute_tensor(dout, mesh, act))
+    sl = [t.clone().requires_grad_() for t in (y, xs, z, D, sc)]
+    ref = K7.gated_norm_plain(*sl)
+    ref.backward(dout)
+    res["norm_out_rel_l2"] = rel_l2(full(out_d).detach(), ref.detach())
+    res["norm_grad_rel_l2"] = max(rel_l2(full(a.grad), c.grad)
+                                  for a, c in zip(dl, sl))
+    tp, mr = shape[1], mesh.get_local_rank("model")
+    loc = [t.chunk(tp, -1)[mr] for t in (dout, y, xs, z, D, sc)]
+    got = K7.gated_norm_backward_plain(*loc, group=mesh.get_group("model"),
+                                       width=di)
+    want = K7.gated_norm_backward_plain(dout, y, xs, z, D, sc)
+    res["norm_split_backward_rel_l2"] = max(
+        rel_l2(g_, w_.chunk(tp, -1)[mr]) for g_, w_ in zip(got, want))
+    widths = (di, n, n)
+    xs3 = [rnd(b, s, c) for c in widths]
+    ws = [rnd(4, c, scale=0.3) for c in widths]
+    bs = [rnd(c, scale=0.1) for c in widths]
+    gs = [rnd(b, s, c) for c in widths]
+    sts = [rnd(b, 3, c) for c in widths]
+    dx, dw, db = ([leaf(t, act) for t in xs3], [leaf(t, mat) for t in ws],
+                  [leaf(t, vec) for t in bs])
+    ys, new = ops.causal_conv(dx, dw, db)
+    torch.autograd.backward(ys, [distribute_tensor(g_, mesh, act)
+                                 for g_ in gs])
+    sx, sw, sb = ([t.clone().requires_grad_() for t in ls]
+                  for ls in (xs3, ws, bs))
+    refs = [K6.causal_conv_plain(*a)[0] for a in zip(sx, sw, sb)]
+    torch.autograd.backward(refs, gs)
+    res["conv_out_rel_l2"] = max(rel_l2(full(a).detach(), c.detach())
+                                 for a, c in zip(ys, refs))
+    res["conv_grad_rel_l2"] = max(rel_l2(full(a.grad), c.grad) for a, c in
+                                  zip(dx + dw + db, sx + sw + sb))
+    res["conv_no_state"] = new is None
+    with torch.no_grad():
+        ys, new = ops.causal_conv(
+            [distribute_tensor(t, mesh, act) for t in xs3],
+            [distribute_tensor(t, mesh, mat) for t in ws],
+            [distribute_tensor(t, mesh, vec) for t in bs],
+            [distribute_tensor(t, mesh, act) for t in sts])
+        refs = [K6.causal_conv_plain(*a) for a in zip(xs3, ws, bs, sts)]
+    res["conv_state_rel_l2"] = max(
+        max(rel_l2(full(a), r[0]), rel_l2(full(st), r[1]))
+        for a, st, r in zip(ys, new, refs))
+    out[f"mamba_block|{shape}"] = res
+
+
 cases = sys.argv[1:]
 for case in cases:
     kind, *arg = case.split(":")
@@ -802,6 +881,8 @@ for case in cases:
         program_case(tuple(int(x) for x in arg[0].split(",")))
     elif kind == "init_all":
         init_all_case()
+    elif kind == "mamba_block":
+        mamba_block_case(tuple(int(x) for x in arg[0].split(",")))
     elif kind == "remesh":
         from repro_torch.distributed.elastic import remesh
         m = remesh(model_parallel=2, device_type="cpu")
@@ -860,12 +941,12 @@ def runs(tmp_path_factory):
                     "prefill:yi-6b", "prefill:mamba2-1.3b", "save",
                     "remesh", "inplace:yi-6b:2,1:1", "inplace:yi-6b:1,2:1",
                     "inplace:yi-6b:2,1:2", "shards", "ckpt_inplace:2,1",
-                    "program:2,1", "init_all"])
+                    "program:2,1", "init_all", "mamba_block:1,2"])
     four = _start(tmp, "four", 4,
                   [f"train:{a}:2,2" for a in TRAIN_ARCHS]
                   + ["grad:yi-6b:2,2", "moe", "moe_fallback", "compress",
                      "inplace:mamba2-1.3b:2,2:1", "shards",
-                     "ckpt_inplace:2,2"])
+                     "ckpt_inplace:2,2", "mamba_block:2,2"])
     one = _start(tmp, "one", 1, ["program:1,1", "init_all"])
     out = {}
     for started in (two, four, one):
@@ -874,6 +955,21 @@ def runs(tmp_path_factory):
                     _start(tmp, "restore1", 1, ["restore:1,1"])):
         out.update(_finish(tmp, started))
     return out
+
+
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 2)])
+def test_mamba_block_kernels_split_over_model(runs, mesh):
+    """The Mamba block's conv (K6) and gated norm (K7) per rank with
+    ``model`` = 2: outputs and gradients against the single-device plain
+    versions (float32: the same ops per element; the norm's row sums in
+    two parts, all-reduced), the split plain backward on a rank's share of
+    the rows, and the conv from a state."""
+    r = runs[f"mamba_block|{mesh}"]
+    assert r["norm_out_rel_l2"] <= 1e-6, r
+    assert r["norm_grad_rel_l2"] <= 1e-5, r
+    assert r["norm_split_backward_rel_l2"] <= 1e-6, r
+    assert r["conv_out_rel_l2"] <= 1e-6 and r["conv_state_rel_l2"] <= 1e-6
+    assert r["conv_grad_rel_l2"] <= 1e-5 and r["conv_no_state"], r
 
 
 @pytest.mark.parametrize("mesh", [(2, 1), (1, 2), (2, 2)])
