@@ -82,8 +82,11 @@ non-zero):
    shapes, one jamba layer's widths and the reduced widths in float32 and
    bf16: K6's forward and K8's state within one ulp, the rest within
    relative L2 1e-5 (float32) / 4e-3 (bf16), two calls bitwise, device
-   ms (calls captured in a CUDA graph) beside the bytes bound and the
-   plain version's, and the plain ops' autograd forward and backward;
+   ms (calls captured in a CUDA graph) beside the bytes bound, the plain
+   version's and the previous kernels' times, each call's route (16-byte
+   vectors or element by element) and its device ms by CUDA kernel (one
+   traced replay of the captured calls), and the plain ops' autograd
+   forward and backward;
 10. serve yi-6b at full width (random weights from a seed) with
     ``ServeEngine``: three jittered recurring clients, 2000-token prompts;
     every prefill's 32 attention layers go through K2, the scheduler's
@@ -1636,6 +1639,23 @@ CONV_K = 4
 # states, K8's state) must be within one ulp of it, element by element
 MAMBA_REL = {"float32": 1e-5, "bfloat16": 4e-3}
 MAMBA_MAX_ULPS = 1
+# the previous K6 and K7 (a thread a channel; a block a row, two passes)
+# at the same shapes: device ms of one call, this phase on an NVIDIA H100
+# 80GB HBM3 at 700 W, printed beside this run's
+MAMBA_BEFORE_MS = {
+    ("mamba2-1.3b train", "K6"): 0.1441,
+    ("mamba2-1.3b train", "K6_backward"): 0.2430,
+    ("mamba2-1.3b train", "K7"): 0.2353,
+    ("mamba2-1.3b train", "K7_backward"): 0.5492,
+    ("mamba2-1.3b prefill", "K6"): 0.0434,
+    ("mamba2-1.3b prefill", "K7"): 0.0659,
+    ("mamba2-1.3b decode", "K6"): 0.0030,
+    ("mamba2-1.3b decode", "K7"): 0.0046,
+    ("jamba layer train", "K6"): 0.1393,
+    ("jamba layer train", "K6_backward"): 0.2340,
+    ("jamba layer train", "K7"): 0.3019,
+    ("jamba layer train", "K7_backward"): 1.4860,
+}
 
 
 def ordered_bits(torch, t):
@@ -1694,6 +1714,44 @@ def graph_ms(torch, fn, reps: int = 20) -> float:
     return ms
 
 
+def graph_split(torch, fn, key: str,
+                reps: int = 20) -> dict[str, tuple[float, float]] | None:
+    """By CUDA kernel whose name holds ``key``: launches and device ms of
+    one call of ``fn``, from ``torch.profiler`` over one replay of ``reps``
+    calls captured in a CUDA graph (:func:`kernel_split`), divided by
+    ``reps``; ``None`` where the trace stayed empty (not measured)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    split = kernel_split(torch, graph.replay, key)
+    del graph
+    if split is None:
+        return None
+    return {k: (c / reps, ms / reps) for k, (c, ms) in split.items()}
+
+
+def split_text(split) -> str:
+    """``name=ms(launches)`` of a :func:`graph_split`, or not measured."""
+    if split is None:
+        return "not measured"
+    return " ".join(f"{k}={ms:.4f}({c:g})" for k, (c, ms) in split.items())
+
+
+def taken_route(mod, fn) -> str:
+    """The route (a key of ``mod.ROUTE_LAUNCHES``) one call of ``fn``
+    launched its kernel on."""
+    before = dict(mod.ROUTE_LAUNCHES)
+    fn()
+    taken = [k for k, n in mod.ROUTE_LAUNCHES.items() if n != before[k]]
+    if len(taken) != 1:
+        raise AssertionError(f"{mod.__name__}: one call took routes {taken}")
+    return taken[0]
+
+
 def same_bits(torch, a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
@@ -1713,6 +1771,13 @@ def mamba_case(torch, K6, K7, K8, dev, case, reps: int = 20) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     label = f"{name} {dname} (Bt={bt}, S={s}, d_inner={di}, H={h}, N={n})"
     log(f"Mamba kernels, {label}:")
+
+    def timed(key, mod, fn, mark, n_reps=reps):
+        """The route ``fn`` takes, its device ms and its split by CUDA
+        kernel (calls captured in a graph)."""
+        rec[key]["route"] = taken_route(mod, fn)
+        rec[key]["ms"] = graph_ms(torch, fn, n_reps)
+        rec[key]["split"] = graph_split(torch, fn, mark, n_reps)
 
     def rnd(*shape, scale=1.0, shift=0.0, dt=dtype):
         return (torch.randn(*shape, generator=gen, device=dev) * scale
@@ -1743,7 +1808,7 @@ def mamba_case(torch, K6, K7, K8, dev, case, reps: int = 20) -> dict:
     rec["K6"] = held(torch, "K6 forward vs plain", got, want, dname,
                      MAMBA_MAX_ULPS)
     rec["K6"]["bitwise_two_calls"] = same_bits(torch, got, ys2 + (new2 or []))
-    rec["K6"]["ms"] = graph_ms(torch, k6, reps)
+    timed("K6", K6, k6, "conv_")
     rec["K6"]["plain_ms"] = graph_ms(torch, lambda: [
         K6.causal_conv_plain(x, w, b, None if states is None else states[j])
         for j, (x, w, b) in enumerate(zip(xs, ws, bs))], 3)
@@ -1773,7 +1838,7 @@ def mamba_case(torch, K6, K7, K8, dev, case, reps: int = 20) -> dict:
             [t[1] for t in pb] + [t[2] for t in pb], dname)
         rec["K6_backward"]["bitwise_two_calls"] = same_bits(torch, flat1,
                                                             flat2)
-        rec["K6_backward"]["ms"] = graph_ms(torch, k6b, reps)
+        timed("K6_backward", K6, k6b, "conv_")
         rec["K6_backward"]["plain_ms"] = graph_ms(torch, lambda: [
             K6.causal_conv_backward_plain(x, w, b, gg)
             for x, w, b, gg in zip(xs, ws, bs, gs)], 3)
@@ -1829,7 +1894,7 @@ def mamba_case(torch, K6, K7, K8, dev, case, reps: int = 20) -> dict:
     po = K7.gated_norm_plain(y, xsk, z, Dk, scale)
     rec["K7"] = held(torch, "K7 forward vs plain", [o1], [po], dname)
     rec["K7"]["bitwise_two_calls"] = same_bits(torch, [o1, r1], [o2, r2])
-    rec["K7"]["ms"] = graph_ms(torch, k7, reps)
+    timed("K7", K7, k7, "gn_")
     rec["K7"]["plain_ms"] = graph_ms(
         torch, lambda: K7.gated_norm_plain(y, xsk, z, Dk, scale), 3)
     nb = tensor_bytes([y, xsk, z, Dk, scale, o1])
@@ -1850,7 +1915,7 @@ def mamba_case(torch, K6, K7, K8, dev, case, reps: int = 20) -> dict:
             torch, "K7 backward dD, dscale vs plain", list(b1[3:]),
             list(pb[3:]), "float32" if dname == "float32" else dname)
         rec["K7_backward"]["bitwise_two_calls"] = same_bits(torch, b1, b2)
-        rec["K7_backward"]["ms"] = graph_ms(torch, k7b, reps)
+        timed("K7_backward", K7, k7b, "gn_")
         rec["K7_backward"]["plain_ms"] = graph_ms(
             torch, lambda: K7.gated_norm_backward_plain(dout, y, xsk, z, Dk,
                                                         scale), 3)
@@ -1870,6 +1935,8 @@ def mamba_case(torch, K6, K7, K8, dev, case, reps: int = 20) -> dict:
     for k in ("K6", "K6_backward", "K7", "K7_backward", "K8"):
         if k in rec:
             r = rec[k]
+            before = MAMBA_BEFORE_MS.get((name, k)) if dname == "bfloat16" \
+                else None
             log(f"  {k}: ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
                 f"({r['bound_by']}; {r['bytes'] / 1e9:.4f} GB at 3.35 TB/s) "
                 f"share_of_bound={r['bound_ms'] / r['ms']:.3f} plain_ms="
@@ -1877,7 +1944,12 @@ def mamba_case(torch, K6, K7, K8, dev, case, reps: int = 20) -> dict:
                 + (f" plain_autograd_forward_backward_ms="
                    f"{r['plain_autograd_ms']:.4f}"
                    if "plain_autograd_ms" in r else "")
-                + f" bitwise_two_calls={r['bitwise_two_calls']}")
+                + f" bitwise_two_calls={r['bitwise_two_calls']}"
+                + (f" route={r['route']} before_ms="
+                   + ("none" if before is None else
+                      f"{before:.4f} ({r['ms'] / before:.3f}x)")
+                   + f" split: {split_text(r['split'])}"
+                   if "route" in r else ""))
             if not r["bitwise_two_calls"]:
                 raise AssertionError(f"{label}: {k} differs between two "
                                      f"calls")

@@ -19,9 +19,12 @@ Two versions of each function live here:
   with ``nvcc`` at first use into ``build/kernels/libgated_norm.so`` and
   bound with ``ctypes``): the forward one launch (two around the
   all-reduce with a group), the backward two (three with a group): the
-  rows' gradients with per-block sums of ``dscale`` and ``dD``, then their
-  fixed-order sum.  CPU and meta tensors take the plain versions.  There is
-  no fallback: a CUDA input the kernel does not take raises.
+  rows' gradients with per-cluster sums of ``dscale`` and ``dD``, then
+  their fixed-order sum.  :func:`route` picks the kernels' loads: 16-byte
+  vectors where every row is whole vectors and every tensor starts on a
+  16-byte boundary, else element by element.  CPU and meta tensors take
+  the plain versions.  There is no fallback: a CUDA input the kernel does
+  not take raises.
 - :func:`gated_norm_plain` — the JAX package's skip and ``_gated_norm`` in
   eager torch ops (each rounded to the input type in its order; the sum of
   squares is torch's), and :func:`gated_norm_backward_plain`, the gradient
@@ -41,11 +44,15 @@ from repro_torch.kernels import nvcc
 EPS = 1e-6
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 FUSED, SUM, FINISH = 0, 1, 2          # the kernels' modes
+VECTOR_BYTES = 16                     # a thread's chunk of a row
+MAX_CHUNKS = 2048                     # chunks a row at most (GN_MAX_CHUNKS)
+ROUTES = ("vector", "scalar")
 
 # Kernel launches (never the plain versions' calls): forward calls and
-# backward calls
+# backward calls, and both by route
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
 
 _lib = None
 
@@ -54,6 +61,29 @@ def reset_counts() -> None:
     global LAUNCHES, BWD_LAUNCHES
     LAUNCHES = 0
     BWD_LAUNCHES = 0
+    for k in ROUTES:
+        ROUTE_LAUNCHES[k] = 0
+
+
+def chunk(dtype) -> int:
+    """Elements of ``dtype`` in a thread's 16-byte chunk."""
+    return VECTOR_BYTES // dtype.itemsize
+
+
+def max_width(dtype) -> int:
+    """The widest row the kernels take."""
+    return MAX_CHUNKS * chunk(dtype)
+
+
+def route(w: int, dtype, tensors) -> str:
+    """``"vector"`` where a row of ``w`` is whole 16-byte chunks of
+    ``dtype`` and every tensor given starts on a 16-byte boundary (one
+    vector load or store a chunk), else ``"scalar"`` (the same chunks,
+    element by element)."""
+    if w % chunk(dtype) == 0 and all(t.data_ptr() % VECTOR_BYTES == 0
+                                     for t in tensors if t is not None):
+        return "vector"
+    return "scalar"
 
 
 def _all_reduce(t, group):
@@ -167,11 +197,12 @@ def _load():
     if _lib is None:
         lib = nvcc.load("gated_norm")
         i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
-        lib.gn_fwd_launch.argtypes = [i] * 5 + [f, f] + [p] * 9
-        lib.gn_bwd_launch.argtypes = [i] * 5 + [f] + [p] * 15
-        lib.gn_bwd_rows_per_block.argtypes = [i]
+        lib.gn_fwd_launch.argtypes = [i] * 6 + [f, f] + [p] * 9
+        lib.gn_bwd_launch.argtypes = [i] * 6 + [f] + [p] * 12 + [i] \
+            + [p] * 3
+        lib.gn_bwd_clusters.argtypes = [i] * 4
         for fn in (lib.gn_fwd_launch, lib.gn_bwd_launch,
-                   lib.gn_bwd_rows_per_block):
+                   lib.gn_bwd_clusters):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -203,6 +234,9 @@ def _check(y, xs, z, D, scale, more=()) -> tuple[int, int, int]:
                              f"{z.device}")
         if not t.is_contiguous():
             raise ValueError("gated_norm needs contiguous tensors")
+    if w > max_width(z.dtype):
+        raise ValueError(f"gated_norm kernel takes rows of at most "
+                         f"{max_width(z.dtype)} {z.dtype} elements, got {w}")
     return z.numel() // w, w, p
 
 
@@ -229,6 +263,7 @@ def gated_norm(y, xs, z, D, scale, eps: float = EPS, group=None,
                        device=z.device)
     ss = None if group is None else torch.empty_like(rstd)
     dt = _DTYPES[z.dtype]
+    way = route(w, z.dtype, (y, xs, z, scale, out))
     args = (_ptr(y), _ptr(xs), _ptr(z), _ptr(D), _ptr(scale), _ptr(out),
             _ptr(rstd), _ptr(ss))
     with torch.cuda.device(z.device):
@@ -237,8 +272,10 @@ def gated_norm(y, xs, z, D, scale, eps: float = EPS, group=None,
             if mode == FINISH:
                 _all_reduce(ss, group)
             nvcc.check_launch("gated_norm", lib.gn_fwd_launch(
-                dt, mode, rows, w, p, float(width or w), eps, *args, stream))
+                dt, way == "vector", mode, rows, w, p, float(width or w),
+                eps, *args, stream))
     LAUNCHES += 1
+    ROUTE_LAUNCHES[way] += 1
     return out, rstd
 
 
@@ -263,23 +300,28 @@ def gated_norm_backward(dout, y, xs, z, D, scale, rstd, group=None,
             or not rstd.is_contiguous():
         raise ValueError("gated_norm_backward needs the forward's rstd")
     lib = _load()
-    blocks = -(-rows // lib.gn_bwd_rows_per_block(rows))
     dy, dxs, dz = (torch.empty_like(z) for _ in range(3))
     dD = torch.empty_like(D)
     dscale = torch.empty_like(scale)
-    slots = torch.empty(2 * blocks * w, dtype=torch.float32,
-                        device=z.device)
-    dot = None if group is None else torch.empty_like(rstd)
     dt = _DTYPES[z.dtype]
-    args = (_ptr(y), _ptr(xs), _ptr(z), _ptr(D), _ptr(scale), _ptr(dout),
-            _ptr(rstd), _ptr(dot), _ptr(dy), _ptr(dxs), _ptr(dz),
-            _ptr(slots), _ptr(dscale), _ptr(dD))
+    way = route(w, z.dtype, (dout, y, xs, z, scale, dy, dxs, dz))
     with torch.cuda.device(z.device):
+        clusters = lib.gn_bwd_clusters(dt, way == "vector", rows, w)
+        if clusters < 1:
+            nvcc.check_launch("gated_norm_backward", -clusters or 1)
+        slots = torch.empty(2 * clusters * w, dtype=torch.float32,
+                            device=z.device)
+        dot = None if group is None else torch.empty_like(rstd)
+        args = (_ptr(y), _ptr(xs), _ptr(z), _ptr(D), _ptr(scale),
+                _ptr(dout), _ptr(rstd), _ptr(dot), _ptr(dy), _ptr(dxs),
+                _ptr(dz), _ptr(slots), clusters, _ptr(dscale), _ptr(dD))
         stream = torch.cuda.current_stream(z.device).cuda_stream
         for mode in ((FUSED,) if group is None else (SUM, FINISH)):
             if mode == FINISH:
                 _all_reduce(dot, group)
             nvcc.check_launch("gated_norm_backward", lib.gn_bwd_launch(
-                dt, mode, rows, w, p, float(width or w), *args, stream))
+                dt, way == "vector", mode, rows, w, p, float(width or w),
+                *args, stream))
     BWD_LAUNCHES += 1
+    ROUTE_LAUNCHES[way] += 1
     return dy, dxs, dz, dD, dscale

@@ -16,8 +16,11 @@ Two versions of each function live here:
   and bound with ``ctypes``): one launch for the forward of every segment
   given (the block's ``xs``, ``B`` and ``C``), two for the backward (the
   per-block partial sums of ``dw``/``db`` into fixed slots, then their
-  fixed-order sum).  CPU and meta tensors take the plain versions.  There is
-  no fallback: a CUDA input the kernel does not take raises.
+  fixed-order sum).  :func:`route` picks the kernels' loads: a thread's
+  chunk of channels as one vector where every segment's width is whole
+  16-byte vectors and every tensor starts on a 16-byte boundary, else one
+  channel a thread.  CPU and meta tensors take the plain versions.  There
+  is no fallback: a CUDA input the kernel does not take raises.
 - :func:`causal_conv_plain` — the JAX package's ``_causal_conv`` in eager
   torch ops, each rounded to the input type in its order (the kernel's
   forward gives its bits), and :func:`causal_conv_backward_plain`, the
@@ -35,11 +38,14 @@ from repro_torch.kernels import nvcc
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SEGMENTS = 3
+VECTOR_BYTES = 16
+ROUTES = ("vector", "scalar")
 
 # Kernel launches (never the plain versions' calls): forward calls, and
-# backward calls (two CUDA kernels each)
+# backward calls (two CUDA kernels each), and both by route
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
 
 _lib = None
 
@@ -48,6 +54,26 @@ def reset_counts() -> None:
     global LAUNCHES, BWD_LAUNCHES
     LAUNCHES = 0
     BWD_LAUNCHES = 0
+    for k in ROUTES:
+        ROUTE_LAUNCHES[k] = 0
+
+
+def route(widths, dtype, tensors) -> str:
+    """``"vector"`` where every segment's width in ``widths`` is whole
+    16-byte vectors of ``dtype`` and every tensor given starts on a 16-byte
+    boundary, else ``"scalar"`` (one channel a thread)."""
+    e = VECTOR_BYTES // dtype.itemsize
+    if all(c % e == 0 for c in widths) and all(
+            t.data_ptr() % VECTOR_BYTES == 0 for t in tensors
+            if t is not None):
+        return "vector"
+    return "scalar"
+
+
+def _kind(way: str, dtype) -> int:
+    """The launchers' first argument: the dtype, plus 2 for the vector
+    route (whose chunk width the kernel source fixes by direction)."""
+    return _DTYPES[dtype] + 2 * (way == "vector")
 
 
 # ---------------------------------------------------------------------------
@@ -128,11 +154,10 @@ def _load():
         lib = nvcc.load("mamba_conv")
         i, p = ctypes.c_int, ctypes.c_void_p
         lib.conv_fwd_launch.argtypes = [i] * 5 + [p] * 8
-        lib.conv_bwd_launch.argtypes = [i] * 5 + [p] * 10
-        lib.conv_slot_words.argtypes = [i] * 4
-        lib.conv_slot_words.restype = ctypes.c_longlong
+        lib.conv_bwd_launch.argtypes = [i] * 5 + [p] * 9 + [i, p]
+        lib.conv_bwd_slot_rows.argtypes = [i] * 5
         for fn in (lib.conv_fwd_launch, lib.conv_bwd_launch,
-                   lib.conv_max_k):
+                   lib.conv_bwd_slot_rows, lib.conv_max_k):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -206,15 +231,20 @@ def causal_conv(xs, ws, bs, states=None, want_state: bool = False):
     ys = [torch.empty_like(x) for x in xs]
     new = [torch.empty((bt, k - 1, x.shape[-1]), dtype=x.dtype, device=dev)
            for x in xs] if with_state and k > 1 else None
-    cs = (ctypes.c_int * MAX_SEGMENTS)(*[x.shape[-1] for x in xs])
+    widths = [x.shape[-1] for x in xs]
+    way = route(widths, xs[0].dtype, [*xs, *ws, *bs, *(states or ()), *ys,
+                                      *(new or ())])
+    cs = (ctypes.c_int * MAX_SEGMENTS)(*widths)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.conv_fwd_launch(
-            _DTYPES[xs[0].dtype], len(xs), bt, s, k, _ptrs(xs), _ptrs(ws),
-            _ptrs(bs), None if states is None else _ptrs(states), _ptrs(ys),
+            _kind(way, xs[0].dtype), len(xs), bt, s, k, _ptrs(xs),
+            _ptrs(ws), _ptrs(bs),
+            None if states is None else _ptrs(states), _ptrs(ys),
             None if new is None else _ptrs(new), cs, stream)
     nvcc.check_launch("causal_conv", err)
     LAUNCHES += 1
+    ROUTE_LAUNCHES[way] += 1
     if with_state and new is None:
         new = [None] * len(xs)
     return ys, new
@@ -237,19 +267,25 @@ def causal_conv_backward(xs, ws, bs, gs):
     if any(g.shape != x.shape for g, x in zip(gs, xs)):
         raise ValueError("causal_conv_backward: a cotangent of another shape")
     lib = _load()
-    channels = sum(x.shape[-1] for x in xs)
-    slots = torch.empty(lib.conv_slot_words(bt, s, k, channels),
-                        dtype=torch.float32, device=dev)
+    widths = [x.shape[-1] for x in xs]
     dxs = [torch.empty_like(x) for x in xs]
     dws = [torch.empty_like(w) for w in ws]
     dbs = [torch.empty_like(b) for b in bs]
-    cs = (ctypes.c_int * MAX_SEGMENTS)(*[x.shape[-1] for x in xs])
+    way = route(widths, xs[0].dtype, [*xs, *ws, *bs, *gs, *dxs])
+    kind = _kind(way, xs[0].dtype)
+    cs = (ctypes.c_int * MAX_SEGMENTS)(*widths)
     with torch.cuda.device(dev):
+        rows = lib.conv_bwd_slot_rows(kind, bt, s, k, sum(widths))
+        if rows < 1:
+            nvcc.check_launch("causal_conv_backward", -rows or 1)
+        slots = torch.empty(rows * (k + 1) * sum(widths),
+                            dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.conv_bwd_launch(
-            _DTYPES[xs[0].dtype], len(xs), bt, s, k, _ptrs(xs), _ptrs(ws),
-            _ptrs(bs), _ptrs(gs), _ptrs(dxs), _ptrs(dws), _ptrs(dbs), cs,
-            slots.data_ptr(), stream)
+            kind, len(xs), bt, s, k, _ptrs(xs), _ptrs(ws), _ptrs(bs),
+            _ptrs(gs), _ptrs(dxs), _ptrs(dws), _ptrs(dbs), cs,
+            slots.data_ptr(), rows, stream)
     nvcc.check_launch("causal_conv_backward", err)
     BWD_LAUNCHES += 1
+    ROUTE_LAUNCHES[way] += 1
     return dxs, dws, dbs

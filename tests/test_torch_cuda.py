@@ -1147,6 +1147,175 @@ def test_block_kernels_raise_on_what_they_do_not_take(cuda):
                                                                    8)
 
 
+def _offset(t, shift: int):
+    """``t``'s values in a contiguous view ``shift`` elements into a fresh
+    buffer (``shift`` 1: not on a 16-byte boundary)."""
+    buf = torch.empty(t.numel() + shift, dtype=t.dtype, device=t.device)
+    view = buf[shift:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("widths,dtype", [
+    ((4096, 128, 128), torch.bfloat16), ((200, 24, 24), torch.bfloat16),
+    ((100, 20, 20), torch.bfloat16), ((200, 24, 24), torch.float32),
+    ((202, 22, 22), torch.float32)])
+def test_conv_kernel_routes_match_plain(cuda, widths, dtype, shift):
+    """K6 on the route its wrapper names: chunks of 16-byte vectors where
+    every segment is whole vectors and every tensor starts on a 16-byte
+    boundary, else one channel a thread (widths of 100 / 20 bf16 or 202 /
+    22 float32, or inputs one element into their buffers).  The forward
+    within an ulp of the plain version with its new states equal, the
+    backward's dx within an ulp and dw, db within ``MAMBA_REL``; two calls
+    bitwise."""
+    gen = torch.Generator(device=cuda).manual_seed(sum(widths) + shift)
+
+    def rnd(*shape, scale=1.0):
+        t = (torch.randn(shape, generator=gen, device=cuda) * scale
+             ).to(dtype)
+        return _offset(t, shift)
+    xs = [rnd(2, 67, c) for c in widths]
+    ws = [rnd(4, c, scale=0.3) for c in widths]
+    bs = [rnd(c, scale=0.1) for c in widths]
+    sts = [rnd(2, 3, c) for c in widths]
+    gs = [rnd(2, 67, c, scale=1e-2) for c in widths]
+    whole = all(c % (16 // dtype.itemsize) == 0 for c in widths)
+    way = "vector" if whole and not shift else "scalar"
+    assert K6.route(widths, dtype, xs + ws + bs + sts + gs) == way
+    K6.reset_counts()
+    ys, new = K6.causal_conv(xs, ws, bs, sts, want_state=True)
+    again = K6.causal_conv(xs, ws, bs, sts, want_state=True)
+    got = K6.causal_conv_backward(xs, ws, bs, gs)
+    got2 = K6.causal_conv_backward(xs, ws, bs, gs)
+    torch.cuda.synchronize()
+    assert K6.ROUTE_LAUNCHES == {way: 4, ("scalar" if way == "vector"
+                                          else "vector"): 0}
+    for j, (x, w, b, g) in enumerate(zip(xs, ws, bs, gs)):
+        y, st = K6.causal_conv_plain(x, w, b, sts[j])
+        assert _ulps_ordered(ys[j], y) <= 1
+        assert torch.equal(new[j], st)
+        assert torch.equal(ys[j], again[0][j])
+        want = K6.causal_conv_backward_plain(x, w, b, g)
+        assert _ulps_ordered(got[0][j], want[0]) <= 1
+        for k in (1, 2):
+            assert _rel_l2(got[k][j], want[k]) <= MAMBA_REL[dtype]
+        for k in range(3):
+            assert torch.equal(got[k][j], got2[k][j])
+
+
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("rows,di,h,dtype", [
+    (37, 4096, 64, torch.bfloat16), (37, 200, 5, torch.bfloat16),
+    (37, 202, 2, torch.bfloat16), (37, 200, 5, torch.float32),
+    (37, 4096, 64, torch.float32)])
+def test_norm_kernel_routes_match_plain(cuda, rows, di, h, dtype, shift):
+    """K7 on the route its wrapper names (vectors where a row is whole
+    16-byte vectors and every tensor 16-byte aligned, else the same chunks
+    element by element: a width of 202 bf16, inputs one element into their
+    buffers; float32 rows of 4096 take a cluster of two blocks in the
+    backward): the forward within an ulp (bf16) or ``MAMBA_REL`` of the
+    plain version, the backward within ``MAMBA_REL``; two calls bitwise."""
+    y, xs, z, D, scale, dout = _norm_case(cuda, 1, rows, di, h, dtype,
+                                          di + shift)
+    y, xs, z, dout = (_offset(t, shift) for t in (y, xs, z, dout))
+    way = "vector" if di % (16 // dtype.itemsize) == 0 and not shift \
+        else "scalar"
+    assert K7.route(di, dtype, (y, xs, z, dout, scale)) == way
+    K7.reset_counts()
+    out, rstd = K7.gated_norm(y, xs, z, D, scale)
+    out2, _ = K7.gated_norm(y, xs, z, D, scale)
+    got = K7.gated_norm_backward(dout, y, xs, z, D, scale, rstd)
+    again = K7.gated_norm_backward(dout, y, xs, z, D, scale, rstd)
+    torch.cuda.synchronize()
+    assert K7.ROUTE_LAUNCHES[way] == 4
+    want = K7.gated_norm_plain(y, xs, z, D, scale)
+    if dtype == torch.bfloat16:
+        assert _ulps_ordered(out, want) <= 1
+    else:
+        assert _rel_l2(out, want) <= MAMBA_REL[dtype]
+    assert torch.equal(out, out2)
+    for g, w, a in zip(got, K7.gated_norm_backward_plain(
+            dout, y, xs, z, D, scale), again):
+        assert _rel_l2(g, w) <= MAMBA_REL[g.dtype]
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+def test_norm_backward_with_fewer_rows_than_blocks(cuda, rows):
+    """K7's backward over 1 and 3 rows (fewer than the card's clusters):
+    within ``MAMBA_REL`` of the plain version, two calls bitwise."""
+    y, xs, z, D, scale, dout = _norm_case(cuda, 1, rows, 4096, 64,
+                                          torch.bfloat16, rows)
+    _, rstd = K7.gated_norm(y, xs, z, D, scale)
+    got = K7.gated_norm_backward(dout, y, xs, z, D, scale, rstd)
+    again = K7.gated_norm_backward(dout, y, xs, z, D, scale, rstd)
+    torch.cuda.synchronize()
+    for g, w, a in zip(got, K7.gated_norm_backward_plain(
+            dout, y, xs, z, D, scale), again):
+        assert _rel_l2(g, w) <= MAMBA_REL[g.dtype]
+        assert torch.equal(g, a)
+
+
+def test_norm_at_jamba_width_matches_plain(cuda):
+    """K7 forward and backward over rows of jamba-1.5-large-398b's d_inner
+    (16384, 128 heads of 128; the backward a cluster of four blocks a row)
+    against the plain versions."""
+    y, xs, z, D, scale, dout = _norm_case(cuda, 1, 96, 16384, 128,
+                                          torch.bfloat16, 16384)
+    out, rstd = K7.gated_norm(y, xs, z, D, scale)
+    got = K7.gated_norm_backward(dout, y, xs, z, D, scale, rstd)
+    torch.cuda.synchronize()
+    assert _ulps_ordered(out, K7.gated_norm_plain(y, xs, z, D, scale)) <= 1
+    for g, w in zip(got, K7.gated_norm_backward_plain(dout, y, xs, z, D,
+                                                      scale)):
+        assert _rel_l2(g, w) <= MAMBA_REL[g.dtype]
+
+
+def test_norm_sum_then_finish_gives_fused_bits(cuda, monkeypatch):
+    """The split modes around an all-reduce over one rank (the all-reduce
+    an identity here): SUM's row sums fed to FINISH give the FUSED call's
+    bits, forward (out, rstd) and backward (all five gradients), at
+    mamba2-1.3b's width."""
+    y, xs, z, D, scale, dout = _norm_case(cuda, 1, 300, 4096, 64,
+                                          torch.bfloat16, 11)
+    fused, rstd = K7.gated_norm(y, xs, z, D, scale)
+    grads = K7.gated_norm_backward(dout, y, xs, z, D, scale, rstd)
+    monkeypatch.setattr(K7, "_all_reduce", lambda t, group: t)
+    split, rstd2 = K7.gated_norm(y, xs, z, D, scale, group=object(),
+                                 width=4096)
+    grads2 = K7.gated_norm_backward(dout, y, xs, z, D, scale, rstd,
+                                    group=object(), width=4096)
+    torch.cuda.synchronize()
+    assert torch.equal(split, fused) and torch.equal(rstd2, rstd)
+    for a, b in zip(grads2, grads):
+        assert torch.equal(a, b)
+
+
+def test_block_backwards_replay_bitwise(cuda):
+    """K6's and K7's backwards captured in a CUDA graph: a replay gives the
+    eager call's bits (the slot sums run in a fixed order)."""
+    xs, ws, bs, _, gs = _conv_case(cuda, 2, 300, 4096, 128, torch.bfloat16,
+                                   21)
+    y, x, z, D, scale, dout = _norm_case(cuda, 2, 300, 4096, 64,
+                                         torch.bfloat16, 22)
+    _, rstd = K7.gated_norm(y, x, z, D, scale)
+
+    def both():
+        return ([t for ls in K6.causal_conv_backward(xs, ws, bs, gs)
+                 for t in ls]
+                + list(K7.gated_norm_backward(dout, y, x, z, D, scale,
+                                              rstd)))
+    eager = both()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = both()
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(captured, eager):
+        assert torch.equal(a, b)
+
+
 # ---------------------------------------------------------------------------
 # the serving engine's decode program captured in a CUDA graph (before the
 # mesh tests, whose NCCL group starts a watchdog thread)
