@@ -24,7 +24,8 @@ The Mamba block's fused work goes through here too: the causal conv with
 its SiLU (K6, :mod:`repro_torch.kernels.mamba_conv`, under autograd
 :class:`CausalConv`), the D skip with the gated norm (K7,
 :mod:`repro_torch.kernels.gated_norm`, :class:`GatedNorm`) and the
-decode's state step (K8, :mod:`repro_torch.kernels.mamba_decode`): the
+decode's one-token state step with its convs, which writes the layer's
+states in place (K8, :mod:`repro_torch.kernels.mamba_decode`): the
 kernels on CUDA, in both directions where training needs them; their
 plain versions on the CPU and the meta device, which autograd
 differentiates.
@@ -394,31 +395,55 @@ def local_gated_norm(y, xs, z, D, scale, eps: float = _k7.EPS, group=None,
     return _k7.gated_norm(y, xs, z, D, scale, eps, group, width)[0]
 
 
-def decode_step(xs, ssm, dt, dt_bias, A_log, B, C, D):
-    """The Mamba decode's state step (K8's function): ``(s_new, y)`` from
-    ``xs`` [Bt, H, P], the state [Bt, H, N, P], the raw dt [Bt, 1, H],
-    ``B``/``C`` [Bt, G, N] and the layer's [H] vectors.  On DTensors it
-    runs per rank on the local batch and heads (heads over ``model`` when
-    they, and the groups or a single group, divide it)."""
-    args = (xs, ssm, dt, dt_bias, A_log, B, C, D)
+def decode_layer(xs, B, C, dt, ws, bs, states, ssm, dt_bias, A_log, D):
+    """The Mamba layer's one-token state step (K8's function): the convs
+    from ``states`` (xs, B, C: [Bt, K-1, ·]), dt, the decay, the state
+    update and the D skip, from the projections ``xs`` [Bt, 1, H*P],
+    ``B``/``C`` [Bt, 1, G*N], the raw ``dt`` [Bt, 1, H], the conv weights
+    ``ws`` and biases ``bs`` (lists: xs, B, C), the float32 ``ssm`` [Bt, H,
+    N, P] and the layer's [H] vectors.  Returns ``(y, states, ssm)``: y
+    [Bt, H, P] and the states written.  On plain tensors those are the
+    given objects, written in place.  On DTensors the step runs per rank on
+    the local batch and heads (heads, and xs's channels, over ``model``
+    when they, and the groups or a single group, divide it; B and C whole
+    on every rank of a single group) and writes each rank's local tensors,
+    which may be redistributed copies: keep what is returned."""
     if not isinstance(xs, DTensor):
-        return local_decode_step(*args)
+        return (local_decode_layer(xs, B, C, dt, ws, bs, states, ssm,
+                                   dt_bias, A_log, D), states, ssm)
     tp = model_size(xs)
-    g = B.shape[1]
-    bc = (True, 1 if g > 1 else None)
-    return per_rank(local_decode_step, args,
-                    ((True, 1), (True, 1), (True, 2), (False, 0), (False, 0),
-                     bc, bc, (False, 0)),
-                    ((True, 1), (True, 1)),
-                    xs.shape[1] % tp == 0 and (g == 1 or g % tp == 0))
+    g = B.shape[-1] // ssm.shape[2]
+    heads = (True, 2)                                 # [Bt, ., channels]
+    bc = (True, 2 if g > 1 else None)
+    vec = (False, 0)
+    args = (xs, B, C, dt, *ws, *bs, *states, ssm, dt_bias, A_log, D)
+    dims = (heads, bc, bc, heads, (False, 1), (False, 1 if g > 1 else None),
+            (False, 1 if g > 1 else None), vec, (False, 0 if g > 1 else None),
+            (False, 0 if g > 1 else None), heads, bc, bc, (True, 1), vec, vec,
+            vec)
+
+    def local(xs_, B_, C_, dt_, wx, wB, wC, bx, bB, bC, sx, sB, sC, ssm_,
+              dt_bias_, A_log_, D_):
+        y = local_decode_layer(xs_, B_, C_, dt_, [wx, wB, wC], [bx, bB, bC],
+                               [sx, sB, sC], ssm_, dt_bias_, A_log_, D_)
+        return y, sx, sB, sC, ssm_
+
+    y, sx, sB, sC, ssm = per_rank(
+        local, args, dims, ((True, 1), heads, bc, bc, (True, 1)),
+        dt.shape[-1] % tp == 0 and (g == 1 or g % tp == 0))
+    return y, [sx, sB, sC], ssm
 
 
-def local_decode_step(xs, ssm, dt, dt_bias, A_log, B, C, D):
-    """:func:`decode_step` on one rank's local tensors (or a single
+def local_decode_layer(xs, B, C, dt, ws, bs, states, ssm, dt_bias, A_log,
+                       D):
+    """:func:`decode_layer` on one rank's local tensors (or a single
     device's): K8 on CUDA, the plain version on the CPU and the meta
-    device."""
+    device; returns ``y`` and writes ``states`` and ``ssm`` in place."""
     if xs.device.type == "cuda":
-        _no_backward("K8 (the decode's state step)", xs, ssm, dt, B, C)
-        return _k8.decode_step(*_contiguous(
-            (xs, ssm, dt, dt_bias, A_log, B, C, D)))
-    return _k8.decode_step(xs, ssm, dt, dt_bias, A_log, B, C, D)
+        _no_backward("K8 (the decode's state step)", xs, B, C, dt, ssm)
+        xs, B, C, dt = _contiguous((xs, B, C, dt))
+        return _k8.decode_layer(xs, B, C, dt, _contiguous(ws),
+                                _contiguous(bs), states, ssm, dt_bias,
+                                A_log, D)
+    return _k8.decode_layer(xs, B, C, dt, ws, bs, states, ssm, dt_bias,
+                            A_log, D)

@@ -15,10 +15,11 @@ The work around the scan that the JAX package's jitted steps leave to
 XLA's fusion runs as hand-written kernels on CUDA, through
 :mod:`repro_torch.kernels.ops`: the three causal convs with their SiLU in
 one launch (K6, ``ops.causal_conv``), the D skip with the gated norm (K7,
-``ops.gated_norm``), both under autograd in training, and the decode's dt,
-decay, state update and D skip (K8, ``ops.decode_step``).  On the CPU they
-are the JAX package's ops (:func:`_causal_conv`, :func:`_gated_norm`),
-which autograd differentiates.  On a mesh each runs per rank.
+``ops.gated_norm``), both under autograd in training, and the decode's
+convs, dt, decay, state update and D skip (K8, ``ops.decode_layer``), which
+writes the layer's states in place.  On the CPU they are the JAX package's
+ops (:func:`_causal_conv`, :func:`_gated_norm`; the decode's written in
+place too), which autograd differentiates.  On a mesh each runs per rank.
 
 Projections are kept separate (w_z, w_x, w_B, w_C, w_dt), as in the JAX
 package, so its parameters carry across unchanged.
@@ -232,23 +233,21 @@ def mamba_prefill(params, cfg: MambaConfig, x: torch.Tensor):
 
 def mamba_decode(params, cfg: MambaConfig, x: torch.Tensor, state):
     """Single-token decode.  x: [B,1,D]; state: {"ssm": [B,H,N,P] fp32,
-    "conv": {x/B/C: [B,K-1,·]}}.  O(1) in sequence length."""
+    "conv": {x/B/C: [B,K-1,·]}}.  O(1) in sequence length.  The state's
+    tensors are written in place and returned (on a mesh, the tensors each
+    rank wrote, which may be new DTensors: keep what is returned)."""
     b = x.shape[0]
-    di, g, n, h, p = (cfg.d_inner, cfg.n_groups, cfg.d_state, cfg.n_heads,
-                      cfg.head_dim)
+    di = cfg.d_inner
     z, xs, Bm, Cm, dt = _project(params, x)
-    (xs, Bm, Cm), conv = ops.causal_conv(
-        [xs, Bm, Cm], *_conv_params(params),
-        [state["conv"][k] for k in "xBC"])
-    xs = xs.reshape(b, 1, h, p)[:, 0]                           # [B,H,P]
-    Bm = Bm.reshape(b, g, n)
-    Cm = Cm.reshape(b, g, n)
-    # dt's softplus, the decay, the state update and the D skip (K8 on
-    # CUDA; on a mesh per rank: local batch, heads over model when they,
-    # and the groups or a single group, divide it)
-    s_new, y = ops.decode_step(xs, state["ssm"], dt, params["dt_bias"],
-                               params["A_log"], Bm, Cm, params["D"])
+    # the three convs from their states, dt's softplus, the decay, the state
+    # update and the D skip in one step (K8 on CUDA; on a mesh per rank:
+    # local batch, heads over model when they, and the groups or a single
+    # group, divide it)
+    y, conv, ssm = ops.decode_layer(
+        xs, Bm, Cm, dt, *_conv_params(params),
+        [state["conv"][k] for k in "xBC"], state["ssm"], params["dt_bias"],
+        params["A_log"], params["D"])
     y = ops.gated_norm(y.reshape(b, 1, di).to(x.dtype), None, z, None,
                        params["norm_scale"])
     out = y @ params["out_proj"]
-    return out, {"ssm": s_new, "conv": dict(zip("xBC", conv))}
+    return out, {"ssm": ssm, "conv": dict(zip("xBC", conv))}

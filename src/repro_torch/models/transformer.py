@@ -482,8 +482,10 @@ def decode_step(params, cfg: ModelConfig, token, caches, cache_len):
     cache_len: current length (prefix included), a Python int or a 0-d
     int64 tensor on the device, as the JAX package's jitted step takes a
     traced scalar (bitwise the same result; a captured step reads it
-    there).  Returns (logits, new caches); attention caches are updated in
-    place, Mamba's states are new tensors."""
+    there).  Returns (logits, caches): attention caches and Mamba's states
+    are updated in place and returned as they came; on a mesh Mamba's
+    states are each rank's written tensors, which may be new DTensors, so
+    keep what is returned."""
     x = _embed(params, cfg, token)[:, None, :]
     new_caches: dict[str, Any] = {"prelude": [], "units": []}
     for p, spec, cache in zip(params["prelude"], cfg.prelude,

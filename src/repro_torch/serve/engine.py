@@ -65,8 +65,9 @@ class DecodeProgram:
     cache, the input token ([1], or [1, CB] with codebooks), the position
     (a 0-d int64 tensor) and the logits.
 
-    One step runs ``decode_step`` at the position buffer, copies Mamba's
-    new states into their buffers (attention caches are written in place),
+    One step runs ``decode_step`` at the position buffer, which writes
+    attention caches and Mamba's states in place into the buffers (a cache
+    it returns as another tensor, as on a mesh, is copied into its buffer),
     writes the argmax into the token buffer and advances the position, all
     on the device.  On CUDA the step is captured once in a
     ``torch.cuda.CUDAGraph`` (after one warm-up step on the capture's

@@ -1016,31 +1016,120 @@ def test_norm_backward_kernel_matches_plain_bitwise_across_calls(
         assert torch.equal(g, a)
 
 
-@pytest.mark.parametrize("bt,h,p,n,g,dtype", [
-    (1, 64, 64, 128, 1, torch.bfloat16), (2, 8, 16, 16, 1, torch.float32),
-    (2, 8, 16, 16, 2, torch.bfloat16), (1, 5, 40, 24, 1, torch.float32)])
-def test_decode_step_kernel_matches_plain(cuda, bt, h, p, n, g, dtype):
-    """K8 against the plain step: the state within one float32 ulp of its
-    product term (the kernel forms B (dt x); einsum picks its own order),
-    the output within the plain version's rounding; two calls bitwise."""
-    gen = torch.Generator(device=cuda).manual_seed(h + n)
+# K8's decode shapes: mamba2-1.3b's and jamba's layers (MAMBA_CASES of
+# chip_smoke.py), the reduced configs' (N = P = 16), B/C shared by 4 and by 2
+# heads a group, and a head dim and state of no power of two
+DECODE_SHAPES = [(1, 64, 64, 128, 1, torch.bfloat16),
+                 (1, 64, 64, 128, 1, torch.float32),
+                 (1, 128, 128, 128, 1, torch.bfloat16),
+                 (1, 128, 128, 128, 1, torch.float32),
+                 (2, 8, 16, 16, 1, torch.float32),
+                 (2, 8, 16, 16, 1, torch.bfloat16),
+                 (2, 8, 16, 16, 2, torch.bfloat16),
+                 (2, 8, 16, 16, 4, torch.float32),
+                 (1, 5, 40, 24, 1, torch.float32)]
 
-    def rnd(*shape, dt=dtype, scale=1.0):
+
+def _decode_case(cuda, bt, h, p, n, g, dtype, seed) -> dict:
+    """One token's inputs of K8: the projections, the conv weights, biases
+    and states, the float32 state and the layer's vectors."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape, dt=dtype, scale=1.0, shift=0.0):
         return (torch.randn(shape, generator=gen, device=cuda) * scale
-                ).to(dt)
-    args = (rnd(bt, h, p), rnd(bt, h, n, p, dt=torch.float32),
-            rnd(bt, 1, h), rnd(h, dt=torch.float32, scale=0.5),
-            torch.log(torch.linspace(1.0, 16.0, h, device=cuda)),
-            rnd(bt, g, n), rnd(bt, g, n), rnd(h, dt=torch.float32))
+                + shift).to(dt)
+    widths = (h * p, g * n, g * n)
+    f32 = torch.float32
+    return {"xs": rnd(bt, 1, widths[0]), "B": rnd(bt, 1, widths[1]),
+            "C": rnd(bt, 1, widths[2]), "dt": rnd(bt, 1, h),
+            "ws": [rnd(4, c, scale=0.3) for c in widths],
+            "bs": [rnd(c, scale=0.1) for c in widths],
+            "states": [rnd(bt, 3, c) for c in widths],
+            "ssm": rnd(bt, h, n, p, dt=f32),
+            "vectors": (rnd(h, dt=f32, scale=0.5),
+                        torch.log(torch.linspace(1.0, 16.0, h, device=cuda)),
+                        rnd(h, dt=f32, scale=0.1, shift=1.0))}
+
+
+def _decode_run(fn, c, states=None, ssm=None):
+    """``fn`` (K8's wrapper or its plain version) on clones of the case's
+    states, or on ``states`` and ``ssm`` as given: (y, states, ssm)."""
+    states = [t.clone() for t in c["states"]] if states is None else states
+    ssm = c["ssm"].clone() if ssm is None else ssm
+    y = fn(c["xs"], c["B"], c["C"], c["dt"], c["ws"], c["bs"], states, ssm,
+           *c["vectors"])
+    return y, states, ssm
+
+
+@pytest.mark.parametrize("bt,h,p,n,g,dtype", DECODE_SHAPES)
+def test_decode_step_kernel_matches_plain(cuda, bt, h, p, n, g, dtype):
+    """K8 (the layer's convs, dt, decay, state update and D skip) against
+    its plain version: the new state and conv states bit for bit, y within
+    one bf16 ulp (float32: the sum over N in another order, MAMBA_REL); two
+    calls bitwise; the counters left zero."""
+    c = _decode_case(cuda, bt, h, p, n, g, dtype, h + n + g)
     K8.reset_counts()
-    s1, y1 = K8.decode_step(*args)
-    s2, y2 = K8.decode_step(*args)
+    y1, st1, s1 = _decode_run(K8.decode_layer, c)
+    y2, st2, s2 = _decode_run(K8.decode_layer, c)
     torch.cuda.synchronize()
     assert K8.LAUNCHES == 2
-    ps, py = K8.decode_step_plain(*args)
-    assert _rel_l2(s1, ps) <= 1e-6
-    assert _rel_l2(y1, py) <= MAMBA_REL[dtype]
-    assert torch.equal(s1, s2) and torch.equal(y1, y2)
+    yp, stp, sp = _decode_run(K8.decode_layer_plain, c)
+    assert torch.equal(s1, sp)
+    assert all(torch.equal(a, b) for a, b in zip(st1, stp))
+    if dtype == torch.bfloat16:
+        assert _ulps_ordered(y1, yp) <= 1
+    else:
+        assert _rel_l2(y1, yp) <= MAMBA_REL[dtype]
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+    assert all(torch.equal(a, b) for a, b in zip(st1, st2))
+    assert not bool(K8._COUNTERS[torch.cuda.current_device()][-1].any())
+
+
+def test_decode_layer_in_place_equals_a_call_on_clones(cuda):
+    """K8 on the case's own states writes into them what a call on their
+    clones gives, and returns nothing else: the states are its outputs."""
+    c = _decode_case(cuda, 1, 64, 64, 128, 1, torch.bfloat16, 3)
+    before = [t.clone() for t in c["states"] + [c["ssm"]]]
+    want_y, want_st, want_s = _decode_run(K8.decode_layer, c)
+    got_y, got_st, got_s = _decode_run(K8.decode_layer, c, c["states"],
+                                       c["ssm"])
+    assert got_s is c["ssm"] and all(a is b for a, b in zip(got_st,
+                                                              c["states"]))
+    assert torch.equal(got_y, want_y) and torch.equal(got_s, want_s)
+    assert all(torch.equal(a, b) for a, b in zip(got_st, want_st))
+    assert not any(torch.equal(a, b) for a, b in zip(
+        got_st + [got_s], before))
+
+
+@pytest.mark.parametrize("g", [4, 2])
+def test_decode_layer_graph_replays_bitwise_with_shared_group_states(cuda,
+                                                                    g):
+    """B and C's conv state shared by 2 and by 4 heads a group, written by
+    the group's last reader: a call captured in a CUDA graph and replayed
+    twice from the same states gives the eager call's bits each time, two
+    steps in a row equal two eager steps, and the counters end zero."""
+    c = _decode_case(cuda, 2, 8, 16, 16, g, torch.bfloat16, 20 + g)
+    want = _decode_run(K8.decode_layer, c)
+    want2 = _decode_run(K8.decode_layer, c, *[[t.clone() for t in want[1]],
+                                              want[2].clone()])
+    states = [t.clone() for t in c["states"]]
+    ssm = c["ssm"].clone()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = _decode_run(K8.decode_layer, c, states, ssm)[0]
+    for _ in range(2):
+        for t, t0 in zip(states + [ssm], c["states"] + [c["ssm"]]):
+            t.copy_(t0)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, want[0]) and torch.equal(ssm, want[2])
+        assert all(torch.equal(a, b) for a, b in zip(states, want[1]))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, want2[0]) and torch.equal(ssm, want2[2])
+    assert all(torch.equal(a, b) for a, b in zip(states, want2[1]))
+    assert not bool(K8._COUNTERS[torch.cuda.current_device()][-1].any())
 
 
 def test_conv_and_norm_entries_return_gradients_through_their_kernels(cuda):
@@ -1076,7 +1165,8 @@ def test_mamba_train_and_decode_run_the_block_kernels(cuda):
     one captured step replayed) calls K6 and K7 forward once a layer (twice
     with the remat recompute) and backward once, in the warm-up and the
     capture only; a prefill calls each once a layer; a captured decode
-    calls K6, K8 and K7 once a layer, in its warm-up and its capture."""
+    calls K8 and K7 once a layer, in its warm-up and its capture, and K6
+    never (K8 runs the decode's convs)."""
     from repro_torch.serve.engine import DecodeProgram
     from repro_torch.train import loop as TL
     cfg = get_reduced_config("mamba2-1.3b")
@@ -1100,7 +1190,7 @@ def test_mamba_train_and_decode_run_the_block_kernels(cuda):
     program.decode(caches, logits[0].argmax(-1), n, 8)
     torch.cuda.synchronize()
     assert K8.LAUNCHES == 2 * layers
-    assert K6.LAUNCHES == K7.LAUNCHES == fwd + 3 * layers
+    assert K6.LAUNCHES == fwd + layers and K7.LAUNCHES == fwd + 3 * layers
 
 
 def test_block_kernels_raise_on_what_they_do_not_take(cuda):
@@ -1129,22 +1219,27 @@ def test_block_kernels_raise_on_what_they_do_not_take(cuda):
     leaves = [t.requires_grad_() for t in (y, z)]
     with pytest.raises(RuntimeError, match="no backward"):
         ops.gated_norm(leaves[0], None, leaves[1], None, scale)
+    c = _decode_case(cuda, 1, 4, 8, 16, 1, torch.float32, 4)
     with pytest.raises(ValueError, match="must be a contiguous"):
-        K8.decode_step(torch.zeros(1, 4, 8, device=cuda),
-                       torch.zeros(1, 4, 16, 8, device=cuda),
-                       torch.zeros(1, 4, device=cuda),
-                       *(torch.zeros(4, device=cuda),) * 2,
-                       *(torch.zeros(1, 1, 16, device=cuda),) * 2,
-                       torch.zeros(4, device=cuda))
+        _decode_run(K8.decode_layer, c, [t.transpose(1, 2).contiguous()
+                                         .transpose(1, 2)
+                                         for t in c["states"]])
+    for p, n in ((6, 16), (8, 300)):
+        with pytest.raises(ValueError, match="takes K=4"):
+            _decode_run(K8.decode_layer, _decode_case(
+                cuda, 1, 4, p, n, 1, torch.float32, 4))
+    with pytest.raises(ValueError, match="takes K=4"):
+        _decode_run(K8.decode_layer, dict(c, ws=[w[:3] for w in c["ws"]],
+                                          states=[t[:, :2] for t in
+                                                  c["states"]]))
+    with pytest.raises(TypeError):
+        _decode_run(K8.decode_layer, {k: [t.half() for t in v]
+                                      if isinstance(v, list) else v.half()
+                                      if k != "vectors" else v
+                                      for k, v in c.items()})
     with pytest.raises(RuntimeError, match="nvcc failed"):
         nvcc.start("mamba_decode", ("--no-such-nvcc-flag",)).wait()
-    assert K8.decode_step(torch.zeros(1, 4, 8, device=cuda),
-                          torch.zeros(1, 4, 16, 8, device=cuda),
-                          torch.zeros(1, 1, 4, device=cuda),
-                          *(torch.zeros(4, device=cuda),) * 2,
-                          *(torch.zeros(1, 1, 16, device=cuda),) * 2,
-                          torch.zeros(4, device=cuda))[0].shape == (1, 4, 16,
-                                                                   8)
+    assert _decode_run(K8.decode_layer, c)[0].shape == (1, 4, 8)
 
 
 def _offset(t, shift: int):

@@ -310,17 +310,21 @@ def test_wrappers_on_meta_tensors_give_shapes():
     D = torch.empty(4, device=m)
     scale = torch.empty(32, device=m)
     assert ops.gated_norm(x, x, x, D, scale).shape == x.shape
-    s_new, y = ops.decode_step(
-        torch.empty(2, 4, 8, device=m, dtype=torch.bfloat16),
-        torch.empty(2, 4, 16, 8, device=m),
-        torch.empty(2, 1, 4, device=m, dtype=torch.bfloat16), D, D,
-        torch.empty(2, 1, 16, device=m, dtype=torch.bfloat16),
-        torch.empty(2, 1, 16, device=m, dtype=torch.bfloat16), D)
-    assert s_new.shape == (2, 4, 16, 8) and y.shape == (2, 4, 8)
+    bf = dict(device=m, dtype=torch.bfloat16)
+    states = [torch.empty(2, K - 1, c, **bf) for c in (32, 16, 16)]
+    ssm = torch.empty(2, 4, 16, 8, device=m)
+    y, got_states, got_ssm = ops.decode_layer(
+        torch.empty(2, 1, 32, **bf), torch.empty(2, 1, 16, **bf),
+        torch.empty(2, 1, 16, **bf), torch.empty(2, 1, 4, **bf),
+        [torch.empty(K, c, **bf) for c in (32, 16, 16)],
+        [torch.empty(c, **bf) for c in (32, 16, 16)], states, ssm, D, D, D)
+    assert y.shape == (2, 4, 8) and got_ssm is ssm
+    assert all(a is b for a, b in zip(got_states, states))
 
 
 # ---------------------------------------------------------------------------
-# K8: the decode's state step, and the layer and models through all three
+# K8: the decode layer's state step, and the layer and models through all
+# three
 # ---------------------------------------------------------------------------
 
 def _layer(arch: str, dtype: str):
@@ -368,6 +372,95 @@ def test_decode_step_plain_matches_repro(arch, dtype):
     assert s_got.dtype == torch.float32 and y_got.dtype == DTYPES[dtype][0]
     assert _rel(_np(s_got), _np(s_want)) <= 1e-6
     _forward_close(y_got, y_want, dtype)
+
+
+def _repro_layer_step(jl, jm, xs, Bm, Cm, dt, state):
+    """The JAX package's ``mamba_decode`` (models/mamba.py:236-257) from the
+    projections to the D skip: ``(y [Bt, H, P], new state)``."""
+    b, h, p = xs.shape[0], jm.n_heads, jm.head_dim
+    g, n = jm.n_groups, jm.d_state
+    xs, conv_x = jmamba._causal_conv(xs, jl["conv_x_w"], jl["conv_x_b"],
+                                     state["conv"]["x"])
+    Bm, conv_B = jmamba._causal_conv(Bm, jl["conv_B_w"], jl["conv_B_b"],
+                                     state["conv"]["B"])
+    Cm, conv_C = jmamba._causal_conv(Cm, jl["conv_C_w"], jl["conv_C_b"],
+                                     state["conv"]["C"])
+    xs = xs.reshape(b, 1, h, p)[:, 0]
+    Bm, Cm = Bm.reshape(b, g, n), Cm.reshape(b, g, n)
+    dt = jax.nn.softplus(dt.astype(jnp.float32) + jl["dt_bias"])[:, 0]
+    dA = jnp.exp(dt * -jnp.exp(jl["A_log"])[None, :])
+    Bh, Ch = jnp.repeat(Bm, h // g, axis=1), jnp.repeat(Cm, h // g, axis=1)
+    s_new = state["ssm"] * dA[..., None, None] + jnp.einsum(
+        "bhn,bh,bhp->bhnp", Bh.astype(jnp.float32), dt,
+        xs.astype(jnp.float32))
+    y = jnp.einsum("bhn,bhnp->bhp", Ch, s_new.astype(xs.dtype)) + \
+        xs * jl["D"][None, :, None].astype(xs.dtype)
+    return y, {"ssm": s_new, "conv": {"x": conv_x, "B": conv_B,
+                                      "C": conv_C}}
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-1.5-large-398b"])
+def test_decode_layer_plain_matches_repro_over_four_tokens(arch, dtype):
+    """K8's plain layer step (the three convs from their states, dt, the
+    decay, the state update, the D skip) against the JAX package's
+    ``mamba_decode`` arithmetic over four tokens from one random state, on
+    the reduced layer's converted parameters; the port's states are written
+    in place and carried from token to token, ``repro``'s returned."""
+    jm, tm, jl, tl = _layer(arch, dtype)
+    h, p, n, g = tm.n_heads, tm.head_dim, tm.d_state, tm.n_groups
+    widths = {"x": h * p, "B": g * n, "C": g * n}
+    a = _arrays(13, dtype, ssm=((2, h, n, p), 1.0, 0.0, False),
+                **{k: ((2, K - 1, c), 1.0, 0.0, True)
+                   for k, c in widths.items()})
+    js = {"ssm": jnp.asarray(a["ssm"]),
+          "conv": {k: _j(a[k], dtype) for k in widths}}
+    states = [_t(a[k], dtype) for k in widths]
+    ssm = torch.from_numpy(a["ssm"].copy())
+    ws = [tl[f"conv_{k}_w"] for k in widths]
+    bs = [tl[f"conv_{k}_b"] for k in widths]
+    for i in range(4):
+        t = _arrays(20 + i, dtype, xs=((2, 1, h * p), 1.0, 0.0, True),
+                    B=((2, 1, g * n), 1.0, 0.0, True),
+                    C=((2, 1, g * n), 1.0, 0.0, True),
+                    dt=((2, 1, h), 1.0, 0.0, True))
+        y_want, js = _repro_layer_step(
+            jl, jm, *(_j(t[k], dtype) for k in ("xs", "B", "C", "dt")), js)
+        y_got = K8.decode_layer_plain(
+            *(_t(t[k], dtype) for k in ("xs", "B", "C", "dt")), ws, bs,
+            states, ssm, tl["dt_bias"], tl["A_log"], tl["D"])
+        assert y_got.dtype == DTYPES[dtype][0]
+        _forward_close(y_got, y_want, dtype)
+        assert _rel(_np(ssm), _np(js["ssm"])) <= \
+            (1e-6 if dtype == "f32" else 2.0 ** -8), i
+        for k, st in zip(widths, states):
+            _forward_close(st, js["conv"][k], dtype)
+
+
+def test_mamba_decode_writes_its_states_in_place():
+    """``mamba_decode`` returns the state tensors it was given, written in
+    place with what a call on their clones returns, the wrapper's plain
+    version on the CPU as on the card."""
+    _, tm, _, tl = _layer("mamba2-1.3b", "f32")
+    rng = np.random.default_rng(14)
+    h, p, n = tm.n_heads, tm.head_dim, tm.d_state
+    state = {"ssm": torch.from_numpy(
+        rng.normal(size=(2, h, n, p)).astype(np.float32)),
+        "conv": {k: torch.from_numpy(rng.normal(
+            size=(2, K - 1, c)).astype(np.float32))
+            for k, c in (("x", h * p), ("B", n), ("C", n))}}
+    before = torch.utils._pytree.tree_map(torch.clone, state)
+    clones = torch.utils._pytree.tree_map(torch.clone, state)
+    x = torch.from_numpy(rng.normal(size=(2, 1, tm.d_model)).astype(
+        np.float32))
+    out, new = tmamba.mamba_decode(tl, tm, x, state)
+    want_out, want = tmamba.mamba_decode(tl, tm, x, clones)
+    leaves = torch.utils._pytree.tree_leaves
+    assert all(a is b for a, b in zip(leaves(new), leaves(state)))
+    assert all(torch.equal(a, b) for a, b in zip(leaves(new), leaves(want)))
+    assert not any(torch.equal(a, b)
+                   for a, b in zip(leaves(new), leaves(before)))
+    assert torch.equal(out, want_out)
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])

@@ -215,6 +215,51 @@ def test_decode_program_matches_a_plain_decode_loop(arch):
     assert program.graph is None
 
 
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-1.5-large-398b"])
+def test_decode_program_makes_no_mamba_state_copy(arch, monkeypatch):
+    """Reduced Mamba models on the CPU: every cache ``decode_step`` returns
+    to the decode program is its own buffer, written in place, so the
+    program copies none of them back (no ``copy_`` takes a returned state
+    as its source) and its tokens are the plain loop's; the prefill's
+    caches stay as they were."""
+    cfg = get_reduced_config(arch)
+    params = TT.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    engine = TE.ServeEngine(cfg, params, max_len=32, device="cpu")
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab, size=20)
+    logits, caches, length = engine._prefill(prompt)
+    kept = torch.utils._pytree.tree_map(torch.clone, caches)
+    tok = torch.argmax(logits[0], dim=-1)
+    want = _plain_decode(params, cfg, torch.utils._pytree.tree_map(
+        torch.clone, caches), tok, length, 6)
+    program = TE.DecodeProgram(params, cfg, caches, tok)
+    leaves = torch.utils._pytree.tree_leaves
+    returned, sources = [], []
+    inner_step, inner_copy = TE.decode_step, torch.Tensor.copy_
+
+    def step(*a):
+        logits, new = inner_step(*a)
+        returned.append(leaves(new))
+        return logits, new
+
+    def copy_(dst, src, *a, **kw):
+        sources.append(src)
+        return inner_copy(dst, src, *a, **kw)
+
+    monkeypatch.setattr(TE, "decode_step", step)
+    monkeypatch.setattr(torch.Tensor, "copy_", copy_)
+    got = program.decode(caches, tok, length, 6).tolist()
+    monkeypatch.undo()
+    assert got == want
+    assert len(returned) == 6
+    bufs = leaves(program.caches)
+    assert all(all(a is b for a, b in zip(new, bufs)) for new in returned)
+    assert not any(src is t for src in sources for new in returned
+                   for t in new)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(caches),
+                                                 leaves(kept)))
+
+
 def test_engine_refuses_a_request_past_max_len():
     """A captured step cannot check its write position on the host: the
     engine refuses a request whose prompt and new tokens pass
