@@ -31,9 +31,11 @@ non-zero):
    identical counters through the vector engine (batched K1 launches) and
    the reference engine (one padded K1 group per prediction);
 7. report the builds of the flash attention (K2) and SSD scan (K3)
-   kernels (their ``nvcc`` runs, and those of the GRU fit (K4) and its
-   latency probe, start with K1's in phase 1); after phase 8, check that
-   ptxas spilled nothing in ``flash_attention_wgmma<256>``;
+   kernels and their backwards (their ``nvcc`` runs, and those of the GRU
+   fit (K4) and its latency probe, start with K1's in phase 1); after
+   phase 8, check that ptxas spilled nothing in
+   ``flash_attention_wgmma<256>`` and in K2's backward on its ``mma``
+   route;
 8. K2 against its plain version on the JAX package's ``ATTN_SWEEP`` shapes,
    ragged lengths, head dim 160, the stablelm-12b and gemma3-27b (window)
    prefill shapes, paligemma-3b's full-width attention (head dim 256, both
@@ -42,7 +44,16 @@ non-zero):
    musicgen-large's (32/32 heads of 64 at 2064) and yi-6b's prefill: the
    route each launch took (it must be the one ``route()`` names), errors,
    kernel, plain and ``scaled_dot_product_attention`` times, bound,
-   TFLOP/s, the share of the bf16 bound and the ratio to SDPA;
+   TFLOP/s, the share of the bf16 bound and the ratio to SDPA; 8b. K2's
+   backward, from the forward's output and log-sum-exp, against its plain
+   version (the gradient's formulas in eager float32) at yi-6b's training
+   shape (4 x 2048 tokens, 32/4 heads of 128), stablelm-12b's head dim 160,
+   musicgen-large's 64 (32/32 heads), gemma3-27b's window 1024,
+   paligemma-3b's 256 (8/1 heads) and a reduced float32 head dim 16:
+   relative L2 per gradient, two calls bitwise, the route, kernel, plain
+   and SDPA backward times, the bound, the device ms of each of its CUDA
+   kernels; then one yi-6b layer's attention forward and backward through
+   K2 and through autograd of the plain ``attention_any`` (times, peak);
 9. K3 against its plain version (the exact recurrence) on ``SSD_SWEEP``
    and the mamba2-1.3b prefill shape: the share of the bytes bound, CUDA
    kernels per call and scratch bytes; 9b. K3's backward, given the
@@ -148,9 +159,8 @@ non-zero):
     the generic route, and one prefill through the kernels against the same
     prefill through their plain versions (each engine decodes through its
     captured graph);
-18. training on the card, the SSD through K3 forward and backward (an
-    autograd Function), attention through the plain path with autograd (K2
-    has no backward; its launches must stay at zero), each ``train_loop``
+18. training on the card, the SSD through K3 and attention through K2,
+    each forward and backward (autograd Functions), each ``train_loop``
     step after the first a replay of one captured CUDA graph: (a) one
     float32 ``make_train_step`` step of reduced yi-6b, mamba2-1.3b,
     deepseek-v3 (MLA, MoE, MTP, aux loss) and jamba on the card against
@@ -178,10 +188,12 @@ non-zero):
     in place through K5 (three CUDA kernels a step, counted in the
     replay), peak memory printed beside the state's bytes, and the loss
     must fall; (c) the same for yi-6b at full width with its 32 layers
-    cut to 4 (no K3 launch); (e) yi-6b at full width and depth (6.06B
-    parameters) with bf16 moments, ``train_loop`` only (a functional
-    step would hold two copies of the state), then one profiled replay
-    of a captured program: step time, tokens/s, 6·N·T share, peak
+    cut to 4 (no K3 launch; K2 forward 8 and backward 4 a step, twice
+    each layer's forward with the remat recompute); (e) yi-6b at full
+    width and depth (6.06B parameters) with bf16 moments, ``train_loop``
+    only (a functional step would hold two copies of the state; K2
+    forward 64 and backward 32 a step), then one profiled replay of a
+    captured program: step time, tokens/s, 6·N·T share, peak
     allocated and reserved memory, busy share, and the update timed
     alone on the state itself; (d) a checkpoint at step 2 resumed to
     step 4 on a reduced config, bitwise equal to restoring by hand, then
@@ -255,12 +267,13 @@ The line before the last is ``{"kernels": [...]}``; the last line is
     python3 chip_smoke.py
 
 ``--only k2 k3 k4 k5 mamba`` (any of them) runs only phase 0, the named
-kernels' builds and their phases (7-8 for K2, 9-9b for K3 and its
+kernels' builds and their phases (7-8b for K2 and its backward, 9-9b for
+K3 and its
 backward, 9c-9d for K5, 9e for K6, K7 and K8, 14 for K4), then prints
 their records as ``{"kernels": [...]}`` and
 no ``ok`` line: a quick way to time the kernels of two checkouts in one call,
 by copying this script (and ``src/repro_torch/csrc/gru_latency_probe.cu``,
-for K4) into the other.  ``--only mesh`` builds K3, K5, K6 and K7 and runs
+for K4) into the other.  ``--only mesh`` builds K2, K3, K5, K6 and K7 and runs
 phases 18b, 18c and 18e (what the mesh phases are held to), then 22, 22b
 and 22c.
 """
@@ -943,8 +956,8 @@ def generic_route_ms(torch, K2, q, k, v, window) -> float:
 
     def run():
         err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
-            hq, k.shape[2], d, window or 0, 1.0 / math.sqrt(d),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+            b, s, hq, k.shape[2], d, window or 0, 1.0 / math.sqrt(d),
             K2._DTYPES[q.dtype], K2.ROUTES.index("generic"),
             torch.cuda.current_stream().cuda_stream)
         if err:
@@ -1039,6 +1052,268 @@ def phase_k2(torch, K2, dev) -> dict:
             "paligemma_3b": {key: pali[key] for key in (
                 "shape", "route", "ms", "library_ms", "bound_ms",
                 "generic_ms")}}
+
+
+# b, s, hq, hkv, d, window, dtype name: K2's backward at yi-6b's training
+# shape (the main path's: 4 x 2048 tokens, 32/4 heads of 128; first), at
+# stablelm-12b's head dim 160 (32/8), musicgen-large's 64 (32/32 heads),
+# gemma3-27b's local window of 1024 (32/16 heads of 128), paligemma-3b's
+# head dim 256 (8/1) and reduced yi-6b's float32 generic route (4/2 heads
+# of 16), each over 2048 positions
+ATTN_BWD_SHAPES = [
+    (4, 2048, 32, 4, 128, None, "bfloat16"),
+    (1, 2048, 32, 8, 160, None, "bfloat16"),
+    (1, 2048, 32, 32, 64, None, "bfloat16"),
+    (1, 2048, 32, 16, 128, 1024, "bfloat16"),
+    (1, 2048, 8, 1, 256, None, "bfloat16"),
+    (4, 2048, 4, 2, 16, None, "float32"),
+]
+# relative L2 of each gradient against the plain backward: float32 sums
+# in another order; bfloat16 rounds P and dS to bf16 for their products
+# (the plain version keeps them float32) and the gradients to bf16
+K2_BWD_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+# the forward's output against the plain forward's (atol = rtol, as phase 8)
+# and its log-sum-exp (atol 2e-4, rtol 2e-5: float32 sums in another order)
+K2_FWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+K2_LSE_ATOL, K2_LSE_RTOL = 2e-4, 2e-5
+# relative L2 of K2's gradients through autograd against autograd of the
+# plain attention_any on float32 copies of the same inputs
+K2_LAYER_TOL = 1e-2
+
+
+def attention_inputs(torch, gen, dev, b, s, hq, hkv, d, dtype):
+    """q, k, v and an output cotangent, normal, in ``dtype``."""
+    return [torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+            for h in (hq, hkv, hkv, hq)]
+
+
+def sdpa_backward_ms(torch, q, k, v, do, window) -> float:
+    """The backward of one ``scaled_dot_product_attention`` call
+    (``enable_gqa``; the window as a boolean mask) under autograd: CUDA
+    events around ``torch.autograd.grad`` of a kept graph."""
+    F = torch.nn.functional
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    s = q.shape[1]
+    if window is None:
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+    else:
+        pos = torch.arange(s, device=q.device)
+        mask = (pos[:, None] >= pos[None, :]) & \
+            (pos[:, None] - pos[None, :] < window)
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                             enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    ms = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                             retain_graph=True), reps=5)
+    del out
+    return ms
+
+
+def check_lse(name: str, got, want) -> float:
+    """Max abs error of a log-sum-exp; raise unless finite and within
+    ``K2_LSE_ATOL + K2_LSE_RTOL * |want|``."""
+    import torch
+    diff = (got - want).abs()
+    ok = bool((diff <= K2_LSE_ATOL + K2_LSE_RTOL * want.abs()).all())
+    if not ok or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: log-sum-exp outside atol "
+                             f"{K2_LSE_ATOL} rtol {K2_LSE_RTOL} (max abs "
+                             f"err {float(diff.max()):.3g})")
+    return float(diff.max())
+
+
+def k2_bwd_case(torch, K2, dev, gen, shape) -> dict:
+    """One shape of K2's backward, from the forward kernel's output and
+    log-sum-exp, both first held against the plain forward's: the kernel
+    against its plain version (relative L2 per gradient), bitwise across
+    two calls, the route ``backward_route`` names, its time and the plain
+    version's (CUDA events), SDPA's backward, the bound, the device time
+    of each of its CUDA kernels; logs three lines and returns the
+    numbers."""
+    b, s, hq, hkv, d, window, dname = shape
+    dtype = getattr(torch, dname)
+    tol = K2_BWD_TOL[dname]
+    q, k, v, do = attention_inputs(torch, gen, dev, b, s, hq, hkv, d, dtype)
+    o, lse = K2.flash_attention(q, k, v, window=window, return_lse=True)
+    o_want, lse_want = K2.flash_attention_plain(q, k, v, window=window,
+                                                return_lse=True)
+    name = f"K2 forward {shape}"
+    o_err, _ = close(name + " o", o, o_want, K2_FWD_TOL[dname])
+    lse_err = check_lse(name, lse, lse_want)
+    del o_want, lse_want
+    free(torch)
+    log(f"K2 forward with L b={b} s={s} hq={hq} hkv={hkv} d={d} "
+        f"window={window} {dname} route={K2.route(d, dtype)}: o "
+        f"max_abs_err={o_err:.3g} (tol {K2_FWD_TOL[dname]}) lse "
+        f"max_abs_err={lse_err:.3g} (atol {K2_LSE_ATOL} rtol {K2_LSE_RTOL})")
+    args = (q, k, v, o, lse, do)
+    path = K2.backward_route(d, dtype)
+    before = dict(K2.BWD_ROUTE_LAUNCHES)
+    got = K2.flash_attention_backward(*args, window=window)
+    moved = [r for r, c in K2.BWD_ROUTE_LAUNCHES.items() if c != before[r]]
+    if moved != [path]:
+        raise AssertionError(f"K2 backward: launched {moved}, "
+                             f"backward_route() names {path}")
+    again = K2.flash_attention_backward(*args, window=window)
+    bitwise = all(bool(torch.equal(x, y)) for x, y in zip(got, again))
+    del again
+    out = {}
+
+    def plain():
+        out["want"] = K2.flash_attention_backward_plain(*args, window=window)
+
+    plain_ms = cuda_ms(plain, reps=1, warmup=False)
+    errs = {}
+    for name, x, w in zip(("dq", "dk", "dv"), got, out.pop("want")):
+        rel = float((x.float() - w.float()).norm() / w.float().norm())
+        errs[name] = (rel, float((x.float() - w.float()).abs().max()))
+        if not (rel <= tol and bool(torch.isfinite(x).all())):
+            raise AssertionError(f"K2 backward {shape} {name}: rel L2 "
+                                 f"{rel:.3g} past {tol}")
+    if not bitwise:
+        raise AssertionError(f"K2 backward {shape}: two calls differ")
+    del got
+    free(torch)
+
+    def kernel():
+        K2.flash_attention_backward(*args, window=window)
+
+    ms = cuda_ms(kernel, reps=5)
+    lib_ms = sdpa_backward_ms(torch, q, k, v, do, window)
+    esize = q.element_size()
+    # read q, k, v, o, dO and L once; write dq, dk, dv once
+    nbytes = (4 * hq + 4 * hkv) * b * s * d * esize + b * hq * s * 4
+    flops = 10 * d * live_pairs(s, window) * hq * b
+    bound, by = roofline(nbytes, flops, dtype)
+    split = kernel_split(torch, kernel, "flash_bwd_")
+    err = max(e[1] for e in errs.values())
+    log(f"K2 backward b={b} s={s} hq={hq} hkv={hkv} d={d} window={window} "
+        f"{dname} route={path}: rel_l2=" + ",".join(
+            f"{n}:{e[0]:.3g}" for n, e in errs.items())
+        + f" (tol {tol}) max_abs_err={err:.3g} bitwise_two_calls={bitwise} "
+        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"sdpa_backward_ms={lib_ms:.4f} bound_ms={bound:.5f} ({by}) "
+        f"share_of_bound={bound / ms:.4f} gflop={flops / 1e9:.3f} "
+        f"tflop_per_s={flops / ms / 1e9:.2f} kernel_over_sdpa="
+        f"{ms / lib_ms:.3f} scratch_bytes={b * hq * s * 4}")
+    log(f"K2 backward split b={b} s={s} hq={hq} hkv={hkv} d={d} "
+        f"window={window} {dname} (device ms of one call by CUDA kernel, "
+        f"torch.profiler): " + ("not measured" if split is None else " ".join(
+            f"{n}={v[1]:.4f}({v[0]})" for n, v in split.items())))
+    return {"shape": f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} window={window} "
+                     f"{dname}", "route": path, "max_abs_err": err,
+            "rel_l2": {n: e[0] for n, e in errs.items()}, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
+            "bound_by": by, "bitwise_two_calls": bitwise,
+            "o_max_abs_err": o_err, "lse_max_abs_err": lse_err,
+            "split_ms": None if split is None else {
+                n: v[1] for n, v in split.items()}}
+
+
+def attention_layer_ms(torch, dev, shape) -> dict:
+    """One yi-6b layer's attention at its training shape, forward and
+    backward, through K2 (``ops.flash_attention`` under autograd: the
+    forward kernel with its log-sum-exp, then the backward kernel) and
+    through autograd of the plain ``attention_any`` (the dense path at S =
+    2048, what the train step ran before K2 had a backward), on the same
+    inputs (CUDA events).  K2's output and gradients are then held against
+    autograd of ``attention_any`` on float32 copies of those inputs (rel L2
+    within ``K2_LAYER_TOL``): a check that starts from the inputs, not
+    from the kernel's own output and log-sum-exp."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import attention_any
+    b, s, hq, hkv, d, window, dname = shape
+    gen = torch.Generator(device=dev).manual_seed(81)
+    *ins, do = attention_inputs(torch, gen, dev, b, s, hq, hkv, d,
+                                getattr(torch, dname))
+    out, kept = {}, {}
+    for label, fn in (("k2", ops.flash_attention), ("plain", attention_any)):
+        live = [t.detach().requires_grad_() for t in ins]
+
+        def fwd():
+            out["y"] = fn(*live, window=window)
+
+        def bwd():
+            out.pop("grads", None)  # the peak holds one set of gradients
+            out["grads"] = torch.autograd.grad(out["y"], live, do,
+                                               retain_graph=True)
+
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fwd_ms = cuda_ms(fwd, reps=3)
+        bwd_ms = cuda_ms(bwd, reps=3)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        out[label] = (fwd_ms, bwd_ms, peak)
+        kept[label] = (out.pop("y").detach(), *out.pop("grads"))
+        del live
+        free(torch)
+    ref = [t.detach().float().requires_grad_() for t in ins]
+    y = attention_any(*ref, window=window)
+    want = (y.detach(), *torch.autograd.grad(y, ref, do.float()))
+    del y, ref
+    names = ("o", "dq", "dk", "dv")
+    errs = {lab: {n: rel_l2(torch, g, w)
+                  for n, g, w in zip(names, kept[lab], want)}
+            for lab in kept}
+    del kept, want
+    free(torch)
+    log(f"one yi-6b layer's attention at B={b} S={s} {hq}/{hkv} heads of "
+        f"{d} {dname}, forward and backward: K2 forward_ms="
+        f"{out['k2'][0]:.4f} backward_ms={out['k2'][1]:.4f} "
+        f"peak_gib_above_inputs={out['k2'][2]:.3f}; autograd of the plain "
+        f"attention_any forward_ms={out['plain'][0]:.4f} backward_ms="
+        f"{out['plain'][1]:.4f} peak_gib_above_inputs={out['plain'][2]:.3f}")
+    log("  rel L2 against autograd of attention_any in float32 (tol "
+        f"{K2_LAYER_TOL} for K2): " + "; ".join(
+            f"{lab} " + ",".join(f"{n}:{e:.3g}" for n, e in errs[lab].items())
+            for lab in errs))
+    bad = {n: e for n, e in errs["k2"].items() if not e <= K2_LAYER_TOL}
+    if bad:
+        raise AssertionError(f"K2 through autograd at {shape}: rel L2 {bad} "
+                             f"past {K2_LAYER_TOL} of autograd of "
+                             f"attention_any in float32")
+    return {"k2_forward_ms": out["k2"][0], "k2_backward_ms": out["k2"][1],
+            "k2_peak_gib": out["k2"][2], "plain_forward_ms": out["plain"][0],
+            "plain_backward_ms": out["plain"][1],
+            "plain_peak_gib": out["plain"][2],
+            "rel_l2_vs_float32_autograd": errs}
+
+
+def check_bwd_spills(spills: dict[str, int]) -> None:
+    """K2's backward on the ``mma`` route must not spill (its dK/dV block
+    holds two float32 accumulators of 64 x D/2 a warp pair)."""
+    mma = {f: n for f, n in spills.items() if "_mma" in f}
+    log(f"K2 backward mma spill store bytes: {mma}")
+    if not mma or any(mma.values()):
+        raise AssertionError(f"K2 backward mma route: spill stores {mma}")
+
+
+def phase_k2_backward(torch, K2, dev) -> dict:
+    log("== phase 8b: K2 backward vs plain (the gradient's formulas in "
+        "eager float32)")
+    gen = torch.Generator(device=dev).manual_seed(28)
+    cases = [k2_bwd_case(torch, K2, dev, gen, shape)
+             for shape in ATTN_BWD_SHAPES]
+    main = cases[0]
+    return {"name": "flash_attention_backward", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/models/attention.py:242 (attention_any "
+                        "in gqa_forward, differentiated inside the jitted "
+                        "train step src/repro/train/loop.py:108 and fused "
+                        "by XLA; the pallas_call of "
+                        "src/repro/kernels/flash_attention.py:132 has no "
+                        "backward)",
+            "launches": 0,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            **{key: main[key] for key in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms",
+                                          "split_ms", "rel_l2")},
+            "shape": main["shape"],
+            "cases": cases[1:],
+            "attention_layer": attention_layer_ms(torch, dev,
+                                                  ATTN_BWD_SHAPES[0])}
 
 
 def k3_case(torch, K3, dev, gen, shape) -> dict:
@@ -3403,14 +3678,22 @@ def step_profile(torch, fn, label: str, reps: int = 3, table_ok=None,
 
 
 # what the device time of a profiled train step is split into, by kernel
-# name: K5 (AdamW), K3 forward, K3 backward, the Mamba block's K6 (conv)
-# and K7 (gated norm) forward and backward and K8 (decode step), matrix
-# products (cuBLAS); the rest are the elementwise, reduction and copy
-# kernels
+# name: K5 (AdamW), K2 forward and backward, K3 forward, K3 backward, the
+# Mamba block's K6 (conv) and K7 (gated norm) forward and backward and K8
+# (decode step), matrix products (cuBLAS); then the plain attention's own
+# kernels (its softmax, the softmax's backward, the `where` of its mask),
+# the cross-entropy's (the gold logit's gather and its scatter backward,
+# the max, exp and log of its logsumexp), copies and casts (the float32
+# casts of the plain attention's logits among them, and every other
+# cast); the rest are the other elementwise and reduction kernels
 def op_class(name: str) -> str:
     low = name.lower()
     if "adamw_" in name:
         return "K5"
+    if "flash_bwd_" in name:
+        return "K2 backward"
+    if "flash_attention_" in name:
+        return "K2 forward"
     if "::bwd_" in name:
         return "K3 backward"
     if "ssd_" in name:
@@ -3424,14 +3707,27 @@ def op_class(name: str) -> str:
             return cls
     if any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet", "cublas")):
         return "GEMMs"
+    if "softmax" in low and "logsoftmax" not in low:
+        return ("attention softmax backward" if "backward" in low
+                else "attention softmax")
+    if "where_kernel" in low:
+        return "attention where"
+    if any(k in low for k in ("gather", "scatter", "log_kernel", "exp_kernel",
+                              "maxops", "logsoftmax", "nll_loss")):
+        return "cross-entropy"
+    if "copy_kernel" in low:
+        return "copies and casts"
     return "other"
 
 
-# kernels that each call of a wrapper launches once: K3's, by route (its
+# kernels that each call of a wrapper launches once: K2's forward (one
+# kernel on every route) and its backward's dQ pass; K3's, by route (its
 # forward's output pass or generic scan, its backward's gradient pass or
 # generic backward); K5's three kernels, each once a call; K6's and K7's
 # forward and backward (one call without a mesh group); K8
-ONCE_PER_CALL = {"K3": ("::ssd_output_", "::ssd_scan_generic"),
+ONCE_PER_CALL = {"K2": ("flash_attention_",),
+                 "K2_backward": ("flash_bwd_dq_",),
+                 "K3": ("::ssd_output_", "::ssd_scan_generic"),
                  "K3_backward": ("::bwd_grad_", "::bwd_generic"),
                  "K5": ("adamw_norm", "adamw_finish", "adamw_apply"),
                  "K6": ("conv_fwd<",), "K6_backward": ("conv_bwd<",),
@@ -3440,7 +3736,7 @@ ONCE_PER_CALL = {"K3": ("::ssd_output_", "::ssd_scan_generic"),
 
 
 def port_calls(table) -> dict:
-    """K3, K6 and K7 forward and backward calls, K8 calls, and K5's
+    """K2, K3, K6 and K7 forward and backward calls, K8 calls, and K5's
     kernels, a profiled kernel table holds."""
     return {k: sum(e.count for e in table if any(m in e.key for m in marks))
             for k, marks in ONCE_PER_CALL.items()}
@@ -3473,14 +3769,16 @@ def mamba_layers(cfg) -> int:
 
 
 def step_calls(cfg, mesh: bool = False) -> dict:
-    """Wrapper calls of one train step: K3, K6 and K7 forward once a Mamba
-    layer (twice with the remat recompute) and backward once, K5 once
-    (three kernels; four on a mesh), no K2 or K8."""
-    n = mamba_layers(cfg)
-    fwd = n * (1 if cfg.remat == "none" else 2)
-    return {"K2": 0, "K3": fwd, "K3_backward": n, "K5": 4 if mesh else 3,
-            "K6": fwd, "K6_backward": n, "K7": fwd, "K7_backward": n,
-            "K8": 0}
+    """Wrapper calls of one train step: K2 forward once an attention layer
+    and K3, K6 and K7 forward once a Mamba layer (each twice with the
+    remat recompute), each one's backward once, K5 once (three kernels;
+    four on a mesh), no K8."""
+    n, a = mamba_layers(cfg), attn_layers(cfg)
+    passes = 1 if cfg.remat == "none" else 2
+    fwd = n * passes
+    return {"K2": a * passes, "K2_backward": a, "K3": fwd, "K3_backward": n,
+            "K5": 4 if mesh else 3, "K6": fwd, "K6_backward": n, "K7": fwd,
+            "K7_backward": n, "K8": 0}
 
 
 def train_cell(torch, cfg, dev, counts: dict, label: str, tcfg=None,
@@ -3490,7 +3788,7 @@ def train_cell(torch, cfg, dev, counts: dict, label: str, tcfg=None,
     ``PrefetchingLoader``, TRAIN_BATCH x TRAIN_SEQ tokens a step for
     TRAIN_STEPS steps: an eager warm-up step, then one step captured in a
     CUDA graph and replayed.  Gates: every loss and grad norm finite, no
-    step skipped, the last loss below the first, no K2 or K8 launch, and
+    step skipped, the last loss below the first, no K8 launch, and K2's,
     K3's, K6's and K7's forward and backward and K5's wrappers called
     exactly the step's count twice (the warm-up and the capture; replays
     call no wrapper).  Then, in the same run, eager ``make_train_step``
@@ -3502,8 +3800,9 @@ def train_cell(torch, cfg, dev, counts: dict, label: str, tcfg=None,
     in-place update timed alone (on a copy of the state with ``eager``,
     else on the state itself, last), and (Mamba) one layer's SSD through
     K3 and through autograd of the plain ``ssd_chunked``.  A gate reads
-    the profiled replay's kernel table: it ran K3's, K6's and K7's forward
-    and backward and K5's three kernels the step's count of times.  The
+    the profiled replay's kernel table: it ran K2's, K3's, K6's and K7's
+    forward and backward and K5's three kernels the step's count of
+    times.  The
     launches
     reported are those executed: the warm-up's and each replay's,
     TRAIN_STEPS steps of the step's count."""
@@ -3548,6 +3847,7 @@ def train_cell(torch, cfg, dev, counts: dict, label: str, tcfg=None,
         loader.close()
     K6, K7, K8 = counts["K6"], counts["K7"], counts["K8"]
     wrapper_calls = {"K2": sum(counts["K2"].ROUTE_LAUNCHES.values()),
+                     "K2_backward": counts["K2"].BWD_LAUNCHES,
                      "K3": K3.LAUNCHES, "K3_backward": K3.BWD_LAUNCHES,
                      "K5": K5.LAUNCHES, "K6": K6.LAUNCHES,
                      "K6_backward": K6.BWD_LAUNCHES, "K7": K7.LAUNCHES,
@@ -3632,7 +3932,7 @@ def train_cell(torch, cfg, dev, counts: dict, label: str, tcfg=None,
         if not replay_vs_eager:
             raise AssertionError(f"{label}: a graph replay differs from the "
                                  f"eager step")
-    # a replay must show K3's and K5's kernels the step's count of times; a
+    # a replay must show the port's kernels the step's count of times; a
     # trace of ~10k kernels now and then misses records (its kernel count
     # moves between traces of one graph), and is taken again
     want = {k: per_step[k] for k in ONCE_PER_CALL}
@@ -3651,8 +3951,8 @@ def train_cell(torch, cfg, dev, counts: dict, label: str, tcfg=None,
                              f"graph ({program.replays} replays)")
     replayed = port_calls(graph["table"])
     launches = {k: v * TRAIN_STEPS for k, v in per_step.items()}
-    log(f"{label}: one profiled replay ran {replayed} (K3, K6, K7: kernels "
-        f"launched once a call; K5: its three kernels; trace "
+    log(f"{label}: one profiled replay ran {replayed} (K2, K3, K6, K7: "
+        f"kernels launched once a call; K5: its three kernels; trace "
         f"{graph['traces']}); executed launches over the {TRAIN_STEPS} steps"
         f" (warm-up and {TRAIN_STEPS - 1} replays) {launches}")
     if replayed != want:
@@ -3784,9 +4084,10 @@ def train_resume(torch, dev) -> None:
 
 
 def train_phase(torch, counts: dict, dev) -> dict:
-    """Phase 18: training on the card.  ``counts``: the K2, K3 and K5
-    modules (K2's launches must stay at zero, K3's must match each step's
-    Mamba layers, K5's three kernels a step)."""
+    """Phase 18: training on the card.  ``counts``: the kernel modules
+    (K2's forward and backward launches must match each step's attention
+    layers, K3's, K6's and K7's its Mamba layers, K5's three kernels a
+    step)."""
     from repro_torch.configs import get_config
     from repro_torch.train.loop import TrainConfig
     from repro_torch.train.optimizer import AdamWConfig
@@ -4421,7 +4722,7 @@ def mesh_mamba_phase(torch, counts: dict, dev, phase18b: dict) -> dict:
     batches = mesh_batches(cfg, MESH_TRAIN_STEPS)
     tcfg = TrainConfig(log_every=1)
     per_step = {k: v for k, v in step_calls(cfg, mesh=True).items()
-                if k != "K2"}
+                if not k.startswith("K2")}
     hist = []
     free(torch)
     for mod in counts.values():
@@ -4875,16 +5176,20 @@ def mesh_train_only(torch, K2, K3, K5, mamba, dev) -> dict:
 
 def run_only(torch, np, only, built, K2, K3, K4, K5, mamba, T_rnn, nvcc,
              dev) -> int:
-    """``--only``: the named kernels' phases (7-8 for K2, 9-9b for K3 and
+    """``--only``: the named kernels' phases (7-8b for K2 and its
+    backward, 9-9b for K3 and
     its backward, 9c-9d for K5, 9e for K6, K7 and K8 (``mamba``), 14 for
     K4; ``mesh``: 18b, 18c, 18e, 22, 22b, 22c) and their records as one
     ``{"kernels": [...]}`` line."""
     records = []
     if "k2" in only:
-        log("== phase 7: build K2")
+        log("== phase 7: build K2 and K2's backward")
         spills = log_build("K2", *built["K2"])
+        bwd_spills = log_build("K2 backward", *built["K2 backward"])
         records.append(phase_k2(torch, K2, dev))
         check_wgmma_256(spills)
+        check_bwd_spills(bwd_spills)
+        records.append(phase_k2_backward(torch, K2, dev))
     if "k3" in only:
         log("== phase 7: build K3 and K3's backward")
         log_build("K3", *built["K3"])
@@ -4901,6 +5206,9 @@ def run_only(torch, np, only, built, K2, K3, K4, K5, mamba, T_rnn, nvcc,
         got = phase_mamba_kernels(torch, *mamba, dev)
         records += [got["K6"], got["K7"], got["K8"]]
     if "mesh" in only:
+        if "k2" not in only:
+            log_build("K2", *built["K2"])
+            check_bwd_spills(log_build("K2 backward", *built["K2 backward"]))
         if "k3" not in only:
             log_build("K3", *built["K3"])
             log_build("K3 backward", *built["K3 backward"])
@@ -4925,11 +5233,11 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--only", nargs="+",
         choices=("k2", "k3", "k4", "k5", "mamba", "mesh"),
-        help="run only these kernels' builds and phases (7-8: K2, 9-9b: "
-             "K3 and its backward, 9c-9d: K5, 9e: the Mamba block's K6, K7 "
-             "and K8, 14: K4; mesh: K3's, K5's, K6's and K7's builds, 18b, "
-             "18c, 18e, 22, 22b and 22c) and print their records; no ok "
-             "line")
+        help="run only these kernels' builds and phases (7-8b: K2 and its "
+             "backward, 9-9b: K3 and its backward, 9c-9d: K5, 9e: the Mamba "
+             "block's K6, K7 and K8, 14: K4; mesh: K2's, K3's, K5's, K6's "
+             "and K7's builds, 18b, 18c, 18e, 22, 22b and 22c) and print "
+             "their records; no ok line")
     args = parser.parse_args(argv)
     try:
         import torch
@@ -4941,7 +5249,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     if not all((SRC / "repro_torch" / "csrc" / f"{name}.cu").is_file()
-               for name in ("arima_bank", "flash_attention", "ssd_scan",
+               for name in ("arima_bank", "flash_attention",
+                            "flash_attention_bwd", "ssd_scan",
                             "ssd_scan_bwd", "gru_fit", "gru_latency_probe",
                             "adamw", "mamba_conv", "gated_norm",
                             "mamba_decode")):
@@ -4976,6 +5285,7 @@ def main(argv=None) -> int:
         f"count={torch.cuda.device_count()}")
 
     starts = {"K1": K.start_build, "K2": K2.start_build,
+              "K2 backward": K2.start_build_backward,
               "K3": K3.start_build, "K3 backward": K3.start_build_backward,
               "K4": K4.start_build, "K5": K5.start_build,
               "K6": K6.start_build, "K7": K7.start_build,
@@ -4984,15 +5294,15 @@ def main(argv=None) -> int:
                   "gru_latency_probe", K4.NVCC_FLAGS, verbose)}
     if args.only:
         log(f"== phase 1: build {' and '.join(args.only)}")
-        wanted = set(args.only) | ({"k3", "k5", "k6", "k7"}
+        wanted = set(args.only) | ({"k2", "k3", "k5", "k6", "k7"}
                                    if "mesh" in args.only else set()) | (
             {"k6", "k7", "k8"} if "mamba" in args.only else set())
         starts = {name: start for name, start in starts.items()
                   if name.split()[0].lower() in wanted}
     else:
-        log("== phase 1: build K1 (K2, K3, K3's backward, K4, K4's "
-            "latency probe, K5, K6, K7 and K8 build alongside, one nvcc "
-            "each)")
+        log("== phase 1: build K1 (K2, K2's backward, K3, K3's backward, "
+            "K4, K4's latency probe, K5, K6, K7 and K8 build alongside, one "
+            "nvcc each)")
     t_build = time.perf_counter()
     builds = {name: start(verbose=True) for name, start in starts.items()}
     # collected in turn: each time is from the common start to the moment
@@ -5011,12 +5321,16 @@ def main(argv=None) -> int:
 
     kernels, reuse = drive(torch, np, T, T_arima, K, dev)
 
-    log("== phase 7: build K2, K3, K3's backward, K5, K6, K7 and K8")
+    log("== phase 7: build K2, K2's backward, K3, K3's backward, K5, K6, "
+        "K7 and K8")
     wg_spills = log_build("K2", *built["K2"])
+    bwd_spills = log_build("K2 backward", *built["K2 backward"])
     for name in ("K3", "K3 backward", "K5", "K6", "K7", "K8"):
         log_build(name, *built[name])
     k2 = phase_k2(torch, K2, dev)
     check_wgmma_256(wg_spills)
+    check_bwd_spills(bwd_spills)
+    k2b = phase_k2_backward(torch, K2, dev)
     k3 = phase_k3(torch, K3, dev)
     k3b = phase_k3_backward(torch, K3, dev)
     k5 = phase_k5(torch, K5, dev)
@@ -5047,6 +5361,20 @@ def main(argv=None) -> int:
                                   "K7": K7, "K8": K8}, dev)
     log("phase 18 summary: " + json.dumps(trained))
     mamba = trained["mamba2-1.3b"]
+    for cell in ("yi-6b", "yi-6b-4l"):
+        key = cell.replace("-", "_")
+        k2[f"launches_train_{key}"] = trained[cell]["launches"]["K2"]
+        k2[f"wrapper_calls_train_{key}"] = \
+            trained[cell]["wrapper_calls"]["K2"]
+        k2b[f"launches_{key}" if cell != "yi-6b" else "launches"] = \
+            trained[cell]["launches"]["K2_backward"]
+        k2b[f"wrapper_calls_train_{key}"] = \
+            trained[cell]["wrapper_calls"]["K2_backward"]
+        k2b[f"launches_per_step_{key}"] = \
+            trained[cell]["launches_per_step"]["K2_backward"]
+        k2b[f"train_step_device_ms_{key}"] = {
+            part: trained[cell]["op_split"].get(f"K2 {part}")
+            for part in ("forward", "backward")}
     k3["launches_train_mamba2_1_3b"] = mamba["launches"]["K3"]
     k3["wrapper_calls_train_mamba2_1_3b"] = mamba["wrapper_calls"]["K3"]
     k3b["launches"] = mamba["launches"]["K3_backward"]
@@ -5091,7 +5419,7 @@ def main(argv=None) -> int:
     k2["launches_paligemma_3b"] = big["paligemma-3b"]["launches"]["K2"]
     k2["launches_arctic_480b_1l"] = big["arctic-480b-1l"]
     k2["launches_musicgen_large"] = big["musicgen-large"]
-    kernels += [k2, k3, k3b, k5, block["K6"], block["K7"], block["K8"], {
+    kernels += [k2, k2b, k3, k3b, k5, block["K6"], block["K7"], block["K8"], {
         "name": "gru_fit",
         "route": "cuda",
         "source": "src/repro_torch/csrc/gru_fit.cu",

@@ -98,8 +98,9 @@ constexpr size_t smem_bytes() {
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_fma(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, float* __restrict__ o, int S,
-                    int Hq, int Hkv, int window, float scale) {
+                    const float* __restrict__ v, float* __restrict__ o,
+                    float* __restrict__ lse, int S, int Hq, int Hkv,
+                    int window, float scale) {
   static_assert(D % 32 == 0, "D must be a multiple of 32");
   constexpr int kCols = (D + 63) / 64;  // groups of 4 output columns per thread
   extern __shared__ float4 smem4[];
@@ -229,6 +230,8 @@ flash_attention_fma(const float* __restrict__ q, const float* __restrict__ k,
     const long long pos = R / G, g = R % G;
     float* out = o + ((b * (long long)S + pos) * Hq + h * G + g) * D;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[(b * (long long)Hq + h * G + g) * S + pos] = m[i] + logf(l[i]);
     for (int j = 0; j < kCols; ++j) {
       if (64 * j + 4 * tx >= D) continue;
       for (int e = 0; e < 4; ++e) out[64 * j + 4 * tx + e] = acc[i][j][e] * inv;
@@ -237,8 +240,9 @@ flash_attention_fma(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int Hq, int Hkv, int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int Hq, int Hkv, int window, float scale,
+           cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   static bool configured = false;
   if (!configured) {
@@ -252,8 +256,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   dim3 grid((unsigned)((n_rows + kRows - 1) / kRows), Hkv, B);
   flash_attention_fma<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, Hq, Hkv, window,
-      scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, Hq, Hkv,
+      window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -294,8 +298,9 @@ constexpr size_t smem_bytes() {
 template <int DP, typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_generic(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, T* __restrict__ o, int S,
-                        int Hq, int Hkv, int D, int window, float scale) {
+                        const T* __restrict__ v, T* __restrict__ o,
+                        float* __restrict__ lse, int S, int Hq, int Hkv, int D,
+                        int window, float scale) {
   constexpr int kCols = DP / 16;
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);  // [DP][kStride]
@@ -418,6 +423,8 @@ flash_attention_generic(const T* __restrict__ q, const T* __restrict__ k,
     const long long pos = R / G, g = R % G;
     T* out = o + ((b * (long long)S + pos) * Hq + h * G + g) * D;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[(b * (long long)Hq + h * G + g) * S + pos] = m[i] + logf(l[i]);
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
       const int col = tx + 16 * j;
@@ -427,8 +434,8 @@ flash_attention_generic(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <int DP, typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int Hq, int Hkv, int D, int window, float scale,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int Hq, int Hkv, int D, int window, float scale,
            cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DP>();
   static bool configured = false;
@@ -443,22 +450,22 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   dim3 grid((unsigned)((n_rows + kRows - 1) / kRows), Hkv, B);
   flash_attention_generic<DP, T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, Hq, Hkv, D, window,
-      scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, Hq, Hkv, D,
+      window, scale);
   return (int)cudaGetLastError();
 }
 
 // the smallest padded width that holds D
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int S, int Hq, int Hkv, int D, int window, float scale,
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
+             int B, int S, int Hq, int Hkv, int D, int window, float scale,
              cudaStream_t stream) {
   if (D < 1 || D > 256) return -1;
-  if (D <= 16) return launch<16, T>(q, k, v, o, B, S, Hq, Hkv, D, window, scale, stream);
-  if (D <= 32) return launch<32, T>(q, k, v, o, B, S, Hq, Hkv, D, window, scale, stream);
-  if (D <= 64) return launch<64, T>(q, k, v, o, B, S, Hq, Hkv, D, window, scale, stream);
-  if (D <= 128) return launch<128, T>(q, k, v, o, B, S, Hq, Hkv, D, window, scale, stream);
-  return launch<256, T>(q, k, v, o, B, S, Hq, Hkv, D, window, scale, stream);
+  if (D <= 16) return launch<16, T>(q, k, v, o, lse, B, S, Hq, Hkv, D, window, scale, stream);
+  if (D <= 32) return launch<32, T>(q, k, v, o, lse, B, S, Hq, Hkv, D, window, scale, stream);
+  if (D <= 64) return launch<64, T>(q, k, v, o, lse, B, S, Hq, Hkv, D, window, scale, stream);
+  if (D <= 128) return launch<128, T>(q, k, v, o, lse, B, S, Hq, Hkv, D, window, scale, stream);
+  return launch<256, T>(q, k, v, o, lse, B, S, Hq, Hkv, D, window, scale, stream);
 }
 
 }  // namespace gen
@@ -633,8 +640,9 @@ template <int D>
 __global__ void __launch_bounds__(Shape<D>::kThreads, 1)
 flash_attention_wgmma(const __grid_constant__ CUtensorMap tmap_k,
                       const __grid_constant__ CUtensorMap tmap_v,
-                      const bf16* __restrict__ q, bf16* __restrict__ o, int S,
-                      int Hq, int Hkv, int window, float scale_log2) {
+                      const bf16* __restrict__ q, bf16* __restrict__ o,
+                      float* __restrict__ lse, int S, int Hq, int Hkv,
+                      int window, float scale_log2) {
   using Sh = Shape<D>;
   constexpr int kPanels = Sh::kPanels;
   constexpr int kStages = Sh::kStages;
@@ -856,6 +864,16 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tmap_k,
     lB += __shfl_xor_sync(0xffffffffu, lB, off);
   }
   const float invA = 1.f / fmaxf(lA, 1e-30f), invB = 1.f / fmaxf(lB, 1e-30f);
+  // L in natural units: m is kept in the log2 domain of scale * log2 e
+  if (lse != nullptr && qd == 0) {
+    constexpr float kLn2 = 0.6931471805599453f;
+    if (RA < n_rows)
+      lse[(b * (long long)Hq + h * G + (int)(RA % G)) * S + posA] =
+          mA * kLn2 + logf(lA);
+    if (RB < n_rows)
+      lse[(b * (long long)Hq + h * G + (int)(RB % G)) * S + posB] =
+          mB * kLn2 + logf(lB);
+  }
   bf16* outA = nullptr;
   bf16* outB = nullptr;
   if (RA < n_rows)
@@ -918,8 +936,9 @@ int kv_map(CUtensorMap* map, const void* ptr, int B, int S, int Hkv, int D) {
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int Hq, int Hkv, int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int Hq, int Hkv, int window, float scale,
+           cudaStream_t stream) {
   constexpr size_t smem = Shape<D>::kSmem;
   static bool configured = false;
   if (!configured) {
@@ -937,8 +956,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   const long long n_rows = (long long)S * (Hq / Hkv);
   dim3 grid((unsigned)((n_rows + kRows - 1) / kRows), Hkv, B);
   flash_attention_wgmma<D><<<grid, Shape<D>::kThreads, smem, stream>>>(
-      tk, tv, static_cast<const bf16*>(q), static_cast<bf16*>(o), S, Hq, Hkv,
-      window, scale * 1.4426950408889634f);
+      tk, tv, static_cast<const bf16*>(q), static_cast<bf16*>(o), lse, S, Hq,
+      Hkv, window, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -960,12 +979,12 @@ constexpr bool fast_d(int d) {
 // route 0 (fma, float32) or 1 (wgmma, bfloat16) at a fast head dim D
 template <int D>
 int launch_fast(int route, const void* q, const void* k, const void* v,
-                void* o, int B, int S, int Hq, int Hkv, float scale,
-                int window, cudaStream_t stream) {
+                void* o, float* lse, int B, int S, int Hq, int Hkv,
+                float scale, int window, cudaStream_t stream) {
   if constexpr (fast_d(D)) {
     if (route == 0)
-      return f32::launch<D>(q, k, v, o, B, S, Hq, Hkv, window, scale, stream);
-    return wg::launch<D>(q, k, v, o, B, S, Hq, Hkv, window, scale, stream);
+      return f32::launch<D>(q, k, v, o, lse, B, S, Hq, Hkv, window, scale, stream);
+    return wg::launch<D>(q, k, v, o, lse, B, S, Hq, Hkv, window, scale, stream);
   }
   return -1;
 }
@@ -975,33 +994,38 @@ int launch_fast(int route, const void* q, const void* k, const void* v,
 // route: 0 fma (float32), 1 wgmma (bfloat16), both at the fast head dims;
 // 2 generic (float32 or bfloat16, 1 <= D <= 256), as kernels/
 // flash_attention.py::route names it.  dtype: 0 float32, 1 bfloat16.
-// window <= 0: no window.  Returns a CUDA error code (0 on success); -1 for
-// a route, shape or type the kernel does not take, -2 if the CUDA driver
-// cannot encode a TMA descriptor, -3 for a pointer that is not 16-byte
-// aligned (wgmma).
+// window <= 0: no window.  lse: null, or float32 [B, Hq, S] that receives
+// each row's log-sum-exp L = m + log(l) of its scaled, masked logits in
+// natural units (the wgmma route converts its log2-domain max), which K2's
+// backward (csrc/flash_attention_bwd.cu) reads; serving passes null and
+// no route's output changes with it.  Returns a CUDA error code (0 on
+// success); -1 for a route, shape or type the kernel does not take, -2 if
+// the CUDA driver cannot encode a TMA descriptor, -3 for a pointer that is
+// not 16-byte aligned (wgmma).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int S,
-                                      int Hq, int Hkv, int D, int window,
-                                      float scale, int dtype, int route,
-                                      cudaStream_t stream) {
+                                      const void* v, void* o, void* lse,
+                                      int B, int S, int Hq, int Hkv, int D,
+                                      int window, float scale, int dtype,
+                                      int route, cudaStream_t stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0) return -1;
+  float* l = static_cast<float*>(lse);
   if (route == 2) {
     if (dtype == 0)
-      return gen::dispatch<float>(q, k, v, o, B, S, Hq, Hkv, D, window, scale, stream);
+      return gen::dispatch<float>(q, k, v, o, l, B, S, Hq, Hkv, D, window, scale, stream);
     if (dtype == 1)
-      return gen::dispatch<__nv_bfloat16>(q, k, v, o, B, S, Hq, Hkv, D, window, scale, stream);
+      return gen::dispatch<__nv_bfloat16>(q, k, v, o, l, B, S, Hq, Hkv, D, window, scale, stream);
     return -1;
   }
   if (route != dtype || (route != 0 && route != 1) || !fast_d(D)) return -1;
   switch (D) {
-    case 32: return launch_fast<32>(route, q, k, v, o, B, S, Hq, Hkv, scale, window, stream);
-    case 64: return launch_fast<64>(route, q, k, v, o, B, S, Hq, Hkv, scale, window, stream);
-    case 96: return launch_fast<96>(route, q, k, v, o, B, S, Hq, Hkv, scale, window, stream);
-    case 128: return launch_fast<128>(route, q, k, v, o, B, S, Hq, Hkv, scale, window, stream);
-    case 160: return launch_fast<160>(route, q, k, v, o, B, S, Hq, Hkv, scale, window, stream);
-    case 192: return launch_fast<192>(route, q, k, v, o, B, S, Hq, Hkv, scale, window, stream);
-    case 224: return launch_fast<224>(route, q, k, v, o, B, S, Hq, Hkv, scale, window, stream);
-    case 256: return launch_fast<256>(route, q, k, v, o, B, S, Hq, Hkv, scale, window, stream);
+    case 32: return launch_fast<32>(route, q, k, v, o, l, B, S, Hq, Hkv, scale, window, stream);
+    case 64: return launch_fast<64>(route, q, k, v, o, l, B, S, Hq, Hkv, scale, window, stream);
+    case 96: return launch_fast<96>(route, q, k, v, o, l, B, S, Hq, Hkv, scale, window, stream);
+    case 128: return launch_fast<128>(route, q, k, v, o, l, B, S, Hq, Hkv, scale, window, stream);
+    case 160: return launch_fast<160>(route, q, k, v, o, l, B, S, Hq, Hkv, scale, window, stream);
+    case 192: return launch_fast<192>(route, q, k, v, o, l, B, S, Hq, Hkv, scale, window, stream);
+    case 224: return launch_fast<224>(route, q, k, v, o, l, B, S, Hq, Hkv, scale, window, stream);
+    case 256: return launch_fast<256>(route, q, k, v, o, l, B, S, Hq, Hkv, scale, window, stream);
     default: return -1;
   }
 }

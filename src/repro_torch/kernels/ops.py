@@ -11,14 +11,13 @@ models' own chunked PyTorch paths, exactly what the JAX package runs off
 the TPU (``attention_any``, ``ssd_chunked``).  Same function, so the
 models' results do not depend on the dispatch beyond rounding.
 
-K3 has a backward: on CUDA it runs as :class:`SSDScan`, an autograd
-Function whose forward is K3 and whose backward is K3's backward kernel
-(:func:`repro_torch.kernels.ssd_scan.ssd_scan_backward`), so training
-runs the SSD through K3 in both directions.  K2 has none: a CUDA input
-that requires grad while grad mode is on raises rather than being
-detached silently, and the training forward calls the plain attention
-path directly, as the JAX package does.  On the CPU autograd
-differentiates both plain paths.
+K2 and K3 have backwards: on CUDA, where autograd needs a gradient, they
+run as :class:`FlashAttention` and :class:`SSDScan`, autograd Functions
+whose forward is the kernel and whose backward is its backward kernel
+(:func:`repro_torch.kernels.flash_attention.flash_attention_backward`,
+:func:`repro_torch.kernels.ssd_scan.ssd_scan_backward`), so training runs
+attention and the SSD through K2 and K3 in both directions.  On the CPU
+autograd differentiates the plain paths, as the JAX package does.
 
 The Mamba block's fused work goes through here too: the causal conv with
 its SiLU (K6, :mod:`repro_torch.kernels.mamba_conv`, under autograd
@@ -70,6 +69,32 @@ def _no_backward(kernel: str, *inputs) -> None:
             f"kernel's output would not carry it; differentiate the plain "
             f"path (models.attention.attention_any) or call under "
             f"torch.no_grad()")
+
+
+class FlashAttention(torch.autograd.Function):
+    """K2 under autograd: the output by the forward kernel, which also keeps
+    each row's log-sum-exp; the gradients of ``q, k, v`` by K2's backward
+    kernel from the saved ``q, k, v``, output and log-sum-exp (a missing
+    cotangent counts as zero).  On the CPU and the meta device the same
+    through the plain forward and backward, for the tests; the models'
+    path there is ``attention_any`` under autograd."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        ctx.set_materialize_grads(False)
+        out, lse = _k2.flash_attention(q, k, v, causal=causal, window=window,
+                                       scale=scale, return_lse=True)
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = torch.zeros_like(out) if dout is None else dout.contiguous()
+        return (*_k2.flash_attention_backward(
+            q, k, v, out, lse, dout, causal=ctx.causal, window=ctx.window,
+            scale=ctx.scale), None, None, None)
 
 
 class SSDScan(torch.autograd.Function):
@@ -270,7 +295,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
 def _flash_attention(q, k, v, *, causal, window, scale, chunk_size,
                      dense_threshold, meta: bool = False):
     if q.device.type == "cuda":
-        _no_backward("K2 (flash attention)", q, k, v)
+        if _wants_grad(q, k, v):
+            return FlashAttention.apply(q, k, v, causal, window, scale)
         return _k2.flash_attention(q, k, v, causal=causal, window=window,
                                    scale=scale)
     _cpu_only(q, meta)

@@ -8,11 +8,11 @@ Two plain compute paths:
   kv-chunk) pairs the causal/window structure allows, so it does the
   triangle's work, not the full S² square.
 
-``gqa_prefill`` goes through :func:`repro_torch.kernels.ops.flash_attention`:
-the hand-written kernel K2 on CUDA, ``attention_any`` on the CPU.  The
-training forward, ``gqa_forward``, calls ``attention_any`` on every device,
-as the JAX package does, so that autograd differentiates it (K2 has no
-backward).
+``gqa_prefill`` and the training forward ``gqa_forward`` go through
+:func:`repro_torch.kernels.ops.flash_attention`: the hand-written kernel K2
+on CUDA (under autograd its backward kernel too), ``attention_any`` on the
+CPU and the meta device, which autograd differentiates there as the JAX
+package's step differentiates it.
 
 MLA is evaluated in its *absorbed* form: the per-head no-PE query is
 projected into the KV latent space, so attention runs like MQA with a shared
@@ -231,10 +231,9 @@ def gqa_forward(params, cfg: AttentionConfig, x: torch.Tensor,
     """Training self-attention.  x: [B,S,D]; positions: [S]."""
     b, s, _ = x.shape
     q, k, v = _qkv(params, cfg, x, positions)
-    out = ops.attention_per_rank(functools.partial(
-        attention_any, causal=True, window=cfg.window,
-        chunk_size=cfg.chunk_size, dense_threshold=cfg.dense_threshold),
-        q, k, v)
+    out = ops.flash_attention(q, k, v, causal=True, window=cfg.window,
+                              chunk_size=cfg.chunk_size,
+                              dense_threshold=cfg.dense_threshold)
     return out.reshape(b, s, -1) @ params["w_o"]
 
 

@@ -4,8 +4,9 @@ segmented launch), flash attention (K2: fast and generic routes), SSD scan
 kernels against their plain PyTorch versions on CUDA tensors (K3's
 backward also bit for bit across two calls), the port's device paths on
 CUDA (MoE, MLA and the prefix and codebook stubs included, against the
-CPU), K2's entry refusing an input that requires grad and K3's returning
-gradients through its backward kernel (the train step on the card
+CPU), K2's backward against its plain version (both routes, bit for bit
+across calls and graph replays, what it refuses), K2's and K3's entries
+returning gradients through their backward kernels (the train step on the card
 against the CPU's is phase 18a of ``chip_smoke.py``), the train loop's
 step captured in a CUDA graph against eager steps, bit for bit, and
 the multi-device layer at mesh size 1 over NCCL (the train step,
@@ -306,6 +307,167 @@ def test_flash_attention_kernel_raises_on_what_it_does_not_take(cuda):
     q = torch.zeros((1, 16, 2, 64), device=cuda)
     with pytest.raises(ValueError, match="causal"):
         K2.flash_attention(q, q, q, causal=False)
+
+
+# ---------------------------------------------------------------------------
+# K2's backward: against its plain version, from the forward kernel's output
+# and log-sum-exp
+# ---------------------------------------------------------------------------
+
+# b, s, hq, hkv, d, window, dtype: both routes at tails that are not whole
+# tiles of 64 keys or folded rows, with and without a window, at groups of
+# 1, 7 and 8 query heads; S = 1; yi-6b's heads at a ragged length; the mma
+# route's head dims 64, 160 and 256; the reduced configs' head dims 8-20 in
+# both types
+BWD_ATTN_SHAPES = [
+    (1, 77, 8, 8, 128, None, torch.bfloat16),
+    (2, 100, 14, 2, 128, 32, torch.bfloat16),
+    (1, 130, 8, 1, 128, None, torch.bfloat16),
+    (1, 1, 4, 1, 64, None, torch.bfloat16),
+    (1, 300, 32, 4, 128, None, torch.bfloat16),
+    (1, 200, 16, 8, 128, 100, torch.bfloat16),
+    (2, 65, 4, 4, 64, None, torch.bfloat16),
+    (1, 150, 16, 2, 64, 7, torch.bfloat16),
+    (1, 77, 8, 2, 160, 16, torch.bfloat16),
+    (1, 129, 4, 1, 160, None, torch.bfloat16),
+    (1, 77, 8, 8, 128, None, torch.float32),
+    (2, 100, 14, 2, 128, 32, torch.float32),
+    (1, 130, 8, 1, 64, None, torch.float32),
+    (1, 1, 4, 1, 160, None, torch.float32),
+    (1, 65, 8, 1, 256, None, torch.bfloat16),
+    (1, 40, 4, 2, 256, 9, torch.float32),
+    (2, 100, 4, 2, 16, None, torch.bfloat16),
+    (1, 70, 6, 2, 12, 5, torch.float32),
+    (1, 90, 7, 1, 20, None, torch.float32),
+    (1, 33, 8, 1, 8, None, torch.bfloat16),
+]
+# relative L2 of each gradient: float32 sums in other orders; bfloat16
+# rounds P and dS to bf16 for their products where the plain version keeps
+# them float32, and rounds the gradients.  A reference whose RMS is under
+# 1e-3 (dq and dk at S = 1 are zero but for rounding: each row's softmax is
+# the constant 1) is held by the error's RMS, the inputs being of unit
+# scale.
+K2_BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+
+
+def _grad_err(got, want) -> float:
+    g, w = got.double(), want.double()
+    den = w.norm()
+    if den <= 1e-3 * w.numel() ** 0.5:
+        den = w.numel() ** 0.5
+    return float((g - w).norm() / den)
+
+
+def _attn_bwd_inputs(cuda, b, s, hq, hkv, d, window, dtype, seed):
+    """q, k, v, the forward kernel's output and log-sum-exp, and dO."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = _randn(gen, (b, s, hq, d), dtype, cuda)
+    k = _randn(gen, (b, s, hkv, d), dtype, cuda)
+    v = _randn(gen, (b, s, hkv, d), dtype, cuda)
+    do = _randn(gen, (b, s, hq, d), dtype, cuda)
+    o, lse = K2.flash_attention(q, k, v, window=window, return_lse=True)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,window,dtype", BWD_ATTN_SHAPES)
+def test_flash_backward_kernel_matches_plain(cuda, b, s, hq, hkv, d, window,
+                                             dtype):
+    args = _attn_bwd_inputs(cuda, b, s, hq, hkv, d, window, dtype, s + hq)
+    path = K2.backward_route(d, dtype)
+    K2.reset_counts()
+    got = K2.flash_attention_backward(*args, window=window)
+    want = K2.flash_attention_backward_plain(*args, window=window)
+    torch.cuda.synchronize()
+    assert K2.BWD_LAUNCHES == K2.BWD_ROUTE_LAUNCHES[path] == 1
+    assert K2.LAUNCHES == 0
+    for name, a, w, like in zip(("dq", "dk", "dv"), got, want, args):
+        assert a.dtype == like.dtype and a.shape == like.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        err = _grad_err(a, w)
+        assert err <= K2_BWD_TOL[dtype], (name, err)
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,window,dtype", [
+    (1, 77, 8, 8, 128, None, torch.bfloat16),
+    (2, 100, 14, 2, 128, 32, torch.bfloat16),
+    (1, 130, 8, 1, 256, None, torch.bfloat16),
+    (1, 65, 6, 2, 12, 5, torch.float32),
+    (1, 200, 4, 2, 160, None, torch.float32),
+    (2, 2048, 16, 2, 128, None, torch.bfloat16),
+    (1, 2048, 16, 8, 128, 1024, torch.bfloat16),
+    (1, 2048, 8, 2, 160, None, torch.bfloat16)])
+def test_flash_forward_lse_matches_plain_and_leaves_the_output(
+        cuda, b, s, hq, hkv, d, window, dtype):
+    """Every route's log-sum-exp against the plain version's, and the
+    output bit for bit the same with and without it."""
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    q = _randn(gen, (b, s, hq, d), dtype, cuda)
+    k = _randn(gen, (b, s, hkv, d), dtype, cuda)
+    v = _randn(gen, (b, s, hkv, d), dtype, cuda)
+    out, lse = K2.flash_attention(q, k, v, window=window, return_lse=True)
+    alone = K2.flash_attention(q, k, v, window=window)
+    _, want = K2.flash_attention_plain(q, k, v, window=window,
+                                       return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, alone)
+    assert lse.dtype == torch.float32 and lse.shape == (b, hq, s)
+    torch.testing.assert_close(lse, want, atol=2e-4, rtol=2e-5)
+
+
+@pytest.mark.parametrize("d,dtype", [(128, torch.bfloat16),
+                                     (160, torch.bfloat16),
+                                     (16, torch.float32)])
+def test_flash_backward_two_calls_and_graph_replays_bitwise(cuda, d, dtype):
+    """Two calls, and two replays of a call captured in a CUDA graph, give
+    the same bits: every sum runs in a fixed order, no atomics."""
+    args = _attn_bwd_inputs(cuda, 2, 150, 14, 2, d, None, dtype, 3)
+    one = K2.flash_attention_backward(*args)
+    two = K2.flash_attention_backward(*args)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        K2.flash_attention_backward(*args)          # warm-up on the stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = K2.flash_attention_backward(*args)
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append([t.clone() for t in captured])
+    for got in (two, *replays):
+        for a, b in zip(one, got):
+            assert torch.equal(a, b)
+
+
+def test_flash_backward_raises_on_what_it_does_not_take(cuda):
+    args = list(_attn_bwd_inputs(cuda, 1, 64, 4, 2, 64, None, torch.bfloat16,
+                                 0))
+    K2.reset_counts()
+    with pytest.raises(ValueError, match="causal"):
+        K2.flash_attention_backward(*args, causal=False)
+    short_v = args[2][..., :32].contiguous()
+    with pytest.raises(ValueError, match="Dk == Dv"):
+        K2.flash_attention_backward(args[0], args[1], short_v, *args[3:])
+    with pytest.raises(TypeError, match="one type"):
+        K2.flash_attention_backward(*args[:5], args[5].float())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        K2.flash_attention_backward(*(a.half() for a in args[:4]), args[4],
+                                    args[5].half())
+    with pytest.raises(ValueError, match="lse"):
+        K2.flash_attention_backward(*args[:4], args[4].double(), args[5])
+    with pytest.raises(ValueError, match="contiguous"):
+        K2.flash_attention_backward(*args[:5],
+                                    args[5].transpose(1, 2).contiguous()
+                                    .transpose(1, 2))
+    with pytest.raises(ValueError, match="window"):
+        K2.flash_attention_backward(*args, window=0)
+    wide = torch.zeros((1, 8, 2, 264), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        K2.flash_attention_backward(wide, wide, wide, wide,
+                                    torch.zeros((1, 2, 8), device=cuda), wide)
+    assert K2.BWD_LAUNCHES == 0
 
 
 # K3: the shapes of the JAX package's SSD_SWEEP, then a ragged length and
@@ -824,8 +986,8 @@ def test_gru_fit_launch_refuses_what_it_does_not_take(cuda):
 
 
 # ---------------------------------------------------------------------------
-# training on the card: K2 has no backward, so its entry refuses an input
-# that requires grad; K3's returns gradients through its backward kernel
+# training on the card: K2's and K3's entries return gradients through
+# their backward kernels
 # ---------------------------------------------------------------------------
 
 def _kernel_args(cuda, kernel: str):
@@ -846,17 +1008,29 @@ def _kernel_args(cuda, kernel: str):
 @pytest.mark.parametrize("which", [0, -1])
 def test_kernel_entry_refuses_an_input_that_requires_grad(cuda, kernel,
                                                           which):
+    """K2's entry no longer refuses an input that requires grad: it
+    differentiates through K2, one forward and one backward launch a call,
+    the gradient equal to the plain backward's at float32's tolerance;
+    under ``torch.no_grad`` and on detached inputs it runs the forward
+    only."""
     fn, mod, args = _kernel_args(cuda, kernel)
     args[which].requires_grad_()
     mod.reset_counts()
-    with pytest.raises(RuntimeError, match="no backward"):
-        fn(*args)
-    assert mod.LAUNCHES == 0
+    out = fn(*args)
+    dout = torch.randn(out.shape, generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda)
+    (grad,) = torch.autograd.grad(out, args[which], dout)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES == 1 and mod.BWD_LAUNCHES == 1
+    plain = [a.detach() for a in args]
+    o, lse = K2.flash_attention_plain(*plain, return_lse=True)
+    want = K2.flash_attention_backward_plain(*plain, o, lse, dout)[which]
+    assert _rel_l2(grad, want) <= K2_BWD_TOL[torch.float32]
     with torch.no_grad():                   # nothing to differentiate
         fn(*args)
     fn(*(a.detach() for a in args))
     torch.cuda.synchronize()
-    assert mod.LAUNCHES == 2
+    assert mod.LAUNCHES == 3 and mod.BWD_LAUNCHES == 1
 
 
 @pytest.mark.parametrize("which", [0, 1, 2, -1])
@@ -1538,12 +1712,15 @@ def test_graph_train_steps_equal_eager_steps_bitwise(cuda, arch):
     tcfg = TL.TrainConfig(log_every=1)
     batches = _train_batches(cfg, 4)
     hist = []
+    K2.reset_counts()
     K3.reset_counts()
     params, opt, _ = TL.train_loop(cfg, tcfg, iter(batches), 4, device=cuda,
                                    log_fn=lambda s, m: hist.append(m))
     torch.cuda.synchronize()
     mamba = any(m == "mamba" for m, _ in cfg.pattern)
+    attn = any(m == "attn" for m, _ in cfg.pattern)
     assert (K3.BWD_LAUNCHES > 0) == mamba and (K3.LAUNCHES > 0) == mamba
+    assert (K2.BWD_LAUNCHES > 0) == attn and (K2.LAUNCHES > 0) == attn
     p = TT.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
                        cuda)
     o = adamw_init(p, tcfg.optimizer)
