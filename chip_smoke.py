@@ -34,8 +34,8 @@ non-zero):
    kernels and their backwards (their ``nvcc`` runs, and those of the GRU
    fit (K4) and its latency probe, start with K1's in phase 1); after
    phase 8, check that ptxas spilled nothing in
-   ``flash_attention_wgmma<256>`` and in K2's backward on its ``mma``
-   route;
+   ``flash_attention_wgmma<256>`` and in K2's backward on its ``wgmma``
+   and ``mma`` routes;
 8. K2 against its plain version on the JAX package's ``ATTN_SWEEP`` shapes,
    ragged lengths, head dim 160, the stablelm-12b and gemma3-27b (window)
    prefill shapes, paligemma-3b's full-width attention (head dim 256, both
@@ -1282,12 +1282,16 @@ def attention_layer_ms(torch, dev, shape) -> dict:
 
 
 def check_bwd_spills(spills: dict[str, int]) -> None:
-    """K2's backward on the ``mma`` route must not spill (its dK/dV block
-    holds two float32 accumulators of 64 x D/2 a warp pair)."""
-    mma = {f: n for f, n in spills.items() if "_mma" in f}
-    log(f"K2 backward mma spill store bytes: {mma}")
-    if not mma or any(mma.values()):
-        raise AssertionError(f"K2 backward mma route: spill stores {mma}")
+    """K2's backward on its tensor-core routes must not spill: on ``wgmma``
+    a dK/dV thread holds dK and dV (128 float32 at D = 128) beside S^T or
+    dP^T, on ``mma`` the dK/dV block two float32 accumulators of 64 x D/2
+    a warp pair."""
+    for route in ("wgmma", "mma"):
+        got = {f: n for f, n in spills.items() if f"_{route}I" in f}
+        log(f"K2 backward {route} spill store bytes: {got}")
+        if not got or any(got.values()):
+            raise AssertionError(f"K2 backward {route} route: spill stores "
+                                 f"{got}")
 
 
 def phase_k2_backward(torch, K2, dev) -> dict:

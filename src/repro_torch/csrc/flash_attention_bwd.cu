@@ -25,38 +25,80 @@
 // give the same bits.
 //   flash_bwd_delta    D_, one warp a row (the only scratch: B * Hq * S
 //                      float32, from the wrapper's torch.empty).
-//   flash_bwd_dkdv_*   one block per (kv head, batch, tile of 64 keys): K
-//                      and V stay in shared memory; the block walks the
-//                      folded q rows from the tile's diagonal (R = k0 * G)
-//                      to the window's far edge (or the end) in tiles of
-//                      64 rows, recomputing P and dP; dK and dV accumulate
-//                      in float32 registers and are written once.
-//   flash_bwd_dq_*     one block per (kv head, batch, 64 folded rows): Q,
-//                      dO, L and D_ stay; it walks the key tiles the rows
+//   flash_bwd_dkdv_*   one block per (kv head, batch, tile of keys): K and
+//                      V stay in shared memory; the block walks the folded
+//                      q rows from the tile's diagonal (R = k0 * G) to the
+//                      window's far edge (or the end) in tiles of 64 rows,
+//                      recomputing P and dP; dK and dV accumulate in
+//                      float32 registers and are written once.
+//   flash_bwd_dq_*     one block per (kv head, batch, tile of folded rows):
+//                      Q, dO, L and D_ stay; it walks the key tiles the rows
 //                      reach in order, recomputing P and dP; dQ accumulates
 //                      in registers and is written once.
 // No [S, S] tensor is formed anywhere.
 //
-// Two routes; kernels/flash_attention.py::backward_route names one from
+// Three routes; kernels/flash_attention.py::backward_route names one from
 // (D, type) and the launcher takes exactly that one:
 //
+// wgmma (bfloat16 at the head dims the build's FLASH_BWD_WGMMA_D32_MASK
+// lists: the wrapper's BWD_WGMMA_HEAD_DIMS, D = 64 and 128).  Blocks of two
+// warpgroups; warpgroup w owns 64 keys (dK/dV walk) or 64 folded rows (dQ
+// walk) of the block's 128.  Every product is wgmma m64n64k16 with float32
+// accumulation on 128-byte-swizzled tiles of 64-column panels:
+//   dK/dV, a step of 64 rows:  S^T = K . Q^T;  P^T = exp(scale S^T - L),
+//       rounded to bf16, packed straight from the accumulator into the A
+//       fragments of dV += P^T . dO (dO read MN-major), issued with dP^T =
+//       V . dO^T;  dS^T = P^T o (dP^T - D_) from the rounded P^T, packed
+//       the same way into dK += dS^T . Q (Q read MN-major).
+//   dQ, a step of 64 keys:  S = Q . K^T and dP = dO . V^T, the exp of S
+//       while dP runs;  dS = P o (dP - D_), packed into dQ += dS . K (K
+//       read MN-major).
+// P^T and dS^T (P and dS) never leave registers: the S^T accumulator's
+// layout is that of the next product's A operand.
+//
+// The streamed tiles run through a ring of four stages with a `full` and
+// an `empty` mbarrier each; at step it the copies of step it + 2 are
+// issued while step it's first product runs.  K and V (dQ walk) and, where the
+// group G divides 64, Q and dO (dK/dV walk: a tile is then 64 / G whole
+// positions, one TMA box a panel) come by TMA, one tensor from the first
+// thread of each warpgroup.  Q and dO of a group that does not divide 64
+// (arctic-480b's 7), whose tiles start mid-group, and L and D_ come by
+// cp.async from the block's threads, whose landing the copy unit reports
+// to the same barrier.  No block-wide barrier inside a walk: a warpgroup
+// waits only for its stage's data and for every warp to have read the
+// stage it refills, so one's exp can overlap the other's products.  Steps
+// whose pairs are all dead for a warpgroup (the second's first G steps,
+// the first's last ones under a window) skip their products; only steps
+// that cross the diagonal, the window's far edge or the end of S mask.
+// The block is the two warpgroups alone, every thread a loader: 256
+// threads may hold 255 registers each, and the dK/dV walk at D = 128 keeps
+// dK and dV (128 float32) beside S^T or dP^T (32 each) without a spill
+// (chip_smoke.py's phase 7 checks it; a producer warpgroup that gives its
+// registers away by setmaxnreg left ptxas spilling this walk).  D = 160
+// and 256 stay on mma: at 64 columns a product their dK and dV alone are
+// 192 and 256 float32 a thread, and ptxas, given the wgmma dK/dV walk at
+// D = 256, takes 255 registers and spills 1,672 bytes (its dQ walk 254,
+// no spill; scripts/k2_bwd_wide_ptxas.py; the route's D = 64 and 128 walks
+// take 206 / 162 and 249 / 194).
+//
 // mma (bfloat16 at the head dims the build's FLASH_BWD_MMA_D32_MASK lists:
-// the wrapper's BWD_HEAD_DIMS): the five products on the tensor cores,
-// mma.sync m16n8k16 with bf16 operands and float32 accumulation, fed by
-// ldmatrix from padded shared tiles (row pitch D + 8 elements, so the 8
-// rows of one ldmatrix fall on 8 distinct bank groups).  P and dS are
-// rounded to bf16 for the products that take them, where the forward
-// rounds p; P's exponent and dS are float32.  The streamed operand (Q and
-// dO in the dK/dV walk, K and V in the dQ walk) is double-buffered with
-// cp.async, so the next tile's loads fly while this tile's products run.
-// Eight warps: the S^T / dP^T (S / dP) tile of 64 x 64 is 4 x 2 warp
-// tiles of 16 x 32; the dK/dV (dQ) accumulator of 64 x D is 4 x 2 warp
-// tiles of 16 x D/2.  P and dS go through shared memory between the two.
+// the wrapper's BWD_MMA_HEAD_DIMS, D = 160 and 256): the five products on
+// the tensor cores, mma.sync m16n8k16 with bf16 operands and float32
+// accumulation, fed by ldmatrix from padded shared tiles (row pitch D + 8
+// elements, so the 8 rows of one ldmatrix fall on 8 distinct bank groups).
+// P and dS are rounded to bf16 for the products that take them, where the
+// forward rounds p; P's exponent and dS are float32.  The streamed operand
+// (Q and dO in the dK/dV walk, K and V in the dQ walk) is double-buffered
+// with cp.async, so the next tile's loads fly while this tile's products
+// run.  Eight warps, tiles of 64 keys and 64 rows: the S^T / dP^T (S / dP)
+// tile of 64 x 64 is 4 x 2 warp tiles of 16 x 32; the dK/dV (dQ)
+// accumulator of 64 x D is 4 x 2 warp tiles of 16 x D/2.  P and dS go
+// through shared memory between the two.
 //
 // generic (float32 inputs at any D <= 256, bfloat16 at the head dims the
-// mma route does not take): float32 FMAs, the inputs widened in shared
-// memory with the head dim padded to DP (16, 32, 64, 128 or 256) and a
-// pitch of DP + 1 floats (odd: a column read by 16 threads hits 16
+// tensor-core routes do not take): float32 FMAs, the inputs widened in
+// shared memory with the head dim padded to DP (16, 32, 64, 128 or 256)
+// and a pitch of DP + 1 floats (odd: a column read by 16 threads hits 16
 // banks).  Tiles of 64 keys and 64 rows (32 at DP = 256, where four 64-row
 // tiles would not fit 227 KB).  Thread (ty, tx) of 16 x 16 owns keys (or
 // rows) ty + 16 i and rows (or keys) tx + 16 c of a score tile, and
@@ -65,13 +107,18 @@
 //
 // What bounds it.  Five products of 2 * D operations per live (q, k) pair
 // and head (S and dP twice: each walk recomputes them; counted once in
-// the bound, 10 * D), at the bf16 tensor peak on the mma route and the
-// float32 FMA peak on the generic one.  The design's first cost is that
-// recompute (7 products where the bound counts 5) and mma.sync's share of
-// the tensor cores' rate (wgmma is the card's full rate; a later design).
+// the bound, 10 * D), at the bf16 tensor peak on the tensor-core routes
+// and the float32 FMA peak on the generic one.  The design's first cost
+// is that recompute (7 products where the bound counts 5; fusing dQ into
+// the dK/dV walk would need atomics or an ordered semaphore); on wgmma,
+// 64-column products read both operands from shared memory at about the
+// rate the tensor cores consume them, and each warpgroup's steps chain a
+// product, its exp and the next product.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -630,6 +677,835 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
+// wgmma route: bfloat16 on wgmma, a producer warpgroup, P and dS in registers
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+using tc::pack_bf16;
+constexpr int kRows = 64;          // a warpgroup's keys (rows); a streamed tile
+constexpr int kBlock = 128;        // a block's keys (rows): two warpgroups
+constexpr int kThreads = 256;      // two warpgroups
+constexpr int kStages = 4;         // the ring of streamed tiles
+constexpr int kRowBytes = 128;     // a swizzled panel row: 64 bf16 columns
+
+template <int D>
+struct Shape {
+  static_assert(D == 64 || D == 128, "the wgmma route takes D = 64 or 128");
+  static constexpr int kPanels = D / 64;           // 64-column panels
+  static constexpr int kKSteps = D / 16;           // k-steps over D
+  static constexpr int kChunks = D / 8;            // 16-byte chunks a row
+  static constexpr int kPanel = kRows * kRowBytes; // a panel of a 64-row tile
+  static constexpr int kTile = kPanels * kPanel;   // a 64 x D tile
+  // dK/dV: K and V of the block's 128 keys stay; a stage holds Q, dO, L
+  // and D_ of 64 folded rows
+  static constexpr int kStageKV = 2 * kTile + 1024;  // L, D_: 512 bytes
+  static constexpr size_t kSmemKV =
+      1024 + 4 * kTile + kStages * kStageKV + 2 * kStages * 8;
+  // dQ: Q and dO of the block's 128 rows stay; a stage holds K and V of 64
+  // keys
+  static constexpr int kStageQ = 2 * kTile;
+  static constexpr size_t kSmemQ =
+      1024 + 4 * kTile + kStages * kStageQ + 2 * kStages * 8;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// bring a TMA descriptor (a __grid_constant__ parameter) into its cache
+__device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t addr, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, P1;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// wait until the phase of parity `parity` has completed; a completion that
+// never comes (~17 s of clock) traps instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  if (mbar_try_wait(addr, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(addr, parity))
+    if (clock64() - t0 > (1ll << 35)) __trap();
+}
+
+// generic-proxy stores (cp.async, st.shared) -> visible to wgmma
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle.  K-major operands use
+// only the stride between 8-row groups (1024 bytes); for an MN-major panel
+// (64 columns: one swizzle span) both offsets are that stride.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
+  constexpr uint64_t kStride = 1024 >> 4;
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | (kStride << 16) |
+         (kStride << 32) | (1ull << 62);
+}
+
+// 2^x (MUFU.EX2; subnormal results flush to zero)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the two bf16 of a packed pair, widened
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+}
+
+// pin registers around the asynchronous wgmma
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+#define WG_ACC32(d)                                                           \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),     \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),            \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),        \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),        \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),        \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
+      "+f"(d[31])
+#define WG_REGS32                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, " \
+  "%31}"
+
+#define WG_OUT32(d)                                                           \
+  "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]),     \
+      "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]),            \
+      "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),        \
+      "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]),        \
+      "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]),        \
+      "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]),        \
+      "=f"(d[31])
+
+// d[64 x 64] = A[64 x 16] (shared, K-major) . B[16 x 64] (shared, K-major)
+__device__ __forceinline__ void wgmma_ss_first(float (&d)[32], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : WG_OUT32(d)
+      : "l"(da), "l"(db), "r"(0));
+}
+
+// d[64 x 64] += A[64 x 16] (shared, K-major) . B[16 x 64] (shared, K-major)
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : WG_ACC32(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d[64 x 64] += A[64 x 16] (registers) . B[16 x 64] (shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : WG_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef WG_ACC32
+#undef WG_OUT32
+#undef WG_REGS32
+
+// d = A . B^T over D (64 x 64), A and B 64 x D tiles of 64-column panels
+// read K-major; issued, not waited for
+template <int D>
+__device__ __forceinline__ void issue_ss(float (&d)[32], uint32_t a,
+                                         uint32_t b) {
+  using Sh = Shape<D>;
+  wgmma_ss_first(d, desc_sw128(a), desc_sw128(b));
+#pragma unroll
+  for (int kk = 1; kk < Sh::kKSteps; ++kk) {
+    const uint32_t off = (kk / 4) * Sh::kPanel + (kk % 4) * 32;
+    wgmma_ss(d, desc_sw128(a + off), desc_sw128(b + off));
+  }
+}
+
+// acc[p] += A . B over 64 rows of K, A the packed bf16 fragments of a
+// 64 x 64 accumulator (k-step kk: a[4 kk .. 4 kk + 3]), B a 64 x D tile read
+// MN-major, one panel a product; issued, not waited for
+template <int D>
+__device__ __forceinline__ void issue_rs(float (&acc)[Shape<D>::kPanels][32],
+                                         const uint32_t (&a)[16], uint32_t b) {
+  using Sh = Shape<D>;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int p = 0; p < Sh::kPanels; ++p)
+      wgmma_rs(acc[p], a + 4 * kk,
+               desc_sw128(b + p * Sh::kPanel + kk * 16 * kRowBytes));
+}
+
+// 64 rows of two [B, S, H, D] tensors that share row offsets into two
+// 128-byte-swizzled 64 x D tiles by cp.async, 16 bytes a copy, from N
+// threads (t < N); row(r) gives row r's offset in elements, or -1 (zeros)
+template <int D, int N, typename RowFn>
+__device__ __forceinline__ void load_rows(uint8_t* dst0, const bf16* src0,
+                                          uint8_t* dst1, const bf16* src1,
+                                          int t, RowFn row) {
+  using Sh = Shape<D>;
+  static_assert(N % Sh::kChunks == 0, "a thread copies one column chunk");
+  const int c = t % Sh::kChunks;  // the same chunk of every row it copies
+  const int col = (c / 8) * Sh::kPanel + ((c % 8) << 4);
+#pragma unroll 1
+  for (int r = t / Sh::kChunks; r < kRows; r += N / Sh::kChunks) {
+    const long long off = row(r);
+    const int at = col + r * kRowBytes;
+    const int swz = (r & 7) << 4;  // 128-byte swizzle: chunk ^= row % 8
+    const long long from = off < 0 ? 0 : off + 8 * c;
+    tc::cp16(dst0 + (at ^ swz), src0 + from, off >= 0);
+    tc::cp16(dst1 + (at ^ swz), src1 + from, off >= 0);
+  }
+}
+
+// The ring's handshake.  A step's stage is filled kAhead steps before it
+// is read: at step it, once every warp has read the stage of step it - 2
+// (its `empty` barrier, one arrival a warp), step it + kAhead goes into
+// it, while the step's first product runs.  The stage's `full` barrier
+// takes an arrival from the copy unit for each thread that copies by
+// cp.async (when its copies have landed) and from each thread that issues
+// TMA (with its bytes), so a stage is ready when its data is, whatever
+// step each warpgroup is at.
+constexpr int kAhead = kStages - 2;
+
+__device__ __forceinline__ void stage_issued(uint64_t* full) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(full))
+               : "memory");
+}
+
+__device__ __forceinline__ void stage_wait(uint64_t* full, int it,
+                                           bool copied) {
+  mbar_wait(full, (it / kStages) & 1);
+  if (copied) fence_async_smem();  // cp.async wrote what wgmma reads
+}
+
+__device__ __forceinline__ void stage_read(uint64_t* empty, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(empty);
+}
+
+// before issuing step it + kAhead into the stage of step it - 2
+__device__ __forceinline__ void stage_free(uint64_t* empty, int it) {
+  mbar_wait(empty, (((it + kAhead) / kStages) & 1) ^ 1);
+}
+
+struct Args {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  const bf16* dout;
+  const float* lse;
+  const float* delta;
+  bf16* out0;  // dK (dK/dV walk) or dQ
+  bf16* out1;  // dV
+  int S, Hq, Hkv, window;
+  float scale;
+};
+
+// dK and dV of one tile of 128 keys of kv head h: warpgroup w owns keys
+// k0 + 64 w .. + 63 (K and V stay) and reads each streamed tile of 64
+// folded rows (Q, dO, L and D_) from the ring.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_wgmma(const __grid_constant__ Args a,
+                     const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_do) {
+  using Sh = Shape<D>;
+  extern __shared__ uint8_t smem_raw[];
+  // 128-byte swizzled tiles need 1024-byte alignment
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sK = base;                    // [warpgroup][panel][64 keys][128 B]
+  uint8_t* sV = sK + 2 * Sh::kTile;
+  uint8_t* ring = sV + 2 * Sh::kTile;    // stage: Q, dO, L, D_
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * Sh::kStageKV);
+  uint64_t* empty = full + kStages;
+
+  const int S = a.S, Hq = a.Hq, Hkv = a.Hkv, window = a.window;
+  const int G = Hq / Hkv;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * kBlock;  // key tile 0 (the longest walk) first
+  const int n_rows = S * G;            // S * G < 2^31 (the launcher checks)
+  // the rows that reach this tile: pos >= k0, pos < k0 + 128 + window - 1
+  const int r_lo = k0 * G;
+  const int pos_end = window > 0 ? min(S, k0 + kBlock - 1 + window) : S;
+  const int n_it = (int)(((long long)pos_end * G - r_lo + kRows - 1) / kRows);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wgi = warp / 4, wiw = warp % 4, tw = tid % 128;
+  const int kw0 = k0 + kRows * wgi;  // this warpgroup's first key
+  // a group that divides 64 makes a tile of rows 64 / G whole positions:
+  // one TMA box of (64 columns, G heads, 64 / G positions) a panel
+  const bool tma = kRows % G == 0;
+
+  // the TMA issuers: thread 0 (Q) and thread 128 (dO)
+  const bool issuer = tma && tw == 0;
+  if (issuer) tma_prefetch(wgi ? &tm_do : &tm_q);
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], kThreads + (tma ? 2 : 0));
+      mbar_init(&empty[s], kThreads / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the rows of step it into its stage: Q and dO by TMA from the issuers,
+  // or by every thread; L and D_ by threads 0-127
+  auto issue = [&](int it) {
+    uint64_t* bar = &full[it % kStages];
+    uint8_t* sq = ring + (it % kStages) * Sh::kStageKV;
+    float* sl = reinterpret_cast<float*>(sq + 2 * Sh::kTile);
+    const int q0 = r_lo + it * kRows;
+    if (tma) {
+      if (issuer) {
+        uint8_t* dst = sq + wgi * Sh::kTile;
+        mbar_expect_tx(bar, Sh::kTile);
+#pragma unroll
+        for (int p = 0; p < Sh::kPanels; ++p)
+          tma_load_4d(dst + p * Sh::kPanel, wgi ? &tm_do : &tm_q, bar, 64 * p,
+                      h * G, q0 / G, b);
+      }
+    } else {
+      load_rows<D, kThreads>(sq, a.q, sq + Sh::kTile, a.dout, tid,
+                           [&](int r) -> long long {
+                             const int R = q0 + r;
+                             if (R >= n_rows) return -1;
+                             const int pos = R / G;
+                             return ((b * (long long)S + pos) * Hq + h * G +
+                                     R - pos * G) * D;
+                           });
+    }
+    if (tid < 2 * kRows) {
+      const int r = tid % kRows;
+      const int R = q0 + r;
+      const bool ok = R < n_rows;
+      const int pos = ok ? R / G : 0, g = ok ? R - pos * G : 0;
+      const long long li = (b * (long long)Hq + h * G + g) * S + pos;
+      tc::cp4(sl + tid, (tid < kRows ? a.lse : a.delta) + li, ok);
+    }
+    stage_issued(bar);
+  };
+
+  // this warpgroup's K and V rows (ready with step 0's stage), then the
+  // first kAhead steps
+  load_rows<D, 128>(sK + wgi * Sh::kTile, a.k, sV + wgi * Sh::kTile, a.v, tw,
+                    [&](int r) -> long long {
+                      const int key = kw0 + r;
+                      return key < S ? ((b * (long long)S + key) * Hkv + h) * D
+                                     : -1;
+                    });
+  for (int it = 0; it < min(n_it, kAhead); ++it) issue(it);
+
+  // a thread holds keys keyA and keyA + 8 of the S^T / dK / dV tiles, and
+  // the rows (columns of S^T) 8 j + 2 qd + e, j < 8, e < 2
+  const int qd = lane % 4;
+  const int keyA = kw0 + 16 * wiw + lane / 4;
+  const float scale_log2 = a.scale * kLog2e;
+  const uint32_t k_addr = smem_u32(sK + wgi * Sh::kTile);
+  const uint32_t v_addr = smem_u32(sV + wgi * Sh::kTile);
+  float acc_k[Sh::kPanels][32], acc_v[Sh::kPanels][32];
+#pragma unroll
+  for (int p = 0; p < Sh::kPanels; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc_k[p][i] = acc_v[p][i] = 0.f;
+
+  // a step's tile of rows q0 .. q0 + 63 against this warpgroup's keys
+  // kw0 .. kw0 + 63: every pair dead below dead_lo (rows before the
+  // keys) and from dead_hi (past the window), some dead (masked) below
+  // edge_lo (the diagonal), from edge_hi (the window's far edge) and in
+  // the tile past S * G
+  constexpr long long kNever = 1ll << 62;
+  const long long dead_lo = (long long)kw0 * G - (kRows - 1);
+  const long long edge_lo = (long long)(kw0 + kRows - 1) * G;
+  const long long dead_hi =
+      window > 0 ? (long long)(kw0 + kRows - 1 + window) * G : kNever;
+  const long long edge_hi =
+      window > 0 ? (long long)(kw0 + window) * G - (kRows - 1) : kNever;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % kStages;
+    const int q0 = r_lo + it * kRows;
+    const bool dead = kw0 >= S || q0 < dead_lo || q0 >= dead_hi;
+    const bool edge =
+        q0 + kRows > n_rows || q0 < edge_lo || q0 >= edge_hi;
+    uint8_t* sq = ring + st * Sh::kStageKV;
+    const uint32_t q_addr = smem_u32(sq);
+    const uint32_t do_addr = q_addr + Sh::kTile;
+    const float* sl = reinterpret_cast<const float*>(sq + 2 * Sh::kTile);
+    const float* sd = sl + kRows;
+    stage_wait(&full[st], it, !tma || it == 0);
+
+    // S^T = K . Q^T, keys by rows; while it runs, step it + kAhead's copies
+    float s[32];
+    if (!dead) {
+      wgmma_fence();
+      issue_ss<D>(s, k_addr, q_addr);
+      wgmma_commit();
+    }
+    if (it + kAhead < n_it) {
+      stage_free(&empty[(it + kAhead) % kStages], it);
+      issue(it + kAhead);
+    }
+
+    if (!dead) {
+      wgmma_wait0();
+      fence_regs(s);
+
+      // P^T, rounded to bf16, as A fragments: it never leaves registers
+      uint32_t pa[16];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(sl + 8 * j + 2 * qd);
+        const float lx = l.x * kLog2e, ly = l.y * kLog2e;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int i = 4 * j + 2 * half;
+          pa[2 * j + half] = pack_bf16(ex2(s[i] * scale_log2 - lx),
+                                       ex2(s[i + 1] * scale_log2 - ly));
+        }
+      }
+      if (edge) {  // the dead pairs' P^T to zero
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int R = q0 + 8 * j + 2 * qd + e;
+            const int pos = R < n_rows ? R / G : -1;  // -1: past the end
+            const uint32_t keep = e ? 0x0000FFFFu : 0xFFFF0000u;
+#pragma unroll
+            for (int half = 0; half < 2; ++half)
+              if (!live(pos, keyA + 8 * half, window)) pa[2 * j + half] &= keep;
+          }
+      }
+
+      // dV += P^T . dO (dO read MN-major) and dP^T = V . dO^T, one group
+      float dp[32];
+#pragma unroll
+      for (int p = 0; p < Sh::kPanels; ++p) fence_regs(acc_v[p]);
+      fence_regs(pa);
+      wgmma_fence();
+      issue_rs<D>(acc_v, pa, do_addr);
+      issue_ss<D>(dp, v_addr, do_addr);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(dp);
+      fence_regs(pa);
+#pragma unroll
+      for (int p = 0; p < Sh::kPanels; ++p) fence_regs(acc_v[p]);
+
+      // dS^T = P^T o (dP^T - D_) from the rounded P^T, as A fragments
+      uint32_t da[16];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 dd = *reinterpret_cast<const float2*>(sd + 8 * j + 2 * qd);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float2 p = unpack_bf16(pa[2 * j + half]);
+          const int i = 4 * j + 2 * half;
+          da[2 * j + half] =
+              pack_bf16(p.x * (dp[i] - dd.x), p.y * (dp[i + 1] - dd.y));
+        }
+      }
+
+      // dK += dS^T . Q, Q read MN-major
+#pragma unroll
+      for (int p = 0; p < Sh::kPanels; ++p) fence_regs(acc_k[p]);
+      fence_regs(da);
+      wgmma_fence();
+      issue_rs<D>(acc_k, da, q_addr);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(da);
+#pragma unroll
+      for (int p = 0; p < Sh::kPanels; ++p) fence_regs(acc_k[p]);
+    }
+    stage_read(&empty[st], lane);
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = keyA + 8 * half;
+    if (key >= S) continue;
+    const long long row = ((b * (long long)S + key) * Hkv + h) * D;
+#pragma unroll
+    for (int p = 0; p < Sh::kPanels; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * p + 8 * j + 2 * qd;
+        const int i = 4 * j + 2 * half;
+        *reinterpret_cast<uint32_t*>(a.out0 + row + col) =
+            pack_bf16(acc_k[p][i] * a.scale, acc_k[p][i + 1] * a.scale);
+        *reinterpret_cast<uint32_t*>(a.out1 + row + col) =
+            pack_bf16(acc_v[p][i], acc_v[p][i + 1]);
+      }
+  }
+}
+
+// dQ of one tile of 128 folded rows of kv head h: warpgroup w owns rows
+// r0 + 64 w .. + 63 (Q, dO, L and D_ stay) and reads each streamed tile of
+// 64 keys (K and V) from the ring.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ Args a,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v) {
+  using Sh = Shape<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sQ = base;                    // [warpgroup][panel][64 rows][128 B]
+  uint8_t* sdO = sQ + 2 * Sh::kTile;
+  uint8_t* ring = sdO + 2 * Sh::kTile;   // stage: K, V
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * Sh::kStageQ);
+  uint64_t* empty = full + kStages;
+
+  const int S = a.S, Hq = a.Hq, Hkv = a.Hkv, window = a.window;
+  const int G = Hq / Hkv;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int n_rows = S * G;
+  const int r0 = (gridDim.z - 1 - blockIdx.z) * kBlock;  // longest first
+  const int pos_lo = r0 / G;
+  const int pos_hi = (min(r0 + kBlock, n_rows) - 1) / G;
+  const int j_hi = pos_hi / kRows;
+  const int j_lo = window > 0 ? max(0, pos_lo - (window - 1)) / kRows : 0;
+  const int n_it = j_hi - j_lo + 1;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wgi = warp / 4, wiw = warp % 4, tw = tid % 128;
+  const int rw0 = r0 + kRows * wgi;  // this warpgroup's first row
+
+  // the TMA issuers: thread 0 (K) and thread 128 (V)
+  const bool issuer = tw == 0;
+  if (issuer) tma_prefetch(wgi ? &tm_v : &tm_k);
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 2);  // the issuers' arrivals with their bytes
+      mbar_init(&empty[s], kThreads / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // K and V of step it into its stage, by TMA from the issuers
+  auto issue = [&](int it) {
+    if (!issuer) return;
+    uint64_t* bar = &full[it % kStages];
+    uint8_t* dst = ring + (it % kStages) * Sh::kStageQ + wgi * Sh::kTile;
+    mbar_expect_tx(bar, Sh::kTile);
+#pragma unroll
+    for (int p = 0; p < Sh::kPanels; ++p)
+      tma_load_4d(dst + p * Sh::kPanel, wgi ? &tm_v : &tm_k, bar, 64 * p, h,
+                  (j_lo + it) * kRows, b);
+  };
+  auto row = [&](int r) -> long long {
+    const int R = rw0 + r;
+    if (R >= n_rows) return -1;
+    const int pos = R / G;
+    return ((b * (long long)S + pos) * Hq + h * G + R - pos * G) * D;
+  };
+  // this warpgroup's Q and dO rows (ready with step 0's stage), then the
+  // first kAhead steps
+  load_rows<D, 128>(sQ + wgi * Sh::kTile, a.q, sdO + wgi * Sh::kTile, a.dout,
+                    tw, row);
+  tc::cp_commit();
+  for (int it = 0; it < min(n_it, kAhead); ++it) issue(it);
+
+  // a thread holds rows rA and rA + 8 of its warpgroup's 64, and the keys
+  // (columns of S) 8 j + 2 qd + e, j < 8, e < 2
+  const int qd = lane % 4;
+  const int rA = 16 * wiw + lane / 4;
+  int pos[2];
+  float l2[2], dl[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int R = rw0 + rA + 8 * half;
+    const bool ok = R < n_rows;
+    pos[half] = ok ? R / G : -1;  // -1: no key is live
+    const int g = ok ? R - pos[half] * G : 0;
+    const long long li =
+        (b * (long long)Hq + h * G + g) * S + (ok ? pos[half] : 0);
+    l2[half] = ok ? a.lse[li] * kLog2e : 0.f;
+    dl[half] = ok ? a.delta[li] : 0.f;
+  }
+  tc::cp_wait<0>();
+  fence_async_smem();
+  __syncthreads();  // the resident tiles written, visible to wgmma
+  const bool rows_live = rw0 < n_rows;
+  const int w_lo = rw0 / G;
+  const int w_hi = min(S - 1, (rw0 + kRows - 1) / G);
+  const float scale_log2 = a.scale * kLog2e;
+  const uint32_t q_addr = smem_u32(sQ + wgi * Sh::kTile);
+  const uint32_t do_addr = smem_u32(sdO + wgi * Sh::kTile);
+  float acc[Sh::kPanels][32];
+#pragma unroll
+  for (int p = 0; p < Sh::kPanels; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % kStages;
+    const int kb = (j_lo + it) * kRows;
+    const bool dead = !rows_live || kb > w_hi ||
+                      (window > 0 && w_lo - (kb + kRows - 1) >= window);
+    const bool edge = rw0 + kRows > n_rows || kb + kRows - 1 > w_lo ||
+                      (window > 0 && w_hi - kb >= window);
+    const uint32_t k_addr = smem_u32(ring + st * Sh::kStageQ);
+    const uint32_t v_addr = k_addr + Sh::kTile;
+    stage_wait(&full[st], it, false);
+
+    // S = Q . K^T and dP = dO . V^T, rows by keys, two groups; while they
+    // run, step it + kAhead's copies
+    float s[32], dp[32];
+    if (!dead) {
+      wgmma_fence();
+      issue_ss<D>(s, q_addr, k_addr);
+      wgmma_commit();
+      issue_ss<D>(dp, do_addr, v_addr);
+      wgmma_commit();
+    }
+    if (it + kAhead < n_it) {
+      stage_free(&empty[(it + kAhead) % kStages], it);
+      issue(it + kAhead);
+    }
+
+    if (!dead) {
+      fence_regs(dp);
+      wgmma_wait1();
+      fence_regs(s);
+
+      // P, rounded to bf16 as the dK/dV walk rounds it, while dP runs
+      uint32_t pa[16];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int i = 4 * j + 2 * half;
+          pa[2 * j + half] = pack_bf16(ex2(s[i] * scale_log2 - l2[half]),
+                                       ex2(s[i + 1] * scale_log2 - l2[half]));
+        }
+      if (edge) {  // the dead pairs' P to zero
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = kb + 8 * j + 2 * qd + e;
+            const uint32_t keep = e ? 0x0000FFFFu : 0xFFFF0000u;
+#pragma unroll
+            for (int half = 0; half < 2; ++half)
+              if (!live(pos[half], key, window)) pa[2 * j + half] &= keep;
+          }
+      }
+      wgmma_wait0();
+      fence_regs(dp);
+
+      // dS = P o (dP - D_) as bf16 A fragments, never leaving registers
+      uint32_t da[16];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float2 p = unpack_bf16(pa[2 * j + half]);
+          const int i = 4 * j + 2 * half;
+          da[2 * j + half] = pack_bf16(p.x * (dp[i] - dl[half]),
+                                       p.y * (dp[i + 1] - dl[half]));
+        }
+
+      // dQ += dS . K, K read MN-major
+#pragma unroll
+      for (int p = 0; p < Sh::kPanels; ++p) fence_regs(acc[p]);
+      fence_regs(da);
+      wgmma_fence();
+      issue_rs<D>(acc, da, k_addr);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(da);
+#pragma unroll
+      for (int p = 0; p < Sh::kPanels; ++p) fence_regs(acc[p]);
+    }
+    stage_read(&empty[st], lane);
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const long long off = row(rA + 8 * half);
+    if (off < 0) continue;
+#pragma unroll
+    for (int p = 0; p < Sh::kPanels; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * p + 8 * j + 2 * qd;
+        const int i = 4 * j + 2 * half;
+        *reinterpret_cast<uint32_t*>(a.out0 + off + col) =
+            pack_bf16(acc[p][i] * a.scale, acc[p][i + 1] * a.scale);
+      }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// The driver's tensor-map encoder, looked up in the already loaded driver
+// library (no link-time dependency on libcuda).
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    if (lib != nullptr)
+      fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// x [B, S, H, D] bf16 as a 4-D tensor (D, H, S, B); one box is 64 columns
+// x `heads` heads x `rows` positions, 128-byte swizzled (its rows in the
+// order (position, head): folded rows when heads is a whole group); rows
+// past S read as zeros
+int rows_map(CUtensorMap* map, const void* x, int B, int S, int H, int D,
+             int heads, int rows) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return -2;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                 (cuuint64_t)S * H * D * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)heads, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                  const_cast<void*>(x), dims, strides, box, elem,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -2;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const float* lse, const float* delta, void* dq, void* dk, void* dv,
+           int B, int S, int Hq, int Hkv, int window, float scale,
+           cudaStream_t stream) {
+  using Sh = Shape<D>;
+  static bool configured = false;
+  if (!configured) {
+    if (int e = tc::set_smem(flash_bwd_dkdv_wgmma<D>, Sh::kSmemKV)) return e;
+    if (int e = tc::set_smem(flash_bwd_dq_wgmma<D>, Sh::kSmemQ)) return e;
+    configured = true;
+  }
+  Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+            static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+            lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S,
+            Hq, Hkv, window, scale};
+  const int G = Hq / Hkv;
+  CUtensorMap tq{}, tdo{}, tk{}, tv{};  // Q and dO: only where G divides 64
+  if (kRows % G == 0 && (rows_map(&tq, q, B, S, Hq, D, G, kRows / G) ||
+                         rows_map(&tdo, dout, B, S, Hq, D, G, kRows / G)))
+    return -2;
+  if (rows_map(&tk, k, B, S, Hkv, D, 1, kRows) ||
+      rows_map(&tv, v, B, S, Hkv, D, 1, kRows))
+    return -2;
+  dim3 kv_grid(Hkv, B, (S + kBlock - 1) / kBlock);
+  flash_bwd_dkdv_wgmma<D><<<kv_grid, kThreads, Sh::kSmemKV, stream>>>(a, tq,
+                                                                       tdo);
+  if (int e = (int)cudaGetLastError()) return e;
+  a.out0 = static_cast<bf16*>(dq);
+  a.out1 = nullptr;
+  const long long n_rows = (long long)S * (Hq / Hkv);
+  dim3 q_grid(Hkv, B, (unsigned)((n_rows + kBlock - 1) / kBlock));
+  flash_bwd_dq_wgmma<D><<<q_grid, kThreads, Sh::kSmemQ, stream>>>(a, tk, tv);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
+
+// ---------------------------------------------------------------------------
 // generic route: float32 FMAs, any head dim up to 256
 // ---------------------------------------------------------------------------
 
@@ -977,27 +1853,38 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace gen
 
-// The mma route's head dims: bit D / 32 - 1 set for each.
-// kernels/flash_attention.py owns the set (BWD_HEAD_DIMS) and passes it to
-// nvcc as -DFLASH_BWD_MMA_D32_MASK; each listed D instantiates the mma
-// kernels, and the launcher takes that route at exactly these D.
+// The tensor-core routes' head dims: bit D / 32 - 1 set for each.
+// kernels/flash_attention.py owns the sets (BWD_MMA_HEAD_DIMS,
+// BWD_WGMMA_HEAD_DIMS) and passes them to nvcc as -DFLASH_BWD_MMA_D32_MASK
+// and -DFLASH_BWD_WGMMA_D32_MASK; each listed D instantiates its route's
+// kernels, and the launcher takes a route at exactly its D.
 #ifndef FLASH_BWD_MMA_D32_MASK
 #error "build with -DFLASH_BWD_MMA_D32_MASK=<bit D / 32 - 1 per mma head dim>"
 #endif
+#ifndef FLASH_BWD_WGMMA_D32_MASK
+#error "build with -DFLASH_BWD_WGMMA_D32_MASK=<bit D / 32 - 1 per wgmma D>"
+#endif
 constexpr unsigned kMmaD32 = FLASH_BWD_MMA_D32_MASK;
+constexpr unsigned kWgmmaD32 = FLASH_BWD_WGMMA_D32_MASK;
 
-constexpr bool mma_d(int d) {
-  return d >= 32 && d <= 256 && d % 32 == 0 && ((kMmaD32 >> (d / 32 - 1)) & 1u);
+constexpr bool in_mask(unsigned mask, int d) {
+  return d >= 32 && d <= 256 && d % 32 == 0 && ((mask >> (d / 32 - 1)) & 1u);
 }
 
+// route 0 (mma) or 2 (wgmma) at head dim D, if the build instantiated it
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* delta, void* dq, void* dk,
-               void* dv, int B, int S, int Hq, int Hkv, int window,
-               float scale, cudaStream_t stream) {
-  if constexpr (mma_d(D))
-    return tc::launch<D>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, Hq, Hkv,
-                         window, scale, stream);
+int launch_tensor(int route, const void* q, const void* k, const void* v,
+                  const void* dout, const float* lse, const float* delta,
+                  void* dq, void* dk, void* dv, int B, int S, int Hq, int Hkv,
+                  int window, float scale, cudaStream_t stream) {
+  if constexpr (in_mask(kMmaD32, D))
+    if (route == 0)
+      return tc::launch<D>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, Hq,
+                           Hkv, window, scale, stream);
+  if constexpr (in_mask(kWgmmaD32, D))
+    if (route == 2)
+      return wg::launch<D>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, Hq,
+                           Hkv, window, scale, stream);
   return -1;
 }
 
@@ -1007,10 +1894,12 @@ int launch_mma(const void* q, const void* k, const void* v, const void* dout,
 // (dtype 0 float32, 1 bfloat16); lse float32 [B, Hq, S] from the forward;
 // delta float32 [B, Hq, S], the scratch D_ written here; dq, dk, dv like
 // q, k, v.  route: 0 mma (bfloat16 at the mma head dims), 1 generic (any
-// 1 <= D <= 256), as kernels/flash_attention.py::backward_route names it.
-// window <= 0: no window.  Three kernels on `stream`.  Returns a CUDA
-// error code (0 on success); -1 for a route, shape or type the kernel does
-// not take, -3 for a pointer that is not 16-byte aligned (mma).
+// 1 <= D <= 256), 2 wgmma (bfloat16 at the wgmma head dims), as
+// kernels/flash_attention.py::backward_route names it.  window <= 0: no
+// window.  Three kernels on `stream`.  Returns a CUDA error code (0 on
+// success); -1 for a route, shape or type the kernel does not take, -2 if
+// the CUDA driver cannot encode a TMA descriptor (wgmma), -3 for a pointer
+// that is not 16-byte aligned (mma, wgmma), checked before any launch.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
@@ -1020,8 +1909,15 @@ extern "C" int flash_attention_bwd_launch(
       (long long)S * (Hq / Hkv) >= (1ll << 31))
     return -1;
   if (dtype != 0 && dtype != 1) return -1;
-  if (route == 0 && (dtype != 1 || !mma_d(D))) return -1;
-  if (route != 0 && route != 1) return -1;
+  if (route == 0 && (dtype != 1 || !in_mask(kMmaD32, D))) return -1;
+  if (route == 2 && (dtype != 1 || !in_mask(kWgmmaD32, D))) return -1;
+  if (route < 0 || route > 2) return -1;
+  if (route != 1 &&
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
+       reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
+       reinterpret_cast<uintptr_t>(dv)) % 16)
+    return -3;  // before any launch
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   int err = dtype == 0
@@ -1036,19 +1932,19 @@ extern "C" int flash_attention_bwd_launch(
                                               dv, B, S, Hq, Hkv, D, window,
                                               scale, stream);
   switch (D) {
-#define FLASH_BWD_MMA(DD)                                                  \
-  case DD:                                                                 \
-    return launch_mma<DD>(q, k, v, dout, l, dl, dq, dk, dv, B, S, Hq, Hkv, \
-                          window, scale, stream)
-    FLASH_BWD_MMA(32);
-    FLASH_BWD_MMA(64);
-    FLASH_BWD_MMA(96);
-    FLASH_BWD_MMA(128);
-    FLASH_BWD_MMA(160);
-    FLASH_BWD_MMA(192);
-    FLASH_BWD_MMA(224);
-    FLASH_BWD_MMA(256);
-#undef FLASH_BWD_MMA
+#define FLASH_BWD_TENSOR(DD)                                                 \
+  case DD:                                                                   \
+    return launch_tensor<DD>(route, q, k, v, dout, l, dl, dq, dk, dv, B, S, \
+                             Hq, Hkv, window, scale, stream)
+    FLASH_BWD_TENSOR(32);
+    FLASH_BWD_TENSOR(64);
+    FLASH_BWD_TENSOR(96);
+    FLASH_BWD_TENSOR(128);
+    FLASH_BWD_TENSOR(160);
+    FLASH_BWD_TENSOR(192);
+    FLASH_BWD_TENSOR(224);
+    FLASH_BWD_TENSOR(256);
+#undef FLASH_BWD_TENSOR
     default:
       return -1;
   }

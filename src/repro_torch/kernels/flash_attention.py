@@ -33,9 +33,11 @@ log-sum-exp L (``flash_attention(..., return_lse=True)``, float32 [B, Hq,
 S]) with the output's cotangent and returns ``dq, dk, dv`` in the inputs'
 type: three kernels a call (the row dots Δ = rowsum(dO∘O), then dK/dV per
 tile of keys, then dQ per tile of rows), no atomics, so two calls give the
-same bits.  :func:`backward_route` names its route: ``"mma"`` (bfloat16 on
-``mma.sync`` at :data:`BWD_HEAD_DIMS`) or ``"generic"`` (float32 FMAs, any
-other D up to 256 and every float32 input).
+same bits.  :func:`backward_route` names its route: ``"wgmma"`` (bfloat16
+on ``wgmma`` at :data:`BWD_WGMMA_HEAD_DIMS`, P and dS kept in registers),
+``"mma"`` (bfloat16 on ``mma.sync`` at :data:`BWD_MMA_HEAD_DIMS`) or
+``"generic"`` (float32 FMAs, any other D up to 256 and every float32
+input).
 :func:`flash_attention_backward_plain` is the same gradient in eager
 float32 PyTorch, the oracle the kernel is held against.
 """
@@ -57,12 +59,18 @@ HEAD_DIMS = (64, 128, 160, 256)
 MAX_HEAD_DIM = 256          # the generic route's widest head dim
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("fma", "wgmma", "generic")     # index = the launcher's route code
-# Head dims of the backward's tensor-core route (bfloat16 on mma.sync); the
-# build passes them as a mask in the same way.  At 256 the dK/dV block's
-# float32 accumulators take 230 registers a thread and ptxas spills
-# nothing (chip_smoke.py's phase 7 checks it).
-BWD_HEAD_DIMS = (64, 128, 160, 256)
-BWD_ROUTES = ("mma", "generic")          # index = the launcher's route code
+# Head dims of the backward's tensor-core routes, bfloat16 on wgmma and on
+# mma.sync; the build passes each set as a mask in the same way.  A wgmma
+# dK/dV thread keeps dK and dV, 64 columns a product, beside S^T or dP^T:
+# 128 + 32 float32 at D = 128, but 192 + 32 at 160 and 256 + 32 at 256,
+# past what a thread can hold (ptxas spills 1,672 bytes at 256:
+# scripts/k2_bwd_wide_ptxas.py), so those two stay on mma.sync (243
+# registers at 256, no spill).  chip_smoke.py's phase 7 fails on any spill
+# of either route.
+BWD_WGMMA_HEAD_DIMS = (64, 128)
+BWD_MMA_HEAD_DIMS = (160, 256)
+# index = the launcher's route code
+BWD_ROUTES = ("mma", "generic", "wgmma")
 
 
 def _d32_mask(dims) -> str:
@@ -70,7 +78,9 @@ def _d32_mask(dims) -> str:
 
 
 NVCC_FLAGS = (f"-DFLASH_FAST_D32_MASK={_d32_mask(HEAD_DIMS)}",)
-BWD_NVCC_FLAGS = (f"-DFLASH_BWD_MMA_D32_MASK={_d32_mask(BWD_HEAD_DIMS)}",)
+BWD_NVCC_FLAGS = (
+    f"-DFLASH_BWD_MMA_D32_MASK={_d32_mask(BWD_MMA_HEAD_DIMS)}",
+    f"-DFLASH_BWD_WGMMA_D32_MASK={_d32_mask(BWD_WGMMA_HEAD_DIMS)}")
 
 # Kernel launches (never the plain version's calls), in all and by route;
 # the backward's calls (three CUDA kernels each) likewise.
@@ -108,17 +118,21 @@ def route(d: int, dtype: torch.dtype) -> str:
 
 def backward_route(d: int, dtype: torch.dtype) -> str:
     """The backward kernel's route for head dim ``d`` and input type
-    ``dtype``: ``"mma"`` (bfloat16 at :data:`BWD_HEAD_DIMS`), ``"generic"``
-    for any other ``1 <= d <= MAX_HEAD_DIM`` and every float32 input.
-    Raises for a shape or type outside both."""
+    ``dtype``: ``"wgmma"`` (bfloat16 at :data:`BWD_WGMMA_HEAD_DIMS`),
+    ``"mma"`` (bfloat16 at :data:`BWD_MMA_HEAD_DIMS`), ``"generic"`` for
+    any other ``1 <= d <= MAX_HEAD_DIM`` and every float32 input.  Raises
+    for a shape or type outside all three."""
     if dtype not in _DTYPES:
         raise TypeError(f"flash_attention backward takes float32 or bfloat16,"
                         f" got {dtype}")
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"flash_attention backward takes head dim "
                          f"1..{MAX_HEAD_DIM}, got {d}")
-    return "mma" if dtype == torch.bfloat16 and d in BWD_HEAD_DIMS \
-        else "generic"
+    if dtype == torch.bfloat16 and d in BWD_WGMMA_HEAD_DIMS:
+        return "wgmma"
+    if dtype == torch.bfloat16 and d in BWD_MMA_HEAD_DIMS:
+        return "mma"
+    return "generic"
 
 
 def _live(s: int, causal: bool, window: int | None, device) -> torch.Tensor:
@@ -330,7 +344,7 @@ def _check_backward(q, k, v, o, lse, do, causal: bool) -> str:
                          "device")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("flash_attention backward needs contiguous inputs")
-    if path == "mma" and any(t.data_ptr() % 16 for t in (q, k, v, do)):
+    if path != "generic" and any(t.data_ptr() % 16 for t in (q, k, v, do)):
         raise ValueError("flash_attention backward needs 16-byte aligned "
                          "q, k, v, do")
     return path

@@ -4,7 +4,7 @@ segmented launch), flash attention (K2: fast and generic routes), SSD scan
 kernels against their plain PyTorch versions on CUDA tensors (K3's
 backward also bit for bit across two calls), the port's device paths on
 CUDA (MoE, MLA and the prefix and codebook stubs included, against the
-CPU), K2's backward against its plain version (both routes, bit for bit
+CPU), K2's backward against its plain version (all three routes, bit for bit
 across calls and graph replays, what it refuses), K2's and K3's entries
 returning gradients through their backward kernels (the train step on the card
 against the CPU's is phase 18a of ``chip_smoke.py``), the train loop's
@@ -314,11 +314,11 @@ def test_flash_attention_kernel_raises_on_what_it_does_not_take(cuda):
 # and log-sum-exp
 # ---------------------------------------------------------------------------
 
-# b, s, hq, hkv, d, window, dtype: both routes at tails that are not whole
-# tiles of 64 keys or folded rows, with and without a window, at groups of
-# 1, 7 and 8 query heads; S = 1; yi-6b's heads at a ragged length; the mma
-# route's head dims 64, 160 and 256; the reduced configs' head dims 8-20 in
-# both types
+# b, s, hq, hkv, d, window, dtype: every route at tails that are not whole
+# tiles of keys or folded rows, with and without a window, at groups of 1,
+# 7 and 8 query heads; S = 1; yi-6b's heads at a ragged length; the wgmma
+# route's head dims 64 and 128, the mma route's 160 and 256; the reduced
+# configs' head dims 8-20 in both types
 BWD_ATTN_SHAPES = [
     (1, 77, 8, 8, 128, None, torch.bfloat16),
     (2, 100, 14, 2, 128, 32, torch.bfloat16),
@@ -414,7 +414,86 @@ def test_flash_forward_lse_matches_plain_and_leaves_the_output(
     torch.testing.assert_close(lse, want, atol=2e-4, rtol=2e-5)
 
 
+# b, s, hq, hkv, d, window: the wgmma route at three batches, S of one
+# position, of tails past whole tiles of 64 and 128 (33, 65, 2000) and of
+# whole tiles (2048), groups of 1, 2, 7 and 8 query heads (7: row tiles
+# that start mid-group), and a window of 1024 that starts the walks
+# mid-sequence
+WGMMA_BWD_SHAPES = [
+    (3, 1, 8, 1, 128, None),
+    (3, 33, 7, 1, 128, None),
+    (3, 65, 4, 2, 64, None),
+    (3, 2000, 8, 8, 64, None),
+    (3, 2048, 14, 2, 128, None),
+    (3, 2048, 16, 2, 128, 1024),
+    (3, 2000, 8, 4, 128, 1024),
+]
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,window", WGMMA_BWD_SHAPES)
+def test_flash_backward_wgmma_route_matches_plain(cuda, b, s, hq, hkv, d,
+                                                  window):
+    """The wgmma route against the plain backward (rel L2 K2_BWD_TOL),
+    launched once a call on exactly that route, and bitwise across two
+    calls."""
+    assert K2.backward_route(d, torch.bfloat16) == "wgmma"
+    args = _attn_bwd_inputs(cuda, b, s, hq, hkv, d, window, torch.bfloat16,
+                            s + hq + d)
+    K2.reset_counts()
+    got = K2.flash_attention_backward(*args, window=window)
+    again = K2.flash_attention_backward(*args, window=window)
+    want = K2.flash_attention_backward_plain(*args, window=window)
+    torch.cuda.synchronize()
+    assert K2.BWD_LAUNCHES == K2.BWD_ROUTE_LAUNCHES["wgmma"] == 2
+    for name, a, a2, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert bool(torch.isfinite(a).all()), name
+        assert torch.equal(a, a2), name
+        err = _grad_err(a, w)
+        assert err <= K2_BWD_TOL[torch.bfloat16], (name, err)
+
+
+def test_flash_backward_launcher_refuses_routes_and_pointers(cuda):
+    """The launcher takes exactly the route it is given: wgmma only for
+    bfloat16 at its head dims, mma only at its own, no unknown code; and
+    refuses a pointer off 16 bytes on the tensor-core routes (the wrapper
+    raises before it gets there)."""
+    b, s, hq, hkv, d = 1, 64, 4, 2, 128
+    args = _attn_bwd_inputs(cuda, b, s, hq, hkv, d, None, torch.bfloat16, 9)
+    q, k, v, o, lse, do = args
+    delta = torch.empty_like(lse)
+    outs = [torch.empty_like(t) for t in (q, k, v)]
+    lib = K2._load_bwd()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(ptrs, dd, dtype_code, route):
+        return lib.flash_attention_bwd_launch(
+            *ptrs, lse.data_ptr(), delta.data_ptr(),
+            *(t.data_ptr() for t in outs), b, s, hq, hkv, dd, 0, 0.1,
+            dtype_code, route, stream)
+
+    ptrs = [t.data_ptr() for t in (q, k, v, o, do)]
+    wg = K2.BWD_ROUTES.index("wgmma")
+    mma = K2.BWD_ROUTES.index("mma")
+    assert launch(ptrs, 128, 1, wg) == 0
+    assert launch(ptrs, 96, 1, wg) == -1          # not a wgmma head dim
+    assert launch(ptrs, 160, 1, wg) == -1         # mma's head dim
+    assert launch(ptrs, 128, 0, wg) == -1         # float32
+    assert launch(ptrs, 128, 1, mma) == -1        # wgmma's head dim
+    assert launch(ptrs, 128, 1, 3) == -1          # no such route
+    off = [p + 2 for p in ptrs]                   # one bf16 element in
+    assert launch(off, 128, 1, wg) == -3
+    torch.cuda.synchronize()
+    flat = torch.zeros(q.numel() + 8, dtype=q.dtype, device=cuda)
+    odd = flat[1:1 + q.numel()].view(q.shape)
+    odd.copy_(q)
+    K2.reset_counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K2.flash_attention_backward(odd, k, v, o, lse, do)
+    assert K2.BWD_LAUNCHES == 0
+
+
 @pytest.mark.parametrize("d,dtype", [(128, torch.bfloat16),
+                                     (64, torch.bfloat16),
                                      (160, torch.bfloat16),
                                      (16, torch.float32)])
 def test_flash_backward_two_calls_and_graph_replays_bitwise(cuda, d, dtype):

@@ -172,10 +172,19 @@ def test_meta_tensors_give_the_gradients_shapes():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_backward_route_for_every_head_dim(dtype):
+    """bfloat16 takes ``wgmma`` at its head dims (yi-6b's and
+    gemma3-27b's 128, musicgen-large's 64), ``mma`` at 160 and 256, and
+    the generic route elsewhere; float32 always the generic one."""
     for d in range(1, K2.MAX_HEAD_DIM + 1):
-        want = "mma" if dtype == torch.bfloat16 and d in K2.BWD_HEAD_DIMS \
-            else "generic"
+        want = "generic"
+        if dtype == torch.bfloat16 and d in K2.BWD_WGMMA_HEAD_DIMS:
+            want = "wgmma"
+        elif dtype == torch.bfloat16 and d in K2.BWD_MMA_HEAD_DIMS:
+            want = "mma"
         assert K2.backward_route(d, dtype) == want, d
+    if dtype == torch.bfloat16:
+        assert [K2.backward_route(d, dtype) for d in (64, 128, 160, 256)] \
+            == ["wgmma", "wgmma", "mma", "mma"]
     for d in (0, K2.MAX_HEAD_DIM + 1):
         with pytest.raises(ValueError, match="head dim"):
             K2.backward_route(d, dtype)
@@ -187,16 +196,23 @@ def test_backward_route_refuses_other_types():
             K2.backward_route(128, dtype)
 
 
-def test_backward_head_dims_build_mask():
-    """The mma route's head dims reach the source as bit D / 32 - 1 of
-    ``FLASH_BWD_MMA_D32_MASK``, as the forward's fast head dims do."""
-    (flag,) = K2.BWD_NVCC_FLAGS
-    name, value = flag[2:].split("=")
-    assert name == "FLASH_BWD_MMA_D32_MASK"
-    mask = int(value.rstrip("u"), 16)
-    assert [32 * (i + 1) for i in range(8) if mask >> i & 1] == \
-        sorted(K2.BWD_HEAD_DIMS)
-    assert all(d % 32 == 0 for d in K2.BWD_HEAD_DIMS)
+@pytest.mark.parametrize("route,macro", [
+    ("mma", "FLASH_BWD_MMA_D32_MASK"),
+    ("wgmma", "FLASH_BWD_WGMMA_D32_MASK")])
+def test_backward_head_dims_build_mask(route, macro):
+    """Each tensor-core route's head dims reach the source as bit D / 32 - 1
+    of its own mask, as the forward's fast head dims do; the launcher
+    takes the route at exactly those D, and no D is on both routes."""
+    dims = {"mma": K2.BWD_MMA_HEAD_DIMS,
+            "wgmma": K2.BWD_WGMMA_HEAD_DIMS}[route]
+    flags = dict(f[2:].split("=") for f in K2.BWD_NVCC_FLAGS)
+    assert sorted(flags) == ["FLASH_BWD_MMA_D32_MASK",
+                             "FLASH_BWD_WGMMA_D32_MASK"]
+    mask = int(flags[macro].rstrip("u"), 16)
+    assert [32 * (i + 1) for i in range(8) if mask >> i & 1] == sorted(dims)
+    assert all(d % 32 == 0 for d in dims)
+    assert not set(K2.BWD_MMA_HEAD_DIMS) & set(K2.BWD_WGMMA_HEAD_DIMS)
+    assert K2.BWD_ROUTES.index(route) == {"mma": 0, "wgmma": 2}[route]
 
 
 def test_the_models_cpu_path_stays_attention_any(monkeypatch):
