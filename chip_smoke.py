@@ -101,7 +101,19 @@ non-zero):
    version's and the previous kernels' times, each call's route (16-byte
    vectors or element by element) and its device ms by CUDA kernel (one
    traced replay of the captured calls), and the plain ops' autograd
-   forward and backward;
+   forward and backward; 9f. the unit's kernels (K9, the residual add
+   with the next RMSNorm, with and without the add; K10, the SwiGLU gate;
+   forward and backward) against their plain versions at yi-6b's and
+   mamba2-1.3b's training shapes, their decode rows, deepseek-v3's
+   d_model 7168, float32 and a view on the scalar route: K9's sum bit for
+   bit, its norm and K10 within one ulp (bf16), the backwards' sums within
+   relative L2 1e-5 (float32) / 4e-3 (bf16), two calls and two replays
+   of a captured call bitwise, device ms (calls captured in a CUDA graph)
+   beside the bytes bound, the plain version's and the library call's
+   (``torch.nn.functional.rms_norm`` for K9 without the add; none for
+   the rest), the route; phases 10-11, 18, 18b-18e, 22-23 then gate and
+   report their launches (every norm K9 once, every gated FFN K10 once a
+   pass);
 10. serve yi-6b at full width (random weights from a seed) with
     ``ServeEngine``: three jittered recurring clients, 2000-token prompts;
     every prefill's 32 attention layers go through K2, the scheduler's
@@ -266,14 +278,16 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 
     python3 chip_smoke.py
 
-``--only k2 k3 k4 k5 mamba`` (any of them) runs only phase 0, the named
-kernels' builds and their phases (7-8b for K2 and its backward, 9-9b for
-K3 and its
-backward, 9c-9d for K5, 9e for K6, K7 and K8, 14 for K4), then prints
+``--only k2 k3 k4 k5 mamba unit`` (any of them) runs only phase 0, the
+named kernels' builds and their phases (7-8b for K2 and its backward, 9-9b
+for K3 and its
+backward, 9c-9d for K5, 9e for K6, K7 and K8, 9f for K9 and K10, 14 for
+K4), then prints
 their records as ``{"kernels": [...]}`` and
 no ``ok`` line: a quick way to time the kernels of two checkouts in one call,
 by copying this script (and ``src/repro_torch/csrc/gru_latency_probe.cu``,
-for K4) into the other.  ``--only mesh`` builds K2, K3, K5, K6 and K7 and runs
+for K4) into the other.  ``--only mesh`` builds K2, K3, K5, K6, K7, K9 and
+K10 and runs
 phases 18b, 18c and 18e (what the mesh phases are held to), then 22, 22b
 and 22c.
 """
@@ -2346,6 +2360,232 @@ def phase_mamba_kernels(torch, K6, K7, K8, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 9f: the unit's fused work (K9 residual add + RMSNorm, K10 SwiGLU gate)
+# ---------------------------------------------------------------------------
+
+# name, rows (Bt, S), d_model, d_ff (None: no gated MLP), dtype, offset (in
+# elements: a view that starts off a 16-byte boundary), whether the
+# backwards run.  yi-6b's and mamba2-1.3b's training shapes (4 x 2048
+# tokens) and decode rows are the main path's; deepseek-v3-671b's d_model
+# 7168 (its dense prelude's d_ff 18432) over 2048 tokens; yi-6b's widths in
+# float32; a row of 4100 bf16 and a view one element in: the scalar route
+UNIT_CASES = (
+    ("yi-6b train", 4, 2048, 4096, 11008, "bfloat16", 0, True),
+    ("mamba2-1.3b train", 4, 2048, 2048, None, "bfloat16", 0, True),
+    ("yi-6b decode", 1, 1, 4096, 11008, "bfloat16", 0, False),
+    ("mamba2-1.3b decode", 1, 1, 2048, None, "bfloat16", 0, False),
+    ("deepseek-v3 train", 1, 2048, 7168, 18432, "bfloat16", 0, True),
+    ("yi-6b float32", 1, 2048, 4096, 11008, "float32", 0, True),
+    ("scalar route", 2, 256, 4100, 1030, "bfloat16", 1, True),
+)
+# K9's s and K10's outputs round each op as the plain version's: within
+# UNIT_MAX_ULPS of it element by element (K9's s bit for bit); K9's y and
+# backward take the row's sums in another order: y within UNIT_MAX_ULPS in
+# bf16, and ``MAMBA_REL``'s relative L2 for the rest
+UNIT_MAX_ULPS = 1
+
+
+def replayed_bitwise(torch, fn, want) -> bool:
+    """``fn()`` captured in a CUDA graph and replayed twice: each replay's
+    outputs bit for bit ``want`` (an eager call's)."""
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = fn()
+    same = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        same.append(same_bits(torch, outs, want))
+    del graph, outs
+    return all(same)
+
+
+def unit_case(torch, K9, K10, dev, case, reps: int = 20) -> dict:
+    """One shape of :data:`UNIT_CASES`: K9 with and without ``h`` and K10
+    against their plain versions, forward and (training) backward; two
+    calls and two replays of a captured call bitwise; kernel, plain and
+    library device ms (calls captured in a CUDA graph, :func:`graph_ms`)
+    beside the bytes bound."""
+    import torch.nn.functional as F
+    name, bt, s, d, f, dname, offset, train = case
+    dtype = getattr(torch, dname)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    f32 = torch.float32
+    label = f"{name} {dname} ({bt} x {s} rows of {d}, d_ff {f})"
+    log(f"unit kernels, {label}:")
+
+    def rnd(*shape, scale=1.0, shift=0.0, dt=dtype):
+        """A tensor ``offset`` elements into a buffer of its own."""
+        n = math.prod(shape)
+        buf = (torch.randn(n + offset, generator=gen, device=dev) * scale
+               + shift).to(dt)
+        return buf[offset:].view(*shape)
+
+    rec = {"case": name, "dtype": dname, "rows": bt * s, "d_model": d,
+           "d_ff": f}
+
+    def timed(key, mod, fn, plain, nbytes, ops, library=None):
+        r = rec[key]
+        r["route"] = taken_route(mod, fn)
+        r["ms"] = graph_ms(torch, fn, reps)
+        r["plain_ms"] = graph_ms(torch, plain, 3)
+        r["library_ms"] = None if library is None else graph_ms(
+            torch, library, reps)
+        r["bytes"] = nbytes
+        r["bound_ms"], r["bound_by"] = roofline(nbytes, ops, f32)
+        log(f"  {key}: ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+            f"({r['bound_by']}; {nbytes / 1e9:.4f} GB at 3.35 TB/s) "
+            f"share_of_bound={r['bound_ms'] / r['ms']:.3f} plain_ms="
+            f"{r['plain_ms']:.4f} library_ms="
+            + ("none" if r["library_ms"] is None else
+               f"{r['library_ms']:.4f}")
+            + f" route={r['route']} bitwise_two_calls="
+            f"{r['bitwise_two_calls']} bitwise_replays="
+            f"{r['bitwise_replays']}")
+        if not (r["bitwise_two_calls"] and r["bitwise_replays"]):
+            raise AssertionError(f"{label}: {key} differs between calls or "
+                                 f"replays")
+
+    x, h = rnd(bt, s, d), rnd(bt, s, d)
+    scale = rnd(d, scale=0.1, shift=1.0, dt=f32)
+    maxu = UNIT_MAX_ULPS if dname == "bfloat16" else None
+    # K9 with h: s bit for bit, y within an ulp (bf16)
+    k9 = lambda: K9.add_rmsnorm(x, h, scale)            # noqa: E731
+    out1, out2 = k9(), k9()
+    ps, py = K9.add_rmsnorm_plain(x, h, scale)
+    rec["K9"] = held(torch, "K9 s vs plain", [out1[0]], [ps], dname, 0)
+    rec["K9"].update(held(torch, "K9 y vs plain", [out1[1]], [py],
+                               dname, maxu))
+    rec["K9"]["bitwise_two_calls"] = same_bits(torch, out1, out2)
+    rec["K9"]["bitwise_replays"] = replayed_bitwise(torch, k9, out1)
+    timed("K9", K9, k9, lambda: K9.add_rmsnorm_plain(x, h, scale),
+          tensor_bytes([x, h, scale, *out1]), x.numel() * 6)
+    # K9 without h: y against the plain rmsnorm and torch's rms_norm
+    k9n = lambda: K9.add_rmsnorm(x, None, scale)         # noqa: E731
+    scale_t = scale.to(dtype)             # torch's rms_norm: one dtype
+    n1, n2 = k9n(), k9n()
+    rec["K9_without_h"] = held(
+        torch, "K9 without h: y vs plain", [n1[1]],
+        [K9.rmsnorm_plain(x, scale)], dname, maxu)
+    rec["K9_without_h"]["bitwise_two_calls"] = same_bits(torch, n1, n2)
+    rec["K9_without_h"]["bitwise_replays"] = replayed_bitwise(torch, k9n,
+                                                              n1)
+    timed("K9_without_h", K9, k9n, lambda: K9.rmsnorm_plain(x, scale),
+          tensor_bytes([x, scale, *n1[1:]]), x.numel() * 5,
+          lambda: F.rms_norm(x, (d,), scale_t, K9.EPS))
+    if train:
+        dy, ds = rnd(bt, s, d, scale=1e-2), rnd(bt, s, d, scale=1e-2)
+        sv, rstd = out1[0], out1[2]
+        k9b = lambda: K9.add_rmsnorm_backward(dy, ds, sv, scale,  # noqa
+                                              rstd)
+        b1, b2 = k9b(), k9b()
+        pd, pdscale = K9.add_rmsnorm_backward_plain(dy, ds, sv, scale)
+        rec["K9_backward"] = held(torch, "K9 backward d vs plain",
+                                       [b1[0]], [pd], dname, None)
+        rec["K9_backward"]["dscale"] = held(
+            torch, "K9 backward dscale vs plain", [b1[1]], [pdscale],
+            dname, None)
+        rec["K9_backward"]["bitwise_two_calls"] = same_bits(torch, b1, b2)
+        rec["K9_backward"]["bitwise_replays"] = replayed_bitwise(torch, k9b,
+                                                                 b1)
+        timed("K9_backward", K9, k9b,
+              lambda: K9.add_rmsnorm_backward_plain(dy, ds, sv, scale,
+                                                    rstd),
+              tensor_bytes([dy, ds, sv, scale, rstd, *b1]), x.numel() * 10)
+        leaves = [t.clone().requires_grad_() for t in (x, h, scale)]
+
+        def plain_autograd():
+            s_, y_ = K9.add_rmsnorm_plain(*leaves)
+            torch.autograd.backward((s_, y_), (ds, dy))
+            for t in leaves:
+                t.grad = None
+        rec["K9_backward"]["plain_autograd_ms"] = cuda_ms(plain_autograd, 3)
+    if f is not None:
+        g, u = rnd(bt, s, f), rnd(bt, s, f)
+        k10 = lambda: K10.swiglu_gate(g, u)              # noqa: E731
+        h1, h2 = k10(), k10()
+        rec["K10"] = held(torch, "K10 forward vs plain", [h1],
+                               [K10.swiglu_gate_plain(g, u)], dname,
+                               UNIT_MAX_ULPS)
+        rec["K10"]["bitwise_two_calls"] = same_bits(torch, [h1], [h2])
+        rec["K10"]["bitwise_replays"] = replayed_bitwise(
+            torch, lambda: [k10()], [h1])
+        timed("K10", K10, k10, lambda: K10.swiglu_gate_plain(g, u),
+              tensor_bytes([g, u, h1]), g.numel() * 6)
+        if train:
+            dh = rnd(bt, s, f, scale=1e-2)
+            k10b = lambda: K10.swiglu_gate_backward(dh, g, u)  # noqa
+            c1, c2 = k10b(), k10b()
+            rec["K10_backward"] = held(
+                torch, "K10 backward dg, du vs plain", list(c1),
+                list(K10.swiglu_gate_backward_plain(dh, g, u)), dname,
+                UNIT_MAX_ULPS if dname == "bfloat16" else None)
+            rec["K10_backward"]["bitwise_two_calls"] = same_bits(torch, c1,
+                                                                 c2)
+            rec["K10_backward"]["bitwise_replays"] = replayed_bitwise(
+                torch, k10b, c1)
+            timed("K10_backward", K10, k10b,
+                  lambda: K10.swiglu_gate_backward_plain(dh, g, u),
+                  tensor_bytes([dh, g, u, *c1]), g.numel() * 12)
+            leaves = [t.clone().requires_grad_() for t in (g, u)]
+
+            def gate_autograd():
+                K10.swiglu_gate_plain(*leaves).backward(dh)
+                for t in leaves:
+                    t.grad = None
+            rec["K10_backward"]["plain_autograd_ms"] = cuda_ms(gate_autograd,
+                                                               3)
+    return rec
+
+
+def phase_unit_kernels(torch, K9, K10, dev) -> dict:
+    """9f: K9 (with and without ``h``) and K10, forward and backward,
+    against their plain versions at :data:`UNIT_CASES`; the records of K9
+    and K10 at yi-6b's training shape."""
+    log("== phase 9f: the unit's kernels (K9 residual add + RMSNorm, K10 "
+        "SwiGLU gate) vs plain")
+    t0 = time.perf_counter()
+    cases = [unit_case(torch, K9, K10, dev, c) for c in UNIT_CASES]
+    log(f"phase 9f seconds={time.perf_counter() - t0:.1f}")
+    yi, mamba = cases[0], cases[1]
+    fused = ("; no Pallas kernel: XLA fuses it inside the jax.jit of "
+             "src/repro/train/loop.py:108 and src/repro/serve/engine.py:74")
+
+    def record(name, key, site, extra):
+        r = yi[key]
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/csrc/{name}.cu",
+                "replaces": site + fused, "launches": 0,
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                **extra}
+
+    def brief(r):
+        return {k: r.get(k) for k in ("ms", "plain_ms", "library_ms",
+                                      "bound_ms", "bound_by", "max_abs_err",
+                                      "route", "rel_l2", "ulps")}
+    k9 = record("unit_norm", "K9", "src/repro/models/layers.py:44 (rmsnorm) "
+                "and the residual adds at src/repro/models/transformer.py:"
+                "153, :161, :291, :296, :365, :370",
+                {"shape": "yi-6b training: 4 x 2048 rows of 4096 with the "
+                 "pending branch output h, bf16",
+                 "without_h": brief(yi["K9_without_h"]),
+                 "backward": brief(yi["K9_backward"]),
+                 "mamba2_1_3b": {k: brief(mamba[k]) for k in
+                                 ("K9", "K9_backward")},
+                 "decode": {c["case"]: brief(c["K9"]) for c in cases
+                            if "decode" in c["case"]}})
+    k10 = record("swiglu_gate", "K10", "src/repro/models/layers.py:73 "
+                 "(swiglu's silu(g.astype(f32)).astype(x.dtype) * u)",
+                 {"shape": "yi-6b training: 4 x 2048 x 11008, bf16",
+                  "backward": brief(yi["K10_backward"]),
+                  "decode": brief(cases[2]["K10"])})
+    return {"K9": k9, "K10": k10, "cases": cases}
+
+
+# ---------------------------------------------------------------------------
 # phase 9d: K5 on the local shards of two ranks of one card (gloo)
 # ---------------------------------------------------------------------------
 
@@ -2907,7 +3147,8 @@ def profile_request(torch, arch: str, cfg, params, program) -> dict:
         busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
         ours = [e for e in kernels if any(
             k in e.key for k in ("flash_attention_", "ssd_", "arima_bank",
-                                 "conv_fwd<", "gn_fwd<", "decode_layer<"))]
+                                 "conv_fwd<", "gn_fwd<", "decode_layer<",
+                                 "un_fwd<", "sg_fwd<"))]
         ours_ms = sum(e.self_device_time_total for e in ours) / 1e3
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
         shares[part] = busy_ms / wall_ms
@@ -2943,16 +3184,19 @@ def profile_request(torch, arch: str, cfg, params, program) -> dict:
         raise AssertionError(f"{arch}: a decode step returned {copied} "
                              f"caches the program would copy back")
     # one token: one replay of the captured step traced on the card alone;
-    # a Mamba layer runs K8 and K7 once in it and K6 never (a trace that
-    # lost records is taken again, up to three in all)
+    # a Mamba layer runs K8 and K7 once in it and K6 never, every norm K9
+    # once and every gated FFN K10 once (a trace that lost records is
+    # taken again, up to three in all)
     program.load(caches, logits[0].argmax(-1), n)
     want = mamba_layers(cfg)
+    unit = unit_calls(cfg)["serve"]
     for taken in range(1, 4):
         _, busy, kernels, table = profiled(torch, program.advance,
                                            host=False)
         calls = {k: v for k, v in port_calls(table).items()
-                 if k in ("K2", "K3", "K6", "K7", "K8")}
-        if calls["K7"] == calls["K8"] == want:
+                 if k in ("K2", "K3", "K6", "K7", "K8", "K9", "K10")}
+        if calls["K7"] == calls["K8"] == want and calls["K9"] == unit[
+                "K9"] and calls["K10"] == unit["K10"]:
             break
         log(f"{arch}: a profiled decode replay shows {calls} (trace "
             f"{taken})")
@@ -3684,7 +3928,8 @@ def step_profile(torch, fn, label: str, reps: int = 3, table_ok=None,
 # what the device time of a profiled train step is split into, by kernel
 # name: K5 (AdamW), K2 forward and backward, K3 forward, K3 backward, the
 # Mamba block's K6 (conv) and K7 (gated norm) forward and backward and K8
-# (decode step), matrix products (cuBLAS); then the plain attention's own
+# (decode step), the unit's K9 (residual add + RMSNorm) and K10 (SwiGLU
+# gate) forward and backward, matrix products (cuBLAS); then the plain attention's own
 # kernels (its softmax, the softmax's backward, the `where` of its mask),
 # the cross-entropy's (the gold logit's gather and its scatter backward,
 # the max, exp and log of its logsumexp), copies and casts (the float32
@@ -3706,7 +3951,11 @@ def op_class(name: str) -> str:
                        (("conv_bwd<", "conv_reduce<"), "K6 backward"),
                        (("gn_fwd<",), "K7 forward"),
                        (("gn_bwd<", "gn_reduce("), "K7 backward"),
-                       (("decode_layer<",), "K8")):
+                       (("decode_layer<",), "K8"),
+                       (("un_fwd<",), "K9 forward"),
+                       (("un_bwd<", "un_reduce("), "K9 backward"),
+                       (("sg_fwd<",), "K10 forward"),
+                       (("sg_bwd<",), "K10 backward")):
         if any(m in name for m in marks):
             return cls
     if any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet", "cublas")):
@@ -3728,7 +3977,8 @@ def op_class(name: str) -> str:
 # kernel on every route) and its backward's dQ pass; K3's, by route (its
 # forward's output pass or generic scan, its backward's gradient pass or
 # generic backward); K5's three kernels, each once a call; K6's and K7's
-# forward and backward (one call without a mesh group); K8
+# forward and backward (one call without a mesh group); K8; K9's and K10's
+# forward and backward
 ONCE_PER_CALL = {"K2": ("flash_attention_",),
                  "K2_backward": ("flash_bwd_dq_",),
                  "K3": ("::ssd_output_", "::ssd_scan_generic"),
@@ -3736,12 +3986,14 @@ ONCE_PER_CALL = {"K2": ("flash_attention_",),
                  "K5": ("adamw_norm", "adamw_finish", "adamw_apply"),
                  "K6": ("conv_fwd<",), "K6_backward": ("conv_bwd<",),
                  "K7": ("gn_fwd<",), "K7_backward": ("gn_bwd<",),
-                 "K8": ("decode_layer<",)}
+                 "K8": ("decode_layer<",),
+                 "K9": ("un_fwd<",), "K9_backward": ("un_bwd<",),
+                 "K10": ("sg_fwd<",), "K10_backward": ("sg_bwd<",)}
 
 
 def port_calls(table) -> dict:
-    """K2, K3, K6 and K7 forward and backward calls, K8 calls, and K5's
-    kernels, a profiled kernel table holds."""
+    """K2, K3, K6, K7, K9 and K10 forward and backward calls, K8 calls,
+    and K5's kernels, a profiled kernel table holds."""
     return {k: sum(e.count for e in table if any(m in e.key for m in marks))
             for k, marks in ONCE_PER_CALL.items()}
 
@@ -3772,17 +4024,46 @@ def mamba_layers(cfg) -> int:
         cfg.n_units * sum(m == "mamba" for m, _ in cfg.pattern)
 
 
+def unit_calls(cfg) -> dict:
+    """K9 and K10 calls of one forward: K9 once a norm (a layer's one or
+    two, the final norm, the MTP layer's and its norm), K10 once a gated
+    dense FFN; the units' counts apart (the remat recomputes them), and
+    ``serve``: a prefill's or a decode step's (no MTP layer)."""
+    def norms(specs):
+        return sum(1 + (ffn != "none") for _, ffn in specs)
+
+    def gates(specs):
+        return sum(ffn == "dense" and cfg.gated_mlp for _, ffn in specs)
+    mtp = (cfg.pattern[-1],) if cfg.mtp else ()
+    units = {"K9": cfg.n_units * norms(cfg.pattern),
+             "K10": cfg.n_units * gates(cfg.pattern)}
+    # a prefill or a decode step: no MTP layer
+    serve = {"K9": units["K9"] + norms(cfg.prelude) + 1,
+             "K10": units["K10"] + gates(cfg.prelude)}
+    return {"K9_units": units["K9"],
+            "K9_rest": serve["K9"] - units["K9"] + norms(mtp) + len(mtp),
+            "K10_units": units["K10"],
+            "K10_rest": serve["K10"] - units["K10"] + gates(mtp),
+            "serve": serve}
+
+
 def step_calls(cfg, mesh: bool = False) -> dict:
     """Wrapper calls of one train step: K2 forward once an attention layer
-    and K3, K6 and K7 forward once a Mamba layer (each twice with the
-    remat recompute), each one's backward once, K5 once (three kernels;
-    four on a mesh), no K8."""
+    and K3, K6 and K7 forward once a Mamba layer, K9 once a norm and K10
+    once a gated FFN (each in the units twice with the remat recompute),
+    each one's backward once, K5 once (three kernels; four on a mesh), no
+    K8."""
     n, a = mamba_layers(cfg), attn_layers(cfg)
     passes = 1 if cfg.remat == "none" else 2
     fwd = n * passes
+    u = unit_calls(cfg)
     return {"K2": a * passes, "K2_backward": a, "K3": fwd, "K3_backward": n,
             "K5": 4 if mesh else 3, "K6": fwd, "K6_backward": n, "K7": fwd,
-            "K7_backward": n, "K8": 0}
+            "K7_backward": n, "K8": 0,
+            "K9": u["K9_units"] * passes + u["K9_rest"],
+            "K9_backward": u["K9_units"] + u["K9_rest"],
+            "K10": u["K10_units"] * passes + u["K10_rest"],
+            "K10_backward": u["K10_units"] + u["K10_rest"]}
 
 
 def train_cell(torch, cfg, dev, counts: dict, label: str, tcfg=None,
@@ -3856,6 +4137,9 @@ def train_cell(torch, cfg, dev, counts: dict, label: str, tcfg=None,
                      "K5": K5.LAUNCHES, "K6": K6.LAUNCHES,
                      "K6_backward": K6.BWD_LAUNCHES, "K7": K7.LAUNCHES,
                      "K7_backward": K7.BWD_LAUNCHES, "K8": K8.LAUNCHES}
+    for k in ("K9", "K10"):
+        wrapper_calls[k] = counts[k].LAUNCHES
+        wrapper_calls[f"{k}_backward"] = counts[k].BWD_LAUNCHES
     per_step = step_calls(cfg)
     n = param_count(params)
     state_bytes = sum(x.numel() * x.element_size()
@@ -3955,7 +4239,8 @@ def train_cell(torch, cfg, dev, counts: dict, label: str, tcfg=None,
                              f"graph ({program.replays} replays)")
     replayed = port_calls(graph["table"])
     launches = {k: v * TRAIN_STEPS for k, v in per_step.items()}
-    log(f"{label}: one profiled replay ran {replayed} (K2, K3, K6, K7: "
+    log(f"{label}: one profiled replay ran {replayed} (K2, K3, K6, K7, K9, "
+        f"K10: "
         f"kernels launched once a call; K5: its three kernels; trace "
         f"{graph['traces']}); executed launches over the {TRAIN_STEPS} steps"
         f" (warm-up and {TRAIN_STEPS - 1} replays) {launches}")
@@ -4136,6 +4421,21 @@ def full_serve(torch, arch: str, kernel: str, counts: dict, dev,
                       route={"K2": "wgmma", "K3": "chunked"}[kernel])
     del params
     free(torch)
+    # K9 once a norm and K10 once a gated FFN in every prefill and in the
+    # decode graph's warm-up and capture; once each in a replay
+    unit = unit_calls(cfg)["serve"]
+    want = {k: unit[k] * (out["prefills"] + 2) for k in ("K9", "K10")}
+    got = {k: out["launches"][k] for k in want}
+    calls = out["token_calls"]
+    log(f"{arch}: unit kernel wrapper launches {got} (want {want}); one "
+        f"decode replay ran K9 {calls['K9']} and K10 {calls['K10']} times "
+        f"(want {unit['K9']} and {unit['K10']}); kernels a token "
+        f"{out['token_kernels']}, device ms a token "
+        f"{out['token_device_ms']:.3f}")
+    if got != want or calls["K9"] != unit["K9"] or \
+            calls["K10"] != unit["K10"]:
+        raise AssertionError(f"{arch}: the unit's kernels ran {got} / "
+                             f"{calls} times")
     n = mamba_layers(cfg)
     if n:
         # K6 once a layer in every prefill, K7 there and in the decode's
@@ -4146,10 +4446,10 @@ def full_serve(torch, arch: str, kernel: str, counts: dict, dev,
         calls = out["token_calls"]
         log(f"{arch}: block kernel wrapper launches {got} (want {want}); "
             f"one decode replay ran {calls}; kernels a token "
-            f"{out['token_kernels']} (with K6 at decode and the states "
-            f"copied back: 1,117), device ms a token "
-            f"{out['token_device_ms']:.3f} (3.807), graph tokens/s "
-            f"{out['decode_tokens_per_s_graph']:.2f} (246.87)")
+            f"{out['token_kernels']} (the unit's norms and residuals as "
+            f"plain ops: 877), device ms a token "
+            f"{out['token_device_ms']:.3f} (3.166), graph tokens/s "
+            f"{out['decode_tokens_per_s_graph']:.2f} (276.63)")
         if got != want or calls["K6"] or calls["K7"] != n or \
                 calls["K8"] != n or out["token_memcpy_dtod"] >= n:
             raise AssertionError(f"{arch}: the Mamba block's kernels ran "
@@ -4738,7 +5038,7 @@ def mesh_mamba_phase(torch, counts: dict, dev, phase18b: dict) -> dict:
     wrapper_calls = {"K3": counts["K3"].LAUNCHES,
                      "K3_backward": counts["K3"].BWD_LAUNCHES,
                      "K5": counts["K5"].LAUNCHES}
-    for k in ("K6", "K7"):
+    for k in ("K6", "K7", "K9", "K10"):
         wrapper_calls[k] = counts[k].LAUNCHES
         wrapper_calls[f"{k}_backward"] = counts[k].BWD_LAUNCHES
     wrapper_calls["K8"] = counts["K8"].LAUNCHES
@@ -4877,7 +5177,8 @@ def mesh_serve_phase(torch, counts: dict, dev) -> dict:
                 torch.cuda.synchronize()
                 launches = counts[kernel].LAUNCHES
                 on_route = counts[kernel].ROUTE_LAUNCHES[route]
-                block = {k: counts[k].LAUNCHES for k in ("K6", "K7")}
+                block = {k: counts[k].LAUNCHES for k in ("K6", "K7", "K9",
+                                                          "K10")}
                 prefill_calls = calls["n"]
                 got, _ = _prefill_and_decode(torch, placed, cfg, tokens, pe,
                                              max_len, feed=fed)
@@ -4911,7 +5212,7 @@ def mesh_serve_phase(torch, counts: dict, dev) -> dict:
             rows.append((i, bitwise(torch, g, w), float(
                 (g.float() - w.float()).norm() / w.float().norm())))
         log(f"{arch} mesh: {kernel}_launches={launches} on_{route}="
-            f"{on_route} K6_K7_launches={block} per_rank_calls="
+            f"{on_route} K6_K7_K9_K10_launches={block} per_rank_calls="
             f"{prefill_calls} traced_cuda_kernels="
             f"{'not measured' if traced is None else traced} (one prefill, "
             f"trace {taken}; {per_call} a launch); "
@@ -4929,12 +5230,14 @@ def mesh_serve_phase(torch, counts: dict, dev) -> dict:
                                  f"{kernel} kernels for {cfg.n_layers} "
                                  f"layers")
         # a Mamba layer maps its conv (K6), its SSD (K3) and its gated
-        # norm (K7) over the mesh, an attention layer its attention (K2)
+        # norm (K7) over the mesh, an attention layer its attention (K2),
+        # every norm its K9 and every gated FFN its K10
         mamba = mamba_layers(cfg)
-        if prefill_calls != cfg.n_layers + 2 * mamba or \
-                block != {"K6": mamba, "K7": mamba}:
+        unit = unit_calls(cfg)["serve"]
+        if prefill_calls != cfg.n_layers + 2 * mamba + unit["K9"] + \
+                unit["K10"] or block != {"K6": mamba, "K7": mamba, **unit}:
             raise AssertionError(f"{arch}: {prefill_calls} per-rank calls "
-                                 f"and K6/K7 launches {block} for "
+                                 f"and K6/K7/K9/K10 launches {block} for "
                                  f"{cfg.n_layers} layers")
         if not all(r < 1e-3 for _, _, r in rows):
             raise AssertionError(f"{arch}: mesh logits disagree")
@@ -5079,7 +5382,7 @@ def mesh_phases(torch, counts: dict, K5, dev, trained: dict) -> dict:
                                                 trained["yi-6b"])
         out["phase22c"] = mesh_mamba_phase(
             torch, {"K5": K5, **{k: counts[k] for k in ("K3", "K6", "K7",
-                                                        "K8")}},
+                                                        "K8", "K9", "K10")}},
             dev, trained["mamba2-1.3b"])
         out["phase23"] = mesh_serve_phase(torch, counts, dev)
         yi4 = dataclasses.replace(get_config("yi-6b"), n_layers=4)
@@ -5137,7 +5440,7 @@ def mesh_launches(out: dict) -> dict:
             "replay_launches_mesh": ran["K3_backward"]}}
 
 
-def mesh_train_only(torch, K2, K3, K5, mamba, dev) -> dict:
+def mesh_train_only(torch, K2, K3, K5, mamba, unit, dev) -> dict:
     """``--only mesh``: phases 18b, 18c and 18e (the no-mesh cells the
     mesh phases are held to), then 22, 22b and 22c; their summary line."""
     import torch.distributed as dist
@@ -5146,7 +5449,8 @@ def mesh_train_only(torch, K2, K3, K5, mamba, dev) -> dict:
     from repro_torch.train.loop import TrainConfig
     from repro_torch.train.optimizer import AdamWConfig
     counts = {"K2": K2, "K3": K3, "K5": K5, **dict(zip(("K6", "K7", "K8"),
-                                                       mamba))}
+                                                       mamba)),
+              **dict(zip(("K9", "K10"), unit))}
     yi = get_config("yi-6b")
     log("== phase 18b: train mamba2-1.3b at full width and depth")
     trained = {"mamba2-1.3b": train_cell(torch, get_config("mamba2-1.3b"),
@@ -5166,7 +5470,7 @@ def mesh_train_only(torch, K2, K3, K5, mamba, dev) -> dict:
                                                  trained["yi-6b"]),
                "phase22c": mesh_mamba_phase(
                    torch, {k: counts[k] for k in ("K3", "K5", "K6", "K7",
-                                                  "K8")},
+                                                  "K8", "K9", "K10")},
                    dev, trained["mamba2-1.3b"])}
     finally:
         if dist.is_initialized():
@@ -5178,13 +5482,13 @@ def mesh_train_only(torch, K2, K3, K5, mamba, dev) -> dict:
             {"name": "ssd_scan_backward", **counted["K3_backward"]}]
 
 
-def run_only(torch, np, only, built, K2, K3, K4, K5, mamba, T_rnn, nvcc,
-             dev) -> int:
+def run_only(torch, np, only, built, K2, K3, K4, K5, mamba, unit, T_rnn,
+             nvcc, dev) -> int:
     """``--only``: the named kernels' phases (7-8b for K2 and its
     backward, 9-9b for K3 and
-    its backward, 9c-9d for K5, 9e for K6, K7 and K8 (``mamba``), 14 for
-    K4; ``mesh``: 18b, 18c, 18e, 22, 22b, 22c) and their records as one
-    ``{"kernels": [...]}`` line."""
+    its backward, 9c-9d for K5, 9e for K6, K7 and K8 (``mamba``), 9f for
+    K9 and K10 (``unit``), 14 for K4; ``mesh``: 18b, 18c, 18e, 22, 22b,
+    22c) and their records as one ``{"kernels": [...]}`` line."""
     records = []
     if "k2" in only:
         log("== phase 7: build K2 and K2's backward")
@@ -5209,6 +5513,11 @@ def run_only(torch, np, only, built, K2, K3, K4, K5, mamba, T_rnn, nvcc,
             log_build(name, *built[name])
         got = phase_mamba_kernels(torch, *mamba, dev)
         records += [got["K6"], got["K7"], got["K8"]]
+    if "unit" in only:
+        for name in ("K9", "K10"):
+            log_build(name, *built[name])
+        got = phase_unit_kernels(torch, *unit, dev)
+        records += [got["K9"], got["K10"]]
     if "mesh" in only:
         if "k2" not in only:
             log_build("K2", *built["K2"])
@@ -5221,7 +5530,10 @@ def run_only(torch, np, only, built, K2, K3, K4, K5, mamba, T_rnn, nvcc,
         if "mamba" not in only:
             for name in ("K6", "K7"):
                 log_build(name, *built[name])
-        records += mesh_train_only(torch, K2, K3, K5, mamba, dev)
+        if "unit" not in only:
+            for name in ("K9", "K10"):
+                log_build(name, *built[name])
+        records += mesh_train_only(torch, K2, K3, K5, mamba, unit, dev)
     if "k4" in only:
         log_build("K4", *built["K4"])
         log_build("K4 probe", *built["K4 probe"])
@@ -5236,12 +5548,13 @@ def main(argv=None) -> int:
         description="Smoke run of the PyTorch port on one CUDA card.")
     parser.add_argument(
         "--only", nargs="+",
-        choices=("k2", "k3", "k4", "k5", "mamba", "mesh"),
+        choices=("k2", "k3", "k4", "k5", "mamba", "unit", "mesh"),
         help="run only these kernels' builds and phases (7-8b: K2 and its "
              "backward, 9-9b: K3 and its backward, 9c-9d: K5, 9e: the Mamba "
-             "block's K6, K7 and K8, 14: K4; mesh: K2's, K3's, K5's, K6's "
-             "and K7's builds, 18b, 18c, 18e, 22, 22b and 22c) and print "
-             "their records; no ok line")
+             "block's K6, K7 and K8, 9f: the unit's K9 and K10, 14: K4; "
+             "mesh: K2's, K3's, K5's, K6's, K7's, K9's and K10's builds, "
+             "18b, 18c, 18e, 22, 22b and 22c) and print their records; no "
+             "ok line")
     args = parser.parse_args(argv)
     try:
         import torch
@@ -5257,7 +5570,7 @@ def main(argv=None) -> int:
                             "flash_attention_bwd", "ssd_scan",
                             "ssd_scan_bwd", "gru_fit", "gru_latency_probe",
                             "adamw", "mamba_conv", "gated_norm",
-                            "mamba_decode")):
+                            "mamba_decode", "unit_norm", "swiglu_gate")):
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
@@ -5277,6 +5590,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels import mamba_decode as K8
     from repro_torch.kernels import nvcc
     from repro_torch.kernels import ssd_scan as K3
+    from repro_torch.kernels import swiglu_gate as K10
+    from repro_torch.kernels import unit_norm as K9
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5293,20 +5608,22 @@ def main(argv=None) -> int:
               "K3": K3.start_build, "K3 backward": K3.start_build_backward,
               "K4": K4.start_build, "K5": K5.start_build,
               "K6": K6.start_build, "K7": K7.start_build,
-              "K8": K8.start_build,
+              "K8": K8.start_build, "K9": K9.start_build,
+              "K10": K10.start_build,
               "K4 probe": lambda verbose: nvcc.start(
                   "gru_latency_probe", K4.NVCC_FLAGS, verbose)}
     if args.only:
         log(f"== phase 1: build {' and '.join(args.only)}")
-        wanted = set(args.only) | ({"k2", "k3", "k5", "k6", "k7"}
+        wanted = set(args.only) | ({"k2", "k3", "k5", "k6", "k7", "k9", "k10"}
                                    if "mesh" in args.only else set()) | (
-            {"k6", "k7", "k8"} if "mamba" in args.only else set())
+            {"k6", "k7", "k8"} if "mamba" in args.only else set()) | (
+            {"k9", "k10"} if "unit" in args.only else set())
         starts = {name: start for name, start in starts.items()
                   if name.split()[0].lower() in wanted}
     else:
         log("== phase 1: build K1 (K2, K2's backward, K3, K3's backward, "
-            "K4, K4's latency probe, K5, K6, K7 and K8 build alongside, one "
-            "nvcc each)")
+            "K4, K4's latency probe, K5, K6, K7, K8, K9 and K10 build "
+            "alongside, one nvcc each)")
     t_build = time.perf_counter()
     builds = {name: start(verbose=True) for name, start in starts.items()}
     # collected in turn: each time is from the common start to the moment
@@ -5316,7 +5633,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     if args.only:
         return run_only(torch, np, args.only, built, K2, K3, K4, K5,
-                        (K6, K7, K8), T_rnn, nvcc, dev)
+                        (K6, K7, K8), (K9, K10), T_rnn, nvcc, dev)
     spills = log_build("K1", *built["K1"])
     reg_spills = {f: b for f, b in spills.items() if "fit_211" in f}
     if len(reg_spills) != 5 or any(reg_spills.values()):
@@ -5326,10 +5643,10 @@ def main(argv=None) -> int:
     kernels, reuse = drive(torch, np, T, T_arima, K, dev)
 
     log("== phase 7: build K2, K2's backward, K3, K3's backward, K5, K6, "
-        "K7 and K8")
+        "K7, K8, K9 and K10")
     wg_spills = log_build("K2", *built["K2"])
     bwd_spills = log_build("K2 backward", *built["K2 backward"])
-    for name in ("K3", "K3 backward", "K5", "K6", "K7", "K8"):
+    for name in ("K3", "K3 backward", "K5", "K6", "K7", "K8", "K9", "K10"):
         log_build(name, *built[name])
     k2 = phase_k2(torch, K2, dev)
     check_wgmma_256(wg_spills)
@@ -5340,8 +5657,9 @@ def main(argv=None) -> int:
     k5 = phase_k5(torch, K5, dev)
     k5["mesh_two_ranks"] = phase_k5_mesh(torch)
     block = phase_mamba_kernels(torch, K6, K7, K8, dev)
+    unit = phase_unit_kernels(torch, K9, K10, dev)
     counters_lm = {"K1": K, "K2": K2, "K3": K3, "K6": K6, "K7": K7,
-                   "K8": K8}
+                   "K8": K8, "K9": K9, "K10": K10}
     k2["launches"] = full_serve(torch, "yi-6b", "K2", counters_lm, dev,
                                 "phase 10")
     k3["launches"] = full_serve(torch, "mamba2-1.3b", "K3", counters_lm,
@@ -5362,7 +5680,8 @@ def main(argv=None) -> int:
         rec["launches_reduced_serve"] = {a: n[key] for a, n in served.items()
                                          if n[key]}
     trained = train_phase(torch, {"K2": K2, "K3": K3, "K5": K5, "K6": K6,
-                                  "K7": K7, "K8": K8}, dev)
+                                  "K7": K7, "K8": K8, "K9": K9, "K10": K10},
+                          dev)
     log("phase 18 summary: " + json.dumps(trained))
     mamba = trained["mamba2-1.3b"]
     for cell in ("yi-6b", "yi-6b-4l"):
@@ -5401,6 +5720,27 @@ def main(argv=None) -> int:
         rec["train_step_device_ms"] = {
             part: mamba["op_split"].get(f"{key} {part}")
             for part in ("forward", "backward")}
+    for key in ("K9", "K10"):
+        rec = unit[key]
+        rec["launches"] = trained["yi-6b-4l"]["launches"][key]
+        rec["launches_backward"] = \
+            trained["yi-6b-4l"]["launches"][f"{key}_backward"]
+        rec["launches_train"] = {
+            cell: {k: trained[cell]["launches"][k]
+                   for k in (key, f"{key}_backward")}
+            for cell in ("mamba2-1.3b", "yi-6b-4l", "yi-6b")}
+        rec["wrapper_calls_train"] = {
+            cell: {k: trained[cell]["wrapper_calls"][k]
+                   for k in (key, f"{key}_backward")}
+            for cell in ("mamba2-1.3b", "yi-6b-4l", "yi-6b")}
+        rec["train_step_device_ms"] = {
+            cell: {part: trained[cell]["op_split"].get(f"{key} {part}")
+                   for part in ("forward", "backward")}
+            for cell in ("mamba2-1.3b", "yi-6b-4l", "yi-6b")}
+        rec["launches_serve"] = {a: SERVED[a]["launches"][key]
+                                 for a in SERVED}
+        rec["launches_per_decode_replay"] = {
+            a: SERVED[a]["token_calls"][key] for a in SERVED}
     block["K8"]["launches"] = served_mamba["launches"]["K8"]
     block["K8"]["launches_per_decode_replay"] = \
         served_mamba["token_calls"]["K8"]
@@ -5423,7 +5763,8 @@ def main(argv=None) -> int:
     k2["launches_paligemma_3b"] = big["paligemma-3b"]["launches"]["K2"]
     k2["launches_arctic_480b_1l"] = big["arctic-480b-1l"]
     k2["launches_musicgen_large"] = big["musicgen-large"]
-    kernels += [k2, k2b, k3, k3b, k5, block["K6"], block["K7"], block["K8"], {
+    kernels += [k2, k2b, k3, k3b, k5, block["K6"], block["K7"], block["K8"],
+                unit["K9"], unit["K10"], {
         "name": "gru_fit",
         "route": "cuda",
         "source": "src/repro_torch/csrc/gru_fit.cu",

@@ -29,6 +29,13 @@ kernels on CUDA, in both directions where training needs them; their
 plain versions on the CPU and the meta device, which autograd
 differentiates.
 
+Every layer's own fused work goes through here too: the residual add
+with the next RMSNorm (K9, :mod:`repro_torch.kernels.unit_norm`, under
+autograd :class:`AddRMSNorm`) and the SwiGLU gate (K10,
+:mod:`repro_torch.kernels.swiglu_gate`, :class:`SwiGLUGate`), in both
+directions; on the CPU and the meta device their plain versions, which are
+the ops the models ran before, so a model's bits there do not move.
+
 On DTensors (a model placed on a mesh) all of them run per rank on the
 local batch and heads through ``local_map`` (:func:`attention_per_rank`,
 :func:`ssd_per_rank`, which the training forward's plain paths use too;
@@ -52,6 +59,8 @@ from repro_torch.kernels import gated_norm as _k7
 from repro_torch.kernels import mamba_conv as _k6
 from repro_torch.kernels import mamba_decode as _k8
 from repro_torch.kernels import ssd_scan as _k3
+from repro_torch.kernels import swiglu_gate as _k10
+from repro_torch.kernels import unit_norm as _k9
 
 
 def _cpu_only(t, meta: bool = False) -> None:
@@ -162,6 +171,48 @@ class GatedNorm(torch.autograd.Function):
         return (*_k7.gated_norm_backward(dout.contiguous(), y, xs, z, D,
                                          scale, rstd, ctx.group, ctx.width),
                 None, None, None)
+
+
+class AddRMSNorm(torch.autograd.Function):
+    """K9 under autograd: ``(s, y)`` by the forward kernel (``y`` alone
+    without ``h``), the gradients of ``x``, ``h`` (the same tensor) and
+    ``scale`` by the backward kernel from the saved ``s`` and the rows'
+    rstd; a missing cotangent of ``s`` adds nothing, of ``y`` counts as
+    zero."""
+
+    @staticmethod
+    def forward(ctx, x, h, scale, eps):
+        ctx.set_materialize_grads(False)
+        s, y, rstd = _k9.add_rmsnorm(x, h, scale, eps)
+        ctx.add = h is not None
+        ctx.save_for_backward(s, scale, rstd)
+        return (s, y) if ctx.add else y
+
+    @staticmethod
+    def backward(ctx, *grads):
+        s, scale, rstd = ctx.saved_tensors
+        ds, dy = grads if ctx.add else (None, grads[0])
+        dy = torch.zeros_like(s) if dy is None else dy.contiguous()
+        if ds is not None:
+            ds = ds.contiguous()
+        d, dscale = _k9.add_rmsnorm_backward(dy, ds, s, scale, rstd)
+        return d, (d if ctx.add else None), dscale, None
+
+
+class SwiGLUGate(torch.autograd.Function):
+    """K10 under autograd: the gate by the forward kernel, the gradients of
+    ``g`` and ``u`` by the backward kernel from the saved ``g`` and ``u``
+    (in their own type)."""
+
+    @staticmethod
+    def forward(ctx, g, u):
+        ctx.save_for_backward(g, u)
+        return _k10.swiglu_gate(g, u)
+
+    @staticmethod
+    def backward(ctx, dh):
+        g, u = ctx.saved_tensors
+        return _k10.swiglu_gate_backward(dh.contiguous(), g, u)
 
 
 def model_size(x: DTensor) -> int:
@@ -473,3 +524,60 @@ def local_decode_layer(xs, B, C, dt, ws, bs, states, ssm, dt_bias, A_log,
                                 A_log, D)
     return _k8.decode_layer(xs, B, C, dt, ws, bs, states, ssm, dt_bias,
                             A_log, D)
+
+
+def add_rmsnorm(x, h, scale, eps: float = _k9.EPS):
+    """The residual add of the pending branch output ``h`` into the stream
+    ``x`` (``h`` None: nothing pending) and the RMSNorm of the sum over
+    the last dimension; returns ``(s, y)``, the new stream and its norm
+    (``s`` is ``x`` without ``h``).  On DTensors it runs per rank on whole
+    rows: batch over the data axes as ``x``'s, replicated over ``model``
+    (no mesh splits d_model there; a branch output that holds partial sums
+    over ``model`` is summed first), the scale's gradient a partial sum
+    over the batch axes."""
+    if not isinstance(x, DTensor):
+        return local_add_rmsnorm(x, h, scale, eps)
+    row, vec = (True, None), (False, None)
+    if h is None:
+        return x, per_rank(
+            lambda x_, s_: local_add_rmsnorm(x_, None, s_, eps)[1],
+            (x, scale), (row, vec), (row,), False)
+    return per_rank(lambda x_, h_, s_: local_add_rmsnorm(x_, h_, s_, eps),
+                    (x, h, scale), (row, row, vec), (row, row), False)
+
+
+def local_add_rmsnorm(x, h, scale, eps: float = _k9.EPS):
+    """:func:`add_rmsnorm` on one rank's local tensors (or a single
+    device's): K9 on CUDA (under :class:`AddRMSNorm` where autograd needs
+    its gradient), the plain version on the CPU and the meta device."""
+    if x.device.type != "cuda":
+        return _k9.add_rmsnorm(x, h, scale, eps)[:2]
+    x, h = _contiguous((x, h))
+    if _wants_grad(x, h, scale):
+        out = AddRMSNorm.apply(x, h, scale, eps)
+        return out if h is not None else (x, out)
+    return _k9.add_rmsnorm(x, h, scale, eps)[:2]
+
+
+def swiglu_gate(g, u):
+    """The SwiGLU gate ``silu(float(g))`` rounded to the type, times ``u``
+    (``g``, ``u`` [..., F]).  On DTensors it runs per rank: batch over the
+    data axes as ``g``'s, F over ``model`` where it divides it (the column-
+    parallel products' layout), else replicated."""
+    if not isinstance(g, DTensor):
+        return local_swiglu_gate(g, u)
+    last = (True, g.dim() - 1)
+    return per_rank(local_swiglu_gate, (g, u), (last, last), (last,),
+                    g.shape[-1] % model_size(g) == 0)
+
+
+def local_swiglu_gate(g, u):
+    """:func:`swiglu_gate` on one rank's local tensors (or a single
+    device's): K10 on CUDA (under :class:`SwiGLUGate` where autograd needs
+    its gradient), the plain version on the CPU and the meta device."""
+    if g.device.type != "cuda":
+        return _k10.swiglu_gate(g, u)
+    g, u = _contiguous((g, u))
+    if _wants_grad(g, u):
+        return SwiGLUGate.apply(g, u)
+    return _k10.swiglu_gate(g, u)

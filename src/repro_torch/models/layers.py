@@ -16,6 +16,10 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate
 
+from repro_torch.kernels import ops
+# the plain RMSNorm; the models run it through ops.add_rmsnorm (K9)
+from repro_torch.kernels.unit_norm import rmsnorm_plain as rmsnorm  # noqa
+
 DEFAULT_DTYPE = torch.bfloat16
 
 _META_INIT = contextvars.ContextVar("meta_init", default=False)
@@ -107,14 +111,6 @@ def split_last(t: torch.Tensor, a: int, b: int) -> torch.Tensor:
     return t.reshape(*t.shape[:-1], a, b)
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
-            eps: float = 1e-6) -> torch.Tensor:
-    dtype = x.dtype
-    x = x.float()
-    var = torch.mean(x * x, dim=-1, keepdim=True)
-    return (x * torch.rsqrt(var + eps) * scale).to(dtype)
-
-
 def rope_freqs(head_dim: int, theta: float = 10000.0,
                device=None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
@@ -142,7 +138,8 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     g = x @ w_gate
     u = x @ w_up
-    h = F.silu(g.float()).to(x.dtype) * u
+    # silu(float(g)) rounded to x's type, times u: K10 on the card
+    h = ops.swiglu_gate(g, u)
     return h @ w_down
 
 

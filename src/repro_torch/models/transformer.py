@@ -17,6 +17,13 @@ a Python loop, so there is no ``scan_units``).  Each unit of the training
 forward is rematerialised in the backward as ``ModelConfig.remat`` says,
 through ``torch.utils.checkpoint``.
 
+Each layer's residual add is fused into the next RMSNorm (K9 on the card,
+``kernels.ops.add_rmsnorm``): a layer takes and returns the stream ``x``
+and the branch output ``h`` still to be added to it, from layer to layer
+and unit to unit (through the checkpoint boundary), and the final norm
+adds the last one.  On the CPU that runs the same ops in the same order as
+adding each branch at the end of its layer.
+
 Modality frontends ([audio] musicgen, [vlm] paligemma) are stubs, as in the
 JAX package: ``prefix_embeddings`` (precomputed frame/patch embeddings) are
 concatenated in front of the token embeddings.  MusicGen's 4 EnCodec
@@ -42,6 +49,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models.attention import (AttentionConfig, gqa_decode,
                                           gqa_forward, gqa_prefill,
                                           make_attention_params, mla_decode,
@@ -50,8 +58,7 @@ from repro_torch.launch.shardings import param_shardings, place_local
 from repro_torch.models.layers import (DEFAULT_DTYPE, cross_entropy_loss,
                                        embed_init, init_device,
                                        make_mlp_params, meta_init, mlp_apply,
-                                       norm_init, on_leaf, rmsnorm,
-                                       split_last)
+                                       norm_init, on_leaf, split_last)
 from repro_torch.models.mamba import (MambaConfig, make_mamba_params,
                                       mamba_decode, mamba_forward,
                                       mamba_prefill)
@@ -289,39 +296,42 @@ def logits_fn(params, cfg: ModelConfig, x):
 # forward (training)
 # ---------------------------------------------------------------------------
 
-def _ffn(p, cfg: ModelConfig, ffn: str, x):
-    """The layer's feed-forward half with its residual; returns (x, aux),
-    aux None but for an MoE layer."""
-    aux = None
+def _ffn(p, cfg: ModelConfig, ffn: str, x, h):
+    """The layer's feed-forward half: the mixer's output ``h`` added into
+    the stream ``x`` with the FFN's norm, the FFN's output the new pending
+    ``h``.  Returns (x, h, aux), aux None but for an MoE layer; without an
+    FFN the mixer's output stays pending."""
     if ffn == "none":
-        return x, aux
-    h = rmsnorm(x, p["norm2"])
+        return x, h, None
+    x, n = ops.add_rmsnorm(x, h, p["norm2"])
     if ffn == "moe":
-        h, aux = moe_apply(p["mlp"], cfg.moe, h)
-    else:
-        h = mlp_apply(p["mlp"], h)
-    return x + h, aux
+        h, aux = moe_apply(p["mlp"], cfg.moe, n)
+        return x, h, aux
+    return x, mlp_apply(p["mlp"], n), None
 
 
-def _layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x, positions):
+def _layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x, h, positions):
+    """One layer over the stream ``x`` with the previous branch output
+    ``h`` still to be added (None: nothing pending); returns (x, h, aux),
+    ``h`` this layer's last branch output, not yet added."""
     mixer, ffn = spec
-    h = rmsnorm(x, p["norm1"])
+    x, n = ops.add_rmsnorm(x, h, p["norm1"])
     if mixer == "mamba":
-        h = mamba_forward(p["mixer"], cfg.mamba, h)
+        h = mamba_forward(p["mixer"], cfg.mamba, n)
     elif mixer == "mla":
-        h = mla_forward(p["mixer"], cfg.mixer_cfg(mixer), h, positions)
+        h = mla_forward(p["mixer"], cfg.mixer_cfg(mixer), n, positions)
     else:
-        h = gqa_forward(p["mixer"], cfg.mixer_cfg(mixer), h, positions)
-    return _ffn(p, cfg, ffn, x + h)
+        h = gqa_forward(p["mixer"], cfg.mixer_cfg(mixer), n, positions)
+    return _ffn(p, cfg, ffn, x, h)
 
 
-def _unit_forward(unit_params, cfg: ModelConfig, x, positions):
+def _unit_forward(unit_params, cfg: ModelConfig, x, h, positions):
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, spec in zip(unit_params, cfg.pattern):
-        x, aux = _layer_forward(p, cfg, spec, x, positions)
+        x, h, aux = _layer_forward(p, cfg, spec, x, h, positions)
         if aux is not None:
             aux_total = aux_total + aux
-    return x, aux_total
+    return x, h, aux_total
 
 
 # the products whose outputs the "dots" policy keeps for the backward
@@ -355,19 +365,20 @@ def forward(params, cfg: ModelConfig, tokens, prefix_embeddings=None):
     x = embed_tokens(params, cfg, tokens, prefix_embeddings)
     positions = torch.arange(x.shape[1], device=x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = None
     for p, spec in zip(params["prelude"], cfg.prelude):
-        x, aux = _layer_forward(p, cfg, spec, x, positions)
+        x, h, aux = _layer_forward(p, cfg, spec, x, h, positions)
         if aux is not None:
             aux_total = aux_total + aux
-    def unit(up, xx):
+    def unit(up, xx, hh):
         # in scope again when the backward recomputes the unit
         with mesh_scope(xx):
-            return _unit_forward(up, cfg, xx, positions)
+            return _unit_forward(up, cfg, xx, hh, positions)
     unit_fn = _remat_wrap(unit, cfg)
     for up in params["units"]:
-        x, aux = unit_fn(up, x)
+        x, h, aux = unit_fn(up, x, h)
         aux_total = aux_total + aux
-    x = rmsnorm(x, params["final_norm"])
+    _, x = ops.add_rmsnorm(x, h, params["final_norm"])
     return logits_fn(params, cfg, x), aux_total, x
 
 
@@ -396,8 +407,9 @@ def _mtp_loss(params, cfg: ModelConfig, x, batch):
     emb_next = _lookup(params["embed"], labels)          # labels = t+1
     h = torch.cat([x, emb_next.to(x.dtype)], dim=-1) @ mtp["in_proj"]
     positions = torch.arange(h.shape[1], device=h.device)
-    h, _ = _layer_forward(mtp["layer"], cfg, cfg.pattern[-1], h, positions)
-    h = rmsnorm(h, mtp["norm"])
+    h, pending, _ = _layer_forward(mtp["layer"], cfg, cfg.pattern[-1], h,
+                                   None, positions)
+    _, h = ops.add_rmsnorm(h, pending, mtp["norm"])
     logits2 = logits_fn(params, cfg, h)
     # predict t+2: shift labels by one more
     lab2 = torch.cat([labels[:, 1:], labels[:, -1:]], dim=1)
@@ -412,16 +424,17 @@ def param_count(params) -> int:
 # serving: prefill + decode
 # ---------------------------------------------------------------------------
 
-def _layer_prefill(p, cfg: ModelConfig, spec: LayerSpec, x, positions):
+def _layer_prefill(p, cfg: ModelConfig, spec: LayerSpec, x, h, positions):
+    """:func:`_layer_forward` of a prompt: returns (x, h, cache)."""
     mixer, ffn = spec
-    h = rmsnorm(x, p["norm1"])
+    x, n = ops.add_rmsnorm(x, h, p["norm1"])
     if mixer == "mamba":
-        h, cache = mamba_prefill(p["mixer"], cfg.mamba, h)
+        h, cache = mamba_prefill(p["mixer"], cfg.mamba, n)
     elif mixer == "mla":
-        h, cache = mla_prefill(p["mixer"], cfg.mixer_cfg(mixer), h, positions)
+        h, cache = mla_prefill(p["mixer"], cfg.mixer_cfg(mixer), n, positions)
     else:
-        h, cache = gqa_prefill(p["mixer"], cfg.mixer_cfg(mixer), h, positions)
-    return _ffn(p, cfg, ffn, x + h)[0], cache
+        h, cache = gqa_prefill(p["mixer"], cfg.mixer_cfg(mixer), n, positions)
+    return (*_ffn(p, cfg, ffn, x, h)[:2], cache)
 
 
 def _pad_cache(cache, max_len: int):
@@ -447,33 +460,35 @@ def prefill(params, cfg: ModelConfig, tokens, prefix_embeddings=None,
     max_len = max_len or s + 1
     positions = torch.arange(s, device=x.device)
     caches: dict[str, Any] = {"prelude": [], "units": []}
+    h = None
     for p, spec in zip(params["prelude"], cfg.prelude):
-        x, cache = _layer_prefill(p, cfg, spec, x, positions)
+        x, h, cache = _layer_prefill(p, cfg, spec, x, h, positions)
         caches["prelude"].append(_pad_cache(cache, max_len))
     for up in params["units"]:
         unit_caches = []
         for p, spec in zip(up, cfg.pattern):
-            x, cache = _layer_prefill(p, cfg, spec, x, positions)
+            x, h, cache = _layer_prefill(p, cfg, spec, x, h, positions)
             unit_caches.append(_pad_cache(cache, max_len))
         caches["units"].append(unit_caches)
-    x = rmsnorm(x, params["final_norm"])
+    _, x = ops.add_rmsnorm(x, h, params["final_norm"])
     logits = logits_fn(params, cfg, x[:, -1:])[:, 0]
     return logits, caches, s
 
 
-def _layer_decode(p, cfg: ModelConfig, spec: LayerSpec, x, cache,
+def _layer_decode(p, cfg: ModelConfig, spec: LayerSpec, x, h, cache,
                   cache_len):
+    """:func:`_layer_forward` of one token: returns (x, h, cache)."""
     mixer, ffn = spec
-    h = rmsnorm(x, p["norm1"])
+    x, n = ops.add_rmsnorm(x, h, p["norm1"])
     if mixer == "mamba":
-        h, cache = mamba_decode(p["mixer"], cfg.mamba, h, cache)
+        h, cache = mamba_decode(p["mixer"], cfg.mamba, n, cache)
     elif mixer == "mla":
-        h, cache = mla_decode(p["mixer"], cfg.mixer_cfg(mixer), h, cache,
+        h, cache = mla_decode(p["mixer"], cfg.mixer_cfg(mixer), n, cache,
                               cache_len)
     else:
-        h, cache = gqa_decode(p["mixer"], cfg.mixer_cfg(mixer), h, cache,
+        h, cache = gqa_decode(p["mixer"], cfg.mixer_cfg(mixer), n, cache,
                               cache_len)
-    return _ffn(p, cfg, ffn, x + h)[0], cache
+    return (*_ffn(p, cfg, ffn, x, h)[:2], cache)
 
 
 @_on_mesh
@@ -488,16 +503,18 @@ def decode_step(params, cfg: ModelConfig, token, caches, cache_len):
     keep what is returned."""
     x = _embed(params, cfg, token)[:, None, :]
     new_caches: dict[str, Any] = {"prelude": [], "units": []}
+    h = None
     for p, spec, cache in zip(params["prelude"], cfg.prelude,
                               caches["prelude"]):
-        x, cache = _layer_decode(p, cfg, spec, x, cache, cache_len)
+        x, h, cache = _layer_decode(p, cfg, spec, x, h, cache, cache_len)
         new_caches["prelude"].append(cache)
     for up, unit_cache in zip(params["units"], caches["units"]):
         new_unit = []
         for p, spec, cache in zip(up, cfg.pattern, unit_cache):
-            x, cache = _layer_decode(p, cfg, spec, x, cache, cache_len)
+            x, h, cache = _layer_decode(p, cfg, spec, x, h, cache,
+                                        cache_len)
             new_unit.append(cache)
         new_caches["units"].append(new_unit)
-    x = rmsnorm(x, params["final_norm"])
+    _, x = ops.add_rmsnorm(x, h, params["final_norm"])
     logits = logits_fn(params, cfg, x)[:, 0]
     return logits, new_caches

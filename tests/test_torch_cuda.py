@@ -24,7 +24,9 @@ bit for bit eager mesh steps, and refused on a gloo group; the Mamba
 block's kernels (K6 conv, K7 gated norm, forward and backward, K8 decode
 step) against their plain versions, bitwise across calls, their entries'
 gradients, their launches in a reduced train loop and decode, and what
-they refuse.
+they refuse; and so the unit's K9 (residual add + RMSNorm) and K10
+(SwiGLU gate), forward and backward, bitwise across calls and graph
+replays.
 
 Marked ``cuda``; every test skips where ``torch.cuda.is_available()`` is
 false.  On the card:
@@ -1662,6 +1664,234 @@ def test_block_backwards_replay_bitwise(cuda):
     torch.cuda.synchronize()
     for a, b in zip(captured, eager):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the unit's kernels: K9 (residual add + RMSNorm) and K10 (SwiGLU gate)
+# ---------------------------------------------------------------------------
+
+
+def _unit_rnd(cuda, shape, dtype, seed, offset=0, scale=1.0, shift=0.0):
+    """A tensor of ``shape`` ``offset`` elements into a buffer of its own
+    (an offset of one puts it off a 16-byte boundary)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    n = int(np.prod(shape))
+    buf = (torch.randn(n + offset, generator=gen, device=cuda) * scale
+           + shift).to(dtype)
+    return buf[offset:].view(*shape)
+
+
+# rows, width, dtype, offset, route: yi-6b's and mamba2-1.3b's widths,
+# deepseek-v3's 7168 at one row (the decode's), float32, a width that is
+# not whole vectors and a view off a 16-byte boundary
+UNIT_NORM_CASES = [(64, 4096, torch.bfloat16, 0, "vector"),
+                   (300, 2048, torch.bfloat16, 0, "vector"),
+                   (1, 7168, torch.bfloat16, 0, "vector"),
+                   (33, 4096, torch.float32, 0, "vector"),
+                   (5, 4100, torch.bfloat16, 0, "scalar"),
+                   (7, 2048, torch.bfloat16, 1, "scalar"),
+                   (3, 16384, torch.bfloat16, 0, "vector"),
+                   (3, 8192, torch.float32, 0, "vector")]
+
+
+@pytest.mark.parametrize("rows,w,dtype,offset,route", UNIT_NORM_CASES)
+@pytest.mark.parametrize("with_h", [True, False])
+def test_unit_norm_kernel_matches_plain(cuda, rows, w, dtype, offset, route,
+                                        with_h):
+    """K9's forward against its plain version: ``s`` bit for bit, ``y``
+    within one bf16 ulp (float32: 1e-5 relative L2; the row's sum of
+    squares in another order), ``rstd`` the plain one's within 1e-5; the
+    route the widths and pointers give; two calls bitwise."""
+    from repro_torch.kernels import unit_norm as K9
+    x = _unit_rnd(cuda, (rows, w), dtype, 1, offset)
+    h = _unit_rnd(cuda, (rows, w), dtype, 2, offset) if with_h else None
+    scale = _unit_rnd(cuda, (w,), torch.float32, 3, offset, 0.1, 1.0)
+    before = dict(K9.ROUTE_LAUNCHES)
+    s, y, rstd = K9.add_rmsnorm(x, h, scale)
+    assert K9.ROUTE_LAUNCHES[route] == before[route] + 1
+    ps, py = K9.add_rmsnorm_plain(x, h, scale)
+    assert torch.equal(s, ps) and (with_h or s is x)
+    if dtype == torch.bfloat16:
+        assert _ulps_ordered(y, py) <= 1
+    else:
+        assert _rel_l2(y, py) <= 1e-5
+    assert _rel_l2(rstd, K9.rstd_plain(ps)) <= 1e-5
+    s2, y2, r2 = K9.add_rmsnorm(x, h, scale)
+    assert torch.equal(s, s2) and torch.equal(y, y2) and torch.equal(rstd,
+                                                                     r2)
+
+
+@pytest.mark.parametrize("rows,w,dtype,offset,route", UNIT_NORM_CASES[:6])
+@pytest.mark.parametrize("with_ds", [True, False])
+def test_unit_norm_backward_matches_plain_and_replays_bitwise(
+        cuda, rows, w, dtype, offset, route, with_ds):
+    """K9's backward against its plain version (``d`` 4e-3 relative L2 in
+    bf16, 1e-5 in float32: the row dot in another order; ``dscale`` 1e-5,
+    its sum over rows in another order), two calls and a replay of a
+    captured call bit for bit (fixed-order slot sums)."""
+    from repro_torch.kernels import unit_norm as K9
+    x = _unit_rnd(cuda, (rows, w), dtype, 4, offset)
+    h = _unit_rnd(cuda, (rows, w), dtype, 5, offset)
+    scale = _unit_rnd(cuda, (w,), torch.float32, 6, offset, 0.1, 1.0)
+    dy = _unit_rnd(cuda, (rows, w), dtype, 7, offset, 1e-2)
+    ds = _unit_rnd(cuda, (rows, w), dtype, 8, offset, 1e-2) if with_ds \
+        else None
+    s, _, rstd = K9.add_rmsnorm(x, h, scale)
+    d, dscale = K9.add_rmsnorm_backward(dy, ds, s, scale, rstd)
+    pd, pdscale = K9.add_rmsnorm_backward_plain(dy, ds, s, scale, rstd)
+    assert _rel_l2(d, pd) <= (4e-3 if dtype == torch.bfloat16 else 1e-5)
+    assert _rel_l2(dscale, pdscale) <= 1e-5
+    again = K9.add_rmsnorm_backward(dy, ds, s, scale, rstd)
+    assert torch.equal(d, again[0]) and torch.equal(dscale, again[1])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = K9.add_rmsnorm_backward(dy, ds, s, scale, rstd)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured[0], d) and torch.equal(captured[1], dscale)
+
+
+@pytest.mark.parametrize("shape,dtype,offset,route", [
+    ((4, 256, 11008), torch.bfloat16, 0, "vector"),
+    ((1, 1, 18432), torch.bfloat16, 0, "vector"),
+    ((3, 77, 96), torch.float32, 0, "vector"),
+    ((2, 5, 1030), torch.bfloat16, 1, "scalar"),
+    ((3, 333), torch.bfloat16, 0, "scalar")])
+def test_swiglu_gate_kernel_matches_plain_and_replays_bitwise(
+        cuda, shape, dtype, offset, route):
+    """K10 forward and backward against their plain versions: within one
+    ulp element by element in bf16 (the same ops, each rounded to bf16);
+    in float32 the forward within one ulp and the backward within 1e-6
+    relative L2 (torch's compiled silu_backward contracts a multiply and
+    an add into an FMA, the kernel rounds each: a few float32 ulps, and
+    more relative to ``dg`` near silu's stationary point, where it nears
+    zero); two calls and a replay of a captured call bit for bit."""
+    from repro_torch.kernels import swiglu_gate as K10
+    g = _unit_rnd(cuda, shape, dtype, 9, offset, 3.0)
+    u = _unit_rnd(cuda, shape, dtype, 10, offset)
+    dh = _unit_rnd(cuda, shape, dtype, 11, offset, 1e-2)
+    before = dict(K10.ROUTE_LAUNCHES)
+    h = K10.swiglu_gate(g, u)
+    assert K10.ROUTE_LAUNCHES[route] == before[route] + 1
+    assert _ulps_ordered(h, K10.swiglu_gate_plain(g, u)) <= 1
+    dg, du = K10.swiglu_gate_backward(dh, g, u)
+    pdg, pdu = K10.swiglu_gate_backward_plain(dh, g, u)
+    if dtype == torch.bfloat16:
+        assert _ulps_ordered(dg, pdg) <= 1 and _ulps_ordered(du, pdu) <= 1
+    else:
+        assert _rel_l2(dg, pdg) <= 1e-6 and _ulps_ordered(du, pdu) <= 1
+    assert torch.equal(h, K10.swiglu_gate(g, u))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = (K10.swiglu_gate(g, u),
+                    *K10.swiglu_gate_backward(dh, g, u))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(captured, (h, dg, du)))
+
+
+def test_unit_entries_give_gradients_through_the_kernels(cuda):
+    """``ops.add_rmsnorm`` and ``ops.swiglu_gate`` under autograd run the
+    kernels both ways: the gradients of ``x``, ``h`` (one tensor) and
+    ``scale`` and of ``g``, ``u`` equal the backward kernels' on the same
+    cotangents."""
+    from repro_torch.kernels import swiglu_gate as K10
+    from repro_torch.kernels import unit_norm as K9
+    x, h, dy, ds = (_unit_rnd(cuda, (2, 9, 256), torch.bfloat16, k)
+                    for k in range(20, 24))
+    scale = _unit_rnd(cuda, (256,), torch.float32, 24, 0, 0.1, 1.0)
+    leaves = [t.clone().requires_grad_() for t in (x, h, scale)]
+    K9.reset_counts()
+    s, y = ops.add_rmsnorm(*leaves)
+    torch.autograd.backward((s, y), (ds, dy))
+    assert (K9.LAUNCHES, K9.BWD_LAUNCHES) == (1, 1)
+    _, _, rstd = K9.add_rmsnorm(x, h, scale)
+    d, dscale = K9.add_rmsnorm_backward(dy, ds, s.detach(), scale, rstd)
+    assert torch.equal(leaves[0].grad, d) and torch.equal(leaves[1].grad, d)
+    assert torch.equal(leaves[2].grad, dscale)
+    g, u, dh = (_unit_rnd(cuda, (2, 9, 352), torch.bfloat16, k)
+                for k in range(25, 28))
+    gl = [t.clone().requires_grad_() for t in (g, u)]
+    K10.reset_counts()
+    ops.swiglu_gate(*gl).backward(dh)
+    assert (K10.LAUNCHES, K10.BWD_LAUNCHES) == (1, 1)
+    dg, du = K10.swiglu_gate_backward(dh, g, u)
+    assert torch.equal(gl[0].grad, dg) and torch.equal(gl[1].grad, du)
+
+
+def test_unit_kernels_raise_on_what_they_do_not_take(cuda):
+    """No plain version stands in for a kernel: types, shapes, widths and
+    layouts the kernels refuse raise."""
+    from repro_torch.kernels import swiglu_gate as K10
+    from repro_torch.kernels import unit_norm as K9
+    x = torch.zeros(2, 64, device=cuda)
+    sc = torch.ones(64, device=cuda)
+    with pytest.raises(TypeError):
+        K9.add_rmsnorm(x.half(), None, sc)
+    with pytest.raises(ValueError, match="scale"):
+        K9.add_rmsnorm(x, None, sc.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        K9.add_rmsnorm(torch.zeros(2, 128, device=cuda)[:, ::2], None, sc)
+    with pytest.raises(ValueError, match="at most"):
+        K9.add_rmsnorm(torch.zeros(1, 8196, device=cuda), None,
+                       torch.ones(8196, device=cuda))
+    with pytest.raises(ValueError, match="rstd"):
+        K9.add_rmsnorm_backward(x, None, x, sc, None)
+    with pytest.raises(ValueError):
+        K9.add_rmsnorm(x, x.bfloat16(), sc)
+    with pytest.raises(TypeError):
+        K10.swiglu_gate(x.half(), x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        K10.swiglu_gate(x.t(), x.t())
+    with pytest.raises(ValueError):
+        K10.swiglu_gate(x, x.bfloat16())
+
+
+def test_unit_kernels_in_the_train_loop_and_the_decode(cuda):
+    """Reduced yi-6b on the card: ``train_loop`` calls K9 once a norm (the
+    units' twice with the remat recompute) and K10 once a layer (twice),
+    each backward once, in the warm-up and the capture only; a prefill
+    calls K9 once a norm and K10 once a layer; a captured decode calls
+    them in its warm-up and its capture, and its tokens equal the eager
+    loop's."""
+    from repro_torch.kernels import swiglu_gate as K10
+    from repro_torch.kernels import unit_norm as K9
+    from repro_torch.serve.engine import DecodeProgram
+    from repro_torch.train import loop as TL
+    cfg = get_reduced_config("yi-6b")
+    layers = cfg.n_layers
+    passes = 1 if cfg.remat == "none" else 2
+    for mod in (K9, K10):
+        mod.reset_counts()
+    TL.train_loop(cfg, TL.TrainConfig(), iter(_train_batches(cfg, 3)), 3,
+                  device=cuda)
+    torch.cuda.synchronize()
+    assert (K9.LAUNCHES, K9.BWD_LAUNCHES) == (
+        2 * (2 * layers * passes + 1), 2 * (2 * layers + 1))
+    assert (K10.LAUNCHES, K10.BWD_LAUNCHES) == (2 * layers * passes,
+                                                2 * layers)
+    params = TT.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                            cuda)
+    toks = torch.arange(20, device=cuda)[None] % cfg.vocab
+    for mod in (K9, K10):
+        mod.reset_counts()
+    with torch.no_grad():
+        logits, caches, n = TT.prefill(params, cfg, toks, max_len=40)
+    assert (K9.LAUNCHES, K10.LAUNCHES) == (2 * layers + 1, layers)
+    program = DecodeProgram(params, cfg, caches, logits[0].argmax(-1))
+    got = program.decode(caches, logits[0].argmax(-1), n, 8)
+    torch.cuda.synchronize()
+    assert (K9.LAUNCHES, K10.LAUNCHES) == (3 * (2 * layers + 1),
+                                           3 * layers)
+    assert K9.BWD_LAUNCHES == K10.BWD_LAUNCHES == 0
+    with torch.no_grad():
+        logits, caches, n = TT.prefill(params, cfg, toks, max_len=40)
+        tok, want = logits.argmax(-1), []
+        for i in range(8):
+            want.append(tok[0])
+            step, caches = TT.decode_step(params, cfg, tok, caches, n + i)
+            tok = step.argmax(-1)
+    assert torch.equal(got, torch.stack(want))
 
 
 # ---------------------------------------------------------------------------
